@@ -1,0 +1,6 @@
+import sys
+
+from computeraytracer_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())
