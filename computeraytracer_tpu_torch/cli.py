@@ -1,20 +1,23 @@
-"""Command-line entry points: render / info (port of
+"""Command-line entry points: render / train / info (port of
 computeraytracer_tpu/cli.py).
 
     python -m computeraytracer_tpu_torch render --preset cornell_box \
         --spp 16 --out cornell.png
     python -m computeraytracer_tpu_torch render --scene my_scene.json \
         --device cpu --spp 4 --out out.png
+    python -m computeraytracer_tpu_torch train --preset cornell_box \
+        --steps 30
 
 The flags are the JAX CLI's. ``--sharded``, ``--bvh`` and ``--profile``
-are not ported yet and raise when given; ``train`` arrives with the
-training slice. ``--device`` (default ``cuda``) picks where the scene
-lives: there is no silent move to the CPU.
+are not ported yet and raise when given, as does ``--kernel xla``.
+``--device`` (default ``cuda``) picks where the scene lives: there is no
+silent move to the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -38,6 +41,15 @@ def _load(args):
     return scene, w, h
 
 
+def _require_device(device: str) -> None:
+    import torch
+
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {device}: no CUDA device is available (pass "
+            "--device cpu to run the plain torch kernel versions)")
+
+
 def cmd_render(args) -> int:
     import torch
 
@@ -51,10 +63,7 @@ def cmd_render(args) -> int:
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported to computeraytracer_tpu_torch yet")
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {args.device}: no CUDA device is available "
-            "(pass --device cpu to render with the plain torch kernels)")
+    _require_device(args.device)
     scene, w, h = _load(args)
 
     def sync():
@@ -97,6 +106,34 @@ def cmd_render(args) -> int:
     print(f"wrote {args.out} ({w}x{h}, {args.spp} spp, "
           f"{rec['mpaths_per_s']} Mpaths/s on {scene.device})")
     return 0
+
+
+def cmd_train(args) -> int:
+    import torch
+
+    from computeraytracer_tpu_torch.train import optimize as opt
+
+    _require_device(args.device)
+    scene, w, h = _load(args)
+    w, h = min(w, args.max_side), min(h, args.max_side)
+    print(f"rendering target at {w}x{h} spp={args.spp} ...", file=sys.stderr)
+    with torch.no_grad():
+        target = opt.render_mean_xyz(scene, w, h, spp=args.spp,
+                                     max_depth=args.depth, kernel=args.kernel)
+    # Demo inverse problem: dim one albedo spectrum, recover it.
+    spectra = scene.spectra.clone()
+    spectra[args.perturb_row] = spectra[args.perturb_row] * 0.3
+    perturbed = dataclasses.replace(scene, spectra=spectra)
+    _, losses = opt.optimize(
+        perturbed, target, w, h, trainable=tuple(args.trainable),
+        steps=args.steps, learning_rate=args.lr, spp=args.spp,
+        max_depth=args.depth, kernel=args.kernel,
+        checkpoint_dir=args.checkpoint_dir,
+        callback=lambda i, loss, p: print(
+            f"step {i:4d}  loss {loss:.6e}", file=sys.stderr))
+    print(json.dumps({"initial_loss": losses[0], "final_loss": losses[-1],
+                      "steps": len(losses)}))
+    return 0 if losses[-1] < losses[0] else 1
 
 
 def cmd_info(args) -> int:
@@ -145,6 +182,20 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--metrics", help="append metrics JSONL here")
     r.add_argument("--profile", help="not ported yet: raises when given")
     r.set_defaults(fn=cmd_render)
+
+    t = sub.add_parser("train", help="gradient-based scene optimization")
+    common(t)
+    t.add_argument("--kernel", choices=["xla", "pallas"], default="pallas",
+                   help="xla (the eager tracer) is not ported yet: raises")
+    t.add_argument("--steps", type=int, default=30)
+    t.add_argument("--lr", type=float, default=0.05)
+    t.add_argument("--trainable", nargs="+", default=["spectra"])
+    t.add_argument("--perturb-row", type=int, default=2)
+    t.add_argument("--max-side", type=int, default=128)
+    t.add_argument("--checkpoint-dir")
+    t.add_argument("--device", default="cuda",
+                   help="torch device of the scene (default: cuda)")
+    t.set_defaults(fn=cmd_train)
 
     i = sub.add_parser("info", help="print scene summary")
     common(i)

@@ -1,12 +1,14 @@
-"""Typed render configuration (port of computeraytracer_tpu/config.py).
+"""Typed render and train configuration (port of
+computeraytracer_tpu/config.py).
 
 Material enums and spectral constants are the JAX package's, value for
-value. ``TrainConfig`` arrives with the training slice.
+value.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 # Material enums (the reference's typeIndexPairs).
 DIFFUSE = 0
@@ -52,3 +54,16 @@ class RenderConfig:
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Configuration for gradient-based scene optimization (the JAX
+    package's TrainConfig, field for field)."""
+
+    steps: int = 100
+    learning_rate: float = 0.05
+    spp_per_step: int = 4
+    render: RenderConfig = dataclasses.field(default_factory=RenderConfig)
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 25

@@ -1,8 +1,8 @@
-"""Forward path-tracing megakernel: plain torch version and CUDA wrapper.
+"""Path-tracing megakernels: plain torch versions and CUDA wrappers.
 
 Port of the plain mode (non-mesh, untaped) of
-computeraytracer_tpu/kernels/megakernel.py ``build_forward``. Three
-things live here:
+computeraytracer_tpu/kernels/megakernel.py ``build_forward`` and of
+``build_backward``. What lives here:
 
 - ``SceneStatic.from_scene`` (non-mesh scenes) and ``pack_prims``: the
   scene structure and the (P, 12) primitive table the kernel reads.
@@ -15,6 +15,14 @@ things live here:
   spect (S*4, R) f32 -> radiance (4, R) f32``. CPU tensors run
   ``forward_reference``; CUDA tensors launch the hand-written kernel in
   ``csrc/megakernel_fwd.cu``. There is no other route.
+- ``backward_reference``: the plain torch backward, autograd of
+  ``forward_reference``; ``backward``: its wrapper, with the contract of
+  ``build_backward`` (``... , dL (4, R) -> d_prims (P, 12), d_rays
+  (6, R), d_spect (S*4, R)``), launching ``csrc/megakernel_bwd.cu`` for
+  CUDA tensors.
+- ``TraceFn``: the autograd Function whose forward is ``forward`` and
+  whose backward is ``backward`` (the analogue of the JAX package's
+  ``tracer/pallas.py`` ``_call_with_vjp``).
 
 Seeds are int64 tensors holding u32 values (ops/rng.py); the kernel gets
 an int32 tensor with the same bit pattern.
@@ -28,6 +36,7 @@ import functools
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from computeraytracer_tpu_torch import config as C
 from computeraytracer_tpu_torch.kernels import _build
@@ -42,8 +51,10 @@ MAX_PRIMS = 256
 MAX_LIGHTS = 64
 MAX_SPECTRA = 1024
 
-# Kernel launches made by ``forward`` (CPU calls do not count).
+# Kernel launches made by ``forward`` and by ``backward`` (CPU calls do
+# not count).
 launches = 0
+launches_bwd = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -516,6 +527,21 @@ def _signature(lib):
     return fn
 
 
+def _signature_bwd(lib):
+    fn = lib.megakernel_bwd
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, i, p, i, p, p, p, i, p, p, p, p, p, p, p,
+                   ctypes.c_longlong, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _seeds32(seeds):
+    """int64 u32 values -> int32 tensor with the same bit pattern."""
+    return torch.where(seeds >= 2 ** 31, seeds - 2 ** 32, seeds).to(
+        torch.int32)
+
+
 def forward(static: SceneStatic, max_depth: int, rr_start: int,
             prims: torch.Tensor, rays: torch.Tensor, seeds: torch.Tensor,
             spect: torch.Tensor, *mesh_arrays) -> torch.Tensor:
@@ -533,8 +559,7 @@ def forward(static: SceneStatic, max_depth: int, rr_start: int,
         raise ValueError(f"unsupported device {rays.device}")
     fn = _signature(_build.library("megakernel_fwd"))
     meta, lights = _tables(static, rays.device)
-    seeds32 = torch.where(seeds >= 2 ** 31, seeds - 2 ** 32,
-                          seeds).to(torch.int32)
+    seeds32 = _seeds32(seeds)
     R = rays.shape[1]
     out = torch.empty((4, R), dtype=torch.float32, device=rays.device)
     with torch.cuda.device(rays.device):
@@ -547,3 +572,124 @@ def forward(static: SceneStatic, max_depth: int, rr_start: int,
         raise RuntimeError(f"megakernel_fwd launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+
+def backward_reference(static: SceneStatic, max_depth: int, rr_start: int,
+                       prims: torch.Tensor, rays: torch.Tensor,
+                       seeds: torch.Tensor, spect: torch.Tensor,
+                       dL: torch.Tensor, ray_chunk: int | None = None):
+    """Plain torch backward: autograd of ``forward_reference`` with
+    respect to (prims, rays, spect) for the radiance cotangent dL (4, R).
+
+    ray_chunk splits the rays into bands of at most that many rays and
+    sums d_prims over the bands in order, so that the autograd graph
+    (some 10^4 saved (R,) tensors per band at depth 8) stays bounded.
+    Returns (d_prims (P, 12), d_rays (6, R), d_spect (S*4, R))."""
+    R = rays.shape[1]
+    step = R if not ray_chunk else int(ray_chunk)
+    d_prims = torch.zeros_like(prims)
+    d_rays, d_spect = [], []
+    for a in range(0, R, step):
+        b = min(R, a + step)
+        p = prims.detach().requires_grad_(True)
+        r = rays[:, a:b].detach().requires_grad_(True)
+        sp = spect[:, a:b].detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = forward_reference(static, max_depth, rr_start, p, r,
+                                    seeds[:, a:b], sp)
+            grads = torch.autograd.grad(out, (p, r, sp),
+                                        grad_outputs=dL[:, a:b],
+                                        allow_unused=True)
+        gp, gr, gs = (torch.zeros_like(x) if g is None else g
+                      for g, x in zip(grads, (p, r, sp)))
+        d_prims = d_prims + gp
+        d_rays.append(gr)
+        d_spect.append(gs)
+    return d_prims, torch.cat(d_rays, dim=1), torch.cat(d_spect, dim=1)
+
+
+def backward(static: SceneStatic, max_depth: int, rr_start: int,
+             prims: torch.Tensor, rays: torch.Tensor, seeds: torch.Tensor,
+             spect: torch.Tensor, dL: torch.Tensor):
+    """Backward megakernel -> (d_prims (P, 12), d_rays (6, R),
+    d_spect (S*4, R)) for the radiance cotangent dL (4, R).
+
+    CPU tensors run ``backward_reference``. CUDA tensors launch the CUDA
+    kernel built from csrc/megakernel_bwd.cu; a failed build or launch
+    raises. d_prims is summed in a fixed order, so two calls on the same
+    inputs give bit-equal results."""
+    global launches_bwd
+    _check(static, prims, rays, seeds, spect, ())
+    R = rays.shape[1]
+    if tuple(dL.shape) != (4, R) or dL.dtype != torch.float32:
+        raise ValueError(f"dL: expected {(4, R)} {torch.float32}, got "
+                         f"{tuple(dL.shape)} {dL.dtype}")
+    if dL.device != rays.device:
+        raise ValueError(f"dL is on {dL.device}, rays on {rays.device}")
+    if not dL.is_contiguous():
+        raise ValueError("dL must be contiguous")
+    if rays.device.type == "cpu":
+        return backward_reference(static, max_depth, rr_start, prims, rays,
+                                  seeds, spect, dL)
+    if rays.device.type != "cuda":
+        raise ValueError(f"unsupported device {rays.device}")
+    fn = _signature_bwd(_build.library("megakernel_bwd"))
+    meta, lights = _tables(static, rays.device)
+    dev = rays.device
+    P = prims.shape[0]
+    D = int(max_depth) + 1
+    f32 = dict(dtype=torch.float32, device=dev)
+    d_prims = torch.empty((P, 12), **f32)
+    d_rays = torch.empty((6, R), **f32)
+    d_spect = torch.empty(tuple(spect.shape), **f32)
+    if R == 0:
+        return d_prims.zero_(), d_rays, d_spect
+    partial = torch.empty(((R + 127) // 128, P * 12), **f32)
+    tape_f = torch.empty((D * 16, R), **f32)
+    tape_i = torch.empty((D * 8, R), dtype=torch.int32, device=dev)
+    seeds32 = _seeds32(seeds)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(prims.data_ptr(), meta.data_ptr(), meta.shape[0],
+                lights.data_ptr(), lights.shape[0], rays.data_ptr(),
+                seeds32.data_ptr(), spect.data_ptr(), static.n_spectra,
+                dL.data_ptr(), d_prims.data_ptr(), partial.data_ptr(),
+                d_rays.data_ptr(), d_spect.data_ptr(), tape_f.data_ptr(),
+                tape_i.data_ptr(), R, int(max_depth), int(rr_start), stream)
+    if rc != 0:
+        raise RuntimeError(f"megakernel_bwd launch failed: CUDA error {rc}")
+    launches_bwd += 1
+    return d_prims, d_rays, d_spect
+
+
+class TraceFn(torch.autograd.Function):
+    """Differentiable trace: forward is ``forward``, backward is
+    ``backward`` (the CUDA backward kernel for CUDA tensors). Seeds get
+    no gradient.
+
+        radiance = TraceFn.apply(static, max_depth, rr_start, prims, rays,
+                                 seeds, spect)
+    """
+
+    @staticmethod
+    def forward(ctx, static, max_depth, rr_start, prims, rays, seeds, spect):
+        ctx.static = static
+        ctx.max_depth = int(max_depth)
+        ctx.rr_start = int(rr_start)
+        ctx.save_for_backward(prims, rays, seeds, spect)
+        return forward(static, max_depth, rr_start, prims, rays, seeds,
+                       spect)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        prims, rays, seeds, spect = ctx.saved_tensors
+        d_prims, d_rays, d_spect = backward(
+            ctx.static, ctx.max_depth, ctx.rr_start, prims, rays, seeds,
+            spect, g.contiguous())
+        return None, None, None, d_prims, d_rays, None, d_spect

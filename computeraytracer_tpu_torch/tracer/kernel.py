@@ -1,15 +1,22 @@
-"""Megakernel tracer: the port of the non-mesh, ``backward="none"`` part
-of computeraytracer_tpu/tracer/pallas.py.
+"""Megakernel tracer: the port of the non-mesh, ``backward="pallas"``
+part of computeraytracer_tpu/tracer/pallas.py.
 
 Camera ray generation, hero-wavelength sampling, the per-ray spectra
 planes and the CIE conversion run as torch ops; the trace itself is one
-call of ``kernels.megakernel.forward`` per sample (the CUDA kernel for
-a scene on the card, its plain torch version for a scene on the CPU).
+call of ``kernels.megakernel.TraceFn`` per sample (the CUDA kernels for
+a scene on the card, their plain torch versions for a scene on the CPU).
 
 One layout is ported: the planar (k, R) path the kernel consumes, with
 pixels in ``tile_coords`` row-major order. ``render_sample`` is its
 (H, W, 3) transpose; the JAX package documents the two layouts as
-bit-identical. Gradients arrive with the training slice.
+bit-identical.
+
+Differentiation: ``TraceFn``'s backward is the backward megakernel
+(replay plus reverse adjoint sweep), which returns cotangents for the
+primitive table, the per-ray spectra planes and the rays; autograd
+carries them on through ``pack_prims``, the hero gather and the camera
+to every scene leaf (geometry, spectra, camera). A render with no tensor
+that requires grad launches only the forward kernel.
 """
 
 from __future__ import annotations
@@ -59,11 +66,12 @@ def kernel_inputs(scene, o, d, hero, seed):
 def trace_radiance(scene, o, d, hero, seed, max_depth: int,
                    rr_start: int = 1, static: SceneStatic | None = None):
     """Planar path trace: o, d (3, R), hero (R,), seed (4, R) ->
-    spectral radiance (4, R) at the hero wavelengths."""
+    spectral radiance (4, R) at the hero wavelengths; differentiable with
+    respect to the scene's geometry and spectra and to o, d."""
     if static is None:
         static = SceneStatic.from_scene(scene)
-    return mk.forward(static, int(max_depth), int(rr_start),
-                      *kernel_inputs(scene, o, d, hero, seed))
+    return mk.TraceFn.apply(static, int(max_depth), int(rr_start),
+                            *kernel_inputs(scene, o, d, hero, seed))
 
 
 def render_pixels_planar(scene, width: int, height: int, px, py, sample,
