@@ -36,9 +36,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    finite losses, the last below the first.
 8. timing: the backward kernel per sample and the plain backward on one
    band (CUDA events, after a warm-up); the fwd+bwd step on the host
-   clock, split into its forward pass, backward pass and Adam step. Then
-   one JSON line of kernels.
-The last line is {"ok": true, "device": {...}}. It needs no JAX.
+   clock, split into its forward pass, backward pass and Adam step.
+9. tape-fed backward at the phase-3 shape: the taped forward kernel's
+   radiance bit-equal to phase 3's forward kernel; its tape against
+   forward_taped_reference (int planes equal, float planes within rel 1e-4
+   of a denominator floored at 1e-2 of the plane's scale, on at least
+   99.9% of rays; the bit-equal share printed); the tape-fed kernel on
+   that tape bit-equal to phase 6's retrace kernel (d_prims, d_rays,
+   d_spect) and within phase 6's tolerances of phase 6's plain result.
+10. the pallas_taped training path: phase 7's value_and_grad with
+   backward="pallas_taped", every counter reset just before: exactly 4
+   taped forwards, 4 tape-fed backwards, 0 retrace backwards and 0
+   untaped forwards; gradients within 1e-5 of the largest entry of phase
+   7's (bit-equality printed). Times: the taped forward and the tape-fed
+   kernel (CUDA events), the step on the host clock (3 runs) and split
+   into its forward pass, backward pass and Adam step, the peak device
+   memory of one step, taped and retrace, and a torch.profiler pass over
+   one step of each (device time, idle share, top kernels).
+11. meshes: mesh_scene(1024, 1024, subdivisions=6), 81,920 triangles in
+   one mesh part, depth 3. The mesh-mode forward kernel against its plain
+   version on a band of 16,384 rays across the blob: at least 99.9% of
+   rays within rel 1e-4, all finite. tracer.api.render at 1024^2, spp 4,
+   counters reset: exactly 4 mesh-mode launches and no other, a finite
+   non-zero image. mesh_scene(256, 256, subdivisions=4): mean XYZ within
+   1e-3 relative of the plain render. Times: the mesh kernel per sample
+   (CUDA events), the render's Mpaths/s, and a torch.profiler pass over
+   the render. Then the mesh kernel's counting build on the full film:
+   radiance bit-equal to the mesh kernel's, and its casts, box tests and
+   triangle tests, which the mesh kernel's bound counts.
+Then one JSON line of kernels, each with its bound (the larger of the
+bytes it must move over 3.35 TB/s and a lower count of its float
+operations over 67 TFLOP/s, both at 700 W). The last line is
+{"ok": true, "device": {...}}. It needs no JAX.
 """
 
 from __future__ import annotations
@@ -72,6 +101,30 @@ SPP = 4
 BAND = 131072  # rays per band of the plain backward
 TRAIN_STEPS = 3
 PERTURB_ROW = 2
+MESH_SUBDIVISIONS = 6  # 81,920 triangles
+MESH_DEPTH = 3
+MESH_BAND_ROWS = 16    # 16 x 1024 = 16,384 rays for the plain mesh scan
+SMALL_MESH = (256, 4)  # film side, subdivisions of the mean-XYZ check
+
+# The bound of a kernel: the larger of its bytes (each input read once,
+# each output written once) over the H100's memory rate and its float
+# operations over its f32 rate outside the tensor cores (NVIDIA data
+# sheet, SXM, 700 W). The operations are a lower count: the closest-hit
+# scans only, none of the shading. On Cornell, one scan per live bounce
+# and a shadow scan per bounce that left a diffuse surface alive (the
+# taped forward's active and specular planes tell them apart), each about
+# 35 operations per patch or sphere. On the mesh scene, the counting
+# build's casts, each 35 per unrolled row, and its tests: 24 per box
+# (three slabs), 14 per triangle plane test and 32 more per triangle that
+# reaches the inside test. Where the work depends on the data, the bytes
+# count what this run's data needs: the tape-fed kernel reads only its
+# rays' live tape rows and the active words up to the first dead row.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+PRIM_TEST_OPS = 35
+BOX_TEST_OPS = 24
+TRI_PLANE_OPS = 14
+TRI_INSIDE_OPS = 32
 
 
 def _events_ms(fn, reps: int) -> float:
@@ -88,18 +141,92 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _plain_render_accum(scene, static, spp):
-    """The served render's accumulation, traced by forward_reference."""
-    px, py = kt.tile_coords(WIDTH, HEIGHT, 0, scene.device)
-    accum = torch.zeros((3, WIDTH * HEIGHT), device=scene.device)
+def _plain_render_accum(scene, static, spp, width=None, height=None,
+                        max_depth=None, mesh_arrays=()):
+    """The served render's accumulation, traced by forward_reference
+    (the main path's film and depth unless given)."""
+    width, height = width or WIDTH, height or HEIGHT
+    max_depth = MAX_DEPTH if max_depth is None else max_depth
+    px, py = kt.tile_coords(width, height, 0, scene.device)
+    accum = torch.zeros((3, width * height), device=scene.device)
     for s in range(1, spp + 1):
-        o, d, hero, seed = kt.camera_planes(scene, WIDTH, HEIGHT, px, py, s)
+        o, d, hero, seed = kt.camera_planes(scene, width, height, px, py, s)
         radiance = mk.forward_reference(
-            static, MAX_DEPTH, RR_START,
-            *kt.kernel_inputs(scene, o, d, hero, seed))
+            static, max_depth, RR_START,
+            *kt.kernel_inputs(scene, o, d, hero, seed, static), *mesh_arrays)
         cie_p = spec.gather_hero(spec.cie_window_exp(scene.cie), hero)
         accum = accum + spec.spectral_to_xyz_p(cie_p, radiance)
-    return accum.T.reshape(HEIGHT, WIDTH, 3)
+    return accum.T.reshape(height, width, 3)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes, ops):
+    """(bound_ms, bound_by) of a kernel that moves nbytes and does ops."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _profile(fn, top=5):
+    """One run of fn() under torch.profiler: (wall ms, device ms, device
+    idle share, kernel launches, the top kernels by device time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return (wall, dev_ms, 1.0 - dev_ms / wall, len(kernels),
+            [(n[:48], round(t, 3)) for n, t in ranked])
+
+
+def _reset_counters():
+    mk.launches = mk.launches_mesh = mk.launches_taped = 0
+    mk.launches_bwd = mk.launches_bwd_tape = 0
+
+
+def _counters():
+    return {"forward": mk.launches, "forward_mesh": mk.launches_mesh,
+            "forward_taped": mk.launches_taped, "backward": mk.launches_bwd,
+            "backward_tape": mk.launches_bwd_tape}
+
+
+def _backward_agreement(got, want):
+    """Phase 6's comparison of backward cotangents with the plain ones:
+    (ok, report, max_abs_err, bit-equal share of rays)."""
+    names = ("d_prims", "d_rays", "d_spect")
+    for nm, g, w in zip(names, got, want):
+        if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+            raise RuntimeError(f"non-finite {nm}")
+    abs_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    prims_err = ((got[0] - want[0]).abs().max()
+                 / want[0].abs().max()).item()
+    report = [f"d_prims worst err {prims_err:.3g} of its largest entry"]
+    fracs = []
+    for nm, g, w in zip(names[1:], got[1:], want[1:]):
+        den = torch.maximum(w.abs(), 1e-3 * w.abs().max())
+        rel = (g - w).abs() / den
+        fracs.append((rel < 1e-3).all(dim=0).float().mean().item())
+        report.append(f"{nm} {fracs[-1]:.6f} of rays within rel 1e-3, "
+                      f"worst rel {rel.max().item():.3g}")
+    equal = ((got[1] == want[1]).all(dim=0)
+             & (got[2] == want[2]).all(dim=0)).float().mean().item()
+    ok = prims_err <= 1e-3 and min(fracs) >= 0.999
+    return ok, "; ".join(report), abs_err, equal
 
 
 def _host_s(fn):
@@ -122,20 +249,20 @@ def _train_leaves(scene):
         primitives=dataclasses.replace(scene.primitives, data1=d1))
 
 
-def _headline_loss(scene, static):
+def _headline_loss(scene, static, backward="pallas"):
     """mean((accum / spp) ** 2) of the planar accumulation over samples
     1..SPP (bench.py's fwd+bwd workload)."""
     accum = torch.zeros((3, HEIGHT, WIDTH), device=scene.device)
     for s in range(1, SPP + 1):
         accum = accum + kt.render_sample_planar(
-            scene, WIDTH, HEIGHT, s, MAX_DEPTH, RR_START, static)
+            scene, WIDTH, HEIGHT, s, MAX_DEPTH, RR_START, static, backward)
     return torch.mean((accum / float(SPP)) ** 2)
 
 
-def _vg(scene, static):
+def _vg(scene, static, backward="pallas"):
     """value_and_grad of the headline loss: the loss value; gradients
     land in the scene's leaves."""
-    loss = _headline_loss(scene, static)
+    loss = _headline_loss(scene, static, backward)
     loss.backward()
     return loss.item()
 
@@ -249,30 +376,12 @@ def main() -> int:
     got_b = mk.backward(static, MAX_DEPTH, RR_START, *args, dL)
     t_plain_b, want_b = _host_s(lambda: mk.backward_reference(
         static, MAX_DEPTH, RR_START, *args, dL, ray_chunk=BAND))
-    names = ("d_prims", "d_rays", "d_spect")
-    for nm, g, w in zip(names, got_b, want_b):
-        if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
-            raise RuntimeError(f"non-finite {nm}")
-    bwd_abs_err = max((g - w).abs().max().item()
-                      for g, w in zip(got_b, want_b))
-    prims_err = ((got_b[0] - want_b[0]).abs().max()
-                 / want_b[0].abs().max()).item()
-    report = [f"d_prims worst err {prims_err:.3g} of its largest entry"]
-    fracs = []
-    for nm, g, w in zip(names[1:], got_b[1:], want_b[1:]):
-        den = torch.maximum(w.abs(), 1e-3 * w.abs().max())
-        rel = (g - w).abs() / den
-        fracs.append((rel < 1e-3).all(dim=0).float().mean().item())
-        report.append(f"{nm} {fracs[-1]:.6f} of rays within rel 1e-3, "
-                      f"worst rel {rel.max().item():.3g}")
-    equal = ((got_b[1] == want_b[1]).all(dim=0)
-             & (got_b[2] == want_b[2]).all(dim=0)).float().mean().item()
+    ok, report, bwd_abs_err, equal = _backward_agreement(got_b, want_b)
     print(f"backward vs plain ({rays} rays, plain in bands of {BAND}, "
-          f"{t_plain_b:.1f} s): " + "; ".join(report)
+          f"{t_plain_b:.1f} s): " + report
           + f"; bit-equal rays {equal:.6f}; max abs err {bwd_abs_err:.3g}")
-    if prims_err > 1e-3 or min(fracs) < 0.999:
+    if not ok:
         raise RuntimeError("backward kernel disagrees with plain version")
-    del want_b
 
     # 7. the training path at full width
     sp, d1, train_scene = _train_leaves(scene)
@@ -287,6 +396,8 @@ def main() -> int:
     for nm, g in (("spectra", sp.grad), ("data1", d1.grad)):
         if g is None or not torch.isfinite(g).all():
             raise RuntimeError(f"{nm} gradient missing or not finite")
+    grads_retrace = (sp.grad.clone(), d1.grad.clone())
+    loss_retrace = loss
     rows = _rows_read(static)
     dead = [r for r in rows if not (sp.grad[r] != 0).any()]
     if dead or not (d1.grad != 0).any():
@@ -336,34 +447,352 @@ def main() -> int:
           f"kernels of ~{bwd_ms:.3f} ms, the rest autograd of the setup "
           f"ops), Adam {adam_s * 1e3:.3f} ms")
     print(f"chip_smoke phases 1-8: {time.perf_counter() - t_start:.1f} s")
+
+    # 9. the tape-fed backward at the phase-3 shape
+    D = MAX_DEPTH + 1
+    rad_t, tape_f, tape_i = mk.forward_taped(static, MAX_DEPTH, RR_START,
+                                             *args)
+    torch.cuda.synchronize()
+    if not torch.equal(rad_t, got):
+        raise RuntimeError("taped forward radiance is not the forward "
+                           "kernel's bit for bit")
+    t_plain_t, want_t = _host_s(lambda: mk.forward_taped_reference(
+        static, MAX_DEPTH, RR_START, *args))
+    taped_abs_err = (rad_t - want_t[0]).abs().max().item()
+    ints_eq = (tape_i == want_t[2]).all(dim=0)
+    tf3 = tape_f.reshape(D, 16, rays)
+    wf3 = want_t[1].reshape(D, 16, rays)
+    scale = wf3.abs().amax(dim=(0, 2), keepdim=True).clamp(min=1.0)
+    rel_t = (tf3 - wf3).abs() / torch.maximum(wf3.abs(), 1e-2 * scale)
+    floats_ok = (rel_t < 1e-4).all(dim=0).all(dim=0)
+    frac_int = ints_eq.float().mean().item()
+    frac_float = floats_ok.float().mean().item()
+    tape_equal = ((tape_f == want_t[1]).all(dim=0) & ints_eq
+                  & (rad_t == want_t[0]).all(dim=0)).float().mean().item()
+    ti3 = tape_i.reshape(D, mk.TAPE_I, rays)
+    live_rows = ti3[:, 7].sum(dim=1).tolist()
+    live = int(sum(live_rows))
+    # the tape-fed kernel scans active words up to the first dead row
+    # (the live rows lead: a dead ray stays dead)
+    scanned = int(torch.clamp(ti3[:, 7].sum(dim=0) + 1, max=D).sum())
+    diffuse_on = int(((ti3[1:, 7] != 0) & (ti3[1:, 5] == 0)).sum())
+    print(f"taped forward: radiance bit-equal to the forward kernel; tape "
+          f"vs plain ({t_plain_t:.1f} s): int planes equal on {frac_int:.6f} "
+          f"of rays, float planes within rel 1e-4 on {frac_float:.6f}, "
+          f"bit-equal rays {tape_equal:.6f}; live bounces per "
+          f"depth {live_rows}")
+    if frac_int < 0.999 or frac_float < 0.999:
+        raise RuntimeError("taped forward's tape disagrees with the plain "
+                           "version")
+    del want_t
+    got_tb = mk.backward_from_tape(static, MAX_DEPTH, RR_START, args[0],
+                                   args[3], tape_f, tape_i, dL)
+    torch.cuda.synchronize()
+    diff = [int((g != w).sum()) for g, w in zip(got_tb, got_b)]
+    print(f"tape-fed vs retrace kernel: entries that differ in (d_prims, "
+          f"d_rays, d_spect) {diff}")
+    if any(diff):
+        raise RuntimeError("tape-fed kernel is not the retrace kernel bit "
+                           "for bit")
+    ok, report, tape_abs_err, equal_t = _backward_agreement(got_tb, want_b)
+    print("tape-fed vs plain (phase 6's): " + report
+          + f"; bit-equal rays {equal_t:.6f}; max abs err {tape_abs_err:.3g}")
+    if not ok:
+        raise RuntimeError("tape-fed kernel disagrees with plain version")
+    del want_b, got_tb
+
+    # 10. the pallas_taped training path
+    sp, d1, train_scene = _train_leaves(scene)
+    _reset_counters()
+    step_t_s, loss_t = _host_s(lambda: _vg(train_scene, static,
+                                           "pallas_taped"))
+    counts = _counters()
+    want_counts = {"forward": 0, "forward_mesh": 0, "forward_taped": SPP,
+                   "backward": 0, "backward_tape": SPP}
+    if counts != want_counts:
+        raise RuntimeError(f"pallas_taped value_and_grad launched {counts}, "
+                           f"expected {want_counts}")
+    launches_taped = counts["forward_taped"]
+    launches_tape_bwd = counts["backward_tape"]
+    errs, same = [], []
+    for nm, g, w in (("spectra", sp.grad, grads_retrace[0]),
+                     ("data1", d1.grad, grads_retrace[1])):
+        if g is None or not torch.isfinite(g).all():
+            raise RuntimeError(f"taped {nm} gradient missing or not finite")
+        errs.append(((g - w).abs().max() / w.abs().max()).item())
+        same.append(bool(torch.equal(g, w)))
+    print(f"pallas_taped value_and_grad: loss {loss_t:.6e} (retrace "
+          f"{loss_retrace:.6e}), launches {counts}, {step_t_s * 1e3:.1f} ms (first "
+          f"call); gradients vs phase 7: worst err {errs} of the largest "
+          f"entry, bit-equal {same}")
+    if max(errs) > 1e-5:
+        raise RuntimeError("pallas_taped gradients differ from the retrace "
+                           "path's")
+    taped_ms = _events_ms(lambda: mk.forward_taped(
+        static, MAX_DEPTH, RR_START, *args), 5)
+    tape_bwd_ms = _events_ms(lambda: mk.backward_from_tape(
+        static, MAX_DEPTH, RR_START, args[0], args[3], tape_f, tape_i, dL),
+        5)
+    tband = [a[:, :BAND].contiguous() for a in (args[3], tape_f, tape_i, dL)]
+    plain_tape_bwd_ms = _events_ms(lambda: mk.backward_from_tape_reference(
+        static, MAX_DEPTH, RR_START, args[0], *tband), 1)
+    steps_t = [_host_s(lambda: _vg(_train_leaves(scene)[2], static,
+                                   "pallas_taped"))[0] for _ in range(3)]
+    peak = {}
+    for bw in ("pallas", "pallas_taped"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _vg(_train_leaves(scene)[2], static, bw)
+        torch.cuda.synchronize()
+        peak[bw] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    print(f"taped forward {taped_ms:.4f} ms, tape-fed backward "
+          f"{tape_bwd_ms:.4f} ms per sample of {rays} rays (forward "
+          f"{ms:.4f}, retrace backward {bwd_ms:.4f}); plain tape-fed "
+          f"{plain_tape_bwd_ms:.1f} ms per band of {BAND} rays; tape "
+          f"{_nbytes(tape_f, tape_i) / 1e9:.3f} GB per sample")
+    print(f"fwd+bwd step (value_and_grad, pallas_taped, spp {SPP}): "
+          f"{[round(t * 1e3, 3) for t in steps_t]} ms, "
+          f"{[round(paths / t / 1e6, 3) for t in steps_t]} Mpaths/s; peak "
+          f"device memory above the inputs per step: retrace "
+          f"{peak['pallas']:.3f} GB, taped {peak['pallas_taped']:.3f} GB")
+    sp, d1, train_scene = _train_leaves(scene)
+    adam = torch.optim.Adam([sp, d1], lr=0.05)
+    fwd_s, loss_tt = _host_s(lambda: _headline_loss(train_scene, static,
+                                                    "pallas_taped"))
+    bwd_s, _ = _host_s(loss_tt.backward)
+    adam_s, _ = _host_s(adam.step)
+    print(f"taped train step breakdown: forward pass {fwd_s * 1e3:.3f} ms "
+          f"({SPP} taped forward kernels of ~{taped_ms:.3f} ms, the rest "
+          f"setup ops and CIE), backward pass {bwd_s * 1e3:.3f} ms ({SPP} "
+          f"tape-fed kernels of ~{tape_bwd_ms:.3f} ms, the rest autograd of "
+          f"the setup ops), Adam {adam_s * 1e3:.3f} ms")
+    for bw in ("pallas", "pallas_taped"):
+        wall, dev_ms, idle, n_k, top = _profile(
+            lambda: _vg(_train_leaves(scene)[2], static, bw))
+        print(f"profile of one value_and_grad ({bw}): wall {wall:.1f} ms, "
+              f"device {dev_ms:.1f} ms, idle share {idle:.3f}, {n_k} kernel "
+              f"launches; top {top}")
+    del tape_f, tape_i
+
+    # 11. meshes
+    t0 = time.perf_counter()
+    mscene, _ = scene_from_dict(presets.mesh_scene(WIDTH, HEIGHT,
+                                                   MESH_SUBDIVISIONS),
+                                device=dev)
+    mstatic = mk.SceneStatic.from_scene(mscene)
+    n_tris = sum(p.count for p in mstatic.mesh_parts)
+    marrays = tuple(a for p in kt.mesh_packs_for(mscene, mstatic)
+                    for a in p.arrays)
+    torch.cuda.synchronize()
+    print(f"mesh scene: {n_tris} triangles in {len(mstatic.mesh_parts)} "
+          f"part(s), {len(mstatic.rows)} unrolled rows, loaded and packed "
+          f"in {time.perf_counter() - t0:.1f} s")
+    if n_tris != 20 * 4 ** MESH_SUBDIVISIONS or len(mstatic.mesh_parts) != 1:
+        raise RuntimeError(f"mesh_scene made {len(mstatic.mesh_parts)} "
+                           f"mesh part(s) of {n_tris} triangles, expected one "
+                           f"of {20 * 4 ** MESH_SUBDIVISIONS}")
+    y0 = HEIGHT // 2 - MESH_BAND_ROWS // 2
+    bpx, bpy = kt.tile_coords(WIDTH, MESH_BAND_ROWS, y0, dev)
+    mo, md, mhero, mseed = kt.camera_planes(mscene, WIDTH, HEIGHT, bpx, bpy,
+                                            1)
+    margs = kt.kernel_inputs(mscene, mo, md, mhero, mseed, mstatic)
+    got_m = mk.forward(mstatic, MESH_DEPTH, RR_START, *margs, *marrays)
+    t_plain_m, want_m = _host_s(lambda: mk.forward_reference(
+        mstatic, MESH_DEPTH, RR_START, *margs, *marrays))
+    if not (torch.isfinite(got_m).all() and torch.isfinite(want_m).all()):
+        raise RuntimeError("non-finite mesh radiance")
+    mesh_abs_err = (got_m - want_m).abs().max().item()
+    rel_m = (got_m - want_m).abs() / want_m.abs().clamp(min=1e-2)
+    frac_m = (rel_m < 1e-4).all(dim=0).float().mean().item()
+    exact_m = (got_m == want_m).all(dim=0).float().mean().item()
+    print(f"mesh kernel vs plain: {frac_m:.6f} of {got_m.shape[1]} rays "
+          f"(rows {y0}-{y0 + MESH_BAND_ROWS - 1}) within rel 1e-4; worst rel "
+          f"{rel_m.max().item():.3g}, worst abs {mesh_abs_err:.3g}; bit-equal "
+          f"{exact_m:.6f}; plain {t_plain_m:.1f} s")
+    if frac_m < 0.999:
+        raise RuntimeError(f"mesh kernel disagrees with plain version: "
+                           f"{frac_m}")
+    plain_mesh_ms = t_plain_m * 1e3
+    mcfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=SPP,
+                        max_depth=MESH_DEPTH)
+    _reset_counters()
+    mrender_s, mout = _host_s(lambda: render(mscene, mcfg))
+    counts = _counters()
+    if counts != {"forward": 0, "forward_mesh": SPP, "forward_taped": 0,
+                  "backward": 0, "backward_tape": 0}:
+        raise RuntimeError(f"mesh render launched {counts}, expected {SPP} "
+                           f"mesh-mode forwards")
+    launches_mesh = counts["forward_mesh"]
+    macc = mout["accum_xyz"]
+    if not torch.isfinite(macc).all() or not (macc != 0).any():
+        raise RuntimeError("mesh render is not finite and non-zero")
+    print(f"mesh render: {WIDTH}x{HEIGHT} spp {SPP} depth {MESH_DEPTH} in "
+          f"{mrender_s:.3f} s ({WIDTH * HEIGHT * SPP / mrender_s / 1e6:.3f} "
+          f"Mpaths/s end to end), launches {counts}")
+    side, subdiv = SMALL_MESH
+    sscene, _ = scene_from_dict(presets.mesh_scene(side, side, subdiv),
+                                device=dev)
+    sstatic = mk.SceneStatic.from_scene(sscene)
+    sout = render(sscene, RenderConfig(width=side, height=side, spp=SPP,
+                                       max_depth=MESH_DEPTH))
+    sarrays = tuple(a for p in kt.mesh_packs_for(sscene, sstatic)
+                    for a in p.arrays)
+    smean = sout["mean_xyz"].mean(dim=(0, 1))
+    splain = (_plain_render_accum(sscene, sstatic, SPP, side, side,
+                                  MESH_DEPTH, sarrays)
+              / float(sout["samples"])).mean(dim=(0, 1))
+    rel_s = ((smean - splain).abs() / splain.abs()).max().item()
+    print(f"mesh render {side}x{side} ({sum(p.count for p in sstatic.mesh_parts)} "
+          f"triangles) spp {SPP}: mean XYZ {smean.tolist()} vs plain "
+          f"{splain.tolist()} (rel {rel_s:.3g})")
+    if rel_s > 1e-3:
+        raise RuntimeError(f"mesh mean XYZ off the plain render by {rel_s}")
+    fpx, fpy = kt.tile_coords(WIDTH, HEIGHT, 0, dev)
+    fargs = kt.kernel_inputs(mscene, *kt.camera_planes(
+        mscene, WIDTH, HEIGHT, fpx, fpy, 1), mstatic)
+    mesh_ms = _events_ms(lambda: mk.forward(mstatic, MESH_DEPTH, RR_START,
+                                            *fargs, *marrays), 3)
+    got_f = mk.forward(mstatic, MESH_DEPTH, RR_START, *fargs, *marrays)
+    work = torch.zeros(4, dtype=torch.int64, device=dev)
+    counted = mk.forward(mstatic, MESH_DEPTH, RR_START, *fargs, *marrays,
+                         work=work)
+    if not torch.equal(counted, got_f):
+        raise RuntimeError("the mesh kernel's counting build changed its "
+                           "radiance")
+    casts, box_tests, plane_tests, inside_tests = work.tolist()
+    counted_ms = _events_ms(lambda: mk.forward(
+        mstatic, MESH_DEPTH, RR_START, *fargs, *marrays,
+        work=torch.zeros(4, dtype=torch.int64, device=dev)), 1)
+    print(f"mesh work (counting build, radiance bit-equal, {counted_ms:.1f} "
+          f"ms): {casts} casts, {box_tests} box tests, {plane_tests} "
+          f"triangle plane tests, {inside_tests} inside tests; per cast "
+          f"{box_tests / casts:.2f} boxes, {plane_tests / casts:.2f} planes, "
+          f"{inside_tests / casts:.2f} inside")
+    del got_f, counted
+    wall, dev_ms, idle, n_k, top = _profile(lambda: render(mscene, mcfg))
+    print(f"profile of the mesh render: wall {wall:.1f} ms, device "
+          f"{dev_ms:.1f} ms, idle share {idle:.3f}, {n_k} kernel launches; "
+          f"top {top}")
+    print(f"mesh forward: kernel {mesh_ms:.3f} ms per sample of "
+          f"{fargs[1].shape[1]} rays ({fargs[1].shape[1] / mesh_ms / 1e3:.3f} "
+          f"Mpaths/s); plain {plain_mesh_ms:.1f} ms per band of "
+          f"{got_m.shape[1]} rays")
+    print(f"chip_smoke phases 1-11: {time.perf_counter() - t_start:.1f} s")
+
+    # bounds at the shapes timed above
+    prims, rays_t, seeds_t, spect_t = args
+    seed_bytes = seeds_t.numel() * 4  # the kernels read int32 words
+    tape_bytes = D * 24 * rays * 4
+    in_fwd = _nbytes(prims, rays_t, spect_t) + seed_bytes
+    out_fwd = 4 * rays * 4
+    grads = _nbytes(prims, rays_t[:6], spect_t) + 4 * rays * 4  # + dL
+    scan_ops = (live + diffuse_on) * len(static.rows) * PRIM_TEST_OPS
+    b_fwd = _bound(in_fwd + out_fwd, scan_ops)
+    b_taped = _bound(in_fwd + out_fwd + tape_bytes, scan_ops)
+    b_bwd = _bound(in_fwd + grads, 2 * scan_ops)
+    tape_read = (live * (mk.TAPE_F + mk.TAPE_I - 1) + scanned) * 4
+    b_tape_bwd = _bound(_nbytes(prims, spect_t) + tape_read + grads,
+                        scan_ops)
+    mrays = fargs[1].shape[1]
+    b_mesh = _bound(_nbytes(fargs[0], fargs[1], fargs[3], *marrays)
+                    + fargs[2].numel() * 4 + 4 * mrays * 4,
+                    casts * len(mstatic.rows) * PRIM_TEST_OPS
+                    + box_tests * BOX_TEST_OPS + plane_tests * TRI_PLANE_OPS
+                    + inside_tests * TRI_INSIDE_OPS)
+    src = "computeraytracer_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
         "name": "megakernel_forward",
         "route": "cuda",
-        "source": "computeraytracer_tpu_torch/kernels/csrc/megakernel_fwd.cu",
+        "source": src + "megakernel_fwd.cu",
         "replaces": "computeraytracer_tpu/kernels/megakernel.py:897",
         "launches": launches,
         "launches_train": launches_fwd,
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": b_fwd[0],
+        "bound_by": b_fwd[1],
+        "library_ms": None,
         "ms_per_sample": ms,
         "plain_ms_per_sample": plain_ms,
         "mpaths_per_s": rays / (ms * 1e-3) / 1e6,
         "rays": rays,
         "max_depth": MAX_DEPTH,
+        "live_bounces": live,
+        "shadow_scans_counted": diffuse_on,
+    }, {
+        "name": "megakernel_forward_taped",
+        "route": "cuda",
+        "source": src + "megakernel_fwd.cu",
+        "replaces": "computeraytracer_tpu/kernels/megakernel.py:897 "
+                    "(taped=\"full\")",
+        "launches": launches_taped,
+        "max_abs_err": taped_abs_err,
+        "ms": taped_ms,
+        "plain_ms": t_plain_t * 1e3,
+        "bound_ms": b_taped[0],
+        "bound_by": b_taped[1],
+        "library_ms": None,
+        "rays": rays,
+        "max_depth": MAX_DEPTH,
+        "tape_bytes": tape_bytes,
     }, {
         "name": "megakernel_backward",
         "route": "cuda",
-        "source": "computeraytracer_tpu_torch/kernels/csrc/megakernel_bwd.cu",
+        "source": src + "megakernel_bwd.cu",
         "replaces": "computeraytracer_tpu/kernels/megakernel.py:1314",
         "launches": launches_bwd,
         "max_abs_err": bwd_abs_err,
         "ms": bwd_ms,
         "plain_ms": plain_bwd_ms,
+        "bound_ms": b_bwd[0],
+        "bound_by": b_bwd[1],
+        "library_ms": None,
         "plain_rays": BAND,
         "rays": rays,
         "max_depth": MAX_DEPTH,
         "fwdbwd_mpaths_per_s": [paths / t / 1e6 for t in steps],
+    }, {
+        "name": "megakernel_backward_from_tape",
+        "route": "cuda",
+        "source": src + "megakernel_bwd_tape.cu",
+        "replaces": "computeraytracer_tpu/kernels/megakernel.py:1480",
+        "launches": launches_tape_bwd,
+        "max_abs_err": tape_abs_err,
+        "ms": tape_bwd_ms,
+        "plain_ms": plain_tape_bwd_ms,
+        "bound_ms": b_tape_bwd[0],
+        "bound_by": b_tape_bwd[1],
+        "library_ms": None,
+        "plain_rays": BAND,
+        "rays": rays,
+        "max_depth": MAX_DEPTH,
+        "fwdbwd_mpaths_per_s": [paths / t / 1e6 for t in steps_t],
+        "peak_gb_per_step": peak["pallas_taped"],
+        "tape_bytes_read": tape_read,
+    }, {
+        "name": "megakernel_forward_mesh",
+        "route": "cuda",
+        "source": src + "megakernel_fwd.cu",
+        "replaces": "computeraytracer_tpu/kernels/megakernel.py:897 "
+                    "(mesh mode, _scan_mesh_part :337)",
+        "launches": launches_mesh,
+        "max_abs_err": mesh_abs_err,
+        "ms": mesh_ms,
+        "plain_ms": plain_mesh_ms,
+        "bound_ms": b_mesh[0],
+        "bound_by": b_mesh[1],
+        "library_ms": None,
+        "plain_rays": got_m.shape[1],
+        "rays": mrays,
+        "max_depth": MESH_DEPTH,
+        "triangles": n_tris,
+        "render_mpaths_per_s": WIDTH * HEIGHT * SPP / mrender_s / 1e6,
+        "casts": casts,
+        "box_tests": box_tests,
+        "triangle_plane_tests": plane_tests,
+        "triangle_inside_tests": inside_tests,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -6,12 +6,16 @@ computeraytracer_tpu/cli.py).
     python -m computeraytracer_tpu_torch render --scene my_scene.json \
         --device cpu --spp 4 --out out.png
     python -m computeraytracer_tpu_torch train --preset cornell_box \
-        --steps 30
+        --steps 30 --backward pallas_taped
+
+    python -m computeraytracer_tpu_torch render --preset mesh_scene \
+        --width 256 --height 256 --spp 4 --depth 3 --out mesh.png
 
 The flags are the JAX CLI's. ``--sharded``, ``--bvh`` and ``--profile``
 are not ported yet and raise when given, as does ``--kernel xla``.
-``--device`` (default ``cuda``) picks where the scene lives: there is no
-silent move to the CPU.
+``--device`` (default ``cuda``) picks where the scene of ``render`` and
+``train`` lives: there is no silent move to the CPU. ``info`` traces
+nothing and reads the scene on the CPU.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ def _load(args):
     from computeraytracer_tpu_torch.scene import (load_scene, presets,
                                                   scene_from_dict)
 
-    device = getattr(args, "device", None)
+    device = getattr(args, "device", "cpu")
     if args.scene:
         scene, meta = load_scene(args.scene, args.cie, device=device)
     else:
@@ -127,7 +131,7 @@ def cmd_train(args) -> int:
     _, losses = opt.optimize(
         perturbed, target, w, h, trainable=tuple(args.trainable),
         steps=args.steps, learning_rate=args.lr, spp=args.spp,
-        max_depth=args.depth, kernel=args.kernel,
+        max_depth=args.depth, kernel=args.kernel, backward=args.backward,
         checkpoint_dir=args.checkpoint_dir,
         callback=lambda i, loss, p: print(
             f"step {i:4d}  loss {loss:.6e}", file=sys.stderr))
@@ -187,6 +191,10 @@ def build_parser() -> argparse.ArgumentParser:
     common(t)
     t.add_argument("--kernel", choices=["xla", "pallas"], default="pallas",
                    help="xla (the eager tracer) is not ported yet: raises")
+    t.add_argument("--backward", choices=["pallas", "pallas_taped"],
+                   default="pallas",
+                   help="the trace's backward: the retrace kernel or the "
+                   "taped forward with the tape-fed kernel")
     t.add_argument("--steps", type=int, default=30)
     t.add_argument("--lr", type=float, default=0.05)
     t.add_argument("--trainable", nargs="+", default=["spectra"])

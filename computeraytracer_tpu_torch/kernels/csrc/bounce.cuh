@@ -1,19 +1,30 @@
 // One bounce of the path tracer, shared by the forward and the backward
-// megakernels (megakernel_fwd.cu, megakernel_bwd.cu).
+// megakernels (megakernel_fwd.cu, megakernel_bwd.cu, megakernel_bwd_tape.cu).
 //
-// Port of computeraytracer_tpu/kernels/megakernel.py:467 make_bounce for
-// non-mesh scenes, as per-thread SIMT code: an in-order closest-hit scan
-// over every primitive, next-event estimation with the power-heuristic
-// MIS, diffuse / glass / mirror scattering with Beer-Lambert, Russian
-// roulette, and masked pcg4d draws. The backward's replay and its
-// per-bounce recompute run this same code, so their sampling decisions are
-// the forward's bit for bit (all three are built with --fmad=false).
+// Port of computeraytracer_tpu/kernels/megakernel.py:467 make_bounce as
+// per-thread SIMT code: an in-order closest-hit scan over every unrolled
+// primitive, next-event estimation with the power-heuristic MIS, diffuse /
+// glass / mirror scattering with Beer-Lambert, Russian roulette, and masked
+// pcg4d draws. The backward's replay and its per-bounce recompute run this
+// same code, so their sampling decisions are the forward's bit for bit
+// (every kernel is built with --fmad=false).
 //
 // The scene structure, which the TPU kernel unrolls as Python constants,
 // is a small runtime table in shared memory: the primitive rows, per-slot
 // (row, category, material, emission, reflectance) and the light rows,
 // with the per-patch plane constants and the light areas precomputed in
 // the reference's op order (load_scene).
+//
+// Mesh mode (the MESH template argument; the forward only): category-2 rows
+// (triangles stored as vertices) join the unrolled scan through the
+// watertight test, and each mesh part is traversed from device memory by
+// scan_mesh_part, the port of megakernel.py:337 _scan_mesh_part. The TPU
+// kernel walks the chunk BVH once per ray TILE (a box is entered when any
+// ray of the tile can hit it); here each thread walks it for its own ray.
+// The result is the same: the boxes are conservative (padded by 4 ulp) and
+// the mesh tie rule (t < best, or t == best and the higher id) does not
+// depend on the order in which triangles are tested. A mesh hit records
+// slot = P + part, whose meta row carries the part's material and spectra.
 
 #pragma once
 
@@ -33,10 +44,46 @@ constexpr float TWO_PI = (float)(2.0 * 3.14159265358979323846);
 
 constexpr int MAX_PRIMS = 256;
 constexpr int MAX_LIGHTS = 64;
+constexpr int MAX_PARTS = 8;
 constexpr int META = 5;  // row, category, material, emission, reflectance
 constexpr int THREADS = 128;
 
+// The chunk packing of kernels/meshpack.py.
+constexpr int TRI_WORDS = 16;  // v0 v1 v2, id, unit normal, 3 pad
+constexpr int TRIS_PER_CHUNK = 128;
+constexpr int ROW_WORDS = 128;  // 8 triangles per row, 16 rows per chunk
+constexpr int LEAF_CHUNKS = 4;
+constexpr int BOX_WORDS = 8;    // lo.xyz hi.xyz pad pad
+constexpr int NODE_WORDS = 8;   // skip, chunk_start, is_leaf, pad
+
 enum { DIFFUSE = 0, LIGHT = 1, GLASS = 2, MIRROR = 3 };
+
+// The MESH argument of scan and bounce: no mesh, the mesh mode, or the
+// mesh mode that also counts its work into mesh_work.
+enum { MESH_NONE = 0, MESH_WALK = 1, MESH_COUNT = 2 };
+
+// Work counts of MESH_COUNT, one column per thread of the block: casts
+// (closest-hit and shadow scans), box tests (nodes and chunks), triangle
+// plane tests and triangle inside tests. Only the kernel that counts
+// references them.
+enum { W_CAST = 0, W_BOX = 1, W_PLANE = 2, W_INSIDE = 3, WORK_KINDS = 4 };
+__shared__ unsigned mesh_work[WORK_KINDS][THREADS];
+
+// Zero this thread's work counts.
+__device__ __forceinline__ void work_clear() {
+  for (int k = 0; k < WORK_KINDS; ++k) mesh_work[k][threadIdx.x] = 0;
+}
+
+// Add the block's work counts to work[WORK_KINDS]. Every thread of the
+// block must call it.
+__device__ void work_flush(unsigned long long* __restrict__ work) {
+  __syncthreads();
+  if (threadIdx.x < WORK_KINDS) {
+    unsigned long long sum = 0;
+    for (int t = 0; t < THREADS; ++t) sum += mesh_work[threadIdx.x][t];
+    atomicAdd(work + threadIdx.x, sum);
+  }
+}
 
 struct V3 {
   float x, y, z;
@@ -64,15 +111,34 @@ __device__ __forceinline__ V3 vnormalize(V3 a) {
   return vscale(1.0f / sqrtf(s), a);
 }
 
+// One mesh part's packed arrays in device memory (kernels/meshpack.py).
+struct MeshPart {
+  const float* tri;    // (n_real_chunks * 16, 128) triangle rows
+  const float* cbox;   // (n_chunks, 8) chunk boxes
+  const float* nbox;   // (n_nodes, 8) node boxes, DFS order
+  const int* nmeta;    // (n_nodes, 8) node meta, DFS order
+  int n_nodes;
+  int n_real_chunks;   // chunks with stored rows; the rest are padding
+};
+
+// The mesh parts of a launch, passed by value as a kernel argument
+// (__grid_constant__, so that taking its address copies nothing).
+struct MeshParts {
+  int n;
+  MeshPart part[MAX_PARTS];
+};
+
 struct Scene {
   float prim[MAX_PRIMS * 12];
-  float n0[MAX_PRIMS * 3];  // unit patch normal
+  float n0[MAX_PRIMS * 3];  // unit plane normal of patches and triangles
   float inv_e1[MAX_PRIMS];
   float inv_e2[MAX_PRIMS];
-  int meta[MAX_PRIMS * META];
+  int meta[(MAX_PRIMS + MAX_PARTS) * META];  // slots, then mesh parts
   int light_row[MAX_LIGHTS];
   int light_slot[MAX_LIGHTS];
   float light_area[MAX_LIGHTS];
+  int n_parts;
+  MeshPart part[MAX_PARTS];
 };
 
 struct Hit {
@@ -89,22 +155,35 @@ __device__ __forceinline__ V3 prim3(const Scene& s, int slot, int c) {
 
 // Load the scene tables into shared memory and precompute the per-slot
 // plane constants and per-light areas, in the reference's op order
-// (kernels/megakernel.py:273-295 and :496-500). Every thread of the block
-// must call it; it ends with __syncthreads().
+// (kernels/megakernel.py:273-295 and :496-500). meta holds P slot rows,
+// then one row per mesh part of mp (none when mp is null: the backward
+// kernels). Every thread of the block must call it; it ends with
+// __syncthreads().
 __device__ void load_scene(Scene& s, const float* __restrict__ prims,
                            const int* __restrict__ meta, int P,
-                           const int* __restrict__ lights, int n_lights) {
+                           const int* __restrict__ lights, int n_lights,
+                           const MeshParts* mp = nullptr) {
+  const int n_parts = mp ? mp->n : 0;
   for (int i = threadIdx.x; i < P * 12; i += blockDim.x) s.prim[i] = prims[i];
-  for (int i = threadIdx.x; i < P * META; i += blockDim.x) s.meta[i] = meta[i];
+  for (int i = threadIdx.x; i < (P + n_parts) * META; i += blockDim.x)
+    s.meta[i] = meta[i];
   for (int i = threadIdx.x; i < n_lights; i += blockDim.x) {
     s.light_row[i] = lights[2 * i];
     s.light_slot[i] = lights[2 * i + 1];
   }
+  if (threadIdx.x == 0) {
+    s.n_parts = n_parts;
+    for (int i = 0; i < n_parts; ++i) s.part[i] = mp->part[i];
+  }
   __syncthreads();
   for (int slot = threadIdx.x; slot < P; slot += blockDim.x) {
-    if (s.meta[slot * META + 1] != 0) continue;
-    const V3 e1 = prim3(s, slot, 3);
-    const V3 e2 = prim3(s, slot, 6);
+    const int cat = s.meta[slot * META + 1];
+    if (cat == 1) continue;
+    // triangles store vertices: their edges are v1 - v0 and v2 - v0
+    const V3 e1 = cat == 2 ? vsub(prim3(s, slot, 3), prim3(s, slot, 0))
+                           : prim3(s, slot, 3);
+    const V3 e2 = cat == 2 ? vsub(prim3(s, slot, 6), prim3(s, slot, 0))
+                           : prim3(s, slot, 6);
     const V3 n_raw = vcross(e1, e2);
     const float n_len2 = n_raw.x * n_raw.x + n_raw.y * n_raw.y + n_raw.z * n_raw.z;
     const float inv_len = 1.0f / sqrtf(fmaxf(n_len2, 1e-30f));
@@ -125,8 +204,141 @@ __device__ void load_scene(Scene& s, const float* __restrict__ prims,
   __syncthreads();
 }
 
+// Per-ray constants of the watertight triangle test (Woop, Benthin and
+// Wald 2013; ops/intersect.py watertight_setup): kz is the axis of the
+// direction's largest magnitude, kx and ky the cyclic others.
+struct Watertight {
+  int kx, ky, kz;
+  float sx, sy, okx, oky, okz;
+};
+
+__device__ __forceinline__ float sel3(int k, V3 v) {
+  return k == 0 ? v.x : (k == 1 ? v.y : v.z);
+}
+
+__device__ __forceinline__ Watertight watertight_setup(V3 o, V3 d) {
+  const float ax = fabsf(d.x), ay = fabsf(d.y), az = fabsf(d.z);
+  Watertight w;
+  w.kz = (ax >= ay && ax >= az) ? 0 : (ay >= az ? 1 : 2);
+  w.kx = w.kz == 2 ? 0 : w.kz + 1;
+  w.ky = w.kx == 2 ? 0 : w.kx + 1;
+  const float dkz = sel3(w.kz, d);
+  const float safe = dkz == 0.0f ? 1.0f : dkz;  // 0 only for null rays
+  w.sx = sel3(w.kx, d) / safe;
+  w.sy = sel3(w.ky, d) / safe;
+  w.okx = sel3(w.kx, o);
+  w.oky = sel3(w.ky, o);
+  w.okz = sel3(w.kz, o);
+  return w;
+}
+
+// The edge-function inside test, both orientations accepted. Each edge
+// function is a difference of two separately rounded products (the build's
+// --fmad=false): a shared edge then evaluates to exactly the negated value
+// in its two triangles, and no ray falls through it.
+__device__ __forceinline__ bool watertight_inside(const Watertight& w, V3 v0,
+                                                  V3 v1, V3 v2) {
+  const float a_z = sel3(w.kz, v0) - w.okz;
+  const float b_z = sel3(w.kz, v1) - w.okz;
+  const float c_z = sel3(w.kz, v2) - w.okz;
+  const float ax = (sel3(w.kx, v0) - w.okx) - w.sx * a_z;
+  const float ay = (sel3(w.ky, v0) - w.oky) - w.sy * a_z;
+  const float bx = (sel3(w.kx, v1) - w.okx) - w.sx * b_z;
+  const float by = (sel3(w.ky, v1) - w.oky) - w.sy * b_z;
+  const float cx = (sel3(w.kx, v2) - w.okx) - w.sx * c_z;
+  const float cy = (sel3(w.ky, v2) - w.oky) - w.sy * c_z;
+  const float u = cx * by - cy * bx;
+  const float v = ax * cy - ay * cx;
+  const float ww = bx * ay - by * ax;
+  const bool pos = u >= 0.0f && v >= 0.0f && ww >= 0.0f;
+  const bool neg = u <= 0.0f && v <= 0.0f && ww <= 0.0f;
+  return (pos || neg) && (u + v + ww) != 0.0f;
+}
+
+// Slab test of a ray against box bb (lo.xyz, hi.xyz), the interval padded
+// by 4 ulp on both ends (Ize 2013; megakernel.py:369-390): the box may be
+// hit closer than t_best. Degenerate empty boxes (lo == hi == BIG) give an
+// infinite entry and are excluded explicitly.
+__device__ __forceinline__ bool slab(const float* __restrict__ bb, V3 o,
+                                     const float* inv_d, float t_best) {
+  const float oc[3] = {o.x, o.y, o.z};
+  float t_enter = -INFINITY, t_exit = INFINITY;
+  for (int c = 0; c < 3; ++c) {
+    const float t0 = (bb[c] - oc[c]) * inv_d[c];
+    const float t1 = (bb[3 + c] - oc[c]) * inv_d[c];
+    t_enter = fmaxf(t_enter, fminf(t0, t1));
+    t_exit = fminf(t_exit, fmaxf(t0, t1));
+  }
+  const float pad = 4.0f * 1.1920928955078125e-7f;  // 4 * 2^-23
+  t_exit = t_exit + fabsf(t_exit) * pad;
+  t_enter = t_enter - fabsf(t_enter) * pad;
+  return t_enter <= t_exit && t_exit >= T_MIN && t_enter <= t_best &&
+         t_enter < INFINITY;
+}
+
+// Closest hit of one ray against mesh part `pi`: the stackless skip-link
+// walk of the DFS node array (descend on a box hit, else jump to `skip`),
+// each leaf's chunk boxes re-tested before their 128 triangles. Updates h
+// under the mesh tie rule; with COUNT, counts its tests into mesh_work.
+template <bool COUNT>
+__device__ void scan_mesh_part(const Scene& s, int P, int pi, V3 o, V3 d,
+                               int exclude, const Watertight& wt, Hit& h) {
+  const MeshPart& mp = s.part[pi];
+  const float dc[3] = {d.x, d.y, d.z};
+  float inv_d[3];
+  for (int c = 0; c < 3; ++c) {
+    const bool tiny = fabsf(dc[c]) < 1e-12f;
+    const float sign = dc[c] < 0.0f ? -1.0f : 1.0f;
+    inv_d[c] = tiny ? sign * 1e30f : 1.0f / dc[c];
+  }
+  int node = 0;
+  while (node < mp.n_nodes) {
+    if (COUNT) ++mesh_work[W_BOX][threadIdx.x];
+    const bool hit = slab(mp.nbox + (long long)node * BOX_WORDS, o, inv_d, h.t);
+    const int* meta = mp.nmeta + (long long)node * NODE_WORDS;
+    const bool leaf = meta[2] > 0;
+    if (hit && leaf) {
+      for (int i = 0; i < LEAF_CHUNKS; ++i) {
+        const int k = meta[1] + i;
+        if (k >= mp.n_real_chunks) break;  // padding: no rows stored
+        if (COUNT) ++mesh_work[W_BOX][threadIdx.x];
+        if (!slab(mp.cbox + (long long)k * BOX_WORDS, o, inv_d, h.t)) continue;
+        const float* tri = mp.tri + (long long)k * TRIS_PER_CHUNK * TRI_WORDS;
+        for (int j = 0; j < TRIS_PER_CHUNK; ++j, tri += TRI_WORDS) {
+          const int tid = (int)tri[9];
+          if (tid < 0 || tid == exclude) continue;
+          if (COUNT) ++mesh_work[W_PLANE][threadIdx.x];
+          const V3 n0 = {tri[10], tri[11], tri[12]};
+          const float ndotd = n0.x * d.x + n0.y * d.y + n0.z * d.z;
+          const bool flip = ndotd > 0.0f;
+          if (fabsf(flip ? -ndotd : ndotd) < 1e-4f) continue;  // grazing
+          const V3 p0 = {tri[0], tri[1], tri[2]};
+          const float num = n0.x * (p0.x - o.x) + n0.y * (p0.y - o.y) +
+                            n0.z * (p0.z - o.z);
+          const float t = num / ndotd;
+          if (!(t >= T_MIN && (t < h.t || (t == h.t && tid > h.idx)))) continue;
+          if (COUNT) ++mesh_work[W_INSIDE][threadIdx.x];
+          if (!watertight_inside(wt, p0, {tri[3], tri[4], tri[5]},
+                                 {tri[6], tri[7], tri[8]}))
+            continue;
+          const float sgn = flip ? -1.0f : 1.0f;
+          h.t = t;
+          h.idx = tid;
+          h.slot = P + pi;
+          h.pos = vadd(o, vscale(t, d));
+          h.nrm = {sgn * n0.x, sgn * n0.y, sgn * n0.z};
+        }
+      }
+    }
+    node = (hit && !leaf) ? node + 1 : meta[0];
+  }
+}
+
 // In-order closest-hit scan. `t <= best` lets the LAST hit win ties: the
 // ceiling light is coplanar with the ceiling and visible only through it.
+// With MESH, triangle rows take the watertight test and the mesh parts
+// are traversed after the unrolled rows.
+template <int MESH>
 __device__ Hit scan(const Scene& s, int P, V3 o, V3 d, int exclude) {
   Hit h;
   h.t = INFINITY;
@@ -134,15 +346,16 @@ __device__ Hit scan(const Scene& s, int P, V3 o, V3 d, int exclude) {
   h.slot = -1;
   h.pos = {0.0f, 0.0f, 0.0f};
   h.nrm = {0.0f, 0.0f, 0.0f};
+  if (MESH == MESH_COUNT) ++mesh_work[W_CAST][threadIdx.x];
   const float a = vdot(d, d);
+  Watertight wt;
+  if (MESH) wt = watertight_setup(o, d);
   for (int slot = 0; slot < P; ++slot) {
     const int row = s.meta[slot * META + 0];
     const int cat = s.meta[slot * META + 1];
     if (row == exclude) continue;
-    if (cat == 0) {
+    if (cat == 0 || (MESH && cat == 2)) {
       const V3 p0 = prim3(s, slot, 0);
-      const V3 e1 = prim3(s, slot, 3);
-      const V3 e2 = prim3(s, slot, 6);
       const V3 n0 = {s.n0[slot * 3], s.n0[slot * 3 + 1], s.n0[slot * 3 + 2]};
       const float ndotd = n0.x * d.x + n0.y * d.y + n0.z * d.z;
       const bool flip = ndotd > 0.0f;
@@ -153,10 +366,15 @@ __device__ Hit scan(const Scene& s, int P, V3 o, V3 d, int exclude) {
       const float t = num / ndotd;
       if (!(t >= T_MIN && t <= h.t)) continue;
       const V3 p = vadd(o, vscale(t, d));
-      const V3 m = vsub(p, p0);
-      const float u = vdot(m, e1) * s.inv_e1[slot];
-      const float v = vdot(m, e2) * s.inv_e2[slot];
-      if (!(u >= 0.0f && u <= 1.0f && v >= 0.0f && v <= 1.0f)) continue;
+      if (MESH && cat == 2) {
+        if (!watertight_inside(wt, p0, prim3(s, slot, 3), prim3(s, slot, 6)))
+          continue;
+      } else {
+        const V3 m = vsub(p, p0);
+        const float u = vdot(m, prim3(s, slot, 3)) * s.inv_e1[slot];
+        const float v = vdot(m, prim3(s, slot, 6)) * s.inv_e2[slot];
+        if (!(u >= 0.0f && u <= 1.0f && v >= 0.0f && v <= 1.0f)) continue;
+      }
       const float sgn = flip ? -1.0f : 1.0f;
       h.t = t;
       h.idx = row;
@@ -186,6 +404,9 @@ __device__ Hit scan(const Scene& s, int P, V3 o, V3 d, int exclude) {
       h.nrm = vnormalize(vsub(p, c));
     }
   }
+  if (MESH)
+    for (int pi = 0; pi < s.n_parts; ++pi)
+      scan_mesh_part<MESH == MESH_COUNT>(s, P, pi, o, d, exclude, wt, h);
   return h;
 }
 
@@ -291,12 +512,13 @@ __device__ __forceinline__ V3 nee_target(const Scene& s, int li, float u_p,
 }
 
 // One bounce: advances c and returns whether the ray is still alive. With
-// REC, records what the adjoint needs in *rec.
-template <bool REC>
+// REC, records what the adjoint needs in *rec; with MESH, the scans run in
+// mesh mode.
+template <bool REC, int MESH = MESH_NONE>
 __device__ __forceinline__ bool bounce(const Scene& s, const Trace& tr,
                                        long long r, int depth, Carry& c,
                                        BounceRec* rec) {
-  const Hit hit = scan(s, tr.P, c.o, c.d, c.exclude);
+  const Hit hit = scan<MESH>(s, tr.P, c.o, c.d, c.exclude);
   if (REC) {
     rec->hit = hit;
     rec->scatter = false;
@@ -355,7 +577,7 @@ __device__ __forceinline__ bool bounce(const Scene& s, const Trace& tr,
     const int sl = s.light_slot[li];
     const V3 p_l = nee_target(s, li, u_p, v_p);
     const V3 ldir = vnormalize(vsub(p_l, hit.pos));
-    const Hit sh = scan(s, tr.P, hit.pos, ldir, hit.idx);
+    const Hit sh = scan<MESH>(s, tr.P, hit.pos, ldir, hit.idx);
     const bool unocc = sh.idx >= 0 && sh.idx == s.light_row[li];
     if (REC) {
       rec->u_p = u_p;
@@ -476,6 +698,56 @@ __device__ __forceinline__ Carry init_carry(const float* __restrict__ rays,
   c.exclude = -1;
   c.specular = false;
   c.in_trans = false;
+  return c;
+}
+
+// The tape of build_forward(taped="full"): each bounce's INPUT carry, rows
+// of (max_depth+1, 16, R) f32 (o3 d3 L4 beta4 last_pdf eta_scale) and
+// (max_depth+1, 8, R) i32 (seed words, exclude, specular, in_trans,
+// active). Rows after the ray died hold its final carry with active = 0.
+constexpr int TAPE_F = 16;
+constexpr int TAPE_I = 8;
+
+__device__ __forceinline__ void tape_write(float* __restrict__ tape_f,
+                                           int* __restrict__ tape_i,
+                                           long long R, long long r,
+                                           int depth, const Carry& c,
+                                           bool alive) {
+  const float fw[TAPE_F] = {c.o.x, c.o.y, c.o.z, c.d.x, c.d.y, c.d.z,
+                            c.L[0], c.L[1], c.L[2], c.L[3],
+                            c.beta[0], c.beta[1], c.beta[2], c.beta[3],
+                            c.last_pdf, c.eta_scale};
+  const int iw[TAPE_I] = {(int)c.seed[0], (int)c.seed[1], (int)c.seed[2],
+                          (int)c.seed[3], c.exclude, (int)c.specular,
+                          (int)c.in_trans, (int)alive};
+  for (int k = 0; k < TAPE_F; ++k)
+    tape_f[((long long)depth * TAPE_F + k) * R + r] = fw[k];
+  for (int k = 0; k < TAPE_I; ++k)
+    tape_i[((long long)depth * TAPE_I + k) * R + r] = iw[k];
+}
+
+// The input carry of one tape row (its active word is not part of Carry).
+__device__ __forceinline__ Carry tape_read(const float* __restrict__ tape_f,
+                                           const int* __restrict__ tape_i,
+                                           long long R, long long r,
+                                           int depth) {
+  const long long rf = (long long)depth * TAPE_F;
+  const long long ri = (long long)depth * TAPE_I;
+  Carry c;
+  c.o = {tape_f[(rf + 0) * R + r], tape_f[(rf + 1) * R + r],
+         tape_f[(rf + 2) * R + r]};
+  c.d = {tape_f[(rf + 3) * R + r], tape_f[(rf + 4) * R + r],
+         tape_f[(rf + 5) * R + r]};
+  for (int j = 0; j < 4; ++j) {
+    c.L[j] = tape_f[(rf + 6 + j) * R + r];
+    c.beta[j] = tape_f[(rf + 10 + j) * R + r];
+    c.seed[j] = (uint32_t)tape_i[(ri + j) * R + r];
+  }
+  c.last_pdf = tape_f[(rf + 14) * R + r];
+  c.eta_scale = tape_f[(rf + 15) * R + r];
+  c.exclude = tape_i[(ri + 4) * R + r];
+  c.specular = tape_i[(ri + 5) * R + r] != 0;
+  c.in_trans = tape_i[(ri + 6) * R + r] != 0;
   return c;
 }
 

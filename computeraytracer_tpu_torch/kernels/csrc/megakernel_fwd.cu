@@ -1,8 +1,23 @@
 // Forward path-tracing megakernel for Hopper (sm_90a).
 //
 // Replaces computeraytracer_tpu/kernels/megakernel.py:897 build_forward in
-// its plain mode (non-mesh scenes, untaped). One thread traces one ray to
-// completion: up to max_depth+1 bounces of make_bounce (megakernel.py:467),
+// three of its modes:
+// - plain (megakernel_fwd with no mesh part and no triangle row);
+// - mesh (megakernel_fwd with mesh parts or triangle rows): triangle rows
+//   join the unrolled scan through the watertight test, and every mesh
+//   part is traversed per ray from device memory (bounce.cuh
+//   scan_mesh_part). Given a work array, the same code also counts its
+//   casts, box tests and triangle tests into it (MESH_COUNT: a separate
+//   instantiation, so the uncounted kernel carries no counter). On the card the packed triangle rows always live in
+//   device memory, so the TPU kernel's HBM-streaming mode
+//   (megakernel.py:849-853, stream_tris) has the same contract here and is
+//   covered by this mode;
+// - taped="full" (megakernel_fwd_taped, non-mesh scenes): each bounce's
+//   input carry is also written to the tape that megakernel_bwd_tape.cu
+//   reads (bounce.cuh tape_write), the layout megakernel_bwd.cu's replay
+//   writes, rows after the ray died included.
+// One thread traces one ray to completion: up to max_depth+1 bounces of
+// make_bounce (megakernel.py:467),
 // each an in-order closest-hit scan over every primitive, next-event
 // estimation with the power-heuristic MIS, diffuse / glass / mirror
 // scattering with Beer-Lambert, Russian roulette, and masked pcg4d draws.
@@ -13,7 +28,11 @@
 // and register pressure from the live carry (16 f32, 4 u32 and 4 i32
 // words plus a hit record), not bytes. Each ray reads 6+4 words, a few
 // spectrum words per bounce, and writes 4: a few hundred bytes against
-// thousands of flops per bounce.
+// thousands of flops per bounce. The taped mode adds 96 B per bounce row
+// per ray of writes (864 B per ray at depth 8). The mesh mode adds the
+// traversal: dependent reads of boxes and triangle rows from device memory
+// (L2-resident at 81,920 triangles, 5.2 MB of rows), divergent across the
+// warp, and one watertight test per triangle of each entered chunk.
 //
 // What the design does about it:
 // - The carry stays in registers for the whole path; nothing round-trips
@@ -43,6 +62,7 @@ namespace {
 
 using namespace pathtrace;
 
+template <int MESH, bool TAPED>
 __global__ void __launch_bounds__(THREADS)
     megakernel_fwd_kernel(const float* __restrict__ prims,
                           const int* __restrict__ meta, int P,
@@ -50,36 +70,109 @@ __global__ void __launch_bounds__(THREADS)
                           const float* __restrict__ rays,
                           const int* __restrict__ seeds,
                           const float* __restrict__ spect, int S,
-                          float* __restrict__ out, long long R, int max_depth,
-                          int rr_start) {
+                          float* __restrict__ out, float* __restrict__ tape_f,
+                          int* __restrict__ tape_i, long long R, int max_depth,
+                          int rr_start, const __grid_constant__ MeshParts mp,
+                          unsigned long long* __restrict__ work) {
   __shared__ Scene s;
-  load_scene(s, prims, meta, P, lights, n_lights);
+  load_scene(s, prims, meta, P, lights, n_lights, &mp);
 
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const Trace tr = {P, n_lights, S, spect, R, max_depth, rr_start};
-  Carry c = init_carry(rays, seeds, R, r);
-  for (int depth = 0; depth <= max_depth; ++depth)
-    if (!bounce<false>(s, tr, r, depth, c, nullptr)) break;
-  for (int j = 0; j < 4; ++j) out[j * R + r] = c.L[j];
+  if (MESH == MESH_COUNT) work_clear();
+  if (r < R) {
+    const Trace tr = {P, n_lights, S, spect, R, max_depth, rr_start};
+    Carry c = init_carry(rays, seeds, R, r);
+    bool alive = true;
+    for (int depth = 0; depth <= max_depth; ++depth) {
+      if (TAPED) tape_write(tape_f, tape_i, R, r, depth, c, alive);
+      if (alive)
+        alive = bounce<false, MESH>(s, tr, r, depth, c, nullptr);
+      else if (!TAPED)
+        break;
+    }
+    for (int j = 0; j < 4; ++j) out[j * R + r] = c.L[j];
+  }
+  if (MESH == MESH_COUNT) work_flush(work);
+}
+
+int check_args(int n_prims, int n_lights, int n_spectra, long long n_rays,
+               int max_depth) {
+  if (n_prims < 0 || n_prims > MAX_PRIMS || n_lights < 1 ||
+      n_lights > MAX_LIGHTS || n_spectra < 1 || n_rays < 0 || max_depth < 0 ||
+      (n_rays + THREADS - 1) / THREADS > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
 
+// part_ptrs: per mesh part (tri_rows, chunk_bbox, node_bbox, node_meta)
+// device pointers; part_info: per part (n_nodes, n_real_chunks), host
+// arrays. meta holds n_prims slot rows, then n_parts part rows. With no
+// part and no category-2 row, the plain-mode kernel runs. work, null or
+// (in mesh mode) 4 zeroed counters, receives the counted mesh mode's
+// casts, box tests, triangle plane tests and triangle inside tests.
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int megakernel_fwd(const float* prims, const int* meta, int n_prims,
                               const int* lights, int n_lights,
                               const float* rays, const int* seeds,
                               const float* spect, int n_spectra, float* out,
                               long long n_rays, int max_depth, int rr_start,
-                              void* stream) {
-  if (n_prims < 0 || n_prims > MAX_PRIMS || n_lights < 1 ||
-      n_lights > MAX_LIGHTS || n_spectra < 1 || n_rays < 0 ||
-      (n_rays + THREADS - 1) / THREADS > 0x7fffffffLL)
+                              int mesh_mode, int n_parts,
+                              const long long* part_ptrs, const int* part_info,
+                              unsigned long long* work, void* stream) {
+  int err = check_args(n_prims, n_lights, n_spectra, n_rays, max_depth);
+  if (err) return err;
+  if (n_parts < 0 || n_parts > MAX_PARTS || (n_parts > 0 && !mesh_mode) ||
+      (work && !mesh_mode))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
+  MeshParts mp = {};
+  mp.n = n_parts;
+  for (int i = 0; i < n_parts; ++i) {
+    mp.part[i].tri = (const float*)part_ptrs[4 * i + 0];
+    mp.part[i].cbox = (const float*)part_ptrs[4 * i + 1];
+    mp.part[i].nbox = (const float*)part_ptrs[4 * i + 2];
+    mp.part[i].nmeta = (const int*)part_ptrs[4 * i + 3];
+    mp.part[i].n_nodes = part_info[2 * i + 0];
+    mp.part[i].n_real_chunks = part_info[2 * i + 1];
+  }
   const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
-  megakernel_fwd_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  cudaStream_t st = (cudaStream_t)stream;
+  if (work)
+    megakernel_fwd_kernel<MESH_COUNT, false><<<blocks, THREADS, 0, st>>>(
+        prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
+        out, nullptr, nullptr, n_rays, max_depth, rr_start, mp, work);
+  else if (mesh_mode)
+    megakernel_fwd_kernel<MESH_WALK, false><<<blocks, THREADS, 0, st>>>(
+        prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
+        out, nullptr, nullptr, n_rays, max_depth, rr_start, mp, nullptr);
+  else
+    megakernel_fwd_kernel<MESH_NONE, false><<<blocks, THREADS, 0, st>>>(
+        prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
+        out, nullptr, nullptr, n_rays, max_depth, rr_start, mp, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The taped="full" forward of a non-mesh scene: out as megakernel_fwd, and
+// tape_f ((max_depth+1) * 16, n_rays), tape_i ((max_depth+1) * 8, n_rays).
+extern "C" int megakernel_fwd_taped(const float* prims, const int* meta,
+                                    int n_prims, const int* lights,
+                                    int n_lights, const float* rays,
+                                    const int* seeds, const float* spect,
+                                    int n_spectra, float* out, float* tape_f,
+                                    int* tape_i, long long n_rays,
+                                    int max_depth, int rr_start,
+                                    void* stream) {
+  int err = check_args(n_prims, n_lights, n_spectra, n_rays, max_depth);
+  if (err) return err;
+  if (n_rays == 0) return 0;
+  MeshParts mp = {};
+  mp.n = 0;
+  const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
+  megakernel_fwd_kernel<MESH_NONE, true><<<blocks, THREADS, 0,
+                                           (cudaStream_t)stream>>>(
       prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-      out, n_rays, max_depth, rr_start);
+      out, tape_f, tape_i, n_rays, max_depth, rr_start, mp, nullptr);
   return (int)cudaGetLastError();
 }

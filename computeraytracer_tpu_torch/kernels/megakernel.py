@@ -1,31 +1,47 @@
 """Path-tracing megakernels: plain torch versions and CUDA wrappers.
 
-Port of the plain mode (non-mesh, untaped) of
-computeraytracer_tpu/kernels/megakernel.py ``build_forward`` and of
-``build_backward``. What lives here:
+Port of computeraytracer_tpu/kernels/megakernel.py ``build_forward``
+(plain, mesh and ``taped="full"`` modes), ``build_backward`` and
+``build_backward_from_tape``. What lives here:
 
-- ``SceneStatic.from_scene`` (non-mesh scenes) and ``pack_prims``: the
-  scene structure and the (P, 12) primitive table the kernel reads.
-- ``forward_reference``: the plain torch version. It ports
+- ``SceneStatic.from_scene`` and ``pack_prims``: the scene structure
+  (uniform triangle runs of at least ``mesh_min`` triangles become
+  ``MeshPart``s, traced through the chunk BVH of ``kernels/meshpack.py``)
+  and the (P, 12) table of the unrolled primitive rows.
+- ``forward_reference``: the plain torch version of the forward. It ports
   ``make_bounce`` and the bounce loop of ``build_forward``, vectorised
   over the ray axis of (k, R) planes with ``torch.where`` masks, in the
-  JAX package's op order.
+  JAX package's op order. Mesh parts are scanned brute force in blocks of
+  triangles (``_scan_mesh_part``): the mesh tie rule does not depend on
+  the order in which triangles are tested.
 - ``forward``: the wrapper with the TPU kernel's contract
   ``prims (P, 12) f32, rays (6, R) f32, seeds (4, R) u32 values,
-  spect (S*4, R) f32 -> radiance (4, R) f32``. CPU tensors run
-  ``forward_reference``; CUDA tensors launch the hand-written kernel in
-  ``csrc/megakernel_fwd.cu``. There is no other route.
-- ``backward_reference``: the plain torch backward, autograd of
-  ``forward_reference``; ``backward``: its wrapper, with the contract of
-  ``build_backward`` (``... , dL (4, R) -> d_prims (P, 12), d_rays
-  (6, R), d_spect (S*4, R)``), launching ``csrc/megakernel_bwd.cu`` for
-  CUDA tensors.
-- ``TraceFn``: the autograd Function whose forward is ``forward`` and
-  whose backward is ``backward`` (the analogue of the JAX package's
-  ``tracer/pallas.py`` ``_call_with_vjp``).
+  spect (S*4, R) f32, *mesh_arrays -> radiance (4, R) f32``, where
+  mesh_arrays is (tri_rows, chunk_bbox, node_bbox, node_meta) per mesh
+  part. CPU tensors run ``forward_reference``; CUDA tensors launch the
+  hand-written kernel in ``csrc/megakernel_fwd.cu``. There is no other
+  route.
+- ``forward_taped_reference`` / ``forward_taped``: the forward that also
+  returns the ``taped="full"`` tape, every bounce's input carry (the
+  kernel ``megakernel_fwd_taped``); ``tape_to_jax`` turns it into the JAX
+  package's three tape arrays.
+- ``backward_reference`` / ``backward``: the retrace backward
+  (``build_backward``, ``csrc/megakernel_bwd.cu``), ``... , dL (4, R) ->
+  d_prims (P, 12), d_rays (6, R), d_spect (S*4, R)``.
+- ``backward_from_tape_reference`` / ``backward_from_tape``: the
+  tape-fed backward (``build_backward_from_tape``,
+  ``csrc/megakernel_bwd_tape.cu``), ``prims, spect, tape_f, tape_i, dL
+  -> d_prims, d_rays, d_spect``.
+- ``TraceFn`` and ``TraceTapedFn``: the autograd Functions, analogues of
+  the JAX package's ``tracer/pallas.py`` ``_call_with_vjp`` and
+  ``_call_taped``.
+
+Gradients of mesh scenes (mesh parts and triangle rows) arrive with slice
+4 of the port; the backward wrappers and both Functions raise for them
+before any launch.
 
 Seeds are int64 tensors holding u32 values (ops/rng.py); the kernel gets
-an int32 tensor with the same bit pattern.
+an int32 tensor with the same bit pattern, and the tape holds them so.
 """
 
 from __future__ import annotations
@@ -34,35 +50,66 @@ import ctypes
 import dataclasses
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from computeraytracer_tpu_torch import config as C
 from computeraytracer_tpu_torch.kernels import _build
+from computeraytracer_tpu_torch.kernels import meshpack
+from computeraytracer_tpu_torch.ops import intersect as isect
 from computeraytracer_tpu_torch.ops import rng
 from computeraytracer_tpu_torch.ops.camera import sqrt
 
 T_MIN = 0.001
 ETA1, ETA2 = 1.0, 1.5
+ARRAYS_PER_PART = 4  # tri_rows, chunk_bbox, node_bbox, node_meta
 
-# Bounds of the CUDA kernel's shared-memory tables (csrc/megakernel_fwd.cu).
+# Bounds of the CUDA kernels' shared-memory tables (csrc/bounce.cuh): the
+# unrolled rows, lights and mesh parts.
 MAX_PRIMS = 256
 MAX_LIGHTS = 64
 MAX_SPECTRA = 1024
+MAX_PARTS = 8
 
-# Kernel launches made by ``forward`` and by ``backward`` (CPU calls do
-# not count).
+# Rays x triangles per block of the plain mesh scan (_scan_mesh_part).
+MESH_BLOCK = 1 << 22
+
+# Kernel launches, counted by each wrapper where it launches its kernel
+# (CPU calls launch nothing and do not count): the forward in its plain
+# mode and in its mesh mode, the taped forward, the retrace backward and
+# the tape-fed backward.
 launches = 0
+launches_mesh = 0
+launches_taped = 0
 launches_bwd = 0
+launches_bwd_tape = 0
+
+MESH_GRADS = ("gradients of mesh scenes (mesh parts and triangle rows) "
+              "arrive with slice 4 of the port (build_forward(taped=True), "
+              "the guided replay and the triangle adjoint)")
+
+
+class MeshPart(NamedTuple):
+    """A contiguous run of uniform-material triangles traced through the
+    chunk BVH (kernels/meshpack.py) instead of the unrolled scan."""
+
+    start: int             # first primitive row of the run
+    count: int             # number of triangles
+    n_chunks: int          # ceil(count / 128)
+    material: int
+    emission_idx: int
+    reflectance_idx: int
 
 
 @dataclasses.dataclass(frozen=True)
 class SceneStatic:
     """Non-differentiable scene structure (hashable).
 
-    rows lists the original primitive id of each packed slot; the other
+    rows lists the original primitive id of each unrolled slot; the other
     tuples are aligned with it (categories: 0 patch, 1 sphere, 2 tri).
+    Large uniform triangle runs are mesh_parts instead.
     """
 
     rows: tuple
@@ -74,28 +121,67 @@ class SceneStatic:
     n_spectra: int
     mesh_parts: tuple = ()
 
+    @property
+    def mesh_mode(self) -> bool:
+        """Whether the forward runs in mesh mode: mesh parts or triangle
+        rows."""
+        return bool(self.mesh_parts) or 2 in self.categories
+
     @classmethod
-    def from_scene(cls, scene) -> "SceneStatic":
-        """Structure of a non-mesh scene: every row is scanned in order."""
+    def from_scene(cls, scene, mesh_min: int = 256) -> "SceneStatic":
+        """Maximal runs of at least mesh_min non-light triangles with the
+        same material and spectra become mesh parts; every other row is
+        scanned in order (the JAX package's SceneStatic.from_scene)."""
         p = scene.primitives
-        cat = p.category.tolist()
+        cat = [int(c) for c in p.category.tolist()]
+        mat = [int(m) for m in p.material.tolist()]
+        emi = [int(e) for e in p.emission.tolist()]
+        ref = [int(r) for r in p.reflectance.tolist()]
+        n = len(cat)
+        parts = []
+        in_mesh = [False] * n
+        i = 0
+        while i < n:
+            if cat[i] == 2 and mat[i] != C.LIGHT:
+                j = i
+                while (j < n and cat[j] == 2 and mat[j] == mat[i]
+                       and emi[j] == emi[i] and ref[j] == ref[i]):
+                    j += 1
+                if j - i >= mesh_min:
+                    parts.append(MeshPart(
+                        start=i, count=j - i,
+                        n_chunks=-(-(j - i) // meshpack.TRIS_PER_CHUNK),
+                        material=mat[i], emission_idx=emi[i],
+                        reflectance_idx=ref[i]))
+                    in_mesh[i:j] = [True] * (j - i)
+                i = j
+            else:
+                i += 1
+        rows = tuple(r for r in range(n) if not in_mesh[r])
         return cls(
-            rows=tuple(range(len(cat))),
-            categories=tuple(int(c) for c in cat),
-            materials=tuple(int(m) for m in p.material.tolist()),
-            emission_idx=tuple(int(e) for e in p.emission.tolist()),
-            reflectance_idx=tuple(int(r) for r in p.reflectance.tolist()),
+            rows=rows,
+            categories=tuple(cat[r] for r in rows),
+            materials=tuple(mat[r] for r in rows),
+            emission_idx=tuple(emi[r] for r in rows),
+            reflectance_idx=tuple(ref[r] for r in rows),
             light_rows=tuple(int(x) for x in scene.lights.prim_index.tolist()),
             n_spectra=int(scene.spectra.shape[0]),
+            mesh_parts=tuple(parts),
         )
 
 
-def pack_prims(scene) -> torch.Tensor:
-    """(P, 12) f32: [origin/center, edge1/radius, edge2, pad]; sphere
-    rows carry the radius at column 3."""
+def pack_prims(scene, static: SceneStatic | None = None) -> torch.Tensor:
+    """(P, 12) f32: [origin/center/v0, edge1/radius/v1, edge2/v2, pad];
+    sphere rows carry the radius at column 3. With a static that has mesh
+    parts, only its unrolled rows (the mesh geometry travels in the
+    packs of kernels/meshpack.py); the row gather is differentiable."""
     p = scene.primitives
-    return torch.cat([p.data1, p.data2, p.data3, torch.zeros_like(p.data1)],
-                     dim=-1).contiguous()
+    full = torch.cat([p.data1, p.data2, p.data3, torch.zeros_like(p.data1)],
+                     dim=-1)
+    if static is not None and static.mesh_parts:
+        full = full[torch.tensor(static.rows, dtype=torch.int64,
+                                 device=full.device)]
+    return full.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +242,11 @@ def _patch_frame(row):
     return e1, e2, n0, inv_e1, inv_e2
 
 
-def _scan_primitives(static, prims, o, d, exclude):
+def _scan_primitives(static, prims, o, d, exclude, mesh=()):
     """In-order closest-hit scan: ``t <= best`` lets the LAST hit win
-    ties (the coplanar ceiling light depends on it)."""
+    ties (the coplanar ceiling light depends on it). Triangle rows take
+    the watertight test; then each mesh part of ``mesh`` ((part, arrays)
+    pairs) is scanned under the mesh tie rule."""
     shape = o[0].shape
     dev = o[0].device
     zero = torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -167,10 +255,24 @@ def _scan_primitives(static, prims, o, d, exclude):
     pos = (zero, zero, zero)
     nrm = (zero, zero, zero)
     d_dot_d = _vdot(d, d)
+    wt = (isect.watertight_setup(o, d)
+          if mesh or 2 in static.categories else None)
     for slot, (i, cat) in enumerate(zip(static.rows, static.categories)):
         row = prims[slot]
         not_excluded = exclude != i
-        if cat == 0:
+        if cat == 2:
+            v0 = (row[0], row[1], row[2])
+            v1 = (row[3], row[4], row[5])
+            v2 = (row[6], row[7], row[8])
+            n0 = isect.unit_normal(v0, v1, v2)
+            t, flip, grazing = isect.plane_t(n0, v0, o, d)
+            p = _vadd(o, _vscale(t, d))
+            valid = (not_excluded & ~grazing
+                     & isect.watertight_inside(wt, v0, v1, v2)
+                     & (t >= T_MIN) & (t <= best_t))
+            sgn = torch.where(flip, -1.0, 1.0)
+            n_eff = (sgn * n0[0], sgn * n0[1], sgn * n0[2])
+        elif cat == 0:
             p0 = (row[0], row[1], row[2])
             e1, e2, n0, inv_e1, inv_e2 = _patch_frame(row)
             ndotd = n0[0] * d[0] + n0[1] * d[1] + n0[2] * d[2]
@@ -209,18 +311,63 @@ def _scan_primitives(static, prims, o, d, exclude):
             p = _vadd(o, _vscale(t, d))
             n_eff = _vnormalize(_vsub(p, cx))
         else:
-            raise NotImplementedError(
-                "triangle rows arrive with the mesh slice of the port")
+            raise ValueError(f"unknown primitive category {cat}")
         best_t = torch.where(valid, t, best_t)
         best_i = torch.where(valid, i, best_i)
         pos = _vwhere(valid, p, pos)
         nrm = _vwhere(valid, n_eff, nrm)
+    for _, arrays in mesh:  # the plain scan needs only tri_rows
+        best_t, best_i, pos, nrm = _scan_mesh_part(
+            arrays[0], o, d, exclude, wt, best_t, best_i, pos, nrm)
     return {"t": best_t, "idx": best_i, "pos": pos, "nrm": nrm,
             "hit": best_i >= 0}
 
 
-def _bounce(static, prims, spect, state, depth, max_depth, rr_start):
-    """One bounce of make_bounce over all lanes (JAX op order)."""
+def _scan_mesh_part(tri_rows, o, d, exclude, wt, best_t, best_i, pos, nrm):
+    """Closest hit against every packed triangle of one mesh part, in
+    blocks of triangles: the plain version of the kernels' chunk-BVH
+    traversal (megakernel.py:337 _scan_mesh_part). A triangle wins when
+    ``t < best`` or ``t == best`` with a higher id; that rule picks the
+    least (t, -id) whatever the order of the tests, so a block reduces to
+    its own winner and folds into the running best. Padding triangles
+    (id -1) never win."""
+    tri = tri_rows.reshape(-1, meshpack.LANES_PER_TRI)
+    R = o[0].shape[0]
+    block = max(1, MESH_BLOCK // max(R, 1))
+    col = lambda x: x[:, None]
+    oc, dc = tuple(map(col, o)), tuple(map(col, d))
+    wtc = tuple(map(col, wt))
+    ex = col(exclude)
+    for a in range(0, tri.shape[0], block):
+        blk = tri[a:a + block]
+        w = lambda k: blk[:, k][None, :]
+        v0, v1, v2 = (w(0), w(1), w(2)), (w(3), w(4), w(5)), (w(6), w(7), w(8))
+        n0 = (w(10), w(11), w(12))
+        tid = blk[:, 9].to(torch.int64)[None, :]
+        t, flip, grazing = isect.plane_t(n0, v0, oc, dc)
+        valid = ((ex != tid) & (tid >= 0) & ~grazing
+                 & isect.watertight_inside(wtc, v0, v1, v2) & (t >= T_MIN))
+        tv = torch.where(valid, t, math.inf)
+        t_blk = tv.amin(dim=1)
+        cand = valid & (tv == t_blk[:, None])
+        id_blk = torch.where(cand, tid, -1).amax(dim=1)
+        better = (id_blk >= 0) & ((t_blk < best_t)
+                                  | ((t_blk == best_t) & (id_blk > best_i)))
+        j = (cand & (tid == id_blk[:, None])).to(torch.int8).argmax(dim=1)
+        sgn = torch.where(flip.gather(1, j[:, None])[:, 0], -1.0, 1.0)
+        n_w = tuple(sgn * blk[:, 10 + c][j] for c in range(3))
+        p = _vadd(o, _vscale(t_blk, d))
+        best_t = torch.where(better, t_blk, best_t)
+        best_i = torch.where(better, id_blk, best_i)
+        pos = _vwhere(better, p, pos)
+        nrm = _vwhere(better, n_w, nrm)
+    return best_t, best_i, pos, nrm
+
+
+def _bounce(static, prims, spect, state, depth, max_depth, rr_start,
+            mesh=()):
+    """One bounce of make_bounce over all lanes (JAX op order); mesh is
+    the (part, arrays) pairs of the scene's mesh parts."""
     S = static.n_spectra
     n_lights = len(static.light_rows)
     lslot = {lr: static.rows.index(lr) for lr in static.light_rows}
@@ -254,7 +401,7 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start):
     zero = torch.zeros((R,), dtype=torch.float32, device=dev)
     inv_pi = 1.0 / math.pi
 
-    hit = _scan_primitives(static, prims, o, d, exclude)
+    hit = _scan_primitives(static, prims, o, d, exclude, mesh)
     lane_hit = active & hit["hit"]
     active = lane_hit
     exclude = torch.where(lane_hit, hit["idx"], exclude)
@@ -271,6 +418,16 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start):
         elif m == C.GLASS:
             mat_glass = mat_glass | sel
         elif m == C.MIRROR:
+            mat_mirror = mat_mirror | sel
+    part_sels = []
+    for part, _ in mesh:  # mesh parts are never lights
+        sel = (idx >= part.start) & (idx < part.start + part.count)
+        part_sels.append(sel)
+        if part.material == C.DIFFUSE:
+            mat_diffuse = mat_diffuse | sel
+        elif part.material == C.GLASS:
+            mat_glass = mat_glass | sel
+        elif part.material == C.MIRROR:
             mat_mirror = mat_mirror | sel
 
     # ---- emissive hit
@@ -324,6 +481,10 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start):
             sel = idx == i
             refl = gets(ri)
             brdf = [torch.where(sel, refl[j], brdf[j]) for j in range(4)]
+    for (part, _), sel in zip(mesh, part_sels):
+        if part.material == C.DIFFUSE:
+            refl = gets(part.reflectance_idx)
+            brdf = [torch.where(sel, refl[j], brdf[j]) for j in range(4)]
     brdf = [b * inv_pi for b in brdf]
 
     li = torch.clamp((u_l * float(n_lights)).to(torch.int64), 0, n_lights - 1)
@@ -336,7 +497,8 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start):
         l_e2 = (row[6], row[7], row[8])
         p_l = tuple(l_o[c] + u_p * l_e1[c] + v_p * l_e2[c] for c in range(3))
         ldir = _vnormalize(_vsub(p_l, hit["pos"]))
-        sh = _scan_primitives(static, prims, hit["pos"], ldir, hit["idx"])
+        sh = _scan_primitives(static, prims, hit["pos"], ldir, hit["idx"],
+                              mesh)
         unocc = sh["hit"] & (sh["idx"] == lr)
         cos_t = torch.clamp(_vdot(hit["nrm"], ldir), min=0.0)
         pdf_l = light_pdf(lr, sh["nrm"], ldir, sh["pos"], hit["pos"])
@@ -437,19 +599,13 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start):
             "nondiff": (seed, exclude, specular, in_trans, active)}
 
 
-def forward_reference(static: SceneStatic, max_depth: int, rr_start: int,
-                      prims: torch.Tensor, rays: torch.Tensor,
-                      seeds: torch.Tensor, spect: torch.Tensor
-                      ) -> torch.Tensor:
-    """Plain torch forward: (4, R) radiance, on the inputs' device.
-
-    A bounce over all-dead rays is the identity (every update is masked
-    by ``active``), so the loop stops once no ray is alive."""
+def _init_state(rays, seeds):
+    """The carry camera rays start with."""
     R = rays.shape[1]
     dev = rays.device
     one = torch.ones((R,), dtype=torch.float32, device=dev)
     zero = torch.zeros((R,), dtype=torch.float32, device=dev)
-    state = {
+    return {
         "diff": ((rays[0], rays[1], rays[2]), (rays[3], rays[4], rays[5]),
                  (zero,) * 4, (one,) * 4, one, one),
         "nondiff": (tuple(seeds.unbind(0)),
@@ -458,60 +614,169 @@ def forward_reference(static: SceneStatic, max_depth: int, rr_start: int,
                     torch.zeros((R,), dtype=torch.bool, device=dev),
                     torch.ones((R,), dtype=torch.bool, device=dev)),
     }
+
+
+def _mesh(static, mesh_arrays):
+    """(part, arrays) pairs of the static's mesh parts."""
+    k = ARRAYS_PER_PART
+    return tuple((part, mesh_arrays[k * i:k * (i + 1)])
+                 for i, part in enumerate(static.mesh_parts))
+
+
+def forward_reference(static: SceneStatic, max_depth: int, rr_start: int,
+                      prims: torch.Tensor, rays: torch.Tensor,
+                      seeds: torch.Tensor, spect: torch.Tensor,
+                      *mesh_arrays) -> torch.Tensor:
+    """Plain torch forward: (4, R) radiance, on the inputs' device.
+
+    A bounce over all-dead rays is the identity (every update is masked
+    by ``active``), so the loop stops once no ray is alive."""
+    mesh = _mesh(static, mesh_arrays)
+    state = _init_state(rays, seeds)
     for depth in range(max_depth + 1):
         if not bool(state["nondiff"][4].any()):
             break
         state = _bounce(static, prims, spect, state, depth, max_depth,
-                        rr_start)
+                        rr_start, mesh)
     return torch.stack(state["diff"][2])
 
 
 # ---------------------------------------------------------------------------
-# wrapper
+# the taped="full" tape: each bounce's input carry
+# ---------------------------------------------------------------------------
+
+TAPE_F = 16  # o3 d3 L4 beta4 last_pdf eta_scale
+TAPE_I = 8   # seed words (u32 bits), exclude, specular, in_trans, active
+
+
+def _u32_bits(x):
+    """int64 u32 values -> int32 tensor with the same bit pattern."""
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def _tape_row(state):
+    """(16, R) f32 and (8, R) i32 planes of one input carry."""
+    o, d, L, beta, last_pdf, eta_scale = state["diff"]
+    seed, exclude, specular, in_trans, active = state["nondiff"]
+    f = torch.stack([*o, *d, *L, *beta, last_pdf, eta_scale])
+    i = torch.stack([*(_u32_bits(w) for w in seed), exclude.to(torch.int32),
+                     specular.to(torch.int32), in_trans.to(torch.int32),
+                     active.to(torch.int32)])
+    return f, i
+
+
+def _state_from_tape(f, i):
+    """The carry of one tape row ((16, R) float planes, (8, R) i32)."""
+    planes = tuple(f.unbind(0))
+    diff = (planes[0:3], planes[3:6], planes[6:10], planes[10:14],
+            planes[14], planes[15])
+    seed = tuple(w.to(torch.int64) & 0xFFFFFFFF for w in i[0:4])
+    nondiff = (seed, i[4].to(torch.int64), i[5] != 0, i[6] != 0, i[7] != 0)
+    return {"diff": diff, "nondiff": nondiff}
+
+
+def forward_taped_reference(static: SceneStatic, max_depth: int,
+                            rr_start: int, prims: torch.Tensor,
+                            rays: torch.Tensor, seeds: torch.Tensor,
+                            spect: torch.Tensor):
+    """Plain torch taped forward: (radiance (4, R), tape_f
+    ((max_depth+1) * 16, R) f32, tape_i ((max_depth+1) * 8, R) i32), the
+    tape holding every bounce's input carry. Rows after a ray died hold
+    its final carry with active = 0, as build_forward(taped="full")
+    writes them."""
+    state = _init_state(rays, seeds)
+    rows_f, rows_i = [], []
+    for depth in range(max_depth + 1):
+        f, i = _tape_row(state)
+        rows_f.append(f)
+        rows_i.append(i)
+        if bool(state["nondiff"][4].any()):
+            state = _bounce(static, prims, spect, state, depth, max_depth,
+                            rr_start)
+    return (torch.stack(state["diff"][2]), torch.cat(rows_f).contiguous(),
+            torch.cat(rows_i).contiguous())
+
+
+def tape_to_jax(tape_f: torch.Tensor, tape_i: torch.Tensor):
+    """The port's tape as the JAX package's taped="full" arrays, NumPy:
+    (tape_f (D, 16, R) f32, tape_u (D, 4, R) u32 seed words,
+    tape_i (D, 4, R) i32 exclude / specular / in_trans / active)."""
+    R = tape_f.shape[1]
+    f = tape_f.detach().cpu().reshape(-1, TAPE_F, R).numpy()
+    i = tape_i.detach().cpu().reshape(-1, TAPE_I, R).numpy()
+    return f, i[:, :4].view("uint32").copy(), i[:, 4:].copy()
+
+
+# ---------------------------------------------------------------------------
+# wrappers
 # ---------------------------------------------------------------------------
 
 
+def _require_no_mesh(static: SceneStatic, mesh_arrays=()) -> None:
+    if static.mesh_mode or mesh_arrays:
+        raise NotImplementedError(MESH_GRADS)
+
+
+def _check_tensor(name, t, shape, dtype, device):
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(f"{name}: expected {tuple(shape)} {dtype}, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, rays on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def _check(static: SceneStatic, prims, rays, seeds, spect, mesh_arrays):
-    if static.mesh_parts or mesh_arrays:
-        raise NotImplementedError(
-            "mesh parts arrive with the mesh slice of the port")
-    if 2 in static.categories:
-        raise NotImplementedError(
-            "triangle rows (category 2) arrive with the mesh slice of the "
-            "port")
     P = len(static.rows)
     S = static.n_spectra
     if not static.light_rows:
         raise ValueError("scene has no lights")
     if P > MAX_PRIMS or len(static.light_rows) > MAX_LIGHTS \
-            or S > MAX_SPECTRA:
+            or S > MAX_SPECTRA or len(static.mesh_parts) > MAX_PARTS:
         raise ValueError(
-            f"kernel bounds: at most {MAX_PRIMS} primitives, {MAX_LIGHTS} "
-            f"lights, {MAX_SPECTRA} spectra (got {P}, "
-            f"{len(static.light_rows)}, {S})")
+            f"kernel bounds: at most {MAX_PRIMS} unrolled primitives, "
+            f"{MAX_LIGHTS} lights, {MAX_SPECTRA} spectra, {MAX_PARTS} mesh "
+            f"parts (got {P}, {len(static.light_rows)}, {S}, "
+            f"{len(static.mesh_parts)})")
+    if len(mesh_arrays) != ARRAYS_PER_PART * len(static.mesh_parts):
+        raise ValueError(
+            f"{len(mesh_arrays)} mesh arrays for {len(static.mesh_parts)} "
+            f"mesh parts: expected (tri_rows, chunk_bbox, node_bbox, "
+            f"node_meta) per part")
     R = rays.shape[-1] if rays.dim() == 2 else -1
+    dev = rays.device
     for name, t, shape, dtype in (
             ("prims", prims, (P, 12), torch.float32),
             ("rays", rays, (6, R), torch.float32),
             ("seeds", seeds, (4, R), torch.int64),
             ("spect", spect, (S * 4, R), torch.float32)):
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name}: expected {shape} {dtype}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-        if t.device != rays.device:
-            raise ValueError(f"{name} is on {t.device}, rays on "
-                             f"{rays.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _check_tensor(name, t, shape, dtype, dev)
+    for k, part in enumerate(static.mesh_parts):
+        tri, cbox, nbox, nmeta = mesh_arrays[ARRAYS_PER_PART * k:
+                                             ARRAYS_PER_PART * (k + 1)]
+        n_real = -(-part.count // meshpack.TRIS_PER_CHUNK)
+        for name, t, shape, dtype in (
+                ("tri_rows", tri, (n_real * meshpack.ROWS_PER_CHUNK, 128),
+                 torch.float32),
+                ("chunk_bbox", cbox, (cbox.shape[0], 8), torch.float32),
+                ("node_bbox", nbox, (nmeta.shape[0], 8), torch.float32),
+                ("node_meta", nmeta, (nbox.shape[0], 8), torch.int32)):
+            _check_tensor(f"mesh part {k} {name}", t, shape, dtype, dev)
+        if cbox.shape[0] < n_real:
+            raise ValueError(f"mesh part {k}: {cbox.shape[0]} chunk boxes "
+                             f"for {n_real} chunks")
 
 
 @functools.lru_cache(maxsize=16)
 def _tables(static: SceneStatic, device: torch.device):
-    """int32 kernel tables: per slot (row, category, material, emission,
-    reflectance), per light (row, slot)."""
+    """int32 kernel tables: per slot, then per mesh part, (row, category,
+    material, emission, reflectance); per light (row, slot)."""
     meta = torch.tensor(
         list(zip(static.rows, static.categories, static.materials,
-                 static.emission_idx, static.reflectance_idx)),
+                 static.emission_idx, static.reflectance_idx))
+        + [(p.start, 2, p.material, p.emission_idx, p.reflectance_idx)
+           for p in static.mesh_parts],
         dtype=torch.int32).reshape(-1, 5)
     lights = torch.tensor(
         [(lr, static.rows.index(lr)) for lr in static.light_rows],
@@ -519,59 +784,128 @@ def _tables(static: SceneStatic, device: torch.device):
     return meta.to(device), lights.to(device)
 
 
-def _signature(lib):
-    fn = lib.megakernel_fwd
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, i, p, p, p, i, p, ctypes.c_longlong, i, i, p]
+# Argument kinds of each C entry point (csrc/*.cu): "p" a pointer or the
+# stream, "i" an int, "q" a long long.
+SIGNATURES = {
+    "megakernel_fwd": "ppipipppipqiiiipppp",
+    "megakernel_fwd_taped": "ppipipppipppqiip",
+    "megakernel_bwd": "ppipipppipppppppqiip",
+    "megakernel_bwd_tape": "ppipipipppppppqiip",
+}
+
+
+def _fn(lib_name, fn_name):
+    """The typed C entry point fn_name of csrc/<lib_name>.cu."""
+    fn = getattr(_build.library(lib_name), fn_name)
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+             "q": ctypes.c_longlong}
+    fn.argtypes = [kinds[k] for k in SIGNATURES[fn_name]]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _signature_bwd(lib):
-    fn = lib.megakernel_bwd
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, i, p, p, p, i, p, p, p, p, p, p, p,
-                   ctypes.c_longlong, i, i, p]
-    fn.restype = ctypes.c_int
-    return fn
+def _launch(name, fn, device, *args):
+    """Call a kernel entry point on the device's current stream; raise on
+    a CUDA error."""
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def _seeds32(seeds):
-    """int64 u32 values -> int32 tensor with the same bit pattern."""
-    return torch.where(seeds >= 2 ** 31, seeds - 2 ** 32, seeds).to(
-        torch.int32)
+def _require_cuda(device):
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
 
 
 def forward(static: SceneStatic, max_depth: int, rr_start: int,
             prims: torch.Tensor, rays: torch.Tensor, seeds: torch.Tensor,
-            spect: torch.Tensor, *mesh_arrays) -> torch.Tensor:
+            spect: torch.Tensor, *mesh_arrays,
+            work: torch.Tensor | None = None) -> torch.Tensor:
     """Forward megakernel -> radiance (4, R) f32.
 
     CPU tensors run ``forward_reference``. CUDA tensors launch the CUDA
-    kernel, built from csrc/megakernel_fwd.cu at first use; a failed
-    build or launch raises."""
-    global launches
+    kernel, built from csrc/megakernel_fwd.cu at first use, in its mesh
+    mode when the scene has mesh parts or triangle rows; a failed build or
+    launch raises. ``work``, a (4,) int64 CUDA tensor, makes the mesh mode
+    add its work to it: casts (closest-hit and shadow scans), box tests,
+    triangle plane tests and triangle inside tests. It selects a build of
+    the same code that also counts, for a kernel's operation count; the
+    plain version counts nothing."""
+    global launches, launches_mesh
     _check(static, prims, rays, seeds, spect, mesh_arrays)
-    if rays.device.type == "cpu":
+    dev = rays.device
+    if work is not None:
+        if not static.mesh_mode:
+            raise ValueError("work counts are taken in the mesh mode only")
+        _check_tensor("work", work, (4,), torch.int64, dev)
+    if dev.type == "cpu":
+        if work is not None:
+            raise ValueError("work counts are taken on the card: the plain "
+                             "version counts nothing")
         return forward_reference(static, max_depth, rr_start, prims, rays,
-                                 seeds, spect)
-    if rays.device.type != "cuda":
-        raise ValueError(f"unsupported device {rays.device}")
-    fn = _signature(_build.library("megakernel_fwd"))
-    meta, lights = _tables(static, rays.device)
-    seeds32 = _seeds32(seeds)
+                                 seeds, spect, *mesh_arrays)
+    _require_cuda(dev)
+    fn = _fn("megakernel_fwd", "megakernel_fwd")
+    meta, lights = _tables(static, dev)
     R = rays.shape[1]
-    out = torch.empty((4, R), dtype=torch.float32, device=rays.device)
-    with torch.cuda.device(rays.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(prims.data_ptr(), meta.data_ptr(), meta.shape[0],
-                lights.data_ptr(), lights.shape[0], rays.data_ptr(),
-                seeds32.data_ptr(), spect.data_ptr(), static.n_spectra,
-                out.data_ptr(), R, int(max_depth), int(rr_start), stream)
-    if rc != 0:
-        raise RuntimeError(f"megakernel_fwd launch failed: CUDA error {rc}")
-    launches += 1
+    out = torch.empty((4, R), dtype=torch.float32, device=dev)
+    n_parts = len(static.mesh_parts)
+    ptrs = (ctypes.c_longlong * max(1, 4 * n_parts))(
+        *(a.data_ptr() for a in mesh_arrays))
+    info = (ctypes.c_int * max(1, 2 * n_parts))(*(
+        v for k in range(n_parts)
+        for v in (mesh_arrays[4 * k + 3].shape[0],
+                  mesh_arrays[4 * k].shape[0] // meshpack.ROWS_PER_CHUNK)))
+    seeds32 = _u32_bits(seeds)
+    _launch("megakernel_fwd", fn, dev, prims.data_ptr(), meta.data_ptr(),
+            len(static.rows), lights.data_ptr(), lights.shape[0],
+            rays.data_ptr(), seeds32.data_ptr(), spect.data_ptr(),
+            static.n_spectra, out.data_ptr(), R, int(max_depth),
+            int(rr_start), int(static.mesh_mode), n_parts,
+            ctypes.addressof(ptrs), ctypes.addressof(info),
+            None if work is None else work.data_ptr())
+    if static.mesh_mode:
+        launches_mesh += 1
+    else:
+        launches += 1
     return out
+
+
+def forward_taped(static: SceneStatic, max_depth: int, rr_start: int,
+                  prims: torch.Tensor, rays: torch.Tensor,
+                  seeds: torch.Tensor, spect: torch.Tensor):
+    """Taped forward megakernel (build_forward(taped="full")) ->
+    (radiance (4, R), tape_f ((max_depth+1) * 16, R) f32, tape_i
+    ((max_depth+1) * 8, R) i32).
+
+    CPU tensors run ``forward_taped_reference``; CUDA tensors launch
+    ``megakernel_fwd_taped`` of csrc/megakernel_fwd.cu. Non-mesh scenes
+    only: the tape feeds the tape-fed backward."""
+    global launches_taped
+    _require_no_mesh(static)
+    _check(static, prims, rays, seeds, spect, ())
+    dev = rays.device
+    if dev.type == "cpu":
+        return forward_taped_reference(static, max_depth, rr_start, prims,
+                                       rays, seeds, spect)
+    _require_cuda(dev)
+    fn = _fn("megakernel_fwd", "megakernel_fwd_taped")
+    meta, lights = _tables(static, dev)
+    R = rays.shape[1]
+    D = int(max_depth) + 1
+    out = torch.empty((4, R), dtype=torch.float32, device=dev)
+    tape_f = torch.empty((D * TAPE_F, R), dtype=torch.float32, device=dev)
+    tape_i = torch.empty((D * TAPE_I, R), dtype=torch.int32, device=dev)
+    seeds32 = _u32_bits(seeds)
+    _launch("megakernel_fwd_taped", fn, dev, prims.data_ptr(),
+            meta.data_ptr(), len(static.rows), lights.data_ptr(),
+            lights.shape[0], rays.data_ptr(), seeds32.data_ptr(),
+            spect.data_ptr(), static.n_spectra, out.data_ptr(),
+            tape_f.data_ptr(), tape_i.data_ptr(), R, int(max_depth),
+            int(rr_start))
+    launches_taped += 1
+    return out, tape_f, tape_i
 
 
 # ---------------------------------------------------------------------------
@@ -590,6 +924,7 @@ def backward_reference(static: SceneStatic, max_depth: int, rr_start: int,
     sums d_prims over the bands in order, so that the autograd graph
     (some 10^4 saved (R,) tensors per band at depth 8) stays bounded.
     Returns (d_prims (P, 12), d_rays (6, R), d_spect (S*4, R))."""
+    _require_no_mesh(static)
     R = rays.shape[1]
     step = R if not ray_chunk else int(ray_chunk)
     d_prims = torch.zeros_like(prims)
@@ -613,64 +948,150 @@ def backward_reference(static: SceneStatic, max_depth: int, rr_start: int,
     return d_prims, torch.cat(d_rays, dim=1), torch.cat(d_spect, dim=1)
 
 
+def backward_from_tape_reference(static: SceneStatic, max_depth: int,
+                                 rr_start: int, prims: torch.Tensor,
+                                 spect: torch.Tensor, tape_f: torch.Tensor,
+                                 tape_i: torch.Tensor, dL: torch.Tensor):
+    """Plain torch tape-fed backward (build_backward_from_tape): for each
+    depth from max_depth down to 0, rebuild the carry from its tape row,
+    run ``_bounce`` under autograd with respect to (prims, spect, the 16
+    carry planes) and pull the carry cotangent through it. A row in which
+    no ray is active is the identity and is skipped. d_rays is the
+    cotangent of the depth-0 row's o and d. Returns (d_prims (P, 12),
+    d_rays (6, R), d_spect (S*4, R))."""
+    _require_no_mesh(static)
+    R = tape_f.shape[1]
+    tf = tape_f.reshape(-1, TAPE_F, R)
+    ti = tape_i.reshape(-1, TAPE_I, R)
+    d_diff = [torch.zeros((R,), dtype=torch.float32, device=tape_f.device)
+              for _ in range(TAPE_F)]
+    d_diff[6:10] = list(dL.unbind(0))
+    d_prims = torch.zeros_like(prims)
+    d_spect = torch.zeros_like(spect)
+    for depth in range(tf.shape[0] - 1, -1, -1):
+        if not bool((ti[depth, 7] != 0).any()):
+            continue
+        p = prims.detach().requires_grad_(True)
+        sp = spect.detach().requires_grad_(True)
+        planes = tf[depth].detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            state = _state_from_tape(planes, ti[depth])
+            out = _bounce(static, p, sp, state, depth, max_depth, rr_start)
+            o, d, L, beta, last_pdf, eta_scale = out["diff"]
+            outs = torch.stack([*o, *d, *L, *beta, last_pdf, eta_scale])
+            gp, gs, gd = torch.autograd.grad(
+                outs, (p, sp, planes), grad_outputs=torch.stack(d_diff),
+                allow_unused=True)
+        if gp is not None:
+            d_prims = d_prims + gp
+        if gs is not None:
+            d_spect = d_spect + gs
+        d_diff = list(gd.unbind(0))
+    return d_prims, torch.stack(d_diff[0:6]), d_spect
+
+
+def _backward_outputs(prims, spect, R):
+    dev = prims.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    P = prims.shape[0]
+    return (torch.empty((P, 12), **f32), torch.empty((6, R), **f32),
+            torch.empty(tuple(spect.shape), **f32),
+            torch.empty(((R + 127) // 128, P * 12), **f32))
+
+
 def backward(static: SceneStatic, max_depth: int, rr_start: int,
              prims: torch.Tensor, rays: torch.Tensor, seeds: torch.Tensor,
-             spect: torch.Tensor, dL: torch.Tensor):
+             spect: torch.Tensor, dL: torch.Tensor, tape=None):
     """Backward megakernel -> (d_prims (P, 12), d_rays (6, R),
     d_spect (S*4, R)) for the radiance cotangent dL (4, R).
 
     CPU tensors run ``backward_reference``. CUDA tensors launch the CUDA
     kernel built from csrc/megakernel_bwd.cu; a failed build or launch
     raises. d_prims is summed in a fixed order, so two calls on the same
-    inputs give bit-equal results."""
+    inputs give bit-equal results. tape: optional (tape_f, tape_i) of
+    ``forward_taped``'s shapes that receives the replay's tape (scratch
+    otherwise; CUDA only)."""
     global launches_bwd
+    _require_no_mesh(static)
     _check(static, prims, rays, seeds, spect, ())
     R = rays.shape[1]
-    if tuple(dL.shape) != (4, R) or dL.dtype != torch.float32:
-        raise ValueError(f"dL: expected {(4, R)} {torch.float32}, got "
-                         f"{tuple(dL.shape)} {dL.dtype}")
-    if dL.device != rays.device:
-        raise ValueError(f"dL is on {dL.device}, rays on {rays.device}")
-    if not dL.is_contiguous():
-        raise ValueError("dL must be contiguous")
-    if rays.device.type == "cpu":
+    dev = rays.device
+    _check_tensor("dL", dL, (4, R), torch.float32, dev)
+    if dev.type == "cpu":
         return backward_reference(static, max_depth, rr_start, prims, rays,
                                   seeds, spect, dL)
-    if rays.device.type != "cuda":
-        raise ValueError(f"unsupported device {rays.device}")
-    fn = _signature_bwd(_build.library("megakernel_bwd"))
-    meta, lights = _tables(static, rays.device)
-    dev = rays.device
-    P = prims.shape[0]
+    _require_cuda(dev)
+    fn = _fn("megakernel_bwd", "megakernel_bwd")
+    meta, lights = _tables(static, dev)
     D = int(max_depth) + 1
-    f32 = dict(dtype=torch.float32, device=dev)
-    d_prims = torch.empty((P, 12), **f32)
-    d_rays = torch.empty((6, R), **f32)
-    d_spect = torch.empty(tuple(spect.shape), **f32)
+    d_prims, d_rays, d_spect, partial = _backward_outputs(prims, spect, R)
     if R == 0:
         return d_prims.zero_(), d_rays, d_spect
-    partial = torch.empty(((R + 127) // 128, P * 12), **f32)
-    tape_f = torch.empty((D * 16, R), **f32)
-    tape_i = torch.empty((D * 8, R), dtype=torch.int32, device=dev)
-    seeds32 = _seeds32(seeds)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(prims.data_ptr(), meta.data_ptr(), meta.shape[0],
-                lights.data_ptr(), lights.shape[0], rays.data_ptr(),
-                seeds32.data_ptr(), spect.data_ptr(), static.n_spectra,
-                dL.data_ptr(), d_prims.data_ptr(), partial.data_ptr(),
-                d_rays.data_ptr(), d_spect.data_ptr(), tape_f.data_ptr(),
-                tape_i.data_ptr(), R, int(max_depth), int(rr_start), stream)
-    if rc != 0:
-        raise RuntimeError(f"megakernel_bwd launch failed: CUDA error {rc}")
+    if tape is None:
+        tape = (torch.empty((D * TAPE_F, R), dtype=torch.float32, device=dev),
+                torch.empty((D * TAPE_I, R), dtype=torch.int32, device=dev))
+    tape_f, tape_i = tape
+    _check_tensor("tape_f", tape_f, (D * TAPE_F, R), torch.float32, dev)
+    _check_tensor("tape_i", tape_i, (D * TAPE_I, R), torch.int32, dev)
+    seeds32 = _u32_bits(seeds)
+    _launch("megakernel_bwd", fn, dev, prims.data_ptr(), meta.data_ptr(),
+            len(static.rows), lights.data_ptr(), lights.shape[0],
+            rays.data_ptr(), seeds32.data_ptr(), spect.data_ptr(),
+            static.n_spectra, dL.data_ptr(), d_prims.data_ptr(),
+            partial.data_ptr(), d_rays.data_ptr(), d_spect.data_ptr(),
+            tape_f.data_ptr(), tape_i.data_ptr(), R, int(max_depth),
+            int(rr_start))
     launches_bwd += 1
+    return d_prims, d_rays, d_spect
+
+
+def backward_from_tape(static: SceneStatic, max_depth: int, rr_start: int,
+                       prims: torch.Tensor, spect: torch.Tensor,
+                       tape_f: torch.Tensor, tape_i: torch.Tensor,
+                       dL: torch.Tensor):
+    """Tape-fed backward megakernel -> (d_prims (P, 12), d_rays (6, R),
+    d_spect (S*4, R)) from the tape of ``forward_taped`` and the radiance
+    cotangent dL (4, R).
+
+    CPU tensors run ``backward_from_tape_reference``; CUDA tensors launch
+    csrc/megakernel_bwd_tape.cu, whose reverse sweep is the retrace
+    kernel's: on the same tape both give bit-equal results."""
+    global launches_bwd_tape
+    _require_no_mesh(static)
+    P = len(static.rows)
+    R = spect.shape[-1] if spect.dim() == 2 else -1
+    dev = spect.device
+    D = int(max_depth) + 1
+    for name, t, shape, dtype in (
+            ("prims", prims, (P, 12), torch.float32),
+            ("spect", spect, (static.n_spectra * 4, R), torch.float32),
+            ("tape_f", tape_f, (D * TAPE_F, R), torch.float32),
+            ("tape_i", tape_i, (D * TAPE_I, R), torch.int32)):
+        _check_tensor(name, t, shape, dtype, dev)
+    _check_tensor("dL", dL, (4, R), torch.float32, dev)
+    if dev.type == "cpu":
+        return backward_from_tape_reference(static, max_depth, rr_start,
+                                            prims, spect, tape_f, tape_i, dL)
+    _require_cuda(dev)
+    fn = _fn("megakernel_bwd_tape", "megakernel_bwd_tape")
+    meta, lights = _tables(static, dev)
+    d_prims, d_rays, d_spect, partial = _backward_outputs(prims, spect, R)
+    if R == 0:
+        return d_prims.zero_(), d_rays, d_spect
+    _launch("megakernel_bwd_tape", fn, dev, prims.data_ptr(),
+            meta.data_ptr(), len(static.rows), lights.data_ptr(),
+            lights.shape[0], spect.data_ptr(), static.n_spectra,
+            tape_f.data_ptr(), tape_i.data_ptr(), dL.data_ptr(),
+            d_prims.data_ptr(), partial.data_ptr(), d_rays.data_ptr(),
+            d_spect.data_ptr(), R, int(max_depth), int(rr_start))
+    launches_bwd_tape += 1
     return d_prims, d_rays, d_spect
 
 
 class TraceFn(torch.autograd.Function):
     """Differentiable trace: forward is ``forward``, backward is
-    ``backward`` (the CUDA backward kernel for CUDA tensors). Seeds get
-    no gradient.
+    ``backward`` (the retrace kernel for CUDA tensors). Seeds get no
+    gradient. Non-mesh scenes only.
 
         radiance = TraceFn.apply(static, max_depth, rr_start, prims, rays,
                                  seeds, spect)
@@ -678,6 +1099,7 @@ class TraceFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, static, max_depth, rr_start, prims, rays, seeds, spect):
+        _require_no_mesh(static)
         ctx.static = static
         ctx.max_depth = int(max_depth)
         ctx.rr_start = int(rr_start)
@@ -692,4 +1114,52 @@ class TraceFn(torch.autograd.Function):
         d_prims, d_rays, d_spect = backward(
             ctx.static, ctx.max_depth, ctx.rr_start, prims, rays, seeds,
             spect, g.contiguous())
+        return None, None, None, d_prims, d_rays, None, d_spect
+
+
+class TraceTapedFn(torch.autograd.Function):
+    """Differentiable trace through the tape (the analogue of the JAX
+    package's ``_call_taped``): when an input needs a gradient, forward is
+    ``forward_taped``, which traces each path once and keeps the tape, and
+    backward is ``backward_from_tape``, which replays nothing. When none
+    does, forward is the untaped ``forward`` and nothing is kept.
+    Non-mesh scenes only.
+
+        radiance = TraceTapedFn.apply(static, max_depth, rr_start, prims,
+                                      rays, seeds, spect)
+    """
+
+    @classmethod
+    def apply(cls, static, max_depth, rr_start, prims, rays, seeds, spect):
+        # ctx.needs_input_grad says what the inputs require, not whether
+        # grad mode is on where the trace is called (inside forward it is
+        # always off): under no_grad, run the untaped forward directly
+        if not torch.is_grad_enabled():
+            _require_no_mesh(static)
+            return forward(static, max_depth, rr_start, prims, rays, seeds,
+                           spect)
+        return super().apply(static, max_depth, rr_start, prims, rays, seeds,
+                             spect)
+
+    @staticmethod
+    def forward(ctx, static, max_depth, rr_start, prims, rays, seeds, spect):
+        _require_no_mesh(static)
+        ctx.static = static
+        ctx.max_depth = int(max_depth)
+        ctx.rr_start = int(rr_start)
+        if not any(ctx.needs_input_grad[k] for k in (3, 4, 6)):
+            return forward(static, max_depth, rr_start, prims, rays, seeds,
+                           spect)
+        out, tape_f, tape_i = forward_taped(static, max_depth, rr_start,
+                                            prims, rays, seeds, spect)
+        ctx.save_for_backward(prims, spect, tape_f, tape_i)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        prims, spect, tape_f, tape_i = ctx.saved_tensors
+        d_prims, d_rays, d_spect = backward_from_tape(
+            ctx.static, ctx.max_depth, ctx.rr_start, prims, spect, tape_f,
+            tape_i, g.contiguous())
         return None, None, None, d_prims, d_rays, None, d_spect

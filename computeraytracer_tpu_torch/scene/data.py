@@ -86,11 +86,12 @@ def _tensor(x, dtype, device=None) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
 
 
-def build_primitives(patches, spheres) -> ScenePrimitives:
+def build_primitives(patches, spheres, mesh_parts=None) -> ScenePrimitives:
     """Flatten typed primitive lists into one tagged SoA list (CPU).
 
-    Patches first, then spheres, with a stable global index — the JAX
-    package's build_primitives. Triangles arrive with the mesh slice.
+    Patches first, then spheres, then the triangles of ``mesh_parts``
+    (SoA column dicts from ``scene.mesh.mesh_arrays``, data1..3 = v0, v1,
+    v2), with a stable global index: the JAX package's build_primitives.
     """
     cats, d1, d2, d3, emi, ref, mat = [], [], [], [], [], [], []
     for p in patches:
@@ -104,22 +105,24 @@ def build_primitives(patches, spheres) -> ScenePrimitives:
         d1.append(s["center"]); d2.append([r, r, r]); d3.append([0.0] * 3)
         emi.append(s["emission"]); ref.append(s["reflectance"])
         mat.append(s["material"])
-    n = len(cats)
+    cols = dict(
+        category=np.asarray(cats, np.int32).reshape(-1),
+        data1=np.asarray(d1, np.float32).reshape(-1, 3),
+        data2=np.asarray(d2, np.float32).reshape(-1, 3),
+        data3=np.asarray(d3, np.float32).reshape(-1, 3),
+        emission=np.asarray(emi, np.int32).reshape(-1),
+        reflectance=np.asarray(ref, np.int32).reshape(-1),
+        material=np.asarray(mat, np.int32).reshape(-1),
+    )
+    for part in (mesh_parts or []):
+        cols = {k: np.concatenate([cols[k], np.asarray(part[k])])
+                for k in cols}
+    n = len(cols["category"])
     if n == 0:
         raise ValueError("scene has no primitives")
     return ScenePrimitives(
-        category=_tensor(cats, np.int32),
-        data1=_tensor(np.reshape(np.array(d1, np.float32), (-1, 3)),
-                      np.float32),
-        data2=_tensor(np.reshape(np.array(d2, np.float32), (-1, 3)),
-                      np.float32),
-        data3=_tensor(np.reshape(np.array(d3, np.float32), (-1, 3)),
-                      np.float32),
-        emission=_tensor(emi, np.int32),
-        reflectance=_tensor(ref, np.int32),
-        material=_tensor(mat, np.int32),
         index=torch.arange(n, dtype=torch.int32),
-    )
+        **{k: _tensor(v, v.dtype) for k, v in cols.items()})
 
 
 def extract_lights(prims: ScenePrimitives,

@@ -1,14 +1,18 @@
 """Scene ingestion: the reference JSON schema -> Scene of torch tensors.
 
-Port of computeraytracer_tpu/scene/loader.py for patches and spheres:
-- primitives flattened patches first, then spheres, with a stable index;
+Port of computeraytracer_tpu/scene/loader.py:
+- primitives flattened patches first, then spheres, then the triangles
+  of ``"meshes"`` ({vertices, faces, emission, reflectance, type}), with
+  a stable index;
 - spectrum name -> index by insertion order, materials
   diffuse=0/light=1/glass=2/mirror=3;
 - spectra resampled to 301 samples at 1nm over 400-700nm;
 - the LAST spectrum doubles as the Beer-Lambert extinction.
 
-Documents with ``"meshes"`` raise NotImplementedError until the mesh
-slice of the port lands.
+The scene is built on the CPU and moved to ``device``, which defaults to
+the CUDA card: like every entry point of the port, the loaders run on
+the CPU only when asked (``device="cpu"``), and raise when the card they
+default to is missing.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from computeraytracer_tpu_torch import config as C
 from computeraytracer_tpu_torch.ops import spectrum as spec_ops
 from computeraytracer_tpu_torch.scene import data as sd
+from computeraytracer_tpu_torch.scene import mesh as mesh_ops
 
 _MATERIALS = {"diffuse": C.DIFFUSE, "light": C.LIGHT, "glass": C.GLASS,
               "mirror": C.MIRROR}
@@ -35,17 +40,27 @@ def _spectra_table(spectra_dict) -> tuple[np.ndarray, dict]:
     return np.stack(rows).astype(np.float32), name_to_index
 
 
+def _device(device) -> torch.device:
+    """The device a loader builds for: the given one, else the card."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the loaders put the scene on the card by "
+            "default; pass device=\"cpu\" to run the plain torch kernel "
+            "versions on the CPU")
+    return torch.device("cuda")
+
+
 def scene_from_dict(doc: dict, cie: Optional[np.ndarray] = None,
                     device=None) -> tuple:
     """Build (Scene, meta) from a parsed scene JSON document.
 
     meta: {"width", "height", "spectrum_index": {name: idx}}. The scene
-    is built on the CPU and moved to ``device``."""
+    is built on the CPU and moved to ``device`` (default: the CUDA card;
+    raises without one)."""
+    device = _device(device)
     objects = doc.get("objects", {})
-    if objects.get("meshes"):
-        raise NotImplementedError(
-            "triangle meshes are not ported yet: they arrive with the mesh "
-            "slice of computeraytracer_tpu_torch")
     spectra, name_to_index = _spectra_table(doc["spectra"])
 
     def prim_common(obj):
@@ -58,7 +73,13 @@ def scene_from_dict(doc: dict, cie: Optional[np.ndarray] = None,
                for p in objects.get("patches", [])]
     spheres = [dict(center=s["center"], radius=s["radius"], **prim_common(s))
                for s in objects.get("spheres", [])]
-    prims = sd.build_primitives(patches, spheres)
+    mesh_parts = []
+    for m in objects.get("meshes", []):
+        common = prim_common(m)
+        mesh_parts.append(mesh_ops.mesh_arrays(
+            m["vertices"], m["faces"], reflectance=common["reflectance"],
+            emission=common["emission"], material=common["material"]))
+    prims = sd.build_primitives(patches, spheres, mesh_parts=mesh_parts)
     lights = sd.extract_lights(prims, C.LIGHT)
 
     cam = doc["camera"]
@@ -77,15 +98,16 @@ def scene_from_dict(doc: dict, cie: Optional[np.ndarray] = None,
         spectra=torch.from_numpy(np.asarray(spectra, np.float32)),
         cie=torch.from_numpy(np.array(cie, np.float32)),
     )
-    if device is not None:
-        scene = scene.to(device)
+    scene = scene.to(device)
     meta = {"width": int(cam["width"]), "height": int(cam["height"]),
             "spectrum_index": name_to_index}
     return scene, meta
 
 
 def load_scene(path: str, cie_path: Optional[str] = None, device=None):
-    """Load a scene JSON file (reference schema). Returns (Scene, meta)."""
+    """Load a scene JSON file (reference schema). Returns (Scene, meta),
+    the scene on ``device`` (default: the CUDA card; raises without
+    one)."""
     with open(path) as f:
         doc = json.load(f)
     cie = None

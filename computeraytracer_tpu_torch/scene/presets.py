@@ -2,7 +2,7 @@
 computeraytracer_tpu/scene/presets.py).
 
 The builders are the JAX package's, line for line, so both packages
-load identical scenes. ``mesh_scene`` arrives with the mesh slice.
+load identical scenes.
 """
 
 from __future__ import annotations
@@ -157,6 +157,28 @@ def occluder_scene(width: int = 256, height: int = 256) -> dict:
                "white", "light", "light"),
         _patch([-0.4, 1.1, 0.6], [0.8, 0, 0], [0, 0.8, 0], "red"),
     ]
+    return doc
+
+
+def mesh_scene(width: int = 1024, height: int = 1024,
+               subdivisions: int = 6) -> dict:
+    """Cornell walls and light plus a procedural blob on the floor
+    (scene/mesh.py displaced_blob, the stand-in for a scanned mesh).
+
+    subdivisions=6 -> 81,920 triangles; 4 -> 5,120 (test-sized)."""
+    from computeraytracer_tpu_torch.scene import mesh as mesh_ops
+
+    doc = cornell_box(width, height)
+    doc["objects"]["spheres"] = []
+    # drop the boxes; keep walls + light (first 6 patches)
+    doc["objects"]["patches"] = doc["objects"]["patches"][:6]
+    verts, faces = mesh_ops.displaced_blob(subdivisions)
+    verts = mesh_ops.transform(verts, scale=140.0,
+                               translate=(278.0, 180.0, 280.0))
+    doc["objects"]["meshes"] = [{
+        "vertices": verts.tolist(), "faces": faces.tolist(),
+        "emission": "dark", "reflectance": "white", "type": "diffuse",
+    }]
     return doc
 
 

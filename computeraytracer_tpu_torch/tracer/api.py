@@ -3,7 +3,9 @@
 ``render(scene, config)`` returns the accumulated and mean XYZ and the
 tonemapped sRGB image; progressive refinement is spp accumulation with
 the reference's 1-based sample counter. The scene's device decides where
-it runs.
+it runs; the loaders put it on the card unless asked for the CPU. Mesh
+scenes render through the forward kernel's mesh mode, one launch per
+sample.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def render_sample(scene, width, height, sample, max_depth=8, rr_start=1,
                                        max_depth, rr_start)
 
 
-def _band_accumulate(scene, static, y0, tile_h, cfg: RenderConfig):
+def _band_accumulate(scene, static, packs, y0, tile_h, cfg: RenderConfig):
     """Accumulate cfg.spp samples for film rows [y0, y0+tile_h)."""
     px, py = kernel_tracer.tile_coords(cfg.width, tile_h, y0, scene.device)
     accum = torch.zeros((3, tile_h * cfg.width), dtype=torch.float32,
@@ -42,7 +44,7 @@ def _band_accumulate(scene, static, y0, tile_h, cfg: RenderConfig):
     for s in range(cfg.first_sample, cfg.first_sample + cfg.spp):
         accum = accum + kernel_tracer.render_pixels_planar(
             scene, cfg.width, cfg.height, px, py, s, cfg.max_depth,
-            cfg.rr_start, static)
+            cfg.rr_start, static, mesh_packs=packs)
     return accum.T.reshape(tile_h, cfg.width, 3)
 
 
@@ -51,7 +53,9 @@ def _render_accumulate_chunked(scene, cfg: RenderConfig):
     ray_chunk instead of width*height."""
     rows = max(1, cfg.ray_chunk // cfg.width)
     static = kernel_tracer.SceneStatic.from_scene(scene)
-    bands = [_band_accumulate(scene, static, y0,
+    packs = (kernel_tracer.mesh_packs_for(scene, static)
+             if static.mesh_parts else None)
+    bands = [_band_accumulate(scene, static, packs, y0,
                               min(rows, cfg.height - y0), cfg)
              for y0 in range(0, cfg.height, rows)]
     return torch.cat(bands, dim=0)

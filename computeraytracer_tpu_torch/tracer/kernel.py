@@ -1,22 +1,37 @@
-"""Megakernel tracer: the port of the non-mesh, ``backward="pallas"``
-part of computeraytracer_tpu/tracer/pallas.py.
+"""Megakernel tracer: the port of computeraytracer_tpu/tracer/pallas.py.
 
 Camera ray generation, hero-wavelength sampling, the per-ray spectra
 planes and the CIE conversion run as torch ops; the trace itself is one
-call of ``kernels.megakernel.TraceFn`` per sample (the CUDA kernels for
-a scene on the card, their plain torch versions for a scene on the CPU).
+kernel call per sample (the CUDA kernels for a scene on the card, their
+plain torch versions for a scene on the CPU).
 
 One layout is ported: the planar (k, R) path the kernel consumes, with
 pixels in ``tile_coords`` row-major order. ``render_sample`` is its
 (H, W, 3) transpose; the JAX package documents the two layouts as
-bit-identical.
+bit-identical. Mesh scenes keep row-major order too: the JAX package's
+block order (``_block_order``) is a culling order for its per-tile BVH
+walk and changes no pixel's value.
 
-Differentiation: ``TraceFn``'s backward is the backward megakernel
-(replay plus reverse adjoint sweep), which returns cotangents for the
-primitive table, the per-ray spectra planes and the rays; autograd
-carries them on through ``pack_prims``, the hero gather and the camera
-to every scene leaf (geometry, spectra, camera). A render with no tensor
-that requires grad launches only the forward kernel.
+Differentiation, by the ``backward`` knob (the JAX package's values):
+- ``"pallas"`` (default): ``kernels.megakernel.TraceFn``, whose backward
+  is the retrace kernel (replay plus reverse adjoint sweep);
+- ``"pallas_taped"``: ``TraceTapedFn``. Under grad the taped forward
+  writes every bounce's input carry and the tape-fed kernel sweeps it
+  without a replay; with no input needing grad, the untaped forward runs;
+- ``"none"``: the forward alone, with no autograd Function;
+- ``"xla"`` (the eager tracer) and ``"replay"`` (the guided replay of
+  mesh scenes) raise NotImplementedError naming the slice they arrive
+  with.
+Autograd carries the cotangents of the primitive table, the spectra
+planes and the rays on through ``pack_prims``, the hero gather and the
+camera to every scene leaf (geometry, spectra, camera).
+
+Mesh scenes (mesh parts or triangle rows) render through the forward
+kernel's mesh mode, the in-kernel chunk-BVH walk. Their gradients arrive
+with slice 4 of the port: a mesh render with an input that requires grad
+raises. ``wavefront=None`` resolves to the in-kernel mode
+(``MESH_WAVEFRONT_DEFAULT``); ``wavefront=True`` raises for mesh scenes
+and is ignored for the others, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,11 +39,20 @@ from __future__ import annotations
 import torch
 
 from computeraytracer_tpu_torch.kernels import megakernel as mk
+from computeraytracer_tpu_torch.kernels import meshpack
 from computeraytracer_tpu_torch.ops import camera as cam_ops
 from computeraytracer_tpu_torch.ops import rng
 from computeraytracer_tpu_torch.ops import spectrum as spec
 
 SceneStatic = mk.SceneStatic
+
+# What trace_radiance(wavefront=None) resolves to for mesh scenes. The
+# JAX package defaults to its binned wavefront (five TPU kernels that are
+# not ported yet, slice 5); its tests specify the wavefront bit-identical
+# to the in-kernel bounce loop, so the port renders mesh scenes in-kernel.
+MESH_WAVEFRONT_DEFAULT = False
+
+BACKWARDS = ("pallas", "pallas_taped", "none", "xla", "replay")
 
 
 def tile_coords(width: int, tile_h: int, y0: int, device=None):
@@ -54,64 +78,134 @@ def camera_planes(scene, width: int, height: int, px, py, sample):
     return o, d, hero, seed
 
 
-def kernel_inputs(scene, o, d, hero, seed):
+def kernel_inputs(scene, o, d, hero, seed, static: SceneStatic | None = None):
     """The forward kernel's operands: (prims (P, 12), rays (6, R),
     seeds (4, R), spect (S*4, R)), every spectrum at each ray's hero
-    wavelengths."""
+    wavelengths; prims holds the static's unrolled rows."""
     spect = spec.gather_hero(spec.expand_hero_table(scene.spectra), hero)
-    return (mk.pack_prims(scene), torch.cat([o, d], dim=0).contiguous(),
-            seed.contiguous(), spect.contiguous())
+    return (mk.pack_prims(scene, static),
+            torch.cat([o, d], dim=0).contiguous(), seed.contiguous(),
+            spect.contiguous())
+
+
+def mesh_packs_for(scene, static: SceneStatic):
+    """Chunk BVH packing (kernels/meshpack.py) of every mesh part, on the
+    scene's device."""
+    return tuple(meshpack.pack_scene_mesh(scene, part)
+                 for part in static.mesh_parts)
+
+
+def _resolve(scene, static, backward, wavefront, mesh_packs):
+    """Resolve the dispatch knobs and the mesh arrays shared by every
+    entry point -> (static, mesh_arrays)."""
+    if backward not in BACKWARDS:
+        raise ValueError(f"unknown backward {backward!r}; expected one of "
+                         f"{BACKWARDS}")
+    if backward == "xla":
+        raise NotImplementedError(
+            "backward='xla' runs the eager tracer, which arrives with slice "
+            "6 of the port (after the mesh slices)")
+    if backward == "replay":
+        raise NotImplementedError(
+            "backward='replay' (the guided replay of mesh scenes) arrives "
+            "with slice 4 of the port")
+    if static is None:
+        static = SceneStatic.from_scene(scene)
+    if wavefront is None:
+        wavefront = MESH_WAVEFRONT_DEFAULT
+    if wavefront and static.mesh_parts:
+        raise NotImplementedError(
+            "wavefront=True (the binned wavefront of mesh scenes, kernels "
+            "2 and 5-8) arrives with slice 5 of the port; wavefront=None "
+            "renders mesh scenes in-kernel")
+    mesh_arrays = ()
+    if static.mesh_parts:
+        if mesh_packs is None:
+            mesh_packs = mesh_packs_for(scene, static)
+        mesh_arrays = tuple(a for pack in mesh_packs for a in pack.arrays)
+    return static, mesh_arrays
+
+
+def _dispatch(static, max_depth, rr_start, backward, prims, rays, seeds,
+              spect, mesh_arrays):
+    """One trace of prepared kernel operands -> radiance (4, R)."""
+    args = (static, int(max_depth), int(rr_start), prims, rays, seeds, spect)
+    if static.mesh_mode:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (prims, rays, spect)):
+            raise NotImplementedError(mk.MESH_GRADS)
+        return mk.forward(*args, *mesh_arrays)
+    if backward == "pallas":
+        return mk.TraceFn.apply(*args)
+    if backward == "pallas_taped":
+        return mk.TraceTapedFn.apply(*args)
+    with torch.no_grad():  # "none": the forward alone
+        return mk.forward(*args)
 
 
 def trace_radiance(scene, o, d, hero, seed, max_depth: int,
-                   rr_start: int = 1, static: SceneStatic | None = None):
+                   rr_start: int = 1, static: SceneStatic | None = None,
+                   backward: str = "pallas", mesh_packs=None,
+                   wavefront: bool | None = None):
     """Planar path trace: o, d (3, R), hero (R,), seed (4, R) ->
     spectral radiance (4, R) at the hero wavelengths; differentiable with
-    respect to the scene's geometry and spectra and to o, d."""
-    if static is None:
-        static = SceneStatic.from_scene(scene)
-    return mk.TraceFn.apply(static, int(max_depth), int(rr_start),
-                            *kernel_inputs(scene, o, d, hero, seed))
+    respect to the scene's geometry and spectra and to o, d (non-mesh
+    scenes)."""
+    static, mesh_arrays = _resolve(scene, static, backward, wavefront,
+                                   mesh_packs)
+    return _dispatch(static, max_depth, rr_start, backward,
+                     *kernel_inputs(scene, o, d, hero, seed, static),
+                     mesh_arrays)
 
 
 def render_pixels_planar(scene, width: int, height: int, px, py, sample,
                          max_depth: int = 8, rr_start: int = 1,
-                         static: SceneStatic | None = None):
+                         static: SceneStatic | None = None,
+                         backward: str = "pallas", mesh_packs=None,
+                         wavefront: bool | None = None):
     """Pixels px, py (R,) at a 1-based sample index -> XYZ (3, R)."""
     o, d, hero, seed = camera_planes(scene, width, height, px, py, sample)
     radiance = trace_radiance(scene, o, d, hero, seed, max_depth, rr_start,
-                              static)
+                              static, backward, mesh_packs, wavefront)
     cie_p = spec.gather_hero(spec.cie_window_exp(scene.cie), hero)
     return spec.spectral_to_xyz_p(cie_p, radiance)
 
 
 def render_sample_planar(scene, width: int, height: int, sample,
                          max_depth: int = 8, rr_start: int = 1,
-                         static: SceneStatic | None = None):
+                         static: SceneStatic | None = None,
+                         backward: str = "pallas", mesh_packs=None,
+                         wavefront: bool | None = None):
     """One sample of the whole film -> XYZ (3, height, width)."""
     px, py = tile_coords(width, height, 0, scene.device)
     xyz = render_pixels_planar(scene, width, height, px, py, sample,
-                               max_depth, rr_start, static)
+                               max_depth, rr_start, static, backward,
+                               mesh_packs, wavefront)
     return xyz.reshape(3, height, width)
 
 
 def render_sample(scene, width: int, height: int, sample,
                   max_depth: int = 8, rr_start: int = 1,
-                  static: SceneStatic | None = None):
+                  static: SceneStatic | None = None,
+                  backward: str = "pallas", mesh_packs=None,
+                  wavefront: bool | None = None):
     """One sample of the whole film -> XYZ (height, width, 3)."""
     return render_sample_planar(scene, width, height, sample, max_depth,
-                                rr_start, static).permute(1, 2, 0)
+                                rr_start, static, backward, mesh_packs,
+                                wavefront).permute(1, 2, 0)
 
 
 def render_accumulate(scene, width: int, height: int, spp: int,
                       max_depth: int = 8, rr_start: int = 1,
-                      first_sample: int = 1):
+                      first_sample: int = 1, backward: str = "pallas"):
     """Sum of samples first_sample .. first_sample+spp-1 -> XYZ (H, W, 3),
-    accumulated in sample order."""
+    accumulated in sample order. Mesh packs are built once."""
     static = SceneStatic.from_scene(scene)
+    packs = mesh_packs_for(scene, static) if static.mesh_parts else None
     accum = torch.zeros((3, height, width), dtype=torch.float32,
                         device=scene.device)
     for s in range(first_sample, first_sample + spp):
         accum = accum + render_sample_planar(scene, width, height, s,
-                                             max_depth, rr_start, static)
+                                             max_depth, rr_start, static,
+                                             backward, packs)
     return accum.permute(1, 2, 0).contiguous()

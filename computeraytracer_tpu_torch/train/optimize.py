@@ -4,8 +4,10 @@ computeraytracer_tpu/train/optimize.py).
 Pixel gradients flow through the path tracer to primitive geometry
 (``primitives.data1/2/3``) and material spectra, with detached sampling
 (common random numbers): the megakernel's autograd Function
-(``kernels.megakernel.TraceFn``) carries them through the trace, torch
+(``kernels.megakernel.TraceFn``, or ``TraceTapedFn`` with
+``backward="pallas_taped"``) carries them through the trace, torch
 autograd through the camera, the hero gathers and the CIE conversion.
+Gradients of mesh scenes arrive with slice 4 of the port.
 
 A scene is split into (params, static scene); the loss renders the scene
 from merged params and compares it to a target in XYZ. Only the
@@ -82,26 +84,32 @@ def merge_scene(static_scene, params):
 def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
                     first_sample=1, mesh=None, use_remat=False,
                     kernel: str = "pallas", kernel_static=None,
-                    kernel_plans=None, vis_grads: bool = False):
+                    kernel_plans=None, vis_grads: bool = False,
+                    backward: str = "pallas"):
     """Mean XYZ (H, W, 3) over spp samples, accumulated in sample order;
-    differentiable with respect to the scene's tensors."""
+    differentiable with respect to the scene's tensors (non-mesh scenes;
+    backward picks the trace's backward, tracer/kernel.py)."""
     _require_ported(kernel, mesh, use_remat, vis_grads)
     if kernel_plans is not None:
         raise NotImplementedError(
-            "kernel_plans (mesh scenes) arrive with the mesh slice")
+            "kernel_plans (mesh plans for traced geometry) arrive with "
+            "slice 4 of the port (mesh gradients)")
     if kernel_static is None:
         kernel_static = kernel_tracer.SceneStatic.from_scene(scene)
+    packs = (kernel_tracer.mesh_packs_for(scene, kernel_static)
+             if kernel_static.mesh_parts else None)
     accum = torch.zeros((height, width, 3), dtype=torch.float32,
                         device=scene.device)
     for s in range(int(first_sample), int(first_sample) + spp):
         accum = accum + kernel_tracer.render_sample(
-            scene, width, height, s, max_depth, rr_start, kernel_static)
+            scene, width, height, s, max_depth, rr_start, kernel_static,
+            backward, packs)
     return accum / float(spp)
 
 
 def make_loss_fn(static_scene, width, height, spp, max_depth,
                  rr_start: int = 1, mesh=None, use_remat=False,
-                 kernel: str = "pallas"):
+                 kernel: str = "pallas", backward: str = "pallas"):
     """L2 loss in XYZ between the rendered mean and a target image."""
     _require_ported(kernel, mesh, use_remat)
     kernel_static = kernel_tracer.SceneStatic.from_scene(static_scene)
@@ -110,7 +118,8 @@ def make_loss_fn(static_scene, width, height, spp, max_depth,
         scene = merge_scene(static_scene, params)
         img = render_mean_xyz(scene, width, height, spp, max_depth,
                               rr_start, first_sample, kernel=kernel,
-                              kernel_static=kernel_static)
+                              kernel_static=kernel_static,
+                              backward=backward)
         return torch.mean((img - target) ** 2)
 
     return loss_fn
@@ -118,7 +127,7 @@ def make_loss_fn(static_scene, width, height, spp, max_depth,
 
 def make_train_step(static_scene, optimizer, width, height, spp, max_depth,
                     rr_start: int = 1, mesh=None, kernel: str = "pallas",
-                    spectra_rows=None):
+                    spectra_rows=None, backward: str = "pallas"):
     """(params, target, first_sample) -> loss: one optimizer step on the
     leaf tensors in ``params`` (the tensors ``optimizer`` updates).
 
@@ -129,7 +138,7 @@ def make_train_step(static_scene, optimizer, width, height, spp, max_depth,
     Adam walks a row with ~zero gradient a full -lr per step, which makes
     a negative extinction blow Beer-Lambert up."""
     loss_fn = make_loss_fn(static_scene, width, height, spp, max_depth,
-                           rr_start, mesh, kernel=kernel)
+                           rr_start, mesh, kernel=kernel, backward=backward)
     frozen = None
     if spectra_rows is not None:
         frozen = torch.ones(static_scene.spectra.shape[0], dtype=torch.bool,
@@ -163,7 +172,7 @@ def cosine_decay(steps: int):
 
 def optimize_config(scene, target, width, height, cfg,
                     trainable=("spectra",), mesh=None, kernel="pallas",
-                    callback=None):
+                    callback=None, backward: str = "pallas"):
     """Run `optimize` from a config.TrainConfig (cfg.render supplies
     max_depth and rr_start)."""
     return optimize(
@@ -173,7 +182,7 @@ def optimize_config(scene, target, width, height, cfg,
         rr_start=cfg.render.rr_start, mesh=mesh,
         checkpoint_dir=cfg.checkpoint_dir,
         checkpoint_every=cfg.checkpoint_every, callback=callback,
-        kernel=kernel)
+        kernel=kernel, backward=backward)
 
 
 def optimize(scene, target, width, height, *, trainable=("spectra",),
@@ -182,7 +191,8 @@ def optimize(scene, target, width, height, *, trainable=("spectra",),
              checkpoint_dir: Optional[str] = None,
              checkpoint_every: int = 25, callback=None,
              fresh_samples: bool = False, kernel: str = "pallas",
-             lr_schedule: Optional[str] = None, spectra_rows=None):
+             lr_schedule: Optional[str] = None, spectra_rows=None,
+             backward: str = "pallas"):
     """Run the material/geometry optimization loop with Adam.
 
     fresh_samples=False (default) uses the SAME sample set every step
@@ -190,8 +200,9 @@ def optimize(scene, target, width, height, *, trainable=("spectra",),
     parameters. fresh_samples=True advances the sample counter every
     step. lr_schedule="cosine" decays the learning rate to 0 over
     `steps`. With checkpoint_dir, the run resumes from the latest saved
-    step and saves every checkpoint_every steps and at the end. Returns
-    (scene, losses)."""
+    step and saves every checkpoint_every steps and at the end. backward
+    is the trace's backward: "pallas" (the retrace kernel) or
+    "pallas_taped" (the tape-fed pair). Returns (scene, losses)."""
     _require_ported(kernel, mesh)
     if lr_schedule not in (None, "cosine"):
         raise ValueError(f"unknown lr_schedule: {lr_schedule!r}")
@@ -223,7 +234,7 @@ def optimize(scene, target, width, height, *, trainable=("spectra",),
             optimizer, cosine_decay(steps), last_epoch=start_step - 1)
     step_fn = make_train_step(static_scene, optimizer, width, height, spp,
                               max_depth, rr_start, mesh, kernel=kernel,
-                              spectra_rows=spectra_rows)
+                              spectra_rows=spectra_rows, backward=backward)
 
     def opt_state():
         return {"adam": optimizer.state_dict()}

@@ -2,7 +2,11 @@
 
 The forward and backward megakernels against forward_reference and
 backward_reference on the same CUDA tensors, the served render and the
-gradient of a render against the same computation on the CPU.
+gradient of a render against the same computation on the CPU; the taped
+forward against the plain forward kernel and the retrace kernel's tape,
+the tape-fed backward against the retrace kernel (bit for bit: the same
+reverse sweep on the same tape), and the mesh mode of the forward
+against its plain version.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -97,7 +101,7 @@ def test_card_render_matches_cpu_render(cuda):
     path can diverge; 99% of pixels within 2e-4 and the mean within
     1e-3."""
     cfg = RenderConfig(width=48, height=32, spp=2, max_depth=6)
-    cpu_scene, _ = scene_from_dict(presets.cornell_box(48, 32))
+    cpu_scene, _ = scene_from_dict(presets.cornell_box(48, 32), device="cpu")
     card = api.render(cpu_scene.to(cuda), cfg)["accum_xyz"].cpu().numpy()
     host = api.render(cpu_scene, cfg)["accum_xyz"].numpy()
     close = np.isclose(card, host, rtol=2e-4, atol=2e-4).all(axis=-1)
@@ -171,7 +175,7 @@ def test_card_gradient_matches_cpu(cuda):
     data1 exists on the card (TraceFn, backward kernel) and agrees with
     the same gradient on the CPU (plain versions)."""
     w, h = 48, 32
-    cpu_scene, _ = scene_from_dict(presets.cornell_box(w, h))
+    cpu_scene, _ = scene_from_dict(presets.cornell_box(w, h), device="cpu")
 
     def grads(scene):
         sp = scene.spectra.clone().requires_grad_(True)
@@ -193,3 +197,156 @@ def test_card_gradient_matches_cpu(cuda):
         scale = max(np.abs(h_).max(), 1e-6)
         np.testing.assert_allclose(c / scale, h_ / scale, rtol=1e-3,
                                    atol=1e-4)
+
+
+def _taped_case(cuda, name, depth, sample=4):
+    scene, _ = scene_from_dict(_doc(name, 128, 96), device=cuda)
+    static = mk.SceneStatic.from_scene(scene)
+    args = _inputs(scene, 128, 96, sample)
+    return static, args, _dL(args[1].shape[1], cuda, seed=3)
+
+
+@pytest.mark.parametrize("name,depth", [
+    ("cornell_box", 8), ("simple_scene", 5), ("cornell_mirror", 6),
+    ("occluder_scene", 3)])
+def test_taped_forward_kernel(cuda, name, depth):
+    """The taped kernel's radiance is the plain kernel's, bit for bit, and
+    its tape is the retrace kernel's phase-A tape, bit for bit; against
+    forward_taped_reference the int planes are equal and the float planes
+    within rel 1e-4 (floored at 1e-2 of the plane's scale) on at least
+    99.9% of rays."""
+    static, args, dL = _taped_case(cuda, name, depth)
+    before = (mk.launches, mk.launches_taped)
+    rad, tape_f, tape_i = mk.forward_taped(static, depth, 1, *args)
+    torch.cuda.synchronize()
+    assert (mk.launches, mk.launches_taped) == (before[0], before[1] + 1)
+    assert torch.equal(rad, mk.forward(static, depth, 1, *args))
+    retrace = (torch.full_like(tape_f, float("nan")),
+               torch.full_like(tape_i, -7))
+    mk.backward(static, depth, 1, *args, dL, tape=retrace)
+    assert torch.equal(tape_f, retrace[0])
+    assert torch.equal(tape_i, retrace[1])
+    want_rad, want_f, want_i = mk.forward_taped_reference(static, depth, 1,
+                                                          *args)
+    R = rad.shape[1]
+    ints = (tape_i == want_i).reshape(-1, R).all(dim=0)
+    f, w = tape_f.reshape(-1, 16, R), want_f.reshape(-1, 16, R)
+    scale = w.abs().amax(dim=(0, 2), keepdim=True).clamp(min=1.0)
+    rel = (f - w).abs() / torch.maximum(w.abs(), 1e-2 * scale)
+    floats = (rel < 1e-4).all(dim=0).all(dim=0)
+    assert (ints & floats).float().mean().item() >= 0.999
+    assert _frac_within(rad, want_rad) >= 0.999
+
+
+@pytest.mark.parametrize("name,depth", [
+    ("cornell_box", 8), ("cornell_box", 2), ("simple_scene", 5),
+    ("cornell_mirror", 6), ("occluder_scene", 3)])
+def test_tape_fed_kernel_is_the_retrace_kernel(cuda, name, depth):
+    """The tape-fed kernel on the taped forward's tape gives the retrace
+    kernel's cotangents bit for bit, and matches its plain version."""
+    static, args, dL = _taped_case(cuda, name, depth)
+    _, tape_f, tape_i = mk.forward_taped(static, depth, 1, *args)
+    before = (mk.launches_bwd, mk.launches_bwd_tape)
+    got = mk.backward_from_tape(static, depth, 1, args[0], args[3], tape_f,
+                                tape_i, dL)
+    torch.cuda.synchronize()
+    assert (mk.launches_bwd, mk.launches_bwd_tape) == (before[0],
+                                                       before[1] + 1)
+    want = mk.backward(static, depth, 1, *args, dL)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    plain = mk.backward_from_tape_reference(static, depth, 1, args[0],
+                                            args[3], tape_f, tape_i, dL)
+    _assert_backward_close(got, plain)
+
+
+def test_card_taped_gradient_matches_cpu(cuda):
+    """render_sample(backward="pallas_taped") on the card: one taped
+    forward and one tape-fed backward, no retrace, and the CPU's
+    gradient."""
+    w, h = 48, 32
+    cpu_scene, _ = scene_from_dict(presets.cornell_box(w, h), device="cpu")
+
+    def grads(scene):
+        sp = scene.spectra.clone().requires_grad_(True)
+        d1 = scene.primitives.data1.clone().requires_grad_(True)
+        s = dataclasses.replace(
+            scene, spectra=sp,
+            primitives=dataclasses.replace(scene.primitives, data1=d1))
+        (kt.render_sample(s, w, h, 1, max_depth=4, backward="pallas_taped")
+         ** 2).sum().backward()
+        return sp.grad, d1.grad
+
+    before = (mk.launches, mk.launches_taped, mk.launches_bwd,
+              mk.launches_bwd_tape)
+    card = grads(cpu_scene.to(cuda))
+    assert (mk.launches, mk.launches_taped, mk.launches_bwd,
+            mk.launches_bwd_tape) == (before[0], before[1] + 1, before[2],
+                                      before[3] + 1)
+    host = grads(cpu_scene)
+    for c, h_ in zip(card, host):
+        c, h_ = c.cpu().numpy(), h_.numpy()
+        assert np.isfinite(c).all()
+        scale = max(np.abs(h_).max(), 1e-6)
+        np.testing.assert_allclose(c / scale, h_ / scale, rtol=1e-3,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("subdivisions,mesh_min,depth", [
+    (3, 256, 3), (2, 64, 8), (1, 256, 3), (4, 256, 2)])
+def test_mesh_kernel_matches_plain_version(cuda, subdivisions, mesh_min,
+                                           depth):
+    """The mesh mode (mesh parts traversed per ray, triangle rows in the
+    unrolled scan) against its plain version: at least 99.9% of rays
+    within rel 1e-4, all finite."""
+    scene, _ = scene_from_dict(presets.mesh_scene(96, 64, subdivisions),
+                               device=cuda)
+    static = mk.SceneStatic.from_scene(scene, mesh_min=mesh_min)
+    assert static.mesh_mode
+    px, py = kt.tile_coords(96, 64, 0, cuda)
+    o, d, hero, seed = kt.camera_planes(scene, 96, 64, px, py, 2)
+    args = kt.kernel_inputs(scene, o, d, hero, seed, static)
+    arrays = [a for p in kt.mesh_packs_for(scene, static) for a in p.arrays]
+    before = (mk.launches, mk.launches_mesh)
+    got = mk.forward(static, depth, 1, *args, *arrays)
+    torch.cuda.synchronize()
+    assert (mk.launches, mk.launches_mesh) == (before[0], before[1] + 1)
+    want = mk.forward_reference(static, depth, 1, *args, *arrays)
+    assert torch.isfinite(got).all()
+    assert _frac_within(got, want) >= 0.999
+    assert got.abs().max() > 0
+
+
+def test_card_mesh_render(cuda):
+    """A mesh render on the card: one mesh-mode launch per sample, and
+    the CPU's image to 2e-4 on 99% of pixels."""
+    cfg = RenderConfig(width=32, height=24, spp=2, max_depth=3)
+    cpu_scene, _ = scene_from_dict(presets.mesh_scene(32, 24, 3),
+                                   device="cpu")
+    before = mk.launches_mesh
+    card = api.render(cpu_scene.to(cuda), cfg)["accum_xyz"].cpu().numpy()
+    assert mk.launches_mesh == before + 2
+    host = api.render(cpu_scene, cfg)["accum_xyz"].numpy()
+    close = np.isclose(card, host, rtol=2e-4, atol=2e-4).all(axis=-1)
+    assert close.mean() >= 0.99
+
+
+def test_mesh_kernel_counting_build(cuda):
+    """forward(..., work=) runs the mesh kernel's counting build: the same
+    radiance bit for bit, and counts that add up across launches."""
+    scene, _ = scene_from_dict(presets.mesh_scene(48, 32, 3), device=cuda)
+    static = mk.SceneStatic.from_scene(scene)
+    px, py = kt.tile_coords(48, 32, 0, cuda)
+    o, d, hero, seed = kt.camera_planes(scene, 48, 32, px, py, 1)
+    args = kt.kernel_inputs(scene, o, d, hero, seed, static)
+    arrays = [a for p in kt.mesh_packs_for(scene, static) for a in p.arrays]
+    want = mk.forward(static, 3, 1, *args, *arrays)
+    work = torch.zeros(4, dtype=torch.int64, device=cuda)
+    got = mk.forward(static, 3, 1, *args, *arrays, work=work)
+    assert torch.equal(got, want)
+    casts, boxes, planes, inside = work.tolist()
+    assert casts >= 48 * 32          # a closest-hit scan per camera ray
+    assert boxes >= casts            # each cast tests the root box
+    assert planes > 0 and 0 < inside <= planes
+    mk.forward(static, 3, 1, *args, *arrays, work=work)
+    assert work.tolist() == [2 * casts, 2 * boxes, 2 * planes, 2 * inside]

@@ -138,18 +138,29 @@ def test_depth_zero_is_emission_only(case):
 
 
 def test_wrapper_raises_on_triangles_and_mesh_parts(case):
+    """The forward takes triangle rows and mesh parts (their mode is held
+    in tests/test_torch_mesh.py); mesh arrays that do not fit the
+    static's mesh parts raise, and so does every gradient path for
+    triangles or mesh parts (slice 4 of the port)."""
     static, prims, rays, seeds, spect = _torch_inputs(case)
     cats = list(static.categories)
     cats[0] = 2
     tri = mk.SceneStatic(**{**static.__dict__, "categories": tuple(cats)})
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        mk.forward(tri, MAX_DEPTH, RR_START, prims, rays, seeds, spect)
-    with pytest.raises(NotImplementedError, match="mesh slice"):
+    assert tri.mesh_mode and not static.mesh_mode
+    assert torch.isfinite(mk.forward(tri, 1, RR_START, prims, rays, seeds,
+                                     spect)).all()
+    with pytest.raises(ValueError, match="mesh arrays"):
         mk.forward(static, MAX_DEPTH, RR_START, prims, rays, seeds, spect,
                    torch.zeros(16, 128))
-    meshy = mk.SceneStatic(**{**static.__dict__, "mesh_parts": ((0, 3),)})
-    with pytest.raises(NotImplementedError, match="mesh slice"):
+    part = mk.MeshPart(start=0, count=3, n_chunks=1, material=0,
+                       emission_idx=0, reflectance_idx=0)
+    meshy = mk.SceneStatic(**{**static.__dict__, "mesh_parts": (part,)})
+    with pytest.raises(ValueError, match="mesh arrays"):
         mk.forward(meshy, MAX_DEPTH, RR_START, prims, rays, seeds, spect)
+    for st in (tri, meshy):
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            mk.TraceFn.apply(st, MAX_DEPTH, RR_START, prims, rays, seeds,
+                             spect)
 
 
 @pytest.mark.parametrize("bad", ["seeds_dtype", "rays_shape",

@@ -20,6 +20,7 @@ from computeraytracer_tpu_torch.scene import data as tdata
 from computeraytracer_tpu_torch.scene import load_scene
 from computeraytracer_tpu_torch.scene import presets as tpresets
 from computeraytracer_tpu_torch.scene import scene_from_dict
+from computeraytracer_tpu_torch.tracer import kernel as kt
 
 PRESETS = ["cornell_box", "simple_scene", "cornell_box_glassless",
            "unoccluded_scene", "occluder_scene"]
@@ -61,7 +62,7 @@ def test_preset_documents_equal(name):
 def test_preset_loads_bit_exact(name):
     doc = getattr(jpresets, name)(32, 24)
     js, jmeta = jax_scene_from_dict(doc)
-    ts, tmeta = scene_from_dict(doc)
+    ts, tmeta = scene_from_dict(doc, device="cpu")
     assert tmeta == jmeta
     _assert_same_scene(ts, js)
 
@@ -81,25 +82,46 @@ def test_load_scene_file_matches_dict(tmp_path):
     doc = jpresets.cornell_box(20, 10)
     path = tmp_path / "cornell.json"
     path.write_text(json.dumps(doc))
-    ts, meta = load_scene(str(path))
+    ts, meta = load_scene(str(path), device="cpu")
     js, _ = jax_scene_from_dict(doc)
     assert (meta["width"], meta["height"]) == (20, 10)
     _assert_same_scene(ts, js)
 
 
 def test_mesh_documents_raise():
+    """A document with "meshes" loads as the JAX package loads it (its
+    triangle appended last); what raises is a render of it that needs
+    gradients, which arrive with slice 4 of the port."""
     doc = jpresets.cornell_box(8, 8)
     doc["objects"]["meshes"] = [{
         "vertices": [[0, 0, 0], [1, 0, 0], [0, 1, 0]], "faces": [[0, 1, 2]],
         "emission": "dark", "reflectance": "white", "type": "diffuse"}]
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        scene_from_dict(doc)
+    ts, _ = scene_from_dict(doc, device="cpu")
+    _assert_same_scene(ts, jax_scene_from_dict(doc)[0])
+    assert int(ts.primitives.category[-1]) == 2
+    sp = ts.spectra.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        kt.render_sample(dataclasses.replace(ts, spectra=sp), 8, 8, 1, 2)
+
+
+def test_loaders_default_to_the_card(tmp_path):
+    """With no device given the loaders build for the CUDA card, and
+    without one they raise, naming device="cpu"."""
+    doc = jpresets.simple_scene(4, 4)
+    path = tmp_path / "simple.json"
+    path.write_text(json.dumps(doc))
+    if torch.cuda.is_available():
+        assert scene_from_dict(doc)[0].device.type == "cuda"
+        return
+    for load in (lambda: scene_from_dict(doc), lambda: load_scene(str(path))):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            load()
 
 
 @pytest.mark.parametrize("name", ["cornell_box", "simple_scene"])
 def test_scene_static_and_prims_match(name):
     js, _ = jax_scene_from_dict(getattr(jpresets, name)(8, 8))
-    ts, _ = scene_from_dict(getattr(tpresets, name)(8, 8))
+    ts, _ = scene_from_dict(getattr(tpresets, name)(8, 8), device="cpu")
     jst = jmk.SceneStatic.from_scene(js)
     tst = mk.SceneStatic.from_scene(ts)
     for field in ("rows", "categories", "materials", "emission_idx",

@@ -49,7 +49,7 @@ def jax_accum():
 
 @pytest.fixture(scope="module")
 def scene():
-    return scene_from_dict(presets.cornell_box(W, H))[0]
+    return scene_from_dict(presets.cornell_box(W, H), device="cpu")[0]
 
 
 @pytest.fixture(scope="module")
@@ -179,11 +179,16 @@ def test_package_never_imports_jax():
         "import computeraytracer_tpu_torch.__main__\n"
         "from computeraytracer_tpu_torch import cli, config\n"
         "from computeraytracer_tpu_torch.kernels import _build, megakernel\n"
+        "from computeraytracer_tpu_torch.kernels import meshpack\n"
+        "from computeraytracer_tpu_torch.ops import intersect\n"
         "from computeraytracer_tpu_torch.tracer import api, kernel\n"
-        "from computeraytracer_tpu_torch.scene import presets\n"
+        "from computeraytracer_tpu_torch.scene import mesh, presets\n"
         "from computeraytracer_tpu_torch.utils import image, metrics\n"
-        "s, _ = p.scene_from_dict(presets.simple_scene(4, 4))\n"
+        "s, _ = p.scene_from_dict(presets.simple_scene(4, 4), device='cpu')\n"
         "api.render(s, width=4, height=4, spp=1, max_depth=1)\n"
+        "m, _ = p.scene_from_dict(presets.mesh_scene(4, 4, subdivisions=1),\n"
+        "                         device='cpu')\n"
+        "api.render(m, width=4, height=4, spp=1, max_depth=1)\n"
         "new = set(sys.modules) - before\n"
         "assert not any(m.startswith(('jax.', 'jaxlib', 'computeraytracer_tpu.'))\n"
         "               for m in new), sorted(new)\n"
