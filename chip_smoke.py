@@ -64,6 +64,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    the render. Then the mesh kernel's counting build on the full film:
    radiance bit-equal to the mesh kernel's, and its casts, box tests and
    triangle tests, which the mesh kernel's bound counts.
+12. triangle rows: mesh_scene(1024, 1024, subdivisions=1), 80 triangle
+   rows and 6 patches, no mesh part, depth 3. The forward, the retrace
+   backward, the taped forward and the tape-fed backward, whose builds
+   scan the triangle rows in the mesh mode: the taped forward's radiance
+   bit-equal to the forward's and the two backward kernels bit-equal on
+   one tape (full film); each backward against its plain version on a
+   band of 16,384 rays across the blob with phase 6's tolerances. Then
+   value_and_grad of mean(img ** 2) (spp 1) through backward="pallas"
+   and "pallas_taped", counters reset before each: one mesh-mode forward
+   and one retrace, or one taped forward and one tape-fed backward;
+   finite gradients, non-zero on the triangle rows, the two within 1e-5
+   of the largest entry. Times: the four kernels (CUDA events).
+13. the winner-taped forward (build_forward(taped=True)) at phase 11's
+   workload: radiance bit-equal to the mesh kernel's on all 1,048,576
+   rays, tapes equal to forward_winners_reference's on phase 11's band;
+   its time and the mesh kernel's in turns (mesh, winners, winners, mesh).
+14. the slice's path: value_and_grad of mean(img ** 2) at 1024^2, depth
+   3, spp 1, on phase 11's scene (one mesh part of 81,920 triangles)
+   with respect to spectra and data1, every counter reset just before:
+   exactly one winner-taped forward and no other launch; gradients
+   finite, non-zero on the mesh rows (>= 6), bit-equal across two runs.
+   The step's host wall, the guided replay's forward and backward times,
+   the peak device memory of a step, and a torch.profiler pass.
+15. finite differences (staged config 3's check): mesh_scene(32, 32, 2),
+   320 triangles in a mesh part, depth 2, the gradient of sum(image) on
+   its most influential mesh vertex coordinate against a central
+   difference with eps 0.05: relative error at most 1e-2.
+16. the trainer: optimize on phase 11's scene at 1024^2, depth 3, spp 1,
+   3 Adam steps (lr 0.05) training the blob's reflectance row, dimmed
+   x0.3 against the undimmed target: finite losses, the last below the
+   first.
 Then one JSON line of kernels, each with its bound (the larger of the
 bytes it must move over 3.35 TB/s and a lower count of its float
 operations over 67 TFLOP/s, both at 700 W). The last line is
@@ -87,9 +118,11 @@ from computeraytracer_tpu_torch import config as C
 from computeraytracer_tpu_torch.config import RenderConfig
 from computeraytracer_tpu_torch.kernels import _build
 from computeraytracer_tpu_torch.kernels import megakernel as mk
+from computeraytracer_tpu_torch.kernels import meshpack
 from computeraytracer_tpu_torch.ops import spectrum as spec
 from computeraytracer_tpu_torch.scene import presets, scene_from_dict
 from computeraytracer_tpu_torch.tracer import kernel as kt
+from computeraytracer_tpu_torch.tracer import replay
 from computeraytracer_tpu_torch.tracer.api import render
 from computeraytracer_tpu_torch.train import optimize as opt
 from computeraytracer_tpu_torch.utils.image import read_png, write_png
@@ -105,6 +138,10 @@ MESH_SUBDIVISIONS = 6  # 81,920 triangles
 MESH_DEPTH = 3
 MESH_BAND_ROWS = 16    # 16 x 1024 = 16,384 rays for the plain mesh scan
 SMALL_MESH = (256, 4)  # film side, subdivisions of the mean-XYZ check
+TRI_SUBDIVISIONS = 1   # 80 triangles, unrolled rows (below mesh_min)
+FD_SCENE = (32, 2)     # film side, subdivisions of the finite-difference check
+FD_DEPTH = 2
+FD_EPS = 0.05
 
 # The bound of a kernel: the larger of its bytes (each input read once,
 # each output written once) over the H100's memory rate and its float
@@ -196,13 +233,21 @@ def _profile(fn, top=5):
 
 def _reset_counters():
     mk.launches = mk.launches_mesh = mk.launches_taped = 0
-    mk.launches_bwd = mk.launches_bwd_tape = 0
+    mk.launches_bwd = mk.launches_bwd_tape = mk.launches_winners = 0
 
 
 def _counters():
     return {"forward": mk.launches, "forward_mesh": mk.launches_mesh,
             "forward_taped": mk.launches_taped, "backward": mk.launches_bwd,
-            "backward_tape": mk.launches_bwd_tape}
+            "backward_tape": mk.launches_bwd_tape,
+            "forward_winners": mk.launches_winners}
+
+
+def _only(**counts):
+    """The counter dict with the given counts and every other count 0."""
+    want = dict.fromkeys(_counters(), 0)
+    want.update(counts)
+    return want
 
 
 def _backward_agreement(got, want):
@@ -280,6 +325,384 @@ def _rows_read(static):
         elif m == C.GLASS:
             rows.add(static.n_spectra - 1)
     return sorted(rows)
+
+
+def _unrolled_bounds(args, tape_i, max_depth, row_ops):
+    """Bounds of the unrolled-scene kernels on full-film operands args,
+    from their taped="full" tape: (bound_ms, bound_by) of the forward,
+    the taped forward, the retrace and the tape-fed backward, and the
+    counts behind them. row_ops: the operations of one scan over every
+    unrolled row. One scan per live bounce and one shadow scan per live
+    row after a diffuse scatter (the tape's active and specular planes
+    tell them apart); the tape-fed kernel reads its rays' live rows and
+    the active words up to the first dead row (the live rows lead: a dead
+    ray stays dead)."""
+    prims, rays, seeds, spect = args
+    R = rays.shape[1]
+    D = int(max_depth) + 1
+    ti3 = tape_i.reshape(D, mk.TAPE_I, R)
+    live = int(ti3[:, 7].sum())
+    diffuse_on = int(((ti3[1:, 7] != 0) & (ti3[1:, 5] == 0)).sum())
+    scanned = int(torch.clamp(ti3[:, 7].sum(dim=0) + 1, max=D).sum())
+    in_fwd = _nbytes(prims, rays, spect) + seeds.numel() * 4  # int32 seeds
+    out_fwd = 4 * R * 4
+    grads = _nbytes(prims, rays, spect) + 4 * R * 4  # + dL
+    tape_bytes = D * (mk.TAPE_F + mk.TAPE_I) * R * 4
+    tape_read = (live * (mk.TAPE_F + mk.TAPE_I - 1) + scanned) * 4
+    scan_ops = (live + diffuse_on) * row_ops
+    return {"forward": _bound(in_fwd + out_fwd, scan_ops),
+            "taped": _bound(in_fwd + out_fwd + tape_bytes, scan_ops),
+            "backward": _bound(in_fwd + grads, 2 * scan_ops),
+            "tape_bwd": _bound(_nbytes(prims, spect) + tape_read + grads,
+                               scan_ops),
+            "tape_bytes": tape_bytes, "tape_read": tape_read, "live": live,
+            "diffuse_on": diffuse_on}
+
+
+def _band(args, y0):
+    """Film rows y0 .. y0+MESH_BAND_ROWS of full-film kernel operands
+    (prims unchanged), contiguous."""
+    a, b = y0 * WIDTH, (y0 + MESH_BAND_ROWS) * WIDTH
+    return (args[0],) + tuple(x[:, a:b].contiguous() for x in args[1:])
+
+
+def _mesh_loss(scene, static, backward="pallas", mesh_plans=None):
+    """mean(img ** 2) of one planar sample of the film at the mesh depth
+    (staged config 3's value_and_grad)."""
+    img = kt.render_sample_planar(scene, WIDTH, HEIGHT, 1, MESH_DEPTH,
+                                  RR_START, static, backward,
+                                  mesh_plans=mesh_plans)
+    return torch.mean(img ** 2)
+
+
+def _mesh_vg(scene, static, backward="pallas"):
+    """value_and_grad of _mesh_loss with respect to spectra and data1:
+    (loss, d spectra, d data1)."""
+    sp, d1, s = _train_leaves(scene)
+    loss = _mesh_loss(s, static, backward)
+    loss.backward()
+    return loss.item(), sp.grad, d1.grad
+
+
+def _triangle_rows(dev):
+    """Phase 12: the builds of the forward, taped forward and both
+    backward kernels that scan triangle rows. Returns the kernels-line
+    numbers of the taped forward and the two backward kernels."""
+    t0 = time.perf_counter()
+    scene, _ = scene_from_dict(presets.mesh_scene(WIDTH, HEIGHT,
+                                                  TRI_SUBDIVISIONS),
+                               device=dev)
+    static = mk.SceneStatic.from_scene(scene)
+    tri_slots = [k for k, c in enumerate(static.categories) if c == 2]
+    if static.mesh_parts or len(tri_slots) != 20 * 4 ** TRI_SUBDIVISIONS:
+        raise RuntimeError(f"mesh_scene(subdivisions={TRI_SUBDIVISIONS}) "
+                           f"made {len(tri_slots)} triangle rows and "
+                           f"{len(static.mesh_parts)} mesh parts")
+    px, py = kt.tile_coords(WIDTH, HEIGHT, 0, dev)
+    args = kt.kernel_inputs(scene, *kt.camera_planes(
+        scene, WIDTH, HEIGHT, px, py, 1), static)
+    R = args[1].shape[1]
+    dL = torch.randn((4, R), generator=torch.Generator(device=dev)
+                     .manual_seed(1), device=dev)
+    fwd = mk.forward(static, MESH_DEPTH, RR_START, *args)
+    rad_t, tape_f, tape_i = mk.forward_taped(static, MESH_DEPTH, RR_START,
+                                             *args)
+    got_b = mk.backward(static, MESH_DEPTH, RR_START, *args, dL)
+    got_tb = mk.backward_from_tape(static, MESH_DEPTH, RR_START, args[0],
+                                   args[3], tape_f, tape_i, dL)
+    torch.cuda.synchronize()
+    if not torch.equal(rad_t, fwd):
+        raise RuntimeError("triangle rows: the taped forward's radiance is "
+                           "not the forward's bit for bit")
+    diff = [int((g != w).sum()) for g, w in zip(got_tb, got_b)]
+    if any(diff):
+        raise RuntimeError(f"triangle rows: the tape-fed kernel differs "
+                           f"from the retrace kernel in {diff} entries")
+    if not (got_b[0][tri_slots, :9] != 0).any():
+        raise RuntimeError("triangle rows: no cotangent reached a triangle")
+    print(f"triangle rows: {len(tri_slots)} triangles and "
+          f"{len(static.rows) - len(tri_slots)} patches unrolled, depth "
+          f"{MESH_DEPTH}, {R} rays ({time.perf_counter() - t0:.1f} s to "
+          f"here); taped forward bit-equal to the forward, tape-fed kernel "
+          f"bit-equal to the retrace kernel (full film)")
+
+    y0 = HEIGHT // 2 - MESH_BAND_ROWS // 2
+    band = _band(args, y0)
+    bdL = dL[:, y0 * WIDTH:(y0 + MESH_BAND_ROWS) * WIDTH].contiguous()
+    nb = band[1].shape[1]
+    t_plain_f, want_f = _host_s(lambda: mk.forward_taped_reference(
+        static, MESH_DEPTH, RR_START, *band))
+    rad_b, tf_b, ti_b = mk.forward_taped(static, MESH_DEPTH, RR_START, *band)
+    taped_err = (rad_b - want_f[0]).abs().max().item()
+    ints_eq = (ti_b == want_f[2]).all(dim=0).float().mean().item()
+    out = {}
+    for key, got, plain in (
+            ("backward",
+             mk.backward(static, MESH_DEPTH, RR_START, *band, bdL),
+             lambda: mk.backward_reference(static, MESH_DEPTH, RR_START,
+                                           *band, bdL)),
+            ("tape_bwd",
+             mk.backward_from_tape(static, MESH_DEPTH, RR_START, band[0],
+                                   band[3], tf_b, ti_b, bdL),
+             lambda: mk.backward_from_tape_reference(
+                 static, MESH_DEPTH, RR_START, band[0], band[3], tf_b, ti_b,
+                 bdL))):
+        t_plain, want = _host_s(plain)
+        ok, report, err, equal = _backward_agreement(got, want)
+        print(f"triangle rows, {key} kernel vs plain ({nb} rays, rows "
+              f"{y0}-{y0 + MESH_BAND_ROWS - 1}, plain {t_plain:.1f} s): "
+              + report + f"; bit-equal rays {equal:.6f}; max abs err "
+              f"{err:.3g}")
+        if not ok:
+            raise RuntimeError(f"triangle rows: the {key} kernel disagrees "
+                               f"with its plain version")
+        out[key] = {"max_abs_err": err, "plain_ms": t_plain * 1e3}
+    print(f"triangle rows, taped forward vs plain ({nb} rays, plain "
+          f"{t_plain_f:.1f} s): int planes equal on {ints_eq:.6f} of rays, "
+          f"radiance max abs err {taped_err:.3g}")
+    if ints_eq < 0.999:
+        raise RuntimeError("triangle rows: the taped forward's tape "
+                           "disagrees with its plain version")
+    out["taped"] = {"max_abs_err": taped_err, "plain_ms": t_plain_f * 1e3}
+
+    # the two training paths, counters reset before each
+    grads = {}
+    for bw, want in (("pallas", _only(forward_mesh=1, backward=1)),
+                     ("pallas_taped", _only(forward_taped=1,
+                                            backward_tape=1))):
+        _reset_counters()
+        step_s, (loss, gsp, gd1) = _host_s(lambda: _mesh_vg(scene, static,
+                                                            bw))
+        counts = _counters()
+        if counts != want:
+            raise RuntimeError(f"triangle rows, {bw}: launched {counts}, "
+                               f"expected {want}")
+        if not (torch.isfinite(gsp).all() and torch.isfinite(gd1).all()):
+            raise RuntimeError(f"triangle rows, {bw}: gradient not finite")
+        if not (gd1[6:] != 0).any():
+            raise RuntimeError(f"triangle rows, {bw}: zero gradient on the "
+                               f"triangle rows")
+        grads[bw] = (gsp, gd1)
+        out["backward" if bw == "pallas" else "tape_bwd"]["launches"] = \
+            counts["backward" if bw == "pallas" else "backward_tape"]
+        if bw == "pallas_taped":
+            out["taped"]["launches"] = counts["forward_taped"]
+        print(f"triangle rows, value_and_grad ({bw}, spp 1): loss "
+              f"{loss:.6e}, {step_s * 1e3:.1f} ms (first call), launches "
+              f"{counts}")
+    errs = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(grads["pallas_taped"], grads["pallas"])]
+    print(f"triangle rows: pallas_taped vs pallas gradients, worst err "
+          f"{errs} of the largest entry")
+    if max(errs) > 1e-5:
+        raise RuntimeError("triangle rows: the two backward paths disagree")
+
+    times = {
+        "forward_mesh": lambda: mk.forward(static, MESH_DEPTH, RR_START,
+                                           *args),
+        "taped": lambda: mk.forward_taped(static, MESH_DEPTH, RR_START,
+                                          *args),
+        "backward": lambda: mk.backward(static, MESH_DEPTH, RR_START, *args,
+                                        dL),
+        "tape_bwd": lambda: mk.backward_from_tape(
+            static, MESH_DEPTH, RR_START, args[0], args[3], tape_f, tape_i,
+            dL)}
+    ms = {k: _events_ms(fn, 5) for k, fn in times.items()}
+    print(f"triangle rows, ms per sample of {R} rays: {ms}")
+    n_patch = len(static.rows) - len(tri_slots)
+    bounds = _unrolled_bounds(args, tape_i, MESH_DEPTH,
+                              n_patch * PRIM_TEST_OPS
+                              + len(tri_slots) * TRI_PLANE_OPS)
+    for key in ("backward", "tape_bwd", "taped"):
+        out[key].update({
+            "ms": ms[key], "bound_ms": bounds[key][0],
+            "bound_by": bounds[key][1], "library_ms": None,
+            "plain_rays": nb, "rays": R, "max_depth": MESH_DEPTH,
+            "triangle_rows": len(tri_slots)})
+    print(f"triangle rows: live bounces {bounds['live']}, shadow scans "
+          f"{bounds['diffuse_on']}, tape {bounds['tape_bytes'] / 1e9:.3f} GB "
+          f"({bounds['tape_read'] / 1e9:.3f} GB read by the tape-fed "
+          f"kernel); bounds {[bounds[k] for k in out]}")
+    return out
+
+
+def _winners(mstatic, fargs, marrays, y0, mesh_ops):
+    """Phase 13: the winner-taped forward at phase 11's workload; returns
+    its kernels-line numbers but its launches (phase 14 counts them on the
+    slice's path)."""
+    ref = mk.forward(mstatic, MESH_DEPTH, RR_START, *fargs, *marrays)
+    rad, t_idx, t_sh = mk.forward_winners(mstatic, MESH_DEPTH, RR_START,
+                                          *fargs, *marrays)
+    torch.cuda.synchronize()
+    if not torch.equal(rad, ref):
+        raise RuntimeError("the winner-taped forward's radiance is not the "
+                           "mesh kernel's bit for bit")
+    del ref
+    a, b = y0 * WIDTH, (y0 + MESH_BAND_ROWS) * WIDTH
+    t_plain, want = _host_s(lambda: mk.forward_winners_reference(
+        mstatic, MESH_DEPTH, RR_START, *_band(fargs, y0), *marrays))
+    same = (torch.equal(t_idx[:, a:b], want[1])
+            and torch.equal(t_sh[..., a:b], want[2]))
+    err = (rad[:, a:b] - want[0]).abs().max().item()
+    exact = (rad[:, a:b] == want[0]).all(dim=0).float().mean().item()
+    print(f"winner-taped forward: radiance bit-equal to the mesh kernel on "
+          f"all {rad.shape[1]} rays; tapes vs plain on {b - a} rays (plain "
+          f"{t_plain:.1f} s): equal {same}, radiance bit-equal rays "
+          f"{exact:.6f}, max abs err {err:.3g}; hits taped "
+          f"{int((t_idx >= 0).sum())}, shadow winners taped "
+          f"{int((t_sh >= 0).sum())}")
+    if not same:
+        raise RuntimeError("the winner tapes disagree with the plain "
+                           "version")
+    fwd = lambda: mk.forward(mstatic, MESH_DEPTH, RR_START, *fargs, *marrays)
+    win = lambda: mk.forward_winners(mstatic, MESH_DEPTH, RR_START, *fargs,
+                                     *marrays)
+    turns = [("mesh", fwd), ("winners", win), ("winners", win),
+             ("mesh", fwd)]
+    timed = [(k, _events_ms(fn, 2)) for k, fn in turns]
+    win_ms = [t for k, t in timed if k == "winners"]
+    print(f"winner-taped forward vs mesh kernel, ms per sample in turns: "
+          f"{timed}")
+    R = fargs[1].shape[1]
+    nbytes = (_nbytes(fargs[0], fargs[1], fargs[3], *marrays)
+              + fargs[2].numel() * 4 + 4 * R * 4 + _nbytes(t_idx, t_sh))
+    bound = _bound(nbytes, mesh_ops)
+    return {"max_abs_err": err, "ms": min(win_ms),
+            "plain_ms": t_plain * 1e3, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None,
+            "plain_rays": b - a, "rays": R, "max_depth": MESH_DEPTH,
+            "mesh_ms": [t for k, t in timed if k == "mesh"],
+            "winners_ms": win_ms, "tape_bytes": _nbytes(t_idx, t_sh)}
+
+
+def _mesh_grads(mscene, mstatic):
+    """Phase 14: the slice's path. Returns the winner-taped forward's
+    launches in one value_and_grad."""
+    _reset_counters()
+    step_s, (loss, gsp, gd1) = _host_s(lambda: _mesh_vg(mscene, mstatic))
+    counts = _counters()
+    if counts != _only(forward_winners=1):
+        raise RuntimeError(f"mesh value_and_grad launched {counts}, "
+                           f"expected one winner-taped forward and nothing "
+                           f"else")
+    if not (torch.isfinite(gsp).all() and torch.isfinite(gd1).all()):
+        raise RuntimeError("mesh gradient not finite")
+    if not (gd1[6:] != 0).any():
+        raise RuntimeError("zero gradient on the mesh rows")
+    step2_s, (_, gsp2, gd12) = _host_s(lambda: _mesh_vg(mscene, mstatic))
+    if not (torch.equal(gsp, gsp2) and torch.equal(gd1, gd12)):
+        raise RuntimeError("mesh gradient differs between two runs")
+    nz = int((gd1[6:] != 0).any(dim=1).sum())
+    print(f"mesh value_and_grad (81,920 triangles, 1024^2, depth "
+          f"{MESH_DEPTH}, spp 1): loss {loss:.6e}, launches {counts}; "
+          f"{step_s * 1e3:.1f} ms, {step2_s * 1e3:.1f} ms on the host clock; "
+          f"finite, bit-equal across two runs; {nz} mesh rows with a "
+          f"non-zero d data1; |d data1| {float(gd1.abs().sum()):.6g}, "
+          f"|d spectra| {float(gsp.abs().sum()):.6g}")
+    del gsp2, gd12
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _mesh_vg(mscene, mstatic)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    # the guided replay alone, on the winner tape of one sample
+    dev = mscene.device
+    px, py = kt.tile_coords(WIDTH, HEIGHT, 0, dev)
+    prims_full, rays, seeds, spect = kt.kernel_inputs(
+        mscene, *kt.camera_planes(mscene, WIDTH, HEIGHT, px, py, 1))
+    marrays = tuple(a for p in kt.mesh_packs_for(mscene, mstatic)
+                    for a in p.arrays)
+    rad, t_idx, t_sh = mk.forward_winners(
+        mstatic, MESH_DEPTH, RR_START, mk._unrolled(mstatic, prims_full),
+        rays, seeds, spect, *marrays)
+    leaves = [x.clone().requires_grad_(True) for x in (prims_full, rays,
+                                                       spect)]
+    with torch.enable_grad():
+        fwd_s, out = _host_s(lambda: replay.trace_replay(
+            mstatic, mscene.primitives.category, leaves[0], leaves[1], seeds,
+            leaves[2], t_idx, t_sh, MESH_DEPTH, RR_START))
+        bwd_s, _ = _host_s(lambda: torch.autograd.grad(
+            out, leaves, torch.ones_like(out)))
+    rel = (out.detach() - rad).abs() / rad.abs().clamp(min=1e-2)
+    frac = (rel < 1e-4).all(dim=0).float().mean().item()
+    exact = (out.detach() == rad).all(dim=0).float().mean().item()
+    print(f"guided replay: forward {fwd_s * 1e3:.1f} ms, backward "
+          f"{bwd_s * 1e3:.1f} ms on the host clock ({rays.shape[1]} rays); "
+          f"its radiance vs the winner-taped kernel's: {frac:.6f} of rays "
+          f"within rel 1e-4, bit-equal {exact:.6f}; peak device memory "
+          f"above the inputs per step {peak:.3f} GB")
+    if frac < 0.999:
+        raise RuntimeError("the guided replay does not retrace the "
+                           "forward's paths")
+    del out, leaves
+    wall, dev_ms, idle, n_k, top = _profile(lambda: _mesh_vg(mscene,
+                                                             mstatic))
+    print(f"profile of one mesh value_and_grad: wall {wall:.1f} ms, device "
+          f"{dev_ms:.1f} ms, idle share {idle:.3f}, {n_k} kernel launches; "
+          f"top {top}")
+    return counts["forward_winners"]
+
+
+def _finite_difference(dev):
+    """Phase 15: staged config 3's finite-difference check."""
+    side, subdiv = FD_SCENE
+    scene, _ = scene_from_dict(presets.mesh_scene(side, side, subdiv),
+                               device=dev)
+    static = mk.SceneStatic.from_scene(scene)
+    if not static.mesh_parts:
+        raise RuntimeError("the finite-difference scene has no mesh part")
+    plans = tuple(meshpack.plan_scene_mesh(scene, part)
+                  for part in static.mesh_parts)
+
+    def loss(d1):
+        s = dataclasses.replace(scene, primitives=dataclasses.replace(
+            scene.primitives, data1=d1))
+        return kt.render_sample(s, side, side, 1, FD_DEPTH, RR_START, static,
+                                mesh_plans=plans).sum()
+
+    d1 = scene.primitives.data1.detach().clone().requires_grad_(True)
+    _reset_counters()
+    loss(d1).backward()
+    counts = _counters()
+    if counts != _only(forward_winners=1):
+        raise RuntimeError(f"finite-difference gradient launched {counts}")
+    g_mesh = d1.grad[6:]
+    flat = int(g_mesh.abs().argmax())
+    row, col = flat // 3 + 6, flat % 3
+    with torch.no_grad():
+        plus, minus = d1.detach().clone(), d1.detach().clone()
+        plus[row, col] += FD_EPS
+        minus[row, col] -= FD_EPS
+        fd = (loss(plus) - loss(minus)).item() / (2 * FD_EPS)
+    ad = d1.grad[row, col].item()
+    rel = abs(ad - fd) / max(abs(fd), 1e-6)
+    print(f"finite differences ({side}x{side}, "
+          f"{sum(p.count for p in static.mesh_parts)} triangles, depth "
+          f"{FD_DEPTH}, eps {FD_EPS}, data1[{row}, {col}]): AD {ad:.6g}, FD "
+          f"{fd:.6g}, relative error {rel:.3g}")
+    if not rel <= 1e-2:
+        raise RuntimeError(f"AD and FD disagree: {rel}")
+
+
+def _mesh_train(mscene, mstatic):
+    """Phase 16: optimize on the mesh scene."""
+    row = mstatic.mesh_parts[0].reflectance_idx
+    with torch.no_grad():
+        target = opt.render_mean_xyz(mscene, WIDTH, HEIGHT, 1, MESH_DEPTH,
+                                     RR_START)
+    spectra = mscene.spectra.clone()
+    spectra[row] = spectra[row] * 0.3
+    train_s, (_, losses) = _host_s(lambda: opt.optimize(
+        dataclasses.replace(mscene, spectra=spectra), target, WIDTH, HEIGHT,
+        trainable=("spectra",), steps=TRAIN_STEPS, learning_rate=0.05, spp=1,
+        max_depth=MESH_DEPTH, rr_start=RR_START, spectra_rows=[row]))
+    print(f"optimize on the mesh scene (spectra row {row}): {TRAIN_STEPS} "
+          f"steps in {train_s:.2f} s, losses {losses}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise RuntimeError(f"optimize did not lower the mesh loss: "
+                           f"{losses}")
 
 
 def main() -> int:
@@ -469,13 +892,9 @@ def main() -> int:
     frac_float = floats_ok.float().mean().item()
     tape_equal = ((tape_f == want_t[1]).all(dim=0) & ints_eq
                   & (rad_t == want_t[0]).all(dim=0)).float().mean().item()
-    ti3 = tape_i.reshape(D, mk.TAPE_I, rays)
-    live_rows = ti3[:, 7].sum(dim=1).tolist()
-    live = int(sum(live_rows))
-    # the tape-fed kernel scans active words up to the first dead row
-    # (the live rows lead: a dead ray stays dead)
-    scanned = int(torch.clamp(ti3[:, 7].sum(dim=0) + 1, max=D).sum())
-    diffuse_on = int(((ti3[1:, 7] != 0) & (ti3[1:, 5] == 0)).sum())
+    live_rows = tape_i.reshape(D, mk.TAPE_I, rays)[:, 7].sum(dim=1).tolist()
+    bounds = _unrolled_bounds(args, tape_i, MAX_DEPTH,
+                              len(static.rows) * PRIM_TEST_OPS)
     print(f"taped forward: radiance bit-equal to the forward kernel; tape "
           f"vs plain ({t_plain_t:.1f} s): int planes equal on {frac_int:.6f} "
           f"of rays, float planes within rel 1e-4 on {frac_float:.6f}, "
@@ -507,8 +926,7 @@ def main() -> int:
     step_t_s, loss_t = _host_s(lambda: _vg(train_scene, static,
                                            "pallas_taped"))
     counts = _counters()
-    want_counts = {"forward": 0, "forward_mesh": 0, "forward_taped": SPP,
-                   "backward": 0, "backward_tape": SPP}
+    want_counts = _only(forward_taped=SPP, backward_tape=SPP)
     if counts != want_counts:
         raise RuntimeError(f"pallas_taped value_and_grad launched {counts}, "
                            f"expected {want_counts}")
@@ -619,8 +1037,7 @@ def main() -> int:
     _reset_counters()
     mrender_s, mout = _host_s(lambda: render(mscene, mcfg))
     counts = _counters()
-    if counts != {"forward": 0, "forward_mesh": SPP, "forward_taped": 0,
-                  "backward": 0, "backward_tape": 0}:
+    if counts != _only(forward_mesh=SPP):
         raise RuntimeError(f"mesh render launched {counts}, expected {SPP} "
                            f"mesh-mode forwards")
     launches_mesh = counts["forward_mesh"]
@@ -680,26 +1097,26 @@ def main() -> int:
           f"{got_m.shape[1]} rays")
     print(f"chip_smoke phases 1-11: {time.perf_counter() - t_start:.1f} s")
 
+    # 12-16. triangle rows, the winner-taped forward, mesh gradients, the
+    # finite-difference check and the trainer
+    tri = _triangle_rows(dev)
+    mesh_ops = (casts * len(mstatic.rows) * PRIM_TEST_OPS
+                + box_tests * BOX_TEST_OPS + plane_tests * TRI_PLANE_OPS
+                + inside_tests * TRI_INSIDE_OPS)
+    win = _winners(mstatic, fargs, marrays, y0, mesh_ops)
+    win["launches"] = _mesh_grads(mscene, mstatic)
+    _finite_difference(dev)
+    _mesh_train(mscene, mstatic)
+    print(f"chip_smoke phases 1-16: {time.perf_counter() - t_start:.1f} s")
+
     # bounds at the shapes timed above
-    prims, rays_t, seeds_t, spect_t = args
-    seed_bytes = seeds_t.numel() * 4  # the kernels read int32 words
-    tape_bytes = D * 24 * rays * 4
-    in_fwd = _nbytes(prims, rays_t, spect_t) + seed_bytes
-    out_fwd = 4 * rays * 4
-    grads = _nbytes(prims, rays_t[:6], spect_t) + 4 * rays * 4  # + dL
-    scan_ops = (live + diffuse_on) * len(static.rows) * PRIM_TEST_OPS
-    b_fwd = _bound(in_fwd + out_fwd, scan_ops)
-    b_taped = _bound(in_fwd + out_fwd + tape_bytes, scan_ops)
-    b_bwd = _bound(in_fwd + grads, 2 * scan_ops)
-    tape_read = (live * (mk.TAPE_F + mk.TAPE_I - 1) + scanned) * 4
-    b_tape_bwd = _bound(_nbytes(prims, spect_t) + tape_read + grads,
-                        scan_ops)
+    b_fwd, b_taped = bounds["forward"], bounds["taped"]
+    b_bwd, b_tape_bwd = bounds["backward"], bounds["tape_bwd"]
+    tape_bytes, tape_read = bounds["tape_bytes"], bounds["tape_read"]
+    live, diffuse_on = bounds["live"], bounds["diffuse_on"]
     mrays = fargs[1].shape[1]
     b_mesh = _bound(_nbytes(fargs[0], fargs[1], fargs[3], *marrays)
-                    + fargs[2].numel() * 4 + 4 * mrays * 4,
-                    casts * len(mstatic.rows) * PRIM_TEST_OPS
-                    + box_tests * BOX_TEST_OPS + plane_tests * TRI_PLANE_OPS
-                    + inside_tests * TRI_INSIDE_OPS)
+                    + fargs[2].numel() * 4 + 4 * mrays * 4, mesh_ops)
     src = "computeraytracer_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [{
         "name": "megakernel_forward",
@@ -793,7 +1210,24 @@ def main() -> int:
         "box_tests": box_tests,
         "triangle_plane_tests": plane_tests,
         "triangle_inside_tests": inside_tests,
-    }]}))
+    }, dict({
+        "name": "megakernel_forward_winners",
+        "route": "cuda",
+        "source": src + "megakernel_fwd.cu",
+        "replaces": "computeraytracer_tpu/kernels/megakernel.py:897 "
+                    "(taped=True, mesh mode)",
+    }, **win)] + [dict({
+        "name": name,
+        "route": "cuda",
+        "source": src + source,
+        "replaces": "computeraytracer_tpu/kernels/megakernel.py:" + line
+                    + " (triangle rows)",
+    }, **tri[key]) for name, source, line, key in (
+        ("megakernel_backward_tri", "megakernel_bwd.cu", "1314", "backward"),
+        ("megakernel_backward_from_tape_tri", "megakernel_bwd_tape.cu",
+         "1480", "tape_bwd"),
+        ("megakernel_forward_taped_tri", "megakernel_fwd.cu",
+         "897 (taped=\"full\")", "taped"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -30,6 +30,14 @@
 // - d_spect and d_prims are summed in a fixed order (reverse.cuh): two runs
 //   give bit-equal gradients.
 //
+// Triangle rows: a scene whose unrolled rows include triangles (category
+// 2; a mesh part never reaches this kernel, its gradient is the guided
+// replay's) runs the MESH_WALK build with no part, whose replay and
+// recompute scan them with the watertight test as the forward does and
+// whose adjoint carries a triangle winner's cotangent into its vertices
+// (reverse.cuh hit_bwd). Every other scene runs the MESH_NONE build, which
+// compiles none of that.
+//
 // Numerics: built with --fmad=false, like the forward, so the replay's
 // hit winners, Fresnel choices and Russian-roulette decisions are the
 // forward's bit for bit.
@@ -40,6 +48,7 @@ namespace {
 
 using namespace pathtrace;
 
+template <int MESH>
 __global__ void __launch_bounds__(THREADS)
     megakernel_bwd_kernel(const float* __restrict__ prims,
                           const int* __restrict__ meta, int P,
@@ -72,23 +81,43 @@ __global__ void __launch_bounds__(THREADS)
       tape_write(tape_f, tape_i, R, r, depth, c, alive);
       if (alive) {
         n_live = depth + 1;
-        alive = bounce<false>(s, tr, r, depth, c, nullptr);
+        alive = bounce<false, MESH>(s, tr, r, depth, c, nullptr);
       }
     }
     for (int k = 0; k < S * 4; ++k) d_spect[(long long)k * R + r] = 0.0f;
   }
 
   // ---- phase B: the reverse sweep (reverse.cuh)
-  reverse_sweep(s, tr, r, valid, n_live, tape_f, tape_i, dL, d_rays, d_spect,
-                acc_all + (threadIdx.x >> 5) * P12);
+  reverse_sweep<MESH>(s, tr, r, valid, n_live, tape_f, tape_i, dL, d_rays,
+                      d_spect, acc_all + (threadIdx.x >> 5) * P12);
   block_partial(acc_all, P12, partial);
+}
+
+template <int MESH>
+int launch_bwd(unsigned blocks, size_t dyn, cudaStream_t st,
+               const float* prims, const int* meta, int n_prims,
+               const int* lights, int n_lights, const float* rays,
+               const int* seeds, const float* spect, int n_spectra,
+               const float* dL, float* partial, float* d_rays, float* d_spect,
+               float* tape_f, int* tape_i, long long n_rays, int max_depth,
+               int rr_start) {
+  cudaError_t err = cudaFuncSetAttribute(
+      megakernel_bwd_kernel<MESH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dyn);
+  if (err != cudaSuccess) return (int)err;
+  megakernel_bwd_kernel<MESH><<<blocks, THREADS, dyn, st>>>(
+      prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
+      dL, partial, d_rays, d_spect, tape_f, tape_i, n_rays, max_depth,
+      rr_start);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // partial: (ceil(n_rays / 128), n_prims * 12) scratch; tape_f
 // ((max_depth+1) * 16, n_rays) and tape_i ((max_depth+1) * 8, n_rays)
-// scratch. Returns the CUDA error code of the launches (0 on success).
+// scratch; mesh_mode: the scene has triangle rows. Returns the CUDA error
+// code of the launches (0 on success).
 extern "C" int megakernel_bwd(const float* prims, const int* meta, int n_prims,
                               const int* lights, int n_lights,
                               const float* rays, const int* seeds,
@@ -96,23 +125,19 @@ extern "C" int megakernel_bwd(const float* prims, const int* meta, int n_prims,
                               const float* dL, float* d_prims, float* partial,
                               float* d_rays, float* d_spect, float* tape_f,
                               int* tape_i, long long n_rays, int max_depth,
-                              int rr_start, void* stream) {
+                              int rr_start, int mesh_mode, void* stream) {
   if (n_prims < 1 || n_prims > MAX_PRIMS || n_lights < 1 ||
       n_lights > MAX_LIGHTS || n_spectra < 1 || n_rays < 1 || max_depth < 0 ||
       (n_rays + THREADS - 1) / THREADS > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
   const size_t dyn = (size_t)WARPS * n_prims * 12 * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      megakernel_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dyn);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  megakernel_bwd_kernel<<<blocks, THREADS, dyn, st>>>(
-      prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-      dL, partial, d_rays, d_spect, tape_f, tape_i, n_rays, max_depth,
-      rr_start);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err =
+      (mesh_mode ? launch_bwd<MESH_WALK> : launch_bwd<MESH_NONE>)(
+          blocks, dyn, st, prims, meta, n_prims, lights, n_lights, rays,
+          seeds, spect, n_spectra, dL, partial, d_rays, d_spect, tape_f,
+          tape_i, n_rays, max_depth, rr_start);
+  if (err) return err;
   return finish_d_prims(partial, blocks, n_prims, d_prims, st);
 }

@@ -25,6 +25,9 @@
 // addresses (ray-minor planes); d_prims and d_spect are summed in a fixed
 // order (reverse.cuh).
 //
+// Triangle rows: as the retrace kernel, the MESH_WALK build (no part) for a
+// scene with category-2 rows, the MESH_NONE build for every other scene.
+//
 // Numerics: built with --fmad=false, like the forward, so the recomputed
 // decisions are the forward's bit for bit.
 
@@ -34,6 +37,7 @@ namespace {
 
 using namespace pathtrace;
 
+template <int MESH>
 __global__ void __launch_bounds__(THREADS)
     megakernel_bwd_tape_kernel(const float* __restrict__ prims,
                                const int* __restrict__ meta, int P,
@@ -63,15 +67,34 @@ __global__ void __launch_bounds__(THREADS)
       ++n_live;
     for (int k = 0; k < S * 4; ++k) d_spect[(long long)k * R + r] = 0.0f;
   }
-  reverse_sweep(s, tr, r, valid, n_live, tape_f, tape_i, dL, d_rays, d_spect,
-                acc_all + (threadIdx.x >> 5) * P12);
+  reverse_sweep<MESH>(s, tr, r, valid, n_live, tape_f, tape_i, dL, d_rays,
+                      d_spect, acc_all + (threadIdx.x >> 5) * P12);
   block_partial(acc_all, P12, partial);
+}
+
+template <int MESH>
+int launch_bwd_tape(unsigned blocks, size_t dyn, cudaStream_t st,
+                    const float* prims, const int* meta, int n_prims,
+                    const int* lights, int n_lights, const float* spect,
+                    int n_spectra, const float* tape_f, const int* tape_i,
+                    const float* dL, float* partial, float* d_rays,
+                    float* d_spect, long long n_rays, int max_depth,
+                    int rr_start) {
+  cudaError_t err = cudaFuncSetAttribute(
+      megakernel_bwd_tape_kernel<MESH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return (int)err;
+  megakernel_bwd_tape_kernel<MESH><<<blocks, THREADS, dyn, st>>>(
+      prims, meta, n_prims, lights, n_lights, spect, n_spectra, tape_f, tape_i,
+      dL, partial, d_rays, d_spect, n_rays, max_depth, rr_start);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// partial: (ceil(n_rays / 128), n_prims * 12) scratch. Returns the CUDA
-// error code of the launches (0 on success).
+// partial: (ceil(n_rays / 128), n_prims * 12) scratch; mesh_mode: the scene
+// has triangle rows. Returns the CUDA error code of the launches (0 on
+// success).
 extern "C" int megakernel_bwd_tape(const float* prims, const int* meta,
                                    int n_prims, const int* lights,
                                    int n_lights, const float* spect,
@@ -80,22 +103,19 @@ extern "C" int megakernel_bwd_tape(const float* prims, const int* meta,
                                    float* d_prims, float* partial,
                                    float* d_rays, float* d_spect,
                                    long long n_rays, int max_depth,
-                                   int rr_start, void* stream) {
+                                   int rr_start, int mesh_mode, void* stream) {
   if (n_prims < 1 || n_prims > MAX_PRIMS || n_lights < 1 ||
       n_lights > MAX_LIGHTS || n_spectra < 1 || n_rays < 1 || max_depth < 0 ||
       (n_rays + THREADS - 1) / THREADS > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
   const size_t dyn = (size_t)WARPS * n_prims * 12 * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      megakernel_bwd_tape_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dyn);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  megakernel_bwd_tape_kernel<<<blocks, THREADS, dyn, st>>>(
-      prims, meta, n_prims, lights, n_lights, spect, n_spectra, tape_f, tape_i,
-      dL, partial, d_rays, d_spect, n_rays, max_depth, rr_start);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err =
+      (mesh_mode ? launch_bwd_tape<MESH_WALK> : launch_bwd_tape<MESH_NONE>)(
+          blocks, dyn, st, prims, meta, n_prims, lights, n_lights, spect,
+          n_spectra, tape_f, tape_i, dL, partial, d_rays, d_spect, n_rays,
+          max_depth, rr_start);
+  if (err) return err;
   return finish_d_prims(partial, blocks, n_prims, d_prims, st);
 }

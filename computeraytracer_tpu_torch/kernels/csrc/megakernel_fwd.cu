@@ -1,7 +1,7 @@
 // Forward path-tracing megakernel for Hopper (sm_90a).
 //
 // Replaces computeraytracer_tpu/kernels/megakernel.py:897 build_forward in
-// three of its modes:
+// all of its modes:
 // - plain (megakernel_fwd with no mesh part and no triangle row);
 // - mesh (megakernel_fwd with mesh parts or triangle rows): triangle rows
 //   join the unrolled scan through the watertight test, and every mesh
@@ -12,10 +12,19 @@
 //   device memory, so the TPU kernel's HBM-streaming mode
 //   (megakernel.py:849-853, stream_tris) has the same contract here and is
 //   covered by this mode;
-// - taped="full" (megakernel_fwd_taped, non-mesh scenes): each bounce's
-//   input carry is also written to the tape that megakernel_bwd_tape.cu
-//   reads (bounce.cuh tape_write), the layout megakernel_bwd.cu's replay
-//   writes, rows after the ray died included.
+// - taped="full" (megakernel_fwd_taped, scenes without mesh parts): each
+//   bounce's input carry is also written to the tape that
+//   megakernel_bwd_tape.cu reads (bounce.cuh tape_write), the layout
+//   megakernel_bwd.cu's replay writes, rows after the ray died included;
+//   in the mesh mode when the scene has triangle rows;
+// - taped=True (megakernel_fwd_winners, plain or mesh mode): each bounce's
+//   closest-hit winner and the shadow winner of the light its NEE picked,
+//   the tape of the guided replay (tracer/replay.py). They are what
+//   bounce<true> records anyway (BounceRec.hit.idx, .sh.idx): no second
+//   scan. Every entry the replay does not read is -1: a dead ray's rows,
+//   and the shadow entries of the lights a bounce did not pick. The TPU
+//   kernel scans every light for every lane of a tile and skips whole
+//   tiles; those entries are never read, and the radiance is the same.
 // One thread traces one ray to completion: up to max_depth+1 bounces of
 // make_bounce (megakernel.py:467),
 // each an in-order closest-hit scan over every primitive, next-event
@@ -29,7 +38,8 @@
 // words plus a hit record), not bytes. Each ray reads 6+4 words, a few
 // spectrum words per bounce, and writes 4: a few hundred bytes against
 // thousands of flops per bounce. The taped mode adds 96 B per bounce row
-// per ray of writes (864 B per ray at depth 8). The mesh mode adds the
+// per ray of writes (864 B per ray at depth 8); the winner tape 4 B per
+// bounce row and light. The mesh mode adds the
 // traversal: dependent reads of boxes and triangle rows from device memory
 // (L2-resident at 81,920 triangles, 5.2 MB of rows), divergent across the
 // warp, and one watertight test per triangle of each entered chunk.
@@ -62,7 +72,24 @@ namespace {
 
 using namespace pathtrace;
 
-template <int MESH, bool TAPED>
+// What a launch tapes: nothing, every bounce's input carry (taped="full"),
+// or every bounce's winners (taped=True).
+enum { TAPE_NONE = 0, TAPE_FULL = 1, TAPE_WINNERS = 2 };
+
+// The winner tape's row `depth` of ray r: tape_idx (max_depth+1, R) gets
+// the closest-hit winner hit_w, tape_sh (max_depth+1, n_lights, R) the
+// shadow winner sh_w for light li and -1 for every other light.
+__device__ __forceinline__ void winners_write(int* __restrict__ tape_idx,
+                                              int* __restrict__ tape_sh,
+                                              long long R, long long r,
+                                              int depth, int n_lights,
+                                              int hit_w, int li, int sh_w) {
+  tape_idx[(long long)depth * R + r] = hit_w;
+  for (int l = 0; l < n_lights; ++l)
+    tape_sh[((long long)depth * n_lights + l) * R + r] = l == li ? sh_w : -1;
+}
+
+template <int MESH, int TAPE>
 __global__ void __launch_bounds__(THREADS)
     megakernel_fwd_kernel(const float* __restrict__ prims,
                           const int* __restrict__ meta, int P,
@@ -71,8 +98,9 @@ __global__ void __launch_bounds__(THREADS)
                           const int* __restrict__ seeds,
                           const float* __restrict__ spect, int S,
                           float* __restrict__ out, float* __restrict__ tape_f,
-                          int* __restrict__ tape_i, long long R, int max_depth,
-                          int rr_start, const __grid_constant__ MeshParts mp,
+                          int* __restrict__ tape_i, int* __restrict__ tape_sh,
+                          long long R, int max_depth, int rr_start,
+                          const __grid_constant__ MeshParts mp,
                           unsigned long long* __restrict__ work) {
   __shared__ Scene s;
   load_scene(s, prims, meta, P, lights, n_lights, &mp);
@@ -84,11 +112,25 @@ __global__ void __launch_bounds__(THREADS)
     Carry c = init_carry(rays, seeds, R, r);
     bool alive = true;
     for (int depth = 0; depth <= max_depth; ++depth) {
-      if (TAPED) tape_write(tape_f, tape_i, R, r, depth, c, alive);
-      if (alive)
+      if (TAPE == TAPE_FULL) tape_write(tape_f, tape_i, R, r, depth, c, alive);
+      if (TAPE == TAPE_WINNERS) {
+        int hit_w = -1, li = -1, sh_w = -1;
+        if (alive) {
+          BounceRec rec;
+          alive = bounce<true, MESH>(s, tr, r, depth, c, &rec);
+          hit_w = rec.hit.idx;
+          // a diffuse scatter ran the shadow scan for the light it picked
+          if (rec.scatter && s.meta[rec.hit.slot * META + 2] == DIFFUSE) {
+            li = rec.li;
+            sh_w = rec.sh.idx;
+          }
+        }
+        winners_write(tape_i, tape_sh, R, r, depth, n_lights, hit_w, li, sh_w);
+      } else if (alive) {
         alive = bounce<false, MESH>(s, tr, r, depth, c, nullptr);
-      else if (!TAPED)
+      } else if (TAPE == TAPE_NONE) {
         break;
+      }
     }
     for (int j = 0; j < 4; ++j) out[j * R + r] = c.L[j];
   }
@@ -102,6 +144,23 @@ int check_args(int n_prims, int n_lights, int n_spectra, long long n_rays,
       (n_rays + THREADS - 1) / THREADS > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+// The kernel's mesh-part table from per part (tri_rows, chunk_bbox,
+// node_bbox, node_meta) device pointers and (n_nodes, n_real_chunks).
+MeshParts make_parts(int n_parts, const long long* part_ptrs,
+                     const int* part_info) {
+  MeshParts mp = {};
+  mp.n = n_parts;
+  for (int i = 0; i < n_parts; ++i) {
+    mp.part[i].tri = (const float*)part_ptrs[4 * i + 0];
+    mp.part[i].cbox = (const float*)part_ptrs[4 * i + 1];
+    mp.part[i].nbox = (const float*)part_ptrs[4 * i + 2];
+    mp.part[i].nmeta = (const int*)part_ptrs[4 * i + 3];
+    mp.part[i].n_nodes = part_info[2 * i + 0];
+    mp.part[i].n_real_chunks = part_info[2 * i + 1];
+  }
+  return mp;
 }
 
 }  // namespace
@@ -127,35 +186,29 @@ extern "C" int megakernel_fwd(const float* prims, const int* meta, int n_prims,
       (work && !mesh_mode))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  MeshParts mp = {};
-  mp.n = n_parts;
-  for (int i = 0; i < n_parts; ++i) {
-    mp.part[i].tri = (const float*)part_ptrs[4 * i + 0];
-    mp.part[i].cbox = (const float*)part_ptrs[4 * i + 1];
-    mp.part[i].nbox = (const float*)part_ptrs[4 * i + 2];
-    mp.part[i].nmeta = (const int*)part_ptrs[4 * i + 3];
-    mp.part[i].n_nodes = part_info[2 * i + 0];
-    mp.part[i].n_real_chunks = part_info[2 * i + 1];
-  }
+  const MeshParts mp = make_parts(n_parts, part_ptrs, part_info);
   const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
   cudaStream_t st = (cudaStream_t)stream;
   if (work)
-    megakernel_fwd_kernel<MESH_COUNT, false><<<blocks, THREADS, 0, st>>>(
+    megakernel_fwd_kernel<MESH_COUNT, TAPE_NONE><<<blocks, THREADS, 0, st>>>(
         prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-        out, nullptr, nullptr, n_rays, max_depth, rr_start, mp, work);
+        out, nullptr, nullptr, nullptr, n_rays, max_depth, rr_start, mp, work);
   else if (mesh_mode)
-    megakernel_fwd_kernel<MESH_WALK, false><<<blocks, THREADS, 0, st>>>(
+    megakernel_fwd_kernel<MESH_WALK, TAPE_NONE><<<blocks, THREADS, 0, st>>>(
         prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-        out, nullptr, nullptr, n_rays, max_depth, rr_start, mp, nullptr);
+        out, nullptr, nullptr, nullptr, n_rays, max_depth, rr_start, mp,
+        nullptr);
   else
-    megakernel_fwd_kernel<MESH_NONE, false><<<blocks, THREADS, 0, st>>>(
+    megakernel_fwd_kernel<MESH_NONE, TAPE_NONE><<<blocks, THREADS, 0, st>>>(
         prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-        out, nullptr, nullptr, n_rays, max_depth, rr_start, mp, nullptr);
+        out, nullptr, nullptr, nullptr, n_rays, max_depth, rr_start, mp,
+        nullptr);
   return (int)cudaGetLastError();
 }
 
-// The taped="full" forward of a non-mesh scene: out as megakernel_fwd, and
-// tape_f ((max_depth+1) * 16, n_rays), tape_i ((max_depth+1) * 8, n_rays).
+// The taped="full" forward of a scene without mesh parts: out as
+// megakernel_fwd, and tape_f ((max_depth+1) * 16, n_rays), tape_i
+// ((max_depth+1) * 8, n_rays). mesh_mode: the scene has triangle rows.
 extern "C" int megakernel_fwd_taped(const float* prims, const int* meta,
                                     int n_prims, const int* lights,
                                     int n_lights, const float* rays,
@@ -163,16 +216,56 @@ extern "C" int megakernel_fwd_taped(const float* prims, const int* meta,
                                     int n_spectra, float* out, float* tape_f,
                                     int* tape_i, long long n_rays,
                                     int max_depth, int rr_start,
-                                    void* stream) {
+                                    int mesh_mode, void* stream) {
   int err = check_args(n_prims, n_lights, n_spectra, n_rays, max_depth);
   if (err) return err;
   if (n_rays == 0) return 0;
-  MeshParts mp = {};
-  mp.n = 0;
+  const MeshParts mp = {};
   const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
-  megakernel_fwd_kernel<MESH_NONE, true><<<blocks, THREADS, 0,
-                                           (cudaStream_t)stream>>>(
-      prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-      out, tape_f, tape_i, n_rays, max_depth, rr_start, mp, nullptr);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mesh_mode)
+    megakernel_fwd_kernel<MESH_WALK, TAPE_FULL><<<blocks, THREADS, 0, st>>>(
+        prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
+        out, tape_f, tape_i, nullptr, n_rays, max_depth, rr_start, mp,
+        nullptr);
+  else
+    megakernel_fwd_kernel<MESH_NONE, TAPE_FULL><<<blocks, THREADS, 0, st>>>(
+        prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
+        out, tape_f, tape_i, nullptr, n_rays, max_depth, rr_start, mp,
+        nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The taped=True forward: out as megakernel_fwd, and the winner tape,
+// tape_idx (max_depth+1, n_rays) and tape_sh (max_depth+1, n_lights,
+// n_rays) i32. The mesh arguments are megakernel_fwd's.
+extern "C" int megakernel_fwd_winners(const float* prims, const int* meta,
+                                      int n_prims, const int* lights,
+                                      int n_lights, const float* rays,
+                                      const int* seeds, const float* spect,
+                                      int n_spectra, float* out, int* tape_idx,
+                                      int* tape_sh, long long n_rays,
+                                      int max_depth, int rr_start,
+                                      int mesh_mode, int n_parts,
+                                      const long long* part_ptrs,
+                                      const int* part_info, void* stream) {
+  int err = check_args(n_prims, n_lights, n_spectra, n_rays, max_depth);
+  if (err) return err;
+  if (n_parts < 0 || n_parts > MAX_PARTS || (n_parts > 0 && !mesh_mode))
+    return (int)cudaErrorInvalidValue;
+  if (n_rays == 0) return 0;
+  const MeshParts mp = make_parts(n_parts, part_ptrs, part_info);
+  const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mesh_mode)
+    megakernel_fwd_kernel<MESH_WALK, TAPE_WINNERS><<<blocks, THREADS, 0, st>>>(
+        prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
+        out, nullptr, tape_idx, tape_sh, n_rays, max_depth, rr_start, mp,
+        nullptr);
+  else
+    megakernel_fwd_kernel<MESH_NONE, TAPE_WINNERS><<<blocks, THREADS, 0, st>>>(
+        prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
+        out, nullptr, tape_idx, tape_sh, n_rays, max_depth, rr_start, mp,
+        nullptr);
   return (int)cudaGetLastError();
 }

@@ -158,11 +158,17 @@ __device__ void light_pdf_bwd(const Scene& s, int l, int n_lights, V3 n_at,
 }
 
 // Adjoint of the closest hit h of a ray (o, d): cotangents of its pos and
-// nrm into o, d and the winning primitive's row.
+// nrm into o, d and the winning primitive's row. With TRI (the builds for
+// scenes with triangle rows), a category-2 winner takes the plane test's
+// adjoint too, with p0 = v0, e1 = v1 - v0 and e2 = v2 - v0: the edges'
+// cotangents go to v1 and v2 and are taken from v0's (columns 0, 3, 6).
+// Its inside test is boolean and carries no cotangent.
+template <bool TRI>
 __device__ void hit_bwd(const Scene& s, const Hit& h, V3 o, V3 d, V3 g_pos,
                         V3 g_nrm, V3& g_o, V3& g_d, Contrib& c) {
   const int w = h.slot;
-  if (s.meta[w * META + 1] == 0) {
+  const int cat = s.meta[w * META + 1];
+  if (cat == 0 || (TRI && cat == 2)) {
     const V3 p0 = prim3(s, w, 0);
     const V3 n0 = {s.n0[w * 3], s.n0[w * 3 + 1], s.n0[w * 3 + 2]};
     const float ndotd = n0.x * d.x + n0.y * d.y + n0.z * d.z;
@@ -182,8 +188,14 @@ __device__ void hit_bwd(const Scene& s, const Hit& h, V3 o, V3 d, V3 g_pos,
     g_o = vsub(g_o, g_p0);
     vacc(g_d, vscale(g_nd, n0));
     V3 g_e1 = vzero(), g_e2 = vzero();
-    n0_bwd(prim3(s, w, 3), prim3(s, w, 6), g_n0, g_e1, g_e2);
-    contrib_add3(c, 0, g_p0);
+    if (TRI && cat == 2) {
+      n0_bwd(vsub(prim3(s, w, 3), p0), vsub(prim3(s, w, 6), p0), g_n0, g_e1,
+             g_e2);
+      contrib_add3(c, 0, vsub(vsub(g_p0, g_e1), g_e2));
+    } else {
+      n0_bwd(prim3(s, w, 3), prim3(s, w, 6), g_n0, g_e1, g_e2);
+      contrib_add3(c, 0, g_p0);
+    }
     contrib_add3(c, 3, g_e1);
     contrib_add3(c, 6, g_e2);
   } else {
@@ -251,7 +263,8 @@ __device__ void reflect_bwd(V3 d, V3 m, V3 g_out, V3& g_d, V3& g_m) {
 // forward recompute recorded; g holds the output carry's cotangent on
 // entry and the input carry's on exit. Primitive cotangents go to cA (the
 // hit) and cB (the NEE light), spectrum cotangents into this ray's column
-// of d_spect.
+// of d_spect. TRI: the scene has triangle rows (hit_bwd).
+template <bool TRI>
 __device__ void bounce_bwd(const Scene& s, const Trace& tr, long long r,
                            int depth, const Carry& cin, const BounceRec& rec,
                            Grad& g, Contrib& cA, Contrib& cB,
@@ -297,7 +310,7 @@ __device__ void bounce_bwd(const Scene& s, const Trace& tr, long long r,
       light_pdf_bwd(s, l_hit, tr.n_lights, h.nrm, cin.d, h.pos, cin.o, g_pdf,
                     g_nrm, g_d, g_pos, g_o, cA);
     }
-    hit_bwd(s, h, cin.o, cin.d, g_pos, g_nrm, g_o, g_d, cA);
+    hit_bwd<TRI>(s, h, cin.o, cin.d, g_pos, g_nrm, g_o, g_d, cA);
     g.o = g_o;
     g.d = g_d;
     return;
@@ -444,7 +457,7 @@ __device__ void bounce_bwd(const Scene& s, const Trace& tr, long long r,
       V3 g_shn = vzero(), g_shp = vzero();
       light_pdf_bwd(s, li, tr.n_lights, sh.nrm, ldir, sh.pos, h.pos, g_pdfl,
                     g_shn, g_ldir, g_shp, g_pos, cB);
-      hit_bwd(s, sh, h.pos, ldir, g_shp, g_shn, g_pos, g_ldir, cB);
+      hit_bwd<TRI>(s, sh, h.pos, ldir, g_shp, g_shn, g_pos, g_ldir, cB);
       const V3 g_v = normalize_bwd(vv, g_ldir);
       g_pos = vsub(g_pos, g_v);
       contrib_add3(cB, 0, g_v);
@@ -514,7 +527,7 @@ __device__ void bounce_bwd(const Scene& s, const Trace& tr, long long r,
     for (int j = 0; j < 4; ++j) g.beta[j] = g_bl[j];
   }
 
-  hit_bwd(s, h, cin.o, cin.d, g_pos, g_nrm, g_o, g_d, cA);
+  hit_bwd<TRI>(s, h, cin.o, cin.d, g_pos, g_nrm, g_o, g_d, cA);
   g.o = g_o;
   g.d = g_d;
   g.last_pdf = g_lp_in;
@@ -532,6 +545,10 @@ __device__ __forceinline__ void add_contrib(float* __restrict__ acc,
 // [0, n_live), warp-uniform so that the warp can add its d_prims
 // contributions in lane order into its table acc. Writes d_rays; d_spect's
 // column must be zero on entry. Every thread of the warp must call it.
+// MESH: the scan mode of the recompute, MESH_WALK for a scene with
+// triangle rows (no mesh part reaches a backward kernel), so that it scans
+// them as the forward did.
+template <int MESH>
 __device__ void reverse_sweep(const Scene& s, const Trace& tr, long long r,
                               bool valid, int n_live,
                               const float* __restrict__ tape_f,
@@ -560,8 +577,9 @@ __device__ void reverse_sweep(const Scene& s, const Trace& tr, long long r,
       const Carry cin = tape_read(tape_f, tape_i, R, r, depth);
       Carry c = cin;
       BounceRec rec;
-      bounce<true>(s, tr, r, depth, c, &rec);
-      bounce_bwd(s, tr, r, depth, cin, rec, g, cA, cB, d_spect);
+      bounce<true, MESH>(s, tr, r, depth, c, &rec);
+      bounce_bwd<MESH != MESH_NONE>(s, tr, r, depth, cin, rec, g, cA, cB,
+                                    d_spect);
     }
     unsigned pending = __ballot_sync(FULL, cA.slot >= 0 || cB.slot >= 0);
     while (pending) {

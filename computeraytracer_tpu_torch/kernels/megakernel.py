@@ -1,8 +1,8 @@
 """Path-tracing megakernels: plain torch versions and CUDA wrappers.
 
 Port of computeraytracer_tpu/kernels/megakernel.py ``build_forward``
-(plain, mesh and ``taped="full"`` modes), ``build_backward`` and
-``build_backward_from_tape``. What lives here:
+(plain, mesh, ``taped="full"`` and ``taped=True`` modes),
+``build_backward`` and ``build_backward_from_tape``. What lives here:
 
 - ``SceneStatic.from_scene`` and ``pack_prims``: the scene structure
   (uniform triangle runs of at least ``mesh_min`` triangles become
@@ -32,13 +32,19 @@ Port of computeraytracer_tpu/kernels/megakernel.py ``build_forward``
   tape-fed backward (``build_backward_from_tape``,
   ``csrc/megakernel_bwd_tape.cu``), ``prims, spect, tape_f, tape_i, dL
   -> d_prims, d_rays, d_spect``.
-- ``TraceFn`` and ``TraceTapedFn``: the autograd Functions, analogues of
-  the JAX package's ``tracer/pallas.py`` ``_call_with_vjp`` and
-  ``_call_taped``.
+- ``forward_winners_reference`` / ``forward_winners``: the forward that
+  also returns each bounce's closest-hit and shadow winners
+  (``build_forward(taped=True)``, the kernel ``megakernel_fwd_winners``),
+  the tape of the guided replay (tracer/replay.py).
+- ``TraceFn``, ``TraceTapedFn`` and ``MeshTraceFn``: the autograd
+  Functions, analogues of the JAX package's ``tracer/pallas.py``
+  ``_call_with_vjp``, ``_call_taped`` and ``_mesh_call``.
 
-Gradients of mesh scenes (mesh parts and triangle rows) arrive with slice
-4 of the port; the backward wrappers and both Functions raise for them
-before any launch.
+Triangle rows (category 2) are differentiated by the backward kernels,
+which scan them in their mesh mode and carry a triangle's cotangent into
+its three vertices. Mesh parts are differentiated only through the guided
+replay (``MeshTraceFn``); the full tape, the backward wrappers and the
+first two Functions raise for them before any launch.
 
 Seeds are int64 tensors holding u32 values (ops/rng.py); the kernel gets
 an int32 tensor with the same bit pattern, and the tape holds them so.
@@ -78,17 +84,19 @@ MESH_BLOCK = 1 << 22
 
 # Kernel launches, counted by each wrapper where it launches its kernel
 # (CPU calls launch nothing and do not count): the forward in its plain
-# mode and in its mesh mode, the taped forward, the retrace backward and
-# the tape-fed backward.
+# mode and in its mesh mode, the taped forward, the retrace backward, the
+# tape-fed backward and the winner-taped forward.
 launches = 0
 launches_mesh = 0
 launches_taped = 0
 launches_bwd = 0
 launches_bwd_tape = 0
+launches_winners = 0
 
-MESH_GRADS = ("gradients of mesh scenes (mesh parts and triangle rows) "
-              "arrive with slice 4 of the port (build_forward(taped=True), "
-              "the guided replay and the triangle adjoint)")
+MESH_PARTS_REPLAY = ("scenes with mesh parts differentiate through the "
+                     "guided replay (MeshTraceFn, backward='replay', to "
+                     "which the tracer routes them): the full tape and "
+                     "the backward kernels cover unrolled rows only")
 
 
 class MeshPart(NamedTuple):
@@ -178,10 +186,18 @@ def pack_prims(scene, static: SceneStatic | None = None) -> torch.Tensor:
     p = scene.primitives
     full = torch.cat([p.data1, p.data2, p.data3, torch.zeros_like(p.data1)],
                      dim=-1)
-    if static is not None and static.mesh_parts:
-        full = full[torch.tensor(static.rows, dtype=torch.int64,
-                                 device=full.device)]
+    if static is not None:
+        full = _unrolled(static, full)
     return full.contiguous()
+
+
+def _unrolled(static: SceneStatic, prims_full: torch.Tensor) -> torch.Tensor:
+    """The static's unrolled rows of a full (P, 12) table (the table
+    itself when every row is unrolled)."""
+    if len(static.rows) == prims_full.shape[0]:
+        return prims_full
+    return prims_full[torch.tensor(static.rows, dtype=torch.int64,
+                                   device=prims_full.device)]
 
 
 # ---------------------------------------------------------------------------
@@ -365,9 +381,23 @@ def _scan_mesh_part(tri_rows, o, d, exclude, wt, best_t, best_i, pos, nrm):
 
 
 def _bounce(static, prims, spect, state, depth, max_depth, rr_start,
-            mesh=()):
+            mesh=(), scan_fn=None):
     """One bounce of make_bounce over all lanes (JAX op order); mesh is
-    the (part, arrays) pairs of the scene's mesh parts."""
+    the (part, arrays) pairs of the scene's mesh parts.
+
+    scan_fn(tag, o, d, exclude) -> hit dict replaces every ray cast (tag
+    "main" or ("nee", light ordinal)); by default each is the full
+    closest-hit scan. The guided replay (tracer/replay.py) substitutes a
+    taped-winner recompute, and then only the parts of ``mesh`` are read.
+
+    Returns {"diff", "nondiff", "aux"}; aux = (hit_idx (R,), sh_idx per
+    light), int64: the winners the replay reads. hit_idx is the closest
+    hit where the ray entered the bounce alive; sh_idx[l] the shadow
+    winner where the bounce is a diffuse scatter that picked light l;
+    every other entry is -1."""
+    if scan_fn is None:
+        def scan_fn(tag, so, sd, sexcl):
+            return _scan_primitives(static, prims, so, sd, sexcl, mesh)
     S = static.n_spectra
     n_lights = len(static.light_rows)
     lslot = {lr: static.rows.index(lr) for lr in static.light_rows}
@@ -401,7 +431,8 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start,
     zero = torch.zeros((R,), dtype=torch.float32, device=dev)
     inv_pi = 1.0 / math.pi
 
-    hit = _scan_primitives(static, prims, o, d, exclude, mesh)
+    hit = scan_fn("main", o, d, exclude)
+    hit_aux = torch.where(active, hit["idx"], -1)
     lane_hit = active & hit["hit"]
     active = lane_hit
     exclude = torch.where(lane_hit, hit["idx"], exclude)
@@ -489,6 +520,7 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start,
 
     li = torch.clamp((u_l * float(n_lights)).to(torch.int64), 0, n_lights - 1)
     nee = [zero] * 4
+    sh_aux = []
     for l_i, lr in enumerate(static.light_rows):
         lsel = is_diffuse & (li == l_i)
         row = prims[lslot[lr]]
@@ -497,8 +529,8 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start,
         l_e2 = (row[6], row[7], row[8])
         p_l = tuple(l_o[c] + u_p * l_e1[c] + v_p * l_e2[c] for c in range(3))
         ldir = _vnormalize(_vsub(p_l, hit["pos"]))
-        sh = _scan_primitives(static, prims, hit["pos"], ldir, hit["idx"],
-                              mesh)
+        sh = scan_fn(("nee", l_i), hit["pos"], ldir, hit["idx"])
+        sh_aux.append(torch.where(lsel, sh["idx"], -1))
         unocc = sh["hit"] & (sh["idx"] == lr)
         cos_t = torch.clamp(_vdot(hit["nrm"], ldir), min=0.0)
         pdf_l = light_pdf(lr, sh["nrm"], ldir, sh["pos"], hit["pos"])
@@ -596,7 +628,8 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start,
                  for j in range(4))
 
     return {"diff": (o, d, L, beta, last_pdf, eta_scale),
-            "nondiff": (seed, exclude, specular, in_trans, active)}
+            "nondiff": (seed, exclude, specular, in_trans, active),
+            "aux": (hit_aux, tuple(sh_aux))}
 
 
 def _init_state(rays, seeds):
@@ -697,6 +730,36 @@ def forward_taped_reference(static: SceneStatic, max_depth: int,
             torch.cat(rows_i).contiguous())
 
 
+def forward_winners_reference(static: SceneStatic, max_depth: int,
+                              rr_start: int, prims: torch.Tensor,
+                              rays: torch.Tensor, seeds: torch.Tensor,
+                              spect: torch.Tensor, *mesh_arrays):
+    """Plain torch winner-taped forward (build_forward(taped=True)):
+    (radiance (4, R), tape_idx (max_depth+1, R) i32, tape_sh
+    (max_depth+1, n_lights, R) i32). tape_idx[k] is the closest-hit
+    winner where the ray is alive at bounce k, tape_sh[k, l] the shadow
+    winner where bounce k is a diffuse scatter that picked light l; every
+    other entry, and every row after the ray died, is -1."""
+    mesh = _mesh(static, mesh_arrays)
+    R = rays.shape[1]
+    D = int(max_depth) + 1
+    n_lights = len(static.light_rows)
+    tape_idx = torch.full((D, R), -1, dtype=torch.int32, device=rays.device)
+    tape_sh = torch.full((D, n_lights, R), -1, dtype=torch.int32,
+                         device=rays.device)
+    state = _init_state(rays, seeds)
+    for depth in range(D):
+        if not bool(state["nondiff"][4].any()):
+            break
+        state = _bounce(static, prims, spect, state, depth, max_depth,
+                        rr_start, mesh)
+        hit_idx, sh_idx = state["aux"]
+        tape_idx[depth] = hit_idx.to(torch.int32)
+        for l_i, w in enumerate(sh_idx):
+            tape_sh[depth, l_i] = w.to(torch.int32)
+    return torch.stack(state["diff"][2]), tape_idx, tape_sh
+
+
 def tape_to_jax(tape_f: torch.Tensor, tape_i: torch.Tensor):
     """The port's tape as the JAX package's taped="full" arrays, NumPy:
     (tape_f (D, 16, R) f32, tape_u (D, 4, R) u32 seed words,
@@ -712,9 +775,11 @@ def tape_to_jax(tape_f: torch.Tensor, tape_i: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def _require_no_mesh(static: SceneStatic, mesh_arrays=()) -> None:
-    if static.mesh_mode or mesh_arrays:
-        raise NotImplementedError(MESH_GRADS)
+def _require_no_parts(static: SceneStatic) -> None:
+    """The full tape and the backward kernels cover the unrolled rows
+    (triangle rows included), not the mesh parts' chunk-BVH walk."""
+    if static.mesh_parts:
+        raise NotImplementedError(MESH_PARTS_REPLAY)
 
 
 def _check_tensor(name, t, shape, dtype, device):
@@ -788,9 +853,10 @@ def _tables(static: SceneStatic, device: torch.device):
 # stream, "i" an int, "q" a long long.
 SIGNATURES = {
     "megakernel_fwd": "ppipipppipqiiiipppp",
-    "megakernel_fwd_taped": "ppipipppipppqiip",
-    "megakernel_bwd": "ppipipppipppppppqiip",
-    "megakernel_bwd_tape": "ppipipipppppppqiip",
+    "megakernel_fwd_taped": "ppipipppipppqiiip",
+    "megakernel_fwd_winners": "ppipipppipppqiiiippp",
+    "megakernel_bwd": "ppipipppipppppppqiiip",
+    "megakernel_bwd_tape": "ppipipipppppppqiiip",
 }
 
 
@@ -850,19 +916,13 @@ def forward(static: SceneStatic, max_depth: int, rr_start: int,
     meta, lights = _tables(static, dev)
     R = rays.shape[1]
     out = torch.empty((4, R), dtype=torch.float32, device=dev)
-    n_parts = len(static.mesh_parts)
-    ptrs = (ctypes.c_longlong * max(1, 4 * n_parts))(
-        *(a.data_ptr() for a in mesh_arrays))
-    info = (ctypes.c_int * max(1, 2 * n_parts))(*(
-        v for k in range(n_parts)
-        for v in (mesh_arrays[4 * k + 3].shape[0],
-                  mesh_arrays[4 * k].shape[0] // meshpack.ROWS_PER_CHUNK)))
+    ptrs, info = _part_tables(static, mesh_arrays)
     seeds32 = _u32_bits(seeds)
     _launch("megakernel_fwd", fn, dev, prims.data_ptr(), meta.data_ptr(),
             len(static.rows), lights.data_ptr(), lights.shape[0],
             rays.data_ptr(), seeds32.data_ptr(), spect.data_ptr(),
             static.n_spectra, out.data_ptr(), R, int(max_depth),
-            int(rr_start), int(static.mesh_mode), n_parts,
+            int(rr_start), int(static.mesh_mode), len(static.mesh_parts),
             ctypes.addressof(ptrs), ctypes.addressof(info),
             None if work is None else work.data_ptr())
     if static.mesh_mode:
@@ -870,6 +930,61 @@ def forward(static: SceneStatic, max_depth: int, rr_start: int,
     else:
         launches += 1
     return out
+
+
+def _part_tables(static: SceneStatic, mesh_arrays):
+    """Host tables of the mesh parts for a launch: the device pointers of
+    (tri_rows, chunk_bbox, node_bbox, node_meta) per part, and per part
+    (n_nodes, n_real_chunks)."""
+    n_parts = len(static.mesh_parts)
+    ptrs = (ctypes.c_longlong * max(1, 4 * n_parts))(
+        *(a.data_ptr() for a in mesh_arrays))
+    info = (ctypes.c_int * max(1, 2 * n_parts))(*(
+        v for k in range(n_parts)
+        for v in (mesh_arrays[4 * k + 3].shape[0],
+                  mesh_arrays[4 * k].shape[0] // meshpack.ROWS_PER_CHUNK)))
+    return ptrs, info
+
+
+def forward_winners(static: SceneStatic, max_depth: int, rr_start: int,
+                    prims: torch.Tensor, rays: torch.Tensor,
+                    seeds: torch.Tensor, spect: torch.Tensor, *mesh_arrays):
+    """Winner-taped forward megakernel (build_forward(taped=True)) ->
+    (radiance (4, R), tape_idx (max_depth+1, R) i32, tape_sh
+    (max_depth+1, n_lights, R) i32), the contract of
+    ``forward_winners_reference``.
+
+    CPU tensors run ``forward_winners_reference``; CUDA tensors launch
+    ``megakernel_fwd_winners`` of csrc/megakernel_fwd.cu, in its mesh
+    mode when the scene has mesh parts or triangle rows. Its radiance is
+    the untaped forward's bit for bit. The tapes feed the guided replay
+    (tracer/replay.py)."""
+    global launches_winners
+    _check(static, prims, rays, seeds, spect, mesh_arrays)
+    dev = rays.device
+    if dev.type == "cpu":
+        return forward_winners_reference(static, max_depth, rr_start, prims,
+                                         rays, seeds, spect, *mesh_arrays)
+    _require_cuda(dev)
+    fn = _fn("megakernel_fwd", "megakernel_fwd_winners")
+    meta, lights = _tables(static, dev)
+    R = rays.shape[1]
+    D = int(max_depth) + 1
+    out = torch.empty((4, R), dtype=torch.float32, device=dev)
+    tape_idx = torch.empty((D, R), dtype=torch.int32, device=dev)
+    tape_sh = torch.empty((D, lights.shape[0], R), dtype=torch.int32,
+                          device=dev)
+    ptrs, info = _part_tables(static, mesh_arrays)
+    seeds32 = _u32_bits(seeds)
+    _launch("megakernel_fwd_winners", fn, dev, prims.data_ptr(),
+            meta.data_ptr(), len(static.rows), lights.data_ptr(),
+            lights.shape[0], rays.data_ptr(), seeds32.data_ptr(),
+            spect.data_ptr(), static.n_spectra, out.data_ptr(),
+            tape_idx.data_ptr(), tape_sh.data_ptr(), R, int(max_depth),
+            int(rr_start), int(static.mesh_mode), len(static.mesh_parts),
+            ctypes.addressof(ptrs), ctypes.addressof(info))
+    launches_winners += 1
+    return out, tape_idx, tape_sh
 
 
 def forward_taped(static: SceneStatic, max_depth: int, rr_start: int,
@@ -880,10 +995,11 @@ def forward_taped(static: SceneStatic, max_depth: int, rr_start: int,
     ((max_depth+1) * 8, R) i32).
 
     CPU tensors run ``forward_taped_reference``; CUDA tensors launch
-    ``megakernel_fwd_taped`` of csrc/megakernel_fwd.cu. Non-mesh scenes
-    only: the tape feeds the tape-fed backward."""
+    ``megakernel_fwd_taped`` of csrc/megakernel_fwd.cu, in its mesh mode
+    when the scene has triangle rows. Scenes without mesh parts: the tape
+    feeds the tape-fed backward."""
     global launches_taped
-    _require_no_mesh(static)
+    _require_no_parts(static)
     _check(static, prims, rays, seeds, spect, ())
     dev = rays.device
     if dev.type == "cpu":
@@ -903,7 +1019,7 @@ def forward_taped(static: SceneStatic, max_depth: int, rr_start: int,
             lights.shape[0], rays.data_ptr(), seeds32.data_ptr(),
             spect.data_ptr(), static.n_spectra, out.data_ptr(),
             tape_f.data_ptr(), tape_i.data_ptr(), R, int(max_depth),
-            int(rr_start))
+            int(rr_start), int(static.mesh_mode))
     launches_taped += 1
     return out, tape_f, tape_i
 
@@ -924,7 +1040,7 @@ def backward_reference(static: SceneStatic, max_depth: int, rr_start: int,
     sums d_prims over the bands in order, so that the autograd graph
     (some 10^4 saved (R,) tensors per band at depth 8) stays bounded.
     Returns (d_prims (P, 12), d_rays (6, R), d_spect (S*4, R))."""
-    _require_no_mesh(static)
+    _require_no_parts(static)
     R = rays.shape[1]
     step = R if not ray_chunk else int(ray_chunk)
     d_prims = torch.zeros_like(prims)
@@ -959,7 +1075,7 @@ def backward_from_tape_reference(static: SceneStatic, max_depth: int,
     no ray is active is the identity and is skipped. d_rays is the
     cotangent of the depth-0 row's o and d. Returns (d_prims (P, 12),
     d_rays (6, R), d_spect (S*4, R))."""
-    _require_no_mesh(static)
+    _require_no_parts(static)
     R = tape_f.shape[1]
     tf = tape_f.reshape(-1, TAPE_F, R)
     ti = tape_i.reshape(-1, TAPE_I, R)
@@ -1012,7 +1128,7 @@ def backward(static: SceneStatic, max_depth: int, rr_start: int,
     ``forward_taped``'s shapes that receives the replay's tape (scratch
     otherwise; CUDA only)."""
     global launches_bwd
-    _require_no_mesh(static)
+    _require_no_parts(static)
     _check(static, prims, rays, seeds, spect, ())
     R = rays.shape[1]
     dev = rays.device
@@ -1040,7 +1156,7 @@ def backward(static: SceneStatic, max_depth: int, rr_start: int,
             static.n_spectra, dL.data_ptr(), d_prims.data_ptr(),
             partial.data_ptr(), d_rays.data_ptr(), d_spect.data_ptr(),
             tape_f.data_ptr(), tape_i.data_ptr(), R, int(max_depth),
-            int(rr_start))
+            int(rr_start), int(static.mesh_mode))
     launches_bwd += 1
     return d_prims, d_rays, d_spect
 
@@ -1057,7 +1173,7 @@ def backward_from_tape(static: SceneStatic, max_depth: int, rr_start: int,
     csrc/megakernel_bwd_tape.cu, whose reverse sweep is the retrace
     kernel's: on the same tape both give bit-equal results."""
     global launches_bwd_tape
-    _require_no_mesh(static)
+    _require_no_parts(static)
     P = len(static.rows)
     R = spect.shape[-1] if spect.dim() == 2 else -1
     dev = spect.device
@@ -1083,7 +1199,8 @@ def backward_from_tape(static: SceneStatic, max_depth: int, rr_start: int,
             lights.shape[0], spect.data_ptr(), static.n_spectra,
             tape_f.data_ptr(), tape_i.data_ptr(), dL.data_ptr(),
             d_prims.data_ptr(), partial.data_ptr(), d_rays.data_ptr(),
-            d_spect.data_ptr(), R, int(max_depth), int(rr_start))
+            d_spect.data_ptr(), R, int(max_depth), int(rr_start),
+            int(static.mesh_mode))
     launches_bwd_tape += 1
     return d_prims, d_rays, d_spect
 
@@ -1091,7 +1208,7 @@ def backward_from_tape(static: SceneStatic, max_depth: int, rr_start: int,
 class TraceFn(torch.autograd.Function):
     """Differentiable trace: forward is ``forward``, backward is
     ``backward`` (the retrace kernel for CUDA tensors). Seeds get no
-    gradient. Non-mesh scenes only.
+    gradient. Scenes without mesh parts.
 
         radiance = TraceFn.apply(static, max_depth, rr_start, prims, rays,
                                  seeds, spect)
@@ -1099,7 +1216,7 @@ class TraceFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, static, max_depth, rr_start, prims, rays, seeds, spect):
-        _require_no_mesh(static)
+        _require_no_parts(static)
         ctx.static = static
         ctx.max_depth = int(max_depth)
         ctx.rr_start = int(rr_start)
@@ -1123,7 +1240,7 @@ class TraceTapedFn(torch.autograd.Function):
     ``forward_taped``, which traces each path once and keeps the tape, and
     backward is ``backward_from_tape``, which replays nothing. When none
     does, forward is the untaped ``forward`` and nothing is kept.
-    Non-mesh scenes only.
+    Scenes without mesh parts.
 
         radiance = TraceTapedFn.apply(static, max_depth, rr_start, prims,
                                       rays, seeds, spect)
@@ -1135,7 +1252,7 @@ class TraceTapedFn(torch.autograd.Function):
         # grad mode is on where the trace is called (inside forward it is
         # always off): under no_grad, run the untaped forward directly
         if not torch.is_grad_enabled():
-            _require_no_mesh(static)
+            _require_no_parts(static)
             return forward(static, max_depth, rr_start, prims, rays, seeds,
                            spect)
         return super().apply(static, max_depth, rr_start, prims, rays, seeds,
@@ -1143,7 +1260,7 @@ class TraceTapedFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, static, max_depth, rr_start, prims, rays, seeds, spect):
-        _require_no_mesh(static)
+        _require_no_parts(static)
         ctx.static = static
         ctx.max_depth = int(max_depth)
         ctx.rr_start = int(rr_start)
@@ -1163,3 +1280,76 @@ class TraceTapedFn(torch.autograd.Function):
             ctx.static, ctx.max_depth, ctx.rr_start, prims, spect, tape_f,
             tape_i, g.contiguous())
         return None, None, None, d_prims, d_rays, None, d_spect
+
+
+class MeshTraceFn(torch.autograd.Function):
+    """Differentiable trace through the guided replay (the analogue of the
+    JAX package's ``_mesh_call``, tracer/pallas.py:168-207): the
+    backward of scenes with mesh parts, and of any scene traced with
+    ``backward="replay"``.
+
+    prims_full is the FULL (P, 12) table (``pack_prims(scene)``), so that
+    the replay gathers winners by row id; the kernel reads its unrolled
+    rows and the mesh arrays. Under grad, forward is ``forward_winners``,
+    which keeps each bounce's winners; backward is torch autograd of
+    ``tracer.replay.trace_replay`` with respect to prims_full, rays and
+    spect. Seeds, the categories and the mesh arrays get no gradient.
+    With no input needing a gradient, or under no_grad, the untaped
+    ``forward`` runs and nothing is kept.
+
+        radiance = MeshTraceFn.apply(static, max_depth, rr_start,
+                                     prims_full, rays, seeds, spect, cats,
+                                     *mesh_arrays)
+    """
+
+    @classmethod
+    def apply(cls, static, max_depth, rr_start, prims_full, rays, seeds,
+              spect, cats, *mesh_arrays):
+        # as TraceTapedFn.apply: grad mode is off inside forward
+        if not torch.is_grad_enabled():
+            return forward(static, max_depth, rr_start,
+                           _unrolled(static, prims_full), rays, seeds, spect,
+                           *mesh_arrays)
+        return super().apply(static, max_depth, rr_start, prims_full, rays,
+                             seeds, spect, cats, *mesh_arrays)
+
+    @staticmethod
+    def forward(ctx, static, max_depth, rr_start, prims_full, rays, seeds,
+                spect, cats, *mesh_arrays):
+        if tuple(cats.shape) != (prims_full.shape[0],):
+            raise ValueError(f"cats: expected ({prims_full.shape[0]},), got "
+                             f"{tuple(cats.shape)}")
+        prims = _unrolled(static, prims_full)
+        args = (static, int(max_depth), int(rr_start), prims, rays, seeds,
+                spect, *mesh_arrays)
+        ctx.static = static
+        ctx.max_depth = int(max_depth)
+        ctx.rr_start = int(rr_start)
+        ctx.n_arrays = len(mesh_arrays)
+        if not any(ctx.needs_input_grad[k] for k in (3, 4, 6)):
+            return forward(*args)
+        out, tape_idx, tape_sh = forward_winners(*args)
+        ctx.save_for_backward(prims_full, rays, seeds, spect, cats, tape_idx,
+                              tape_sh)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        from computeraytracer_tpu_torch.tracer import replay
+
+        prims_full, rays, seeds, spect, cats, tape_idx, tape_sh = \
+            ctx.saved_tensors
+        leaves = [x.detach().requires_grad_(True)
+                  for x in (prims_full, rays, spect)]
+        with torch.enable_grad():
+            out = replay.trace_replay(ctx.static, cats, leaves[0], leaves[1],
+                                      seeds, leaves[2], tape_idx, tape_sh,
+                                      ctx.max_depth, ctx.rr_start)
+            grads = torch.autograd.grad(out, leaves,
+                                        grad_outputs=g.contiguous(),
+                                        allow_unused=True)
+        dp, dr, ds = (torch.zeros_like(x) if gr is None else gr
+                      for gr, x in zip(grads, leaves))
+        return (None, None, None, dp, dr, None, ds, None) \
+            + (None,) * ctx.n_arrays

@@ -18,18 +18,26 @@ Differentiation, by the ``backward`` knob (the JAX package's values):
 - ``"pallas_taped"``: ``TraceTapedFn``. Under grad the taped forward
   writes every bounce's input carry and the tape-fed kernel sweeps it
   without a replay; with no input needing grad, the untaped forward runs;
+- ``"replay"``: ``MeshTraceFn``. Under grad the winner-taped forward
+  keeps each bounce's closest-hit and shadow winners, and the backward is
+  torch autograd of the guided replay (tracer/replay.py). Scenes with
+  mesh parts take this route whatever ``"pallas"`` or ``"pallas_taped"``
+  asks for: the backward kernels have no chunk-BVH walk. (The JAX
+  package's ``_resolve`` reroutes only ``"pallas"``; its own error text
+  says mesh scenes route there automatically.)
 - ``"none"``: the forward alone, with no autograd Function;
-- ``"xla"`` (the eager tracer) and ``"replay"`` (the guided replay of
-  mesh scenes) raise NotImplementedError naming the slice they arrive
-  with.
+- ``"xla"`` (the eager tracer) raises NotImplementedError naming slice 6.
 Autograd carries the cotangents of the primitive table, the spectra
 planes and the rays on through ``pack_prims``, the hero gather and the
 camera to every scene leaf (geometry, spectra, camera).
 
 Mesh scenes (mesh parts or triangle rows) render through the forward
-kernel's mesh mode, the in-kernel chunk-BVH walk. Their gradients arrive
-with slice 4 of the port: a mesh render with an input that requires grad
-raises. ``wavefront=None`` resolves to the in-kernel mode
+kernel's mesh mode, the in-kernel chunk-BVH walk. Triangle rows without a
+mesh part keep ``TraceFn`` / ``TraceTapedFn``, whose kernels scan them in
+their mesh mode. A mesh part's chunk BVH is packed from a plan fixed on
+the initial geometry (``mesh_plans``, as ``kernels/meshpack.py``
+``plan_scene_mesh`` makes them), so its boxes follow the live vertices.
+``wavefront=None`` resolves to the in-kernel mode
 (``MESH_WAVEFRONT_DEFAULT``); ``wavefront=True`` raises for mesh scenes
 and is ignored for the others, as in the JAX package.
 """
@@ -88,16 +96,18 @@ def kernel_inputs(scene, o, d, hero, seed, static: SceneStatic | None = None):
             spect.contiguous())
 
 
-def mesh_packs_for(scene, static: SceneStatic):
+def mesh_packs_for(scene, static: SceneStatic, mesh_plans=None):
     """Chunk BVH packing (kernels/meshpack.py) of every mesh part, on the
-    scene's device."""
-    return tuple(meshpack.pack_scene_mesh(scene, part)
-                 for part in static.mesh_parts)
+    scene's device, under mesh_plans (one per part) when given."""
+    plans = mesh_plans if mesh_plans is not None else (None,) * len(
+        static.mesh_parts)
+    return tuple(meshpack.pack_scene_mesh(scene, part, plan)
+                 for part, plan in zip(static.mesh_parts, plans))
 
 
-def _resolve(scene, static, backward, wavefront, mesh_packs):
+def _resolve(scene, static, backward, wavefront, mesh_packs, mesh_plans):
     """Resolve the dispatch knobs and the mesh arrays shared by every
-    entry point -> (static, mesh_arrays)."""
+    entry point -> (static, backward, mesh_arrays)."""
     if backward not in BACKWARDS:
         raise ValueError(f"unknown backward {backward!r}; expected one of "
                          f"{BACKWARDS}")
@@ -105,10 +115,6 @@ def _resolve(scene, static, backward, wavefront, mesh_packs):
         raise NotImplementedError(
             "backward='xla' runs the eager tracer, which arrives with slice "
             "6 of the port (after the mesh slices)")
-    if backward == "replay":
-        raise NotImplementedError(
-            "backward='replay' (the guided replay of mesh scenes) arrives "
-            "with slice 4 of the port")
     if static is None:
         static = SceneStatic.from_scene(scene)
     if wavefront is None:
@@ -121,52 +127,54 @@ def _resolve(scene, static, backward, wavefront, mesh_packs):
     mesh_arrays = ()
     if static.mesh_parts:
         if mesh_packs is None:
-            mesh_packs = mesh_packs_for(scene, static)
+            mesh_packs = mesh_packs_for(scene, static, mesh_plans)
         mesh_arrays = tuple(a for pack in mesh_packs for a in pack.arrays)
-    return static, mesh_arrays
+        if backward in ("pallas", "pallas_taped"):
+            backward = "replay"
+    return static, backward, mesh_arrays
 
 
 def _dispatch(static, max_depth, rr_start, backward, prims, rays, seeds,
-              spect, mesh_arrays):
-    """One trace of prepared kernel operands -> radiance (4, R)."""
+              spect, mesh_arrays, cats):
+    """One trace of prepared kernel operands -> radiance (4, R). prims is
+    the full table for "replay", else the static's unrolled rows."""
     args = (static, int(max_depth), int(rr_start), prims, rays, seeds, spect)
-    if static.mesh_mode:
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (prims, rays, spect)):
-            raise NotImplementedError(mk.MESH_GRADS)
-        return mk.forward(*args, *mesh_arrays)
+    if backward == "replay":
+        return mk.MeshTraceFn.apply(*args, cats, *mesh_arrays)
     if backward == "pallas":
         return mk.TraceFn.apply(*args)
     if backward == "pallas_taped":
         return mk.TraceTapedFn.apply(*args)
     with torch.no_grad():  # "none": the forward alone
-        return mk.forward(*args)
+        return mk.forward(*args, *mesh_arrays)
 
 
 def trace_radiance(scene, o, d, hero, seed, max_depth: int,
                    rr_start: int = 1, static: SceneStatic | None = None,
                    backward: str = "pallas", mesh_packs=None,
-                   wavefront: bool | None = None):
+                   wavefront: bool | None = None, mesh_plans=None):
     """Planar path trace: o, d (3, R), hero (R,), seed (4, R) ->
     spectral radiance (4, R) at the hero wavelengths; differentiable with
-    respect to the scene's geometry and spectra and to o, d (non-mesh
-    scenes)."""
-    static, mesh_arrays = _resolve(scene, static, backward, wavefront,
-                                   mesh_packs)
-    return _dispatch(static, max_depth, rr_start, backward,
-                     *kernel_inputs(scene, o, d, hero, seed, static),
-                     mesh_arrays)
+    respect to the scene's geometry and spectra and to o, d."""
+    static, backward, mesh_arrays = _resolve(scene, static, backward,
+                                             wavefront, mesh_packs,
+                                             mesh_plans)
+    inputs = kernel_inputs(scene, o, d, hero, seed,
+                           None if backward == "replay" else static)
+    return _dispatch(static, max_depth, rr_start, backward, *inputs,
+                     mesh_arrays, scene.primitives.category)
 
 
 def render_pixels_planar(scene, width: int, height: int, px, py, sample,
                          max_depth: int = 8, rr_start: int = 1,
                          static: SceneStatic | None = None,
                          backward: str = "pallas", mesh_packs=None,
-                         wavefront: bool | None = None):
+                         wavefront: bool | None = None, mesh_plans=None):
     """Pixels px, py (R,) at a 1-based sample index -> XYZ (3, R)."""
     o, d, hero, seed = camera_planes(scene, width, height, px, py, sample)
     radiance = trace_radiance(scene, o, d, hero, seed, max_depth, rr_start,
-                              static, backward, mesh_packs, wavefront)
+                              static, backward, mesh_packs, wavefront,
+                              mesh_plans)
     cie_p = spec.gather_hero(spec.cie_window_exp(scene.cie), hero)
     return spec.spectral_to_xyz_p(cie_p, radiance)
 
@@ -175,12 +183,12 @@ def render_sample_planar(scene, width: int, height: int, sample,
                          max_depth: int = 8, rr_start: int = 1,
                          static: SceneStatic | None = None,
                          backward: str = "pallas", mesh_packs=None,
-                         wavefront: bool | None = None):
+                         wavefront: bool | None = None, mesh_plans=None):
     """One sample of the whole film -> XYZ (3, height, width)."""
     px, py = tile_coords(width, height, 0, scene.device)
     xyz = render_pixels_planar(scene, width, height, px, py, sample,
                                max_depth, rr_start, static, backward,
-                               mesh_packs, wavefront)
+                               mesh_packs, wavefront, mesh_plans)
     return xyz.reshape(3, height, width)
 
 
@@ -188,11 +196,11 @@ def render_sample(scene, width: int, height: int, sample,
                   max_depth: int = 8, rr_start: int = 1,
                   static: SceneStatic | None = None,
                   backward: str = "pallas", mesh_packs=None,
-                  wavefront: bool | None = None):
+                  wavefront: bool | None = None, mesh_plans=None):
     """One sample of the whole film -> XYZ (height, width, 3)."""
     return render_sample_planar(scene, width, height, sample, max_depth,
                                 rr_start, static, backward, mesh_packs,
-                                wavefront).permute(1, 2, 0)
+                                wavefront, mesh_plans).permute(1, 2, 0)
 
 
 def render_accumulate(scene, width: int, height: int, spp: int,

@@ -4,10 +4,12 @@ computeraytracer_tpu/train/optimize.py).
 Pixel gradients flow through the path tracer to primitive geometry
 (``primitives.data1/2/3``) and material spectra, with detached sampling
 (common random numbers): the megakernel's autograd Function
-(``kernels.megakernel.TraceFn``, or ``TraceTapedFn`` with
-``backward="pallas_taped"``) carries them through the trace, torch
+(``kernels.megakernel.TraceFn``, ``TraceTapedFn`` with
+``backward="pallas_taped"``, or for scenes with mesh parts
+``MeshTraceFn``, the guided replay) carries them through the trace, torch
 autograd through the camera, the hero gathers and the CIE conversion.
-Gradients of mesh scenes arrive with slice 4 of the port.
+A mesh part's chunk BVH is planned once on the initial geometry
+(``make_loss_fn``), and its boxes follow the trained vertices.
 
 A scene is split into (params, static scene); the loss renders the scene
 from merged params and compares it to a target in XYZ. Only the
@@ -25,6 +27,7 @@ from typing import Iterable, Optional
 
 import torch
 
+from computeraytracer_tpu_torch.kernels import meshpack
 from computeraytracer_tpu_torch.tracer import kernel as kernel_tracer
 
 # Leaves of Scene that may be trained.
@@ -87,16 +90,15 @@ def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
                     kernel_plans=None, vis_grads: bool = False,
                     backward: str = "pallas"):
     """Mean XYZ (H, W, 3) over spp samples, accumulated in sample order;
-    differentiable with respect to the scene's tensors (non-mesh scenes;
-    backward picks the trace's backward, tracer/kernel.py)."""
+    differentiable with respect to the scene's tensors (backward picks
+    the trace's backward, tracer/kernel.py). kernel_plans: one
+    meshpack.MeshPlan per mesh part of kernel_static, fixed on the
+    initial geometry; the packs are built under them from the live
+    vertices (planned from this scene when None)."""
     _require_ported(kernel, mesh, use_remat, vis_grads)
-    if kernel_plans is not None:
-        raise NotImplementedError(
-            "kernel_plans (mesh plans for traced geometry) arrive with "
-            "slice 4 of the port (mesh gradients)")
     if kernel_static is None:
         kernel_static = kernel_tracer.SceneStatic.from_scene(scene)
-    packs = (kernel_tracer.mesh_packs_for(scene, kernel_static)
+    packs = (kernel_tracer.mesh_packs_for(scene, kernel_static, kernel_plans)
              if kernel_static.mesh_parts else None)
     accum = torch.zeros((height, width, 3), dtype=torch.float32,
                         device=scene.device)
@@ -113,12 +115,17 @@ def make_loss_fn(static_scene, width, height, spp, max_depth,
     """L2 loss in XYZ between the rendered mean and a target image."""
     _require_ported(kernel, mesh, use_remat)
     kernel_static = kernel_tracer.SceneStatic.from_scene(static_scene)
+    # Morton order and tree structure pinned to the INITIAL geometry; the
+    # boxes re-derive from the live parameters at every render
+    kernel_plans = tuple(meshpack.plan_scene_mesh(static_scene, part)
+                         for part in kernel_static.mesh_parts)
 
     def loss_fn(params, target, first_sample):
         scene = merge_scene(static_scene, params)
         img = render_mean_xyz(scene, width, height, spp, max_depth,
                               rr_start, first_sample, kernel=kernel,
                               kernel_static=kernel_static,
+                              kernel_plans=kernel_plans,
                               backward=backward)
         return torch.mean((img - target) ** 2)
 
@@ -202,7 +209,8 @@ def optimize(scene, target, width, height, *, trainable=("spectra",),
     `steps`. With checkpoint_dir, the run resumes from the latest saved
     step and saves every checkpoint_every steps and at the end. backward
     is the trace's backward: "pallas" (the retrace kernel) or
-    "pallas_taped" (the tape-fed pair). Returns (scene, losses)."""
+    "pallas_taped" (the tape-fed pair); a scene with mesh parts takes the
+    guided replay either way. Returns (scene, losses)."""
     _require_ported(kernel, mesh)
     if lr_schedule not in (None, "cosine"):
         raise ValueError(f"unknown lr_schedule: {lr_schedule!r}")

@@ -211,10 +211,19 @@ def test_backward_wrapper_checks_inputs(simple_case, bad):
 
 
 def test_backward_wrapper_raises_on_triangles(simple_case):
+    """Triangle rows are differentiated (on the CPU by the plain version);
+    a mesh part raises: its gradient is the guided replay's."""
     static, *tin = _torch_inputs(simple_case)
+    dL = torch.from_numpy(simple_case["dL"])
     cats = list(static.categories)
     cats[0] = 2
     tri = mk.SceneStatic(**{**static.__dict__, "categories": tuple(cats)})
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        mk.backward(tri, MAX_DEPTH, RR_START, *tin,
-                    torch.from_numpy(simple_case["dL"]))
+    got = mk.backward(tri, MAX_DEPTH, RR_START, *tin, dL)
+    want = mk.backward_reference(tri, MAX_DEPTH, RR_START, *tin, dL)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+    part = mk.MeshPart(start=0, count=1, n_chunks=1, material=0,
+                       emission_idx=0, reflectance_idx=0)
+    meshy = mk.SceneStatic(**{**static.__dict__, "mesh_parts": (part,)})
+    with pytest.raises(NotImplementedError, match="guided replay"):
+        mk.backward(meshy, MAX_DEPTH, RR_START, *tin, dL)

@@ -5,8 +5,10 @@ backward_reference on the same CUDA tensors, the served render and the
 gradient of a render against the same computation on the CPU; the taped
 forward against the plain forward kernel and the retrace kernel's tape,
 the tape-fed backward against the retrace kernel (bit for bit: the same
-reverse sweep on the same tape), and the mesh mode of the forward
-against its plain version.
+reverse sweep on the same tape), the mesh mode of the forward against
+its plain version, the winner-taped forward against its plain version,
+both backward kernels on a scene with triangle rows, and the gradient of
+a mesh render through the guided replay against the CPU's.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -350,3 +352,105 @@ def test_mesh_kernel_counting_build(cuda):
     assert planes > 0 and 0 < inside <= planes
     mk.forward(static, 3, 1, *args, *arrays, work=work)
     assert work.tolist() == [2 * casts, 2 * boxes, 2 * planes, 2 * inside]
+
+
+def _mesh_case(cuda, subdivisions, mesh_min, w=64, h=48, sample=2):
+    scene, _ = scene_from_dict(presets.mesh_scene(w, h, subdivisions),
+                               device=cuda)
+    static = mk.SceneStatic.from_scene(scene, mesh_min=mesh_min)
+    px, py = kt.tile_coords(w, h, 0, cuda)
+    o, d, hero, seed = kt.camera_planes(scene, w, h, px, py, sample)
+    args = kt.kernel_inputs(scene, o, d, hero, seed, static)
+    arrays = [a for p in kt.mesh_packs_for(scene, static) for a in p.arrays]
+    return static, args, arrays
+
+
+@pytest.mark.parametrize("scene_kind,depth", [
+    ("mesh_part", 3), ("triangle_rows", 3), ("cornell_box", 8)])
+def test_winners_kernel_matches_plain_version(cuda, scene_kind, depth):
+    """The winner-taped forward (build_forward(taped=True)): its radiance
+    is the untaped kernel's bit for bit, and its tapes are
+    forward_winners_reference's, in the mesh mode (a mesh part, or
+    triangle rows) and in the plain mode."""
+    if scene_kind == "cornell_box":
+        scene, _ = scene_from_dict(presets.cornell_box(64, 48), device=cuda)
+        static = mk.SceneStatic.from_scene(scene)
+        args, arrays = _inputs(scene, 64, 48, 2), []
+    else:
+        static, args, arrays = _mesh_case(
+            cuda, 2 if scene_kind == "mesh_part" else 1,
+            64 if scene_kind == "mesh_part" else 256)
+        assert bool(static.mesh_parts) == (scene_kind == "mesh_part")
+    before = (mk.launches, mk.launches_mesh, mk.launches_winners)
+    rad, t_idx, t_sh = mk.forward_winners(static, depth, 1, *args, *arrays)
+    torch.cuda.synchronize()
+    assert (mk.launches, mk.launches_mesh, mk.launches_winners) == (
+        before[0], before[1], before[2] + 1)
+    assert torch.equal(rad, mk.forward(static, depth, 1, *args, *arrays))
+    want = mk.forward_winners_reference(static, depth, 1, *args, *arrays)
+    assert torch.equal(t_idx, want[1]) and torch.equal(t_sh, want[2])
+    assert _frac_within(rad, want[0]) >= 0.999
+    assert (t_idx[0] >= 0).any() and (t_sh >= 0).any()
+
+
+def test_triangle_row_backward_kernels(cuda):
+    """Both backward kernels on a scene with 80 triangle rows, whose
+    replay and recompute scan them in the mesh mode (a backward that
+    skipped them would trace other paths): each within its plain
+    version's tolerances, the two bit-equal on one tape, and the mesh
+    rows' vertices get a gradient."""
+    static, args, arrays = _mesh_case(cuda, 1, 256)
+    assert not arrays and 2 in static.categories
+    dL = _dL(args[1].shape[1], cuda, seed=4)
+    got = mk.backward(static, 3, 1, *args, dL)
+    _assert_backward_close(got, mk.backward_reference(static, 3, 1, *args,
+                                                      dL))
+    rad, tape_f, tape_i = mk.forward_taped(static, 3, 1, *args)
+    assert torch.equal(rad, mk.forward(static, 3, 1, *args))
+    want_rad, _, want_i = mk.forward_taped_reference(static, 3, 1, *args)
+    assert (tape_i == want_i).all(dim=0).float().mean().item() >= 0.999
+    taped = mk.backward_from_tape(static, 3, 1, args[0], args[3], tape_f,
+                                  tape_i, dL)
+    for g, w in zip(taped, got):
+        assert torch.equal(g, w)
+    tri = [k for k, c in enumerate(static.categories) if c == 2]
+    assert got[0][tri, :9].abs().max() > 0
+
+
+def test_card_mesh_gradient_matches_cpu(cuda):
+    """The gradient of sum(render_sample ** 2) of a scene with a mesh part
+    through the guided replay: one winner-taped forward and no backward
+    kernel on the card, the CPU's gradient, non-zero on the mesh rows,
+    and bit-equal across two runs on the card (the replay's row gather
+    sums its cotangents in a fixed order)."""
+    w, h = 48, 32
+    cpu_scene, _ = scene_from_dict(presets.mesh_scene(w, h, 1),
+                                   device="cpu")
+    static = mk.SceneStatic.from_scene(cpu_scene, mesh_min=16)
+    assert static.mesh_parts
+
+    def grads(scene):
+        sp = scene.spectra.clone().requires_grad_(True)
+        d1 = scene.primitives.data1.clone().requires_grad_(True)
+        s = dataclasses.replace(
+            scene, spectra=sp,
+            primitives=dataclasses.replace(scene.primitives, data1=d1))
+        (kt.render_sample(s, w, h, 1, max_depth=3, static=static)
+         ** 2).sum().backward()
+        return sp.grad, d1.grad
+
+    before = (mk.launches_winners, mk.launches_bwd, mk.launches_bwd_tape)
+    card = grads(cpu_scene.to(cuda))
+    assert (mk.launches_winners, mk.launches_bwd, mk.launches_bwd_tape) == (
+        before[0] + 1, before[1], before[2])
+    again = grads(cpu_scene.to(cuda))
+    for a, b in zip(card, again):
+        assert torch.equal(a, b)
+    host = grads(cpu_scene)
+    assert card[1][6:].abs().max() > 0
+    for c, h_ in zip(card, host):
+        c, h_ = c.cpu().numpy(), h_.numpy()
+        assert np.isfinite(c).all()
+        scale = max(np.abs(h_).max(), 1e-6)
+        np.testing.assert_allclose(c / scale, h_ / scale, rtol=1e-3,
+                                   atol=1e-4)

@@ -140,8 +140,8 @@ def test_depth_zero_is_emission_only(case):
 def test_wrapper_raises_on_triangles_and_mesh_parts(case):
     """The forward takes triangle rows and mesh parts (their mode is held
     in tests/test_torch_mesh.py); mesh arrays that do not fit the
-    static's mesh parts raise, and so does every gradient path for
-    triangles or mesh parts (slice 4 of the port)."""
+    static's mesh parts raise. TraceFn differentiates triangle rows and
+    raises for mesh parts, whose gradients are the guided replay's."""
     static, prims, rays, seeds, spect = _torch_inputs(case)
     cats = list(static.categories)
     cats[0] = 2
@@ -157,10 +157,13 @@ def test_wrapper_raises_on_triangles_and_mesh_parts(case):
     meshy = mk.SceneStatic(**{**static.__dict__, "mesh_parts": (part,)})
     with pytest.raises(ValueError, match="mesh arrays"):
         mk.forward(meshy, MAX_DEPTH, RR_START, prims, rays, seeds, spect)
-    for st in (tri, meshy):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            mk.TraceFn.apply(st, MAX_DEPTH, RR_START, prims, rays, seeds,
-                             spect)
+    leaf = prims.clone().requires_grad_(True)
+    out = mk.TraceFn.apply(tri, MAX_DEPTH, RR_START, leaf, rays, seeds, spect)
+    out.sum().backward()
+    assert torch.isfinite(leaf.grad).all()
+    with pytest.raises(NotImplementedError, match="guided replay"):
+        mk.TraceFn.apply(meshy, MAX_DEPTH, RR_START, prims, rays, seeds,
+                         spect)
 
 
 @pytest.mark.parametrize("bad", ["seeds_dtype", "rays_shape",

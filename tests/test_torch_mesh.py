@@ -17,8 +17,10 @@
   against: interpret mode compiles 86 unrolled rows for some 2.5 minutes.
   Criterion: at least 99.9% of pixels within rel 1e-4, the denominator
   floored at 1e-2 (tests/test_pallas.py);
-- the loader and the presets accept ``"meshes"``; a render that needs
-  gradients of a mesh scene raises (slice 4 of the port).
+- the loader and the presets accept ``"meshes"``; mesh gradients run
+  for triangle rows through every backward, and a mesh part handed to a
+  backward kernel raises (its gradients are held against the JAX package
+  in tests/test_torch_replay.py and tests/test_torch_tri_grads.py).
 """
 
 import dataclasses
@@ -352,16 +354,30 @@ def test_cli_renders_mesh_preset(tmp_path, capsys):
 
 
 def test_mesh_gradients_raise():
+    """Mesh gradients: triangle rows through every backward (the backward
+    kernels' plain versions, or the guided replay), and what still raises:
+    a mesh part handed to the full tape or to a backward kernel, which
+    have no chunk-BVH walk (the tracer routes mesh parts to the replay)."""
     scene = _scene(1, 4, 4)
     d1 = scene.primitives.data1.clone().requires_grad_(True)
     s = dataclasses.replace(scene, primitives=dataclasses.replace(
         scene.primitives, data1=d1))
-    for backward in ("pallas", "pallas_taped", "none"):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            kt.render_sample(s, 4, 4, 1, max_depth=1, backward=backward)
-    with torch.no_grad():  # no gradient asked for: renders
-        assert torch.isfinite(kt.render_sample(s, 4, 4, 1, 1)).all()
-    static = mk.SceneStatic.from_scene(scene)
+    grads = {}
+    for backward in ("pallas", "pallas_taped", "replay"):
+        d1.grad = None
+        (kt.render_sample(s, 4, 4, 1, max_depth=1, backward=backward)
+         ** 2).sum().backward()
+        assert torch.isfinite(d1.grad).all()
+        grads[backward] = d1.grad
+    assert grads["pallas"][6:].abs().max() > 0
+    scale = grads["pallas"].abs().max()
+    for backward in ("pallas_taped", "replay"):
+        torch.testing.assert_close(grads[backward] / scale,
+                                   grads["pallas"] / scale, rtol=1e-4,
+                                   atol=1e-6)
+    assert not kt.render_sample(s, 4, 4, 1, 1, backward="none").requires_grad
+    static = mk.SceneStatic.from_scene(scene, mesh_min=16)
+    assert static.mesh_parts
     o, d, hero, seed = kt.camera_planes(scene, 4, 4, *kt.tile_coords(4, 4, 0),
                                         1)
     args = kt.kernel_inputs(scene, o, d, hero, seed, static)
@@ -375,7 +391,7 @@ def test_mesh_gradients_raise():
                      torch.zeros((32, 16)), torch.zeros((16, 16),
                                                         dtype=torch.int32),
                      dL)):
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        with pytest.raises(NotImplementedError, match="guided replay"):
             call()
 
 
@@ -384,8 +400,12 @@ def test_mesh_knobs():
     static = mk.SceneStatic.from_scene(scene, mesh_min=64)
     with pytest.raises(NotImplementedError, match="slice 5"):
         kt.render_sample(scene, 4, 4, 1, 1, static=static, wavefront=True)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        kt.render_sample(scene, 4, 4, 1, 1, static=static, backward="replay")
+    # every backward of a scene with a mesh part is the guided replay
+    for backward in ("replay", "pallas_taped"):
+        assert torch.equal(
+            kt.render_sample(scene, 4, 4, 1, 1, static=static,
+                             backward=backward),
+            kt.render_sample(scene, 4, 4, 1, 1, static=static))
     assert kt.MESH_WAVEFRONT_DEFAULT is False
     assert torch.equal(kt.render_sample(scene, 4, 4, 1, 1, static=static),
                        kt.render_sample(scene, 4, 4, 1, 1, static=static,

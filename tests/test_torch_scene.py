@@ -90,8 +90,9 @@ def test_load_scene_file_matches_dict(tmp_path):
 
 def test_mesh_documents_raise():
     """A document with "meshes" loads as the JAX package loads it (its
-    triangle appended last); what raises is a render of it that needs
-    gradients, which arrive with slice 4 of the port."""
+    triangle appended last), and a render of it that needs gradients
+    gives them: the triangle stays an unrolled row, which the backward
+    differentiates."""
     doc = jpresets.cornell_box(8, 8)
     doc["objects"]["meshes"] = [{
         "vertices": [[0, 0, 0], [1, 0, 0], [0, 1, 0]], "faces": [[0, 1, 2]],
@@ -100,8 +101,9 @@ def test_mesh_documents_raise():
     _assert_same_scene(ts, jax_scene_from_dict(doc)[0])
     assert int(ts.primitives.category[-1]) == 2
     sp = ts.spectra.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        kt.render_sample(dataclasses.replace(ts, spectra=sp), 8, 8, 1, 2)
+    img = kt.render_sample(dataclasses.replace(ts, spectra=sp), 8, 8, 1, 2)
+    (img ** 2).sum().backward()
+    assert torch.isfinite(sp.grad).all() and sp.grad.abs().max() > 0
 
 
 def test_loaders_default_to_the_card(tmp_path):
