@@ -90,11 +90,32 @@ Phases, in order; any failure raises and the script exits non-zero:
 15. finite differences (staged config 3's check): mesh_scene(32, 32, 2),
    320 triangles in a mesh part, depth 2, the gradient of sum(image) on
    its most influential mesh vertex coordinate against a central
-   difference with eps 0.05: relative error at most 1e-2.
+   difference with eps 0.05, the image summed in float64 (at a sum of
+   about 407 one float32 step is 2^-15, 4e-3 of the difference):
+   relative error at most 2e-3.
 16. the trainer: optimize on phase 11's scene at 1024^2, depth 3, spp 1,
    3 Adam steps (lr 0.05) training the blob's reflectance row, dimmed
    x0.3 against the undimmed target: finite losses, the last below the
    first.
+17. the wavefront (wavefront=True) at phase 11's workload, depth 3,
+   sample 1: render_sample_planar(backward="none") with the counters reset
+   just before launches exactly (depth + 1) shade steps and (depth + 1) *
+   (1 + lights) walks and nothing else, and its image is the in-kernel
+   path's bit for bit; its radiance is the mesh kernel's on all 1,048,576
+   rays. On phase 11's band every walk and shade-step launch of the
+   wavefront is held against its plain version (walk_reference,
+   shade_step_reference): integer planes equal, at least 99.9% of rays'
+   float planes within rel 1e-4 (denominator floored at 1e-2 of the
+   plane's scale; the bit-equal share printed). The walks' counting build
+   (radiance bit-equal) gives their casts, box tests and triangle tests.
+   Times: every launch of both kernels (CUDA events), the wavefront sample
+   and the mesh kernel in turns (mesh, wavefront, wavefront, mesh), and a
+   torch.profiler pass over the sample.
+18. wavefront gradients: phase 14's value_and_grad with wavefront=True,
+   every counter reset just before: the same shade-step and walk launches
+   and no other; gradients bit-equal to phase 14's; the taped wavefront's
+   radiance and tapes equal to the winner-taped kernel's (full film). The
+   step's host wall and its peak device memory.
 Then one JSON line of kernels, each with its bound (the larger of the
 bytes it must move over 3.35 TB/s and a lower count of its float
 operations over 67 TFLOP/s, both at 700 W). The last line is
@@ -117,6 +138,7 @@ import torch
 from computeraytracer_tpu_torch import config as C
 from computeraytracer_tpu_torch.config import RenderConfig
 from computeraytracer_tpu_torch.kernels import _build
+from computeraytracer_tpu_torch.kernels import binned as bn
 from computeraytracer_tpu_torch.kernels import megakernel as mk
 from computeraytracer_tpu_torch.kernels import meshpack
 from computeraytracer_tpu_torch.ops import spectrum as spec
@@ -153,9 +175,12 @@ FD_EPS = 0.05
 # 35 operations per patch or sphere. On the mesh scene, the counting
 # build's casts, each 35 per unrolled row, and its tests: 24 per box
 # (three slabs), 14 per triangle plane test and 32 more per triangle that
-# reaches the inside test. Where the work depends on the data, the bytes
-# count what this run's data needs: the tape-fed kernel reads only its
-# rays' live tape rows and the active words up to the first dead row.
+# reaches the inside test; the walk counts only the tests, the shade step
+# only its scans of the unrolled rows (the main scan of the first bounce,
+# the shadow scans and the scans of the output rays). Where the work
+# depends on the data, the bytes count what this run's data needs: the
+# tape-fed kernel reads only its rays' live tape rows and the active words
+# up to the first dead row.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 PRIM_TEST_OPS = 35
@@ -234,13 +259,15 @@ def _profile(fn, top=5):
 def _reset_counters():
     mk.launches = mk.launches_mesh = mk.launches_taped = 0
     mk.launches_bwd = mk.launches_bwd_tape = mk.launches_winners = 0
+    mk.launches_shade = bn.launches_walk = 0
 
 
 def _counters():
     return {"forward": mk.launches, "forward_mesh": mk.launches_mesh,
             "forward_taped": mk.launches_taped, "backward": mk.launches_bwd,
             "backward_tape": mk.launches_bwd_tape,
-            "forward_winners": mk.launches_winners}
+            "forward_winners": mk.launches_winners,
+            "shade_step": mk.launches_shade, "walk": bn.launches_walk}
 
 
 def _only(**counts):
@@ -366,20 +393,21 @@ def _band(args, y0):
     return (args[0],) + tuple(x[:, a:b].contiguous() for x in args[1:])
 
 
-def _mesh_loss(scene, static, backward="pallas", mesh_plans=None):
+def _mesh_loss(scene, static, backward="pallas", mesh_plans=None,
+               wavefront=None):
     """mean(img ** 2) of one planar sample of the film at the mesh depth
     (staged config 3's value_and_grad)."""
     img = kt.render_sample_planar(scene, WIDTH, HEIGHT, 1, MESH_DEPTH,
                                   RR_START, static, backward,
-                                  mesh_plans=mesh_plans)
+                                  mesh_plans=mesh_plans, wavefront=wavefront)
     return torch.mean(img ** 2)
 
 
-def _mesh_vg(scene, static, backward="pallas"):
+def _mesh_vg(scene, static, backward="pallas", wavefront=None):
     """value_and_grad of _mesh_loss with respect to spectra and data1:
     (loss, d spectra, d data1)."""
     sp, d1, s = _train_leaves(scene)
-    loss = _mesh_loss(s, static, backward)
+    loss = _mesh_loss(s, static, backward, wavefront=wavefront)
     loss.backward()
     return loss.item(), sp.grad, d1.grad
 
@@ -577,7 +605,8 @@ def _winners(mstatic, fargs, marrays, y0, mesh_ops):
 
 def _mesh_grads(mscene, mstatic):
     """Phase 14: the slice's path. Returns the winner-taped forward's
-    launches in one value_and_grad."""
+    launches in one value_and_grad and its gradients (d spectra,
+    d data1)."""
     _reset_counters()
     step_s, (loss, gsp, gd1) = _host_s(lambda: _mesh_vg(mscene, mstatic))
     counts = _counters()
@@ -642,7 +671,7 @@ def _mesh_grads(mscene, mstatic):
     print(f"profile of one mesh value_and_grad: wall {wall:.1f} ms, device "
           f"{dev_ms:.1f} ms, idle share {idle:.3f}, {n_k} kernel launches; "
           f"top {top}")
-    return counts["forward_winners"]
+    return counts["forward_winners"], gsp, gd1
 
 
 def _finite_difference(dev):
@@ -660,7 +689,7 @@ def _finite_difference(dev):
         s = dataclasses.replace(scene, primitives=dataclasses.replace(
             scene.primitives, data1=d1))
         return kt.render_sample(s, side, side, 1, FD_DEPTH, RR_START, static,
-                                mesh_plans=plans).sum()
+                                mesh_plans=plans).sum(dtype=torch.float64)
 
     d1 = scene.primitives.data1.detach().clone().requires_grad_(True)
     _reset_counters()
@@ -682,7 +711,7 @@ def _finite_difference(dev):
           f"{sum(p.count for p in static.mesh_parts)} triangles, depth "
           f"{FD_DEPTH}, eps {FD_EPS}, data1[{row}, {col}]): AD {ad:.6g}, FD "
           f"{fd:.6g}, relative error {rel:.3g}")
-    if not rel <= 1e-2:
+    if not rel <= 2e-3:
         raise RuntimeError(f"AD and FD disagree: {rel}")
 
 
@@ -703,6 +732,240 @@ def _mesh_train(mscene, mstatic):
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         raise RuntimeError(f"optimize did not lower the mesh loss: "
                            f"{losses}")
+
+
+def _recorded_wavefront(static, args, marrays, **kw):
+    """wavefront_forward on kernel operands args with every walk and
+    shade-step call recorded: (its result, [(kind, args, kwargs,
+    outputs)]), tensors cloned when the call returns (wavefront_forward
+    adds NEE to the carry in place afterwards)."""
+    calls = []
+    walk, shade = bn.walk, mk.shade_step
+
+    def recorder(kind, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            keep = lambda xs: tuple(x.clone() if torch.is_tensor(x) else x
+                                    for x in xs)
+            calls.append((kind, keep(a), k, keep(out)))
+            return out
+        return call
+
+    bn.walk, mk.shade_step = recorder("walk", walk), recorder("shade", shade)
+    try:
+        out = kt.wavefront_forward(static, MESH_DEPTH, RR_START, *args,
+                                   *marrays, **kw)
+    finally:
+        bn.walk, mk.shade_step = walk, shade
+    return out, calls
+
+
+def _agreement(got, want):
+    """A kernel's outputs against its plain version's: (integer outputs
+    equal, share of rays whose float planes are within rel 1e-4 of a
+    denominator floored at 1e-2 of the plane's scale, share bit-equal, max
+    abs err of the finite entries). Equal infinities agree."""
+    ints = all(torch.equal(g, w) for g, w in zip(got, want)
+               if not g.is_floating_point())
+    f_got = torch.cat([g.reshape(-1, g.shape[-1]) for g in got
+                       if g.is_floating_point()])
+    f_want = torch.cat([w.reshape(-1, w.shape[-1]) for w in want
+                        if w.is_floating_point()])
+    same = f_got == f_want
+    mag = torch.where(torch.isfinite(f_want), f_want.abs(), 0.0)
+    scale = mag.amax(dim=1, keepdim=True).clamp(min=1.0)
+    err = torch.where(same, 0.0, (f_got - f_want).abs())
+    rel = err / torch.maximum(f_want.abs(), 1e-2 * scale)
+    close = (same | (rel < 1e-4)).all(dim=0).float().mean().item()
+    exact = same.all(dim=0).float().mean().item()
+    finite = torch.isfinite(err)
+    max_err = err[finite].max().item() if finite.any() else 0.0
+    if not finite.all():
+        max_err = math.inf
+    return ints, close, exact, max_err
+
+
+def _wavefront(mscene, mstatic, fargs, marrays, y0, mesh_counts):
+    """Phase 17: the wavefront render at phase 11's workload. Returns the
+    kernels-line numbers of the shade step and the walk."""
+    D = MESH_DEPTH + 1
+    n_lights = len(mstatic.light_rows)
+    want_counts = _only(shade_step=D, walk=D * (1 + n_lights))
+    planar = lambda wavefront: kt.render_sample_planar(
+        mscene, WIDTH, HEIGHT, 1, MESH_DEPTH, RR_START, mstatic, "none",
+        wavefront=wavefront)
+    _reset_counters()
+    wf_s, img = _host_s(lambda: planar(True))
+    counts = _counters()
+    if counts != want_counts:
+        raise RuntimeError(f"the wavefront launched {counts}, expected "
+                           f"{want_counts}")
+    if not torch.equal(img, planar(False)):
+        raise RuntimeError("the wavefront's image is not the in-kernel "
+                           "path's bit for bit")
+    ref = mk.forward(mstatic, MESH_DEPTH, RR_START, *fargs, *marrays)
+    rad = kt.wavefront_forward(mstatic, MESH_DEPTH, RR_START, *fargs,
+                               *marrays)
+    if not torch.equal(rad, ref):
+        raise RuntimeError("the wavefront's radiance is not the mesh "
+                           "kernel's bit for bit")
+    print(f"wavefront: {counts['shade_step']} shade steps = depth + 1 and "
+          f"{counts['walk']} walks = (depth + 1) * (1 + {n_lights} lights), "
+          f"no other launch; image bit-equal to the in-kernel path's, "
+          f"radiance bit-equal to the mesh kernel's on all {rad.shape[1]} "
+          f"rays; {wf_s * 1e3:.1f} ms for the first render on the host "
+          f"clock")
+
+    # every launch on the band against its plain version
+    band = _band(fargs, y0)
+    _, calls = _recorded_wavefront(mstatic, band, marrays)
+    nb = band[1].shape[1]
+    plain = {"walk": bn.walk_reference, "shade": mk.shade_step_reference}
+    report = {"walk": [], "shade": []}
+    plain_s = {}
+    for kind, a, k, got in calls:
+        t_s, want = _host_s(lambda: plain[kind](*a))
+        want = tuple(want)
+        plain_s.setdefault(kind, t_s)  # the depth-0 launch of each kernel
+        ints, close, exact, err = _agreement(got, want)
+        report[kind].append((ints, close, exact, err))
+        if not ints or close < 0.999:
+            raise RuntimeError(f"wavefront band: a {kind} launch disagrees "
+                               f"with its plain version (integers equal "
+                               f"{ints}, floats close on {close})")
+    for kind, rows in report.items():
+        print(f"wavefront band ({nb} rays, rows {y0}-"
+              f"{y0 + MESH_BAND_ROWS - 1}), {kind} launches vs plain: "
+              f"integers equal, floats within rel 1e-4 on "
+              f"{[round(r[1], 6) for r in rows]}, bit-equal on "
+              f"{[round(r[2], 6) for r in rows]} of rays, max abs err "
+              f"{max(r[3] for r in rows):.3g}; plain {plain_s[kind]:.2f} s "
+              f"for the first launch")
+
+    # the walks' counting build over the sample
+    work = torch.zeros(4, dtype=torch.int64, device=rad.device)
+    counted = kt.wavefront_forward(mstatic, MESH_DEPTH, RR_START, *fargs,
+                                   *marrays, work=work)
+    if not torch.equal(counted, rad):
+        raise RuntimeError("the walk's counting build changed the radiance")
+    casts, box_tests, plane_tests, inside_tests = work.tolist()
+    print(f"wavefront walk work (counting build, radiance bit-equal): "
+          f"{casts} casts, {box_tests} box tests, {plane_tests} triangle "
+          f"plane tests, {inside_tests} inside tests; per cast "
+          f"{box_tests / casts:.2f} boxes, {plane_tests / casts:.2f} planes, "
+          f"{inside_tests / casts:.2f} inside (mesh kernel: {mesh_counts})")
+
+    # times of every launch at the full film, CUDA events
+    _, calls = _recorded_wavefront(mstatic, fargs, marrays)
+    fns = {"walk": bn.walk, "shade": mk.shade_step}
+    per = {"walk": [], "shade": []}
+    for kind, a, k, _ in calls:
+        per[kind].append(_events_ms(lambda: fns[kind](*a, **k), 3))
+    print(f"wavefront ms per launch, in launch order: walk "
+          f"{[round(t, 4) for t in per['walk']]}, shade step "
+          f"{[round(t, 4) for t in per['shade']]}")
+    fwd = lambda: mk.forward(mstatic, MESH_DEPTH, RR_START, *fargs, *marrays)
+    wf = lambda: kt.wavefront_forward(mstatic, MESH_DEPTH, RR_START, *fargs,
+                                      *marrays)
+    timed = [(k, _events_ms(fn, 2)) for k, fn in
+             [("mesh", fwd), ("wavefront", wf), ("wavefront", wf),
+              ("mesh", fwd)]]
+    print(f"wavefront vs mesh kernel, ms per sample of {rad.shape[1]} rays "
+          f"in turns: {timed}")
+    wall, dev_ms, idle, n_k, top = _profile(lambda: planar(True))
+    print(f"profile of the wavefront sample: wall {wall:.1f} ms, device "
+          f"{dev_ms:.1f} ms, idle share {idle:.3f}, {n_k} kernel launches; "
+          f"top {top}")
+
+    # bounds, per launch on average over the sample's launches
+    walk_calls = [c for c in calls if c[0] == "walk"]
+    shade_calls = [c for c in calls if c[0] == "shade"]
+    walk_bytes = sum(_nbytes(*a[1:4], *marrays) + _nbytes(*out)
+                     for _, a, _, out in walk_calls)
+    walk_ops = (box_tests * BOX_TEST_OPS + plane_tests * TRI_PLANE_OPS
+                + inside_tests * TRI_INSIDE_OPS)
+    b_walk = _bound(walk_bytes / len(walk_calls), walk_ops / len(walk_calls))
+    scans = 0
+    shade_bytes = 0
+    for _, a, _, out in shade_calls:
+        first = len(a) == 11  # no un_f / un_i: it scans the main rays
+        live_in = int(a[7][3].sum())
+        scans += (live_in if first else 0) + int(out[5][1::2].sum()) \
+            + int(out[2][3].sum())
+        shade_bytes += _nbytes(*a[4:], *out)
+    row_ops = len(mstatic.rows) * PRIM_TEST_OPS
+    b_shade = _bound(shade_bytes / len(shade_calls),
+                     scans * row_ops / len(shade_calls))
+    print(f"wavefront bounds per launch: walk {b_walk} ({walk_bytes / 1e9:.3f} "
+          f"GB, {walk_ops:.4g} operations per sample), shade step {b_shade} "
+          f"({shade_bytes / 1e9:.3f} GB, {scans} scans of "
+          f"{len(mstatic.rows)} unrolled rows per sample)")
+    wf_ms = [t for k, t in timed if k == "wavefront"]
+    common = {"route": "cuda", "library_ms": None, "plain_rays": nb,
+              "rays": rad.shape[1], "max_depth": MESH_DEPTH,
+              "wavefront_ms": wf_ms,
+              "mesh_ms": [t for k, t in timed if k == "mesh"]}
+    return {
+        "shade": dict(common, **{
+            "launches": counts["shade_step"],
+            "max_abs_err": max(r[3] for r in report["shade"]),
+            "ms": sum(per["shade"]) / len(per["shade"]),
+            "ms_per_launch": per["shade"],
+            "plain_ms": plain_s["shade"] * 1e3,
+            "bound_ms": b_shade[0], "bound_by": b_shade[1],
+            "bit_equal_share": min(r[2] for r in report["shade"]),
+            "unrolled_scans": scans}),
+        "walk": dict(common, **{
+            "launches": counts["walk"],
+            "max_abs_err": max(r[3] for r in report["walk"]),
+            "ms": sum(per["walk"]) / len(per["walk"]),
+            "ms_per_launch": per["walk"],
+            "plain_ms": plain_s["walk"] * 1e3,
+            "bound_ms": b_walk[0], "bound_by": b_walk[1],
+            "bit_equal_share": min(r[2] for r in report["walk"]),
+            "casts": casts, "box_tests": box_tests,
+            "triangle_plane_tests": plane_tests,
+            "triangle_inside_tests": inside_tests}),
+    }
+
+
+def _wavefront_grads(mscene, mstatic, fargs, marrays, grads_in_kernel):
+    """Phase 18: phase 14's value_and_grad through the wavefront."""
+    D = MESH_DEPTH + 1
+    want_counts = _only(shade_step=D,
+                        walk=D * (1 + len(mstatic.light_rows)))
+    _reset_counters()
+    step_s, (loss, gsp, gd1) = _host_s(lambda: _mesh_vg(mscene, mstatic,
+                                                        wavefront=True))
+    counts = _counters()
+    if counts != want_counts:
+        raise RuntimeError(f"wavefront value_and_grad launched {counts}, "
+                           f"expected {want_counts}")
+    same = [torch.equal(g, w) for g, w in zip((gsp, gd1), grads_in_kernel)]
+    if not all(same):
+        raise RuntimeError(f"wavefront gradients differ from phase 14's: "
+                           f"bit-equal {same}")
+    step2_s, _ = _host_s(lambda: _mesh_vg(mscene, mstatic, wavefront=True))
+    taped = kt.wavefront_forward(mstatic, MESH_DEPTH, RR_START, *fargs,
+                                 *marrays, taped=True)
+    want = mk.forward_winners(mstatic, MESH_DEPTH, RR_START, *fargs,
+                              *marrays)
+    if not all(torch.equal(a, b) for a, b in zip(taped, want)):
+        raise RuntimeError("the taped wavefront's radiance or tapes are not "
+                           "the winner-taped kernel's")
+    del taped, want
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _mesh_vg(mscene, mstatic, wavefront=True)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    print(f"wavefront value_and_grad (1024^2, depth {MESH_DEPTH}, spp 1): "
+          f"loss {loss:.6e}, launches {counts}; gradients bit-equal to phase "
+          f"14's; taped radiance and tapes equal to the winner-taped "
+          f"kernel's (full film); {step_s * 1e3:.1f} ms, {step2_s * 1e3:.1f} "
+          f"ms on the host clock; peak device memory above the inputs per "
+          f"step {peak:.3f} GB")
 
 
 def main() -> int:
@@ -1104,10 +1367,16 @@ def main() -> int:
                 + box_tests * BOX_TEST_OPS + plane_tests * TRI_PLANE_OPS
                 + inside_tests * TRI_INSIDE_OPS)
     win = _winners(mstatic, fargs, marrays, y0, mesh_ops)
-    win["launches"] = _mesh_grads(mscene, mstatic)
+    win["launches"], *grads_in_kernel = _mesh_grads(mscene, mstatic)
     _finite_difference(dev)
     _mesh_train(mscene, mstatic)
     print(f"chip_smoke phases 1-16: {time.perf_counter() - t_start:.1f} s")
+
+    # 17-18. the wavefront and its gradients
+    wave = _wavefront(mscene, mstatic, fargs, marrays, y0,
+                      (casts, box_tests, plane_tests, inside_tests))
+    _wavefront_grads(mscene, mstatic, fargs, marrays, grads_in_kernel)
+    print(f"chip_smoke phases 1-18: {time.perf_counter() - t_start:.1f} s")
 
     # bounds at the shapes timed above
     b_fwd, b_taped = bounds["forward"], bounds["taped"]
@@ -1227,7 +1496,15 @@ def main() -> int:
         ("megakernel_backward_from_tape_tri", "megakernel_bwd_tape.cu",
          "1480", "tape_bwd"),
         ("megakernel_forward_taped_tri", "megakernel_fwd.cu",
-         "897 (taped=\"full\")", "taped"))]}))
+         "897 (taped=\"full\")", "taped"))] + [dict({
+            "name": "shade_step",
+            "source": src + "shade_step.cu",
+            "replaces": "computeraytracer_tpu/kernels/megakernel.py:1087",
+        }, **wave["shade"]), dict({
+            "name": "walk",
+            "source": src + "walk.cu",
+            "replaces": "computeraytracer_tpu/kernels/binned.py:640",
+        }, **wave["walk"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

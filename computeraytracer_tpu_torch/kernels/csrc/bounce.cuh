@@ -25,6 +25,11 @@
 // the mesh tie rule (t < best, or t == best and the higher id) does not
 // depend on the order in which triangles are tested. A mesh hit records
 // slot = P + part, whose meta row carries the part's material and spectra.
+//
+// Deferred mode (bounce's DEFER; the wavefront's shade step, shade_step.cu):
+// the closest hit comes in from outside (the walk kernel's mesh winner
+// folded into the unrolled winner) and NEE emits its shadow ray and
+// contribution instead of adding to L, as make_bounce(defer_nee=True).
 
 #pragma once
 
@@ -58,9 +63,11 @@ constexpr int NODE_WORDS = 8;   // skip, chunk_start, is_leaf, pad
 
 enum { DIFFUSE = 0, LIGHT = 1, GLASS = 2, MIRROR = 3 };
 
-// The MESH argument of scan and bounce: no mesh, the mesh mode, or the
-// mesh mode that also counts its work into mesh_work.
-enum { MESH_NONE = 0, MESH_WALK = 1, MESH_COUNT = 2 };
+// The MESH argument of scan and bounce: no mesh, the mesh mode, the mesh
+// mode that also counts its work into mesh_work, or triangle rows through
+// the watertight test with no mesh part walked (the shade step's scans of
+// the unrolled rows, shade_step.cu).
+enum { MESH_NONE = 0, MESH_WALK = 1, MESH_COUNT = 2, MESH_ROWS = 3 };
 
 // Work counts of MESH_COUNT, one column per thread of the block: casts
 // (closest-hit and shadow scans), box tests (nodes and chunks), triangle
@@ -276,14 +283,14 @@ __device__ __forceinline__ bool slab(const float* __restrict__ bb, V3 o,
          t_enter < INFINITY;
 }
 
-// Closest hit of one ray against mesh part `pi`: the stackless skip-link
-// walk of the DFS node array (descend on a box hit, else jump to `skip`),
-// each leaf's chunk boxes re-tested before their 128 triangles. Updates h
-// under the mesh tie rule; with COUNT, counts its tests into mesh_work.
+// Closest hit of one ray against mesh part mp, whose hits record `slot`:
+// the stackless skip-link walk of the DFS node array (descend on a box hit,
+// else jump to `skip`), each leaf's chunk boxes re-tested before their 128
+// triangles. Updates h under the mesh tie rule; with COUNT, counts its
+// tests into mesh_work.
 template <bool COUNT>
-__device__ void scan_mesh_part(const Scene& s, int P, int pi, V3 o, V3 d,
+__device__ void scan_mesh_part(const MeshPart& mp, int slot, V3 o, V3 d,
                                int exclude, const Watertight& wt, Hit& h) {
-  const MeshPart& mp = s.part[pi];
   const float dc[3] = {d.x, d.y, d.z};
   float inv_d[3];
   for (int c = 0; c < 3; ++c) {
@@ -324,7 +331,7 @@ __device__ void scan_mesh_part(const Scene& s, int P, int pi, V3 o, V3 d,
           const float sgn = flip ? -1.0f : 1.0f;
           h.t = t;
           h.idx = tid;
-          h.slot = P + pi;
+          h.slot = slot;
           h.pos = vadd(o, vscale(t, d));
           h.nrm = {sgn * n0.x, sgn * n0.y, sgn * n0.z};
         }
@@ -404,9 +411,10 @@ __device__ Hit scan(const Scene& s, int P, V3 o, V3 d, int exclude) {
       h.nrm = vnormalize(vsub(p, c));
     }
   }
-  if (MESH)
+  if (MESH == MESH_WALK || MESH == MESH_COUNT)
     for (int pi = 0; pi < s.n_parts; ++pi)
-      scan_mesh_part<MESH == MESH_COUNT>(s, P, pi, o, d, exclude, wt, h);
+      scan_mesh_part<MESH == MESH_COUNT>(s.part[pi], P + pi, o, d, exclude,
+                                         wt, h);
   return h;
 }
 
@@ -498,6 +506,20 @@ struct BounceRec {
   bool rr_surv;     // Russian roulette ran and the ray survived
 };
 
+// What a bounce with deferred NEE (the shade step) emits instead of adding
+// NEE to L: the light its diffuse scatter picked (-1: none), the shadow
+// ray's direction, the winner of its scan of the unrolled rows (t, row) and
+// the contribution (brdf * (l_emis * scale)) * beta, the op order of the
+// in-kernel L update, which the caller adds unless a mesh part occludes
+// the shadow ray. The contribution is 0 where an unrolled row occludes it.
+struct DeferredNee {
+  int li;
+  V3 ldir;
+  float t_su;
+  int idx_su;
+  float contrib[4];
+};
+
 // The NEE point on light li and the direction to it from `pos`:
 // p_l = l_o + u_p*e1 + v_p*e2, ldir = normalize(p_l - pos).
 __device__ __forceinline__ V3 nee_target(const Scene& s, int li, float u_p,
@@ -511,14 +533,28 @@ __device__ __forceinline__ V3 nee_target(const Scene& s, int li, float u_p,
           l_o.z + u_p * l_e1.z + v_p * l_e2.z};
 }
 
+// The closest hit a bounce starts from: the given one (the shade step's
+// merged winner) or its own scan.
+template <int MESH, bool GIVEN>
+__device__ __forceinline__ Hit main_hit(const Scene& s, const Trace& tr,
+                                        const Carry& c, const Hit* given) {
+  if constexpr (GIVEN) return *given;
+  else return scan<MESH>(s, tr.P, c.o, c.d, c.exclude);
+}
+
 // One bounce: advances c and returns whether the ray is still alive. With
 // REC, records what the adjoint needs in *rec; with MESH, the scans run in
-// mesh mode.
-template <bool REC, int MESH = MESH_NONE>
+// mesh mode. With DEFER (the shade step, make_bounce's defer_nee), the
+// closest hit is *given, and NEE writes *dn instead of adding to L: the
+// shadow scan covers only what scan<MESH> covers (the unrolled rows under
+// MESH_ROWS), and the caller tests the mesh parts.
+template <bool REC, int MESH = MESH_NONE, bool DEFER = false>
 __device__ __forceinline__ bool bounce(const Scene& s, const Trace& tr,
                                        long long r, int depth, Carry& c,
-                                       BounceRec* rec) {
-  const Hit hit = scan<MESH>(s, tr.P, c.o, c.d, c.exclude);
+                                       BounceRec* rec,
+                                       const Hit* given = nullptr,
+                                       DeferredNee* dn = nullptr) {
+  const Hit hit = main_hit<MESH, DEFER>(s, tr, c, given);
   if (REC) {
     rec->hit = hit;
     rec->scatter = false;
@@ -588,6 +624,13 @@ __device__ __forceinline__ bool bounce(const Scene& s, const Trace& tr,
       rec->sh = sh;
       rec->unocc = unocc;
     }
+    if (DEFER) {
+      dn->li = li;
+      dn->ldir = ldir;
+      dn->t_su = sh.t;
+      dn->idx_su = sh.idx;
+      for (int j = 0; j < 4; ++j) dn->contrib[j] = 0.0f;
+    }
     if (unocc) {
       const float cos_t = fmaxf(0.0f, vdot(n, ldir));
       const float pdf_l = light_pdf(s, li, tr.n_lights, sh.nrm, ldir, sh.pos, hit.pos);
@@ -598,7 +641,10 @@ __device__ __forceinline__ bool bounce(const Scene& s, const Trace& tr,
       gets(tr, r, s.meta[sl * META + 3], l_emis);
       for (int j = 0; j < 4; ++j) {
         const float nee = l_emis[j] * scale;
-        c.L[j] = c.L[j] + brdf[j] * nee * c.beta[j];
+        if (DEFER)
+          dn->contrib[j] = brdf[j] * nee * c.beta[j];
+        else
+          c.L[j] = c.L[j] + brdf[j] * nee * c.beta[j];
       }
     }
 
@@ -749,6 +795,25 @@ __device__ __forceinline__ Carry tape_read(const float* __restrict__ tape_f,
   c.specular = tape_i[(ri + 5) * R + r] != 0;
   c.in_trans = tape_i[(ri + 6) * R + r] != 0;
   return c;
+}
+
+// The kernels' mesh-part table from per part (tri_rows, chunk_bbox,
+// node_bbox, node_meta) device pointers and (n_nodes, n_real_chunks), host
+// arrays; null arrays give parts whose tables only the material lookup
+// reads (the shade step's).
+inline MeshParts make_parts(int n_parts, const long long* part_ptrs,
+                            const int* part_info) {
+  MeshParts mp = {};
+  mp.n = n_parts;
+  for (int i = 0; part_ptrs && i < n_parts; ++i) {
+    mp.part[i].tri = (const float*)part_ptrs[4 * i + 0];
+    mp.part[i].cbox = (const float*)part_ptrs[4 * i + 1];
+    mp.part[i].nbox = (const float*)part_ptrs[4 * i + 2];
+    mp.part[i].nmeta = (const int*)part_ptrs[4 * i + 3];
+    mp.part[i].n_nodes = part_info[2 * i + 0];
+    mp.part[i].n_real_chunks = part_info[2 * i + 1];
+  }
+  return mp;
 }
 
 }  // namespace pathtrace

@@ -146,23 +146,6 @@ int check_args(int n_prims, int n_lights, int n_spectra, long long n_rays,
   return 0;
 }
 
-// The kernel's mesh-part table from per part (tri_rows, chunk_bbox,
-// node_bbox, node_meta) device pointers and (n_nodes, n_real_chunks).
-MeshParts make_parts(int n_parts, const long long* part_ptrs,
-                     const int* part_info) {
-  MeshParts mp = {};
-  mp.n = n_parts;
-  for (int i = 0; i < n_parts; ++i) {
-    mp.part[i].tri = (const float*)part_ptrs[4 * i + 0];
-    mp.part[i].cbox = (const float*)part_ptrs[4 * i + 1];
-    mp.part[i].nbox = (const float*)part_ptrs[4 * i + 2];
-    mp.part[i].nmeta = (const int*)part_ptrs[4 * i + 3];
-    mp.part[i].n_nodes = part_info[2 * i + 0];
-    mp.part[i].n_real_chunks = part_info[2 * i + 1];
-  }
-  return mp;
-}
-
 }  // namespace
 
 // part_ptrs: per mesh part (tri_rows, chunk_bbox, node_bbox, node_meta)

@@ -36,9 +36,16 @@ Port of computeraytracer_tpu/kernels/megakernel.py ``build_forward``
   also returns each bounce's closest-hit and shadow winners
   (``build_forward(taped=True)``, the kernel ``megakernel_fwd_winners``),
   the tape of the guided replay (tracer/replay.py).
+- ``shade_step_reference`` / ``shade_step``: one bounce of the wavefront
+  with the mesh winner given and NEE deferred (``build_shade_step``,
+  ``csrc/shade_step.cu``; the plain version is ``_bounce(defer_nee=
+  True)``). ``tracer/kernel.py`` ``wavefront_forward`` launches it once
+  per bounce, with the walk of ``kernels/binned.py`` casting in between.
 - ``TraceFn``, ``TraceTapedFn`` and ``MeshTraceFn``: the autograd
   Functions, analogues of the JAX package's ``tracer/pallas.py``
-  ``_call_with_vjp``, ``_call_taped`` and ``_mesh_call``.
+  ``_call_with_vjp``, ``_call_taped`` and ``_mesh_call``; the guided
+  replay's forward and backward (``_replay_forward``,
+  ``_replay_backward``) also serve the wavefront's Function.
 
 Triangle rows (category 2) are differentiated by the backward kernels,
 which scan them in their mesh mode and carry a triangle's cotangent into
@@ -85,13 +92,15 @@ MESH_BLOCK = 1 << 22
 # Kernel launches, counted by each wrapper where it launches its kernel
 # (CPU calls launch nothing and do not count): the forward in its plain
 # mode and in its mesh mode, the taped forward, the retrace backward, the
-# tape-fed backward and the winner-taped forward.
+# tape-fed backward, the winner-taped forward and the wavefront's shade
+# step (its walk kernel counts in kernels/binned.py).
 launches = 0
 launches_mesh = 0
 launches_taped = 0
 launches_bwd = 0
 launches_bwd_tape = 0
 launches_winners = 0
+launches_shade = 0
 
 MESH_PARTS_REPLAY = ("scenes with mesh parts differentiate through the "
                      "guided replay (MeshTraceFn, backward='replay', to "
@@ -381,7 +390,7 @@ def _scan_mesh_part(tri_rows, o, d, exclude, wt, best_t, best_i, pos, nrm):
 
 
 def _bounce(static, prims, spect, state, depth, max_depth, rr_start,
-            mesh=(), scan_fn=None):
+            mesh=(), scan_fn=None, defer_nee=False):
     """One bounce of make_bounce over all lanes (JAX op order); mesh is
     the (part, arrays) pairs of the scene's mesh parts.
 
@@ -394,7 +403,15 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start,
     light), int64: the winners the replay reads. hit_idx is the closest
     hit where the ray entered the bounce alive; sh_idx[l] the shadow
     winner where the bounce is a diffuse scatter that picked light l;
-    every other entry is -1."""
+    every other entry is -1.
+
+    defer_nee (make_bounce's, megakernel.py:633-679, the shade step's):
+    NEE is not added to L. aux gains the hit position and, per light,
+    (ldir, t_su, contrib, lsel): the shadow ray's direction, the t of its
+    scan's winner, the contribution ``(brdf * (l_emis * scale)) * beta``
+    (the op order of the L update, so that adding it later gives the same
+    bits) and whether the bounce picked the light; contrib is 0 where the
+    scan found the light occluded."""
     if scan_fn is None:
         def scan_fn(tag, so, sd, sexcl):
             return _scan_primitives(static, prims, so, sd, sexcl, mesh)
@@ -521,6 +538,7 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start,
     li = torch.clamp((u_l * float(n_lights)).to(torch.int64), 0, n_lights - 1)
     nee = [zero] * 4
     sh_aux = []
+    nee_aux = []
     for l_i, lr in enumerate(static.light_rows):
         lsel = is_diffuse & (li == l_i)
         row = prims[lslot[lr]]
@@ -539,8 +557,14 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start,
         scale = torch.where(lsel & unocc,
                             cos_t * w_l / torch.clamp(pdf_l, min=1e-12), 0.0)
         l_emis = gets(static.emission_idx[lslot[lr]])
-        nee = [nee[j] + l_emis[j] * scale for j in range(4)]
-    L = tuple(L[j] + brdf[j] * nee[j] * beta[j] for j in range(4))
+        if defer_nee:
+            contrib = tuple((brdf[j] * (l_emis[j] * scale)) * beta[j]
+                            for j in range(4))
+            nee_aux.append((ldir, sh["t"], contrib, lsel))
+        else:
+            nee = [nee[j] + l_emis[j] * scale for j in range(4)]
+    if not defer_nee:
+        L = tuple(L[j] + brdf[j] * nee[j] * beta[j] for j in range(4))
 
     # cosine hemisphere
     r_h = sqrt(torch.clamp(u_h, min=0.0))
@@ -627,9 +651,12 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start,
     beta = tuple(torch.where(surv, beta[j] * inv1q, beta[j])
                  for j in range(4))
 
+    aux = (hit_aux, tuple(sh_aux))
+    if defer_nee:
+        aux += (hit["pos"], tuple(nee_aux))
     return {"diff": (o, d, L, beta, last_pdf, eta_scale),
             "nondiff": (seed, exclude, specular, in_trans, active),
-            "aux": (hit_aux, tuple(sh_aux))}
+            "aux": aux}
 
 
 def _init_state(rays, seeds):
@@ -792,7 +819,7 @@ def _check_tensor(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check(static: SceneStatic, prims, rays, seeds, spect, mesh_arrays):
+def _check_static(static: SceneStatic):
     P = len(static.rows)
     S = static.n_spectra
     if not static.light_rows:
@@ -804,11 +831,12 @@ def _check(static: SceneStatic, prims, rays, seeds, spect, mesh_arrays):
             f"{MAX_LIGHTS} lights, {MAX_SPECTRA} spectra, {MAX_PARTS} mesh "
             f"parts (got {P}, {len(static.light_rows)}, {S}, "
             f"{len(static.mesh_parts)})")
-    if len(mesh_arrays) != ARRAYS_PER_PART * len(static.mesh_parts):
-        raise ValueError(
-            f"{len(mesh_arrays)} mesh arrays for {len(static.mesh_parts)} "
-            f"mesh parts: expected (tri_rows, chunk_bbox, node_bbox, "
-            f"node_meta) per part")
+
+
+def _check(static: SceneStatic, prims, rays, seeds, spect, mesh_arrays):
+    _check_static(static)
+    P = len(static.rows)
+    S = static.n_spectra
     R = rays.shape[-1] if rays.dim() == 2 else -1
     dev = rays.device
     for name, t, shape, dtype in (
@@ -817,6 +845,17 @@ def _check(static: SceneStatic, prims, rays, seeds, spect, mesh_arrays):
             ("seeds", seeds, (4, R), torch.int64),
             ("spect", spect, (S * 4, R), torch.float32)):
         _check_tensor(name, t, shape, dtype, dev)
+    _check_parts(static, mesh_arrays, dev)
+
+
+def _check_parts(static: SceneStatic, mesh_arrays, dev):
+    """The mesh arrays: (tri_rows, chunk_bbox, node_bbox, node_meta) per
+    mesh part, on dev."""
+    if len(mesh_arrays) != ARRAYS_PER_PART * len(static.mesh_parts):
+        raise ValueError(
+            f"{len(mesh_arrays)} mesh arrays for {len(static.mesh_parts)} "
+            f"mesh parts: expected (tri_rows, chunk_bbox, node_bbox, "
+            f"node_meta) per part")
     for k, part in enumerate(static.mesh_parts):
         tri, cbox, nbox, nmeta = mesh_arrays[ARRAYS_PER_PART * k:
                                              ARRAYS_PER_PART * (k + 1)]
@@ -857,6 +896,8 @@ SIGNATURES = {
     "megakernel_fwd_winners": "ppipipppipppqiiiippp",
     "megakernel_bwd": "ppipipppipppppppqiiip",
     "megakernel_bwd_tape": "ppipipipppppppqiiip",
+    "shade_step": "ppipipi" + "p" * 15 + "qiiiip",
+    "walk": "pppppqipppp",
 }
 
 
@@ -1022,6 +1063,151 @@ def forward_taped(static: SceneStatic, max_depth: int, rr_start: int,
             int(rr_start), int(static.mesh_mode))
     launches_taped += 1
     return out, tape_f, tape_i
+
+
+# ---------------------------------------------------------------------------
+# the wavefront's shade step: one bounce, the mesh casts done outside it
+# ---------------------------------------------------------------------------
+
+CARRY_F = 16  # carry_f planes: o3 d3 L4 beta4 last_pdf eta_scale
+
+
+def shade_step_reference(static: SceneStatic, depth: int, max_depth: int,
+                         rr_start: int, prims: torch.Tensor,
+                         carry_f: torch.Tensor, carry_u: torch.Tensor,
+                         carry_i: torch.Tensor, spect: torch.Tensor,
+                         mesh_f: torch.Tensor, mesh_i: torch.Tensor,
+                         un_f: torch.Tensor | None = None,
+                         un_i: torch.Tensor | None = None):
+    """Plain torch shade step (build_shade_step, megakernel.py:1087): one
+    bounce of ``_bounce(defer_nee=True)`` on a carry held in planes.
+
+    carry_f (16, R) f32, carry_u (4, R) i32 (the seed words' bits),
+    carry_i (4, R) i32 [exclude, specular, in_trans, active]; mesh_f
+    (4, R) [t, n.xyz] and mesh_i (1, R) the ray's closest mesh hit; un_f
+    (4, R) / un_i (1, R), when given, the unrolled rows' winner the
+    previous step wrote (scan_in_kernel=False), else the step scans the
+    unrolled rows. The mesh winner folds into the unrolled one under the
+    tie rule of megakernel.py:1177-1185. Returns (carry_f', carry_u',
+    carry_i', tape_idx (R,), sh_f (3 + 8L, R), sh_i (2L, R), un_f'
+    (4, R), un_i' (1, R)), L = n_lights, integers int32:
+    - tape_idx: the merged main winner where the ray entered alive;
+    - sh_f: the shadow origin (the hit position where the ray entered
+      alive), then per light [ldir xyz, t_unrolled, contrib x4]; sh_i per
+      light [idx_unrolled, lsel]. A light the bounce did not pick holds
+      (0, 0, 0, +inf, 0 x4) and (-1, 0);
+    - un_f' / un_i': the unrolled winner [t, n.xyz] / [idx] of the output
+      ray where the ray is still alive, else (+inf, 0, 0, 0) / -1.
+    A ray dead at entry keeps its carry."""
+    R = carry_f.shape[1]
+    zero = torch.zeros((R,), dtype=torch.float32, device=carry_f.device)
+    state = _state_from_tape(carry_f, torch.cat([carry_u, carry_i]))
+    alive_in = state["nondiff"][4]
+    mesh_t, mesh_n = mesh_f[0], tuple(mesh_f[1:4])
+    mesh_id = mesh_i[0].to(torch.int64)
+
+    def scan_fn(tag, so, sd, sexcl):
+        if tag == "main" and un_f is not None:
+            idx_u = un_i[0].to(torch.int64)
+            st = {"t": un_f[0], "idx": idx_u,
+                  "pos": _vwhere(idx_u >= 0, _vadd(so, _vscale(un_f[0], sd)),
+                                 (zero, zero, zero)),
+                  "nrm": tuple(un_f[1:4])}
+        else:
+            st = _scan_primitives(static, prims, so, sd, sexcl)
+        if tag != "main":
+            return st  # NEE: the unrolled rows only
+        take = (mesh_t < st["t"]) | ((mesh_t == st["t"])
+                                     & (mesh_id > st["idx"]))
+        idx = torch.where(take, mesh_id, st["idx"])
+        return {"t": torch.where(take, mesh_t, st["t"]), "idx": idx,
+                "pos": _vwhere(take, _vadd(so, _vscale(mesh_t, sd)),
+                               st["pos"]),
+                "nrm": _vwhere(take, mesh_n, st["nrm"]), "hit": idx >= 0}
+
+    parts = tuple((part, ()) for part in static.mesh_parts)
+    out = _bounce(static, prims, spect, state, depth, max_depth, rr_start,
+                  parts, scan_fn, defer_nee=True)
+    hit_idx, sh_idx, pos, nee = out["aux"]
+    f, i = _tape_row(out)
+    sh_f = [torch.where(alive_in, c, 0.0) for c in pos]
+    sh_i = []
+    for (ldir, t_su, contrib, lsel), idx_su in zip(nee, sh_idx):
+        sh_f += [torch.where(lsel, c, 0.0) for c in ldir]
+        sh_f.append(torch.where(lsel, t_su, math.inf))
+        sh_f += [torch.where(lsel, c, 0.0) for c in contrib]
+        sh_i += [idx_su, lsel]
+    alive = out["nondiff"][4]
+    nxt = _scan_primitives(static, prims, out["diff"][0], out["diff"][1],
+                           out["nondiff"][1])
+    un_f_out = torch.stack([torch.where(alive, nxt["t"], math.inf)]
+                           + [torch.where(alive, c, 0.0) for c in nxt["nrm"]])
+    un_i_out = torch.where(alive, nxt["idx"], -1)[None]
+    return (f, i[0:4].contiguous(), i[4:8].contiguous(),
+            hit_idx.to(torch.int32), torch.stack(sh_f),
+            torch.stack(sh_i).to(torch.int32), un_f_out,
+            un_i_out.to(torch.int32))
+
+
+def shade_step(static: SceneStatic, depth: int, max_depth: int,
+               rr_start: int, prims: torch.Tensor, carry_f: torch.Tensor,
+               carry_u: torch.Tensor, carry_i: torch.Tensor,
+               spect: torch.Tensor, mesh_f: torch.Tensor,
+               mesh_i: torch.Tensor, un_f: torch.Tensor | None = None,
+               un_i: torch.Tensor | None = None):
+    """Shade step -> the outputs of ``shade_step_reference``.
+
+    CPU tensors run ``shade_step_reference``; CUDA tensors launch
+    csrc/shade_step.cu, the build that scans the unrolled rows itself when
+    un_f and un_i are None (the first bounce), else the one that reads
+    them. A failed build or launch raises."""
+    global launches_shade
+    _check_static(static)
+    P, S = len(static.rows), static.n_spectra
+    n_lights = len(static.light_rows)
+    R = carry_f.shape[-1] if carry_f.dim() == 2 else -1
+    dev = carry_f.device
+    if (un_f is None) != (un_i is None):
+        raise ValueError("un_f and un_i go together")
+    if not 0 <= int(depth) <= int(max_depth):
+        raise ValueError(f"depth {depth} outside 0..{max_depth}")
+    i32, f32 = torch.int32, torch.float32
+    for name, t, shape, dtype in (
+            ("prims", prims, (P, 12), f32),
+            ("carry_f", carry_f, (CARRY_F, R), f32),
+            ("carry_u", carry_u, (4, R), i32),
+            ("carry_i", carry_i, (4, R), i32),
+            ("spect", spect, (S * 4, R), f32),
+            ("mesh_f", mesh_f, (4, R), f32),
+            ("mesh_i", mesh_i, (1, R), i32),
+            *((("un_f", un_f, (4, R), f32), ("un_i", un_i, (1, R), i32))
+              if un_f is not None else ())):
+        _check_tensor(name, t, shape, dtype, dev)
+    if dev.type == "cpu":
+        return shade_step_reference(static, depth, max_depth, rr_start,
+                                    prims, carry_f, carry_u, carry_i, spect,
+                                    mesh_f, mesh_i, un_f, un_i)
+    _require_cuda(dev)
+    fn = _fn("shade_step", "shade_step")
+    meta, lights = _tables(static, dev)
+    outs = (torch.empty((CARRY_F, R), dtype=f32, device=dev),
+            torch.empty((4, R), dtype=i32, device=dev),
+            torch.empty((4, R), dtype=i32, device=dev),
+            torch.empty((R,), dtype=i32, device=dev),
+            torch.empty((3 + 8 * n_lights, R), dtype=f32, device=dev),
+            torch.empty((2 * n_lights, R), dtype=i32, device=dev),
+            torch.empty((4, R), dtype=f32, device=dev),
+            torch.empty((1, R), dtype=i32, device=dev))
+    _launch("shade_step", fn, dev, prims.data_ptr(), meta.data_ptr(), P,
+            lights.data_ptr(), n_lights, spect.data_ptr(), S,
+            carry_f.data_ptr(), carry_u.data_ptr(), carry_i.data_ptr(),
+            mesh_f.data_ptr(), mesh_i.data_ptr(),
+            None if un_f is None else un_f.data_ptr(),
+            None if un_i is None else un_i.data_ptr(),
+            *(t.data_ptr() for t in outs), R, int(depth), int(max_depth),
+            int(rr_start), len(static.mesh_parts))
+    launches_shade += 1
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -1282,6 +1468,56 @@ class TraceTapedFn(torch.autograd.Function):
         return None, None, None, d_prims, d_rays, None, d_spect
 
 
+def _replay_forward(ctx, trace, static, max_depth, rr_start, prims_full,
+                    rays, seeds, spect, cats, mesh_arrays):
+    """The forward of the guided-replay Functions (``MeshTraceFn``, the
+    wavefront's ``tracer.kernel.MeshWavefrontFn``): ``trace(*args,
+    taped=...)`` on the static's unrolled rows, winner-taped when an input
+    needs a gradient, and the tensors ``_replay_backward`` reads saved."""
+    if tuple(cats.shape) != (prims_full.shape[0],):
+        raise ValueError(f"cats: expected ({prims_full.shape[0]},), got "
+                         f"{tuple(cats.shape)}")
+    prims = _unrolled(static, prims_full)
+    args = (static, int(max_depth), int(rr_start), prims, rays, seeds, spect,
+            *mesh_arrays)
+    ctx.static = static
+    ctx.max_depth = int(max_depth)
+    ctx.rr_start = int(rr_start)
+    ctx.n_arrays = len(mesh_arrays)
+    if not any(ctx.needs_input_grad[k] for k in (3, 4, 6)):
+        return trace(*args, taped=False)
+    out, tape_idx, tape_sh = trace(*args, taped=True)
+    ctx.save_for_backward(prims_full, rays, seeds, spect, cats, tape_idx,
+                          tape_sh)
+    return out
+
+
+def _replay_backward(ctx, g):
+    """The cotangents of (prims_full, rays, spect): torch autograd of
+    ``tracer.replay.trace_replay`` on the saved winner tape."""
+    from computeraytracer_tpu_torch.tracer import replay
+
+    prims_full, rays, seeds, spect, cats, tape_idx, tape_sh = \
+        ctx.saved_tensors
+    leaves = [x.detach().requires_grad_(True)
+              for x in (prims_full, rays, spect)]
+    with torch.enable_grad():
+        out = replay.trace_replay(ctx.static, cats, leaves[0], leaves[1],
+                                  seeds, leaves[2], tape_idx, tape_sh,
+                                  ctx.max_depth, ctx.rr_start)
+        grads = torch.autograd.grad(out, leaves,
+                                    grad_outputs=g.contiguous(),
+                                    allow_unused=True)
+    dp, dr, ds = (torch.zeros_like(x) if gr is None else gr
+                  for gr, x in zip(grads, leaves))
+    return (None, None, None, dp, dr, None, ds, None) + (None,) * ctx.n_arrays
+
+
+def _kernel_trace(*args, taped):
+    """The in-kernel forward: winner-taped or not."""
+    return forward_winners(*args) if taped else forward(*args)
+
+
 class MeshTraceFn(torch.autograd.Function):
     """Differentiable trace through the guided replay (the analogue of the
     JAX package's ``_mesh_call``, tracer/pallas.py:168-207): the
@@ -1316,40 +1552,11 @@ class MeshTraceFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, static, max_depth, rr_start, prims_full, rays, seeds,
                 spect, cats, *mesh_arrays):
-        if tuple(cats.shape) != (prims_full.shape[0],):
-            raise ValueError(f"cats: expected ({prims_full.shape[0]},), got "
-                             f"{tuple(cats.shape)}")
-        prims = _unrolled(static, prims_full)
-        args = (static, int(max_depth), int(rr_start), prims, rays, seeds,
-                spect, *mesh_arrays)
-        ctx.static = static
-        ctx.max_depth = int(max_depth)
-        ctx.rr_start = int(rr_start)
-        ctx.n_arrays = len(mesh_arrays)
-        if not any(ctx.needs_input_grad[k] for k in (3, 4, 6)):
-            return forward(*args)
-        out, tape_idx, tape_sh = forward_winners(*args)
-        ctx.save_for_backward(prims_full, rays, seeds, spect, cats, tape_idx,
-                              tape_sh)
-        return out
+        return _replay_forward(ctx, _kernel_trace, static, max_depth,
+                               rr_start, prims_full, rays, seeds, spect,
+                               cats, mesh_arrays)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        from computeraytracer_tpu_torch.tracer import replay
-
-        prims_full, rays, seeds, spect, cats, tape_idx, tape_sh = \
-            ctx.saved_tensors
-        leaves = [x.detach().requires_grad_(True)
-                  for x in (prims_full, rays, spect)]
-        with torch.enable_grad():
-            out = replay.trace_replay(ctx.static, cats, leaves[0], leaves[1],
-                                      seeds, leaves[2], tape_idx, tape_sh,
-                                      ctx.max_depth, ctx.rr_start)
-            grads = torch.autograd.grad(out, leaves,
-                                        grad_outputs=g.contiguous(),
-                                        allow_unused=True)
-        dp, dr, ds = (torch.zeros_like(x) if gr is None else gr
-                      for gr, x in zip(grads, leaves))
-        return (None, None, None, dp, dr, None, ds, None) \
-            + (None,) * ctx.n_arrays
+        return _replay_backward(ctx, g)

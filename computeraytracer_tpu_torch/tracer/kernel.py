@@ -37,15 +37,27 @@ mesh part keep ``TraceFn`` / ``TraceTapedFn``, whose kernels scan them in
 their mesh mode. A mesh part's chunk BVH is packed from a plan fixed on
 the initial geometry (``mesh_plans``, as ``kernels/meshpack.py``
 ``plan_scene_mesh`` makes them), so its boxes follow the live vertices.
-``wavefront=None`` resolves to the in-kernel mode
-(``MESH_WAVEFRONT_DEFAULT``); ``wavefront=True`` raises for mesh scenes
-and is ignored for the others, as in the JAX package.
+
+``wavefront=True`` renders scenes with mesh parts through the wavefront
+(``wavefront_forward``, the JAX package's ``_wavefront_forward``): one
+shade-step launch per bounce (``kernels.megakernel.shade_step``) with
+every mesh cast in between done by the seeded walk
+(``kernels.binned.walk``). Its radiance is the in-kernel loop's bit for
+bit. Under grad it runs taped and differentiates through the same guided
+replay (``MeshWavefrontFn``); with ``backward="none"``, or under
+no_grad, it runs untaped. ``wavefront=None`` resolves to
+``MESH_WAVEFRONT_DEFAULT``; scenes without mesh parts ignore the flag, as
+in the JAX package.
 """
 
 from __future__ import annotations
 
-import torch
+import math
 
+import torch
+from torch.autograd.function import once_differentiable
+
+from computeraytracer_tpu_torch.kernels import binned as bn
 from computeraytracer_tpu_torch.kernels import megakernel as mk
 from computeraytracer_tpu_torch.kernels import meshpack
 from computeraytracer_tpu_torch.ops import camera as cam_ops
@@ -55,9 +67,10 @@ from computeraytracer_tpu_torch.ops import spectrum as spec
 SceneStatic = mk.SceneStatic
 
 # What trace_radiance(wavefront=None) resolves to for mesh scenes. The
-# JAX package defaults to its binned wavefront (five TPU kernels that are
-# not ported yet, slice 5); its tests specify the wavefront bit-identical
-# to the in-kernel bounce loop, so the port renders mesh scenes in-kernel.
+# JAX package defaults to its binned wavefront; the port's wavefront casts
+# through the walk kernel only (the binned candidate and pair kernels are
+# not ported yet), and it stays off until it is measured faster on the
+# card than the in-kernel loop, whose radiance it matches bit for bit.
 MESH_WAVEFRONT_DEFAULT = False
 
 BACKWARDS = ("pallas", "pallas_taped", "none", "xla", "replay")
@@ -105,9 +118,116 @@ def mesh_packs_for(scene, static: SceneStatic, mesh_plans=None):
                  for part, plan in zip(static.mesh_parts, plans))
 
 
+def wavefront_forward(static: SceneStatic, max_depth: int, rr_start: int,
+                      prims, rays, seeds, spect, *mesh_arrays,
+                      taped: bool = False, work=None):
+    """The wavefront of a scene with mesh parts (the JAX package's
+    ``_wavefront_forward``, tracer/pallas.py:210-351): operands as
+    ``kernels.megakernel.forward``'s -> radiance (4, R), or with taped
+    (L, tape_idx (max_depth+1, R) i32, tape_sh (max_depth+1, n_lights, R)
+    i32), the contract of ``forward_winners``.
+
+    Each bounce runs the main cast (the walk kernel), one shade step and,
+    per light, a shadow cast whose hit occludes the light where
+    ``(i >= 0) & (t <= t_su)``; the unoccluded contributions are added to
+    L in ascending light order. The casts launch over every ray with no
+    host sync: a dead ray is seeded with t = -inf and costs nothing. A
+    live ray is seeded with its occlusion bound, which is exact: the main
+    cast with the unrolled winner's t that the previous step wrote (+inf
+    in the first bounce), the shadow cast with t_su. A mesh hit beyond the
+    bound loses the fold anyway, and one at the bound keeps its tie.
+    ``work``, a zeroed (4,) int64 CUDA tensor, gathers the walks' counts
+    (``kernels.binned.walk``)."""
+    R = rays.shape[1]
+    D = int(max_depth) + 1
+    n_lights = len(static.light_rows)
+    dev = rays.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    carry_f = torch.cat([rays, torch.zeros((4, R), device=dev),
+                         torch.ones((6, R), device=dev)])
+    carry_u = mk._u32_bits(seeds)
+    carry_i = torch.zeros((4, R), **i32)
+    carry_i[0] = -1
+    carry_i[3] = 1
+    zero = torch.zeros((R,), device=dev)
+    no_hit = torch.full((R,), -1, **i32)
+    if taped:
+        tape_idx = torch.empty((D, R), **i32)
+        tape_sh = torch.empty((D, n_lights, R), **i32)
+
+    def cast(ray_planes, bound, live, exclude):
+        seed_f = torch.stack([torch.where(live, bound, -math.inf), zero,
+                              zero, zero])
+        return bn.walk(static, ray_planes, seed_f,
+                       torch.stack([no_hit, exclude]), *mesh_arrays,
+                       work=work)
+
+    un = ()
+    for depth in range(D):
+        active = carry_i[3] != 0
+        bound = un[0][0] if un else torch.full((R,), math.inf, device=dev)
+        mesh_f, mesh_i = cast(carry_f[:6], bound, active, carry_i[0])
+        # a dead ray's seed comes back: the inactive encoding is +inf
+        mesh_f[0].masked_fill_(~active, math.inf)
+        (carry_f, carry_u, carry_i, t_idx, sh_f, sh_i,
+         *un) = mk.shade_step(static, depth, max_depth, rr_start, prims,
+                              carry_f, carry_u, carry_i, spect, mesh_f,
+                              mesh_i, *un)
+        for l in range(n_lights):
+            fb = 3 + 8 * l
+            t_su = sh_f[fb + 3]
+            sh_t, sh_id = cast(torch.cat([sh_f[0:3], sh_f[fb:fb + 3]]), t_su,
+                               sh_i[2 * l + 1] != 0, t_idx)
+            occl = (sh_id[0] >= 0) & (sh_t[0] <= t_su)
+            carry_f[6:10] += torch.where(occl, 0.0, sh_f[fb + 4:fb + 8])
+            if taped:
+                tape_sh[depth, l] = torch.where(occl, sh_id[0], sh_i[2 * l])
+        if taped:
+            tape_idx[depth] = t_idx
+    if taped:
+        return carry_f[6:10], tape_idx, tape_sh
+    return carry_f[6:10]
+
+
+class MeshWavefrontFn(torch.autograd.Function):
+    """``kernels.megakernel.MeshTraceFn`` with the wavefront as its
+    forward (the JAX package's ``_mesh_call_wf``, tracer/pallas.py:354-380):
+    under grad the taped ``wavefront_forward``, whose winner tapes are
+    ``forward_winners``', and the same guided-replay backward; with no
+    input needing a gradient, or under no_grad, the untaped wavefront.
+
+        radiance = MeshWavefrontFn.apply(static, max_depth, rr_start,
+                                         prims_full, rays, seeds, spect,
+                                         cats, *mesh_arrays)
+    """
+
+    @classmethod
+    def apply(cls, static, max_depth, rr_start, prims_full, rays, seeds,
+              spect, cats, *mesh_arrays):
+        # grad mode is off inside forward: decide here (MeshTraceFn.apply)
+        if not torch.is_grad_enabled():
+            return wavefront_forward(static, max_depth, rr_start,
+                                     mk._unrolled(static, prims_full), rays,
+                                     seeds, spect, *mesh_arrays)
+        return super().apply(static, max_depth, rr_start, prims_full, rays,
+                             seeds, spect, cats, *mesh_arrays)
+
+    @staticmethod
+    def forward(ctx, static, max_depth, rr_start, prims_full, rays, seeds,
+                spect, cats, *mesh_arrays):
+        return mk._replay_forward(ctx, wavefront_forward, static,
+                                  max_depth, rr_start, prims_full, rays,
+                                  seeds, spect, cats, mesh_arrays)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return mk._replay_backward(ctx, g)
+
+
 def _resolve(scene, static, backward, wavefront, mesh_packs, mesh_plans):
     """Resolve the dispatch knobs and the mesh arrays shared by every
-    entry point -> (static, backward, mesh_arrays)."""
+    entry point -> (static, backward, wavefront, mesh_arrays)."""
     if backward not in BACKWARDS:
         raise ValueError(f"unknown backward {backward!r}; expected one of "
                          f"{BACKWARDS}")
@@ -119,11 +239,7 @@ def _resolve(scene, static, backward, wavefront, mesh_packs, mesh_plans):
         static = SceneStatic.from_scene(scene)
     if wavefront is None:
         wavefront = MESH_WAVEFRONT_DEFAULT
-    if wavefront and static.mesh_parts:
-        raise NotImplementedError(
-            "wavefront=True (the binned wavefront of mesh scenes, kernels "
-            "2 and 5-8) arrives with slice 5 of the port; wavefront=None "
-            "renders mesh scenes in-kernel")
+    wavefront = bool(wavefront and static.mesh_parts)
     mesh_arrays = ()
     if static.mesh_parts:
         if mesh_packs is None:
@@ -131,16 +247,20 @@ def _resolve(scene, static, backward, wavefront, mesh_packs, mesh_plans):
         mesh_arrays = tuple(a for pack in mesh_packs for a in pack.arrays)
         if backward in ("pallas", "pallas_taped"):
             backward = "replay"
-    return static, backward, mesh_arrays
+    return static, backward, wavefront, mesh_arrays
 
 
-def _dispatch(static, max_depth, rr_start, backward, prims, rays, seeds,
-              spect, mesh_arrays, cats):
+def _dispatch(static, max_depth, rr_start, backward, wavefront, prims, rays,
+              seeds, spect, mesh_arrays, cats):
     """One trace of prepared kernel operands -> radiance (4, R). prims is
     the full table for "replay", else the static's unrolled rows."""
     args = (static, int(max_depth), int(rr_start), prims, rays, seeds, spect)
     if backward == "replay":
-        return mk.MeshTraceFn.apply(*args, cats, *mesh_arrays)
+        fn = MeshWavefrontFn if wavefront else mk.MeshTraceFn
+        return fn.apply(*args, cats, *mesh_arrays)
+    if wavefront:  # "none"
+        with torch.no_grad():
+            return wavefront_forward(*args, *mesh_arrays)
     if backward == "pallas":
         return mk.TraceFn.apply(*args)
     if backward == "pallas_taped":
@@ -156,13 +276,12 @@ def trace_radiance(scene, o, d, hero, seed, max_depth: int,
     """Planar path trace: o, d (3, R), hero (R,), seed (4, R) ->
     spectral radiance (4, R) at the hero wavelengths; differentiable with
     respect to the scene's geometry and spectra and to o, d."""
-    static, backward, mesh_arrays = _resolve(scene, static, backward,
-                                             wavefront, mesh_packs,
-                                             mesh_plans)
+    static, backward, wavefront, mesh_arrays = _resolve(
+        scene, static, backward, wavefront, mesh_packs, mesh_plans)
     inputs = kernel_inputs(scene, o, d, hero, seed,
                            None if backward == "replay" else static)
-    return _dispatch(static, max_depth, rr_start, backward, *inputs,
-                     mesh_arrays, scene.primitives.category)
+    return _dispatch(static, max_depth, rr_start, backward, wavefront,
+                     *inputs, mesh_arrays, scene.primitives.category)
 
 
 def render_pixels_planar(scene, width: int, height: int, px, py, sample,

@@ -454,3 +454,158 @@ def test_card_mesh_gradient_matches_cpu(cuda):
         scale = max(np.abs(h_).max(), 1e-6)
         np.testing.assert_allclose(c / scale, h_ / scale, rtol=1e-3,
                                    atol=1e-4)
+
+
+def _two_lights(doc):
+    """A second light patch on the left wall (the per-light planes)."""
+    light = doc["objects"]["patches"][2]
+    doc["objects"]["patches"].append(dict(
+        light, origin=[1.0, 150.0, 200.0], edge1=[0.0, 0.0, 120.0],
+        edge2=[0.0, 120.0, 0.0]))
+    return doc
+
+
+def _wavefront_case(cuda, lights=1, w=64, h=48):
+    doc = presets.mesh_scene(w, h, 3)
+    if lights == 2:
+        doc = _two_lights(doc)
+    scene, _ = scene_from_dict(doc, device=cuda)
+    static = mk.SceneStatic.from_scene(scene, mesh_min=64)
+    assert static.mesh_parts and len(static.light_rows) == lights
+    px, py = kt.tile_coords(w, h, 0, cuda)
+    planes = kt.camera_planes(scene, w, h, px, py, 2)
+    args = kt.kernel_inputs(scene, *planes, static)
+    arrays = [a for p in kt.mesh_packs_for(scene, static) for a in p.arrays]
+    return scene, static, planes, args, arrays
+
+
+def test_walk_kernel_matches_plain_version(cuda):
+    """The seeded walk (walk.cu) against walk_reference, bit for bit, on
+    camera rays seeded empty, with a bound just beyond or short of the
+    mesh hit, and inactive (t = -inf, which comes back unchanged); its
+    counting build gives the same winners and one cast per active
+    lane."""
+    from computeraytracer_tpu_torch.kernels import binned as bn
+
+    _, static, _, args, arrays = _wavefront_case(cuda)
+    rays = args[1]
+    R = rays.shape[1]
+    seed_f = torch.zeros((4, R), device=cuda)
+    seed_f[0] = torch.inf
+    seed_i = torch.full((2, R), -1, dtype=torch.int32, device=cuda)
+    t_hit = bn.walk_reference(static, rays, seed_f, seed_i, *arrays)[0][0]
+    lane = torch.arange(R, device=cuda)
+    kind = lane % 3
+    bound = t_hit * torch.where(lane % 2 == 0, 1.001, 0.999)
+    seed_f[0] = torch.where(kind == 0, torch.inf,
+                            torch.where(kind == 1, bound, -torch.inf))
+    before = bn.launches_walk
+    got = bn.walk(static, rays, seed_f, seed_i, *arrays)
+    torch.cuda.synchronize()
+    assert bn.launches_walk == before + 1
+    want = bn.walk_reference(static, rays, seed_f, seed_i, *arrays)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got[0][:, kind == 2], seed_f[:, kind == 2])
+    hit = got[1][0] >= 0
+    assert (hit & (kind == 0)).any() and (hit & (kind == 1)).any()
+    short = (kind == 1) & (lane % 2 == 1) & torch.isfinite(t_hit)
+    assert short.any() and not (hit & short).any()
+    work = torch.zeros(4, dtype=torch.int64, device=cuda)
+    counted = bn.walk(static, rays, seed_f, seed_i, *arrays, work=work)
+    for g, w in zip(counted, got):
+        assert torch.equal(g, w)
+    casts, boxes, planes, inside = work.tolist()
+    assert casts == int((kind != 2).sum())
+    assert boxes >= casts and 0 < inside <= planes
+
+
+@pytest.mark.parametrize("lights,scan_in_kernel", [
+    (1, True), (1, False), (2, True), (2, False)])
+def test_shade_step_kernel_matches_plain_version(cuda, lights,
+                                                 scan_in_kernel):
+    """Both builds of the shade step (shade_step.cu) against
+    shade_step_reference on the same carries and mesh winners (the first
+    bounce; the second, fed the first step's unrolled winner): every
+    output bit for bit."""
+    from computeraytracer_tpu_torch.kernels import binned as bn
+
+    _, static, _, args, arrays = _wavefront_case(cuda, lights)
+    prims, rays, seeds, spect = args
+    R = rays.shape[1]
+    carry_f = torch.cat([rays, torch.zeros((4, R), device=cuda),
+                         torch.ones((6, R), device=cuda)])
+    carry_u = mk._u32_bits(seeds)
+    carry_i = torch.tensor([-1, 0, 0, 1], dtype=torch.int32, device=cuda)[
+        :, None].expand(4, R).contiguous()
+    depth, un = 0, ()
+
+    def walk(carry_f, carry_i, bound):
+        active = carry_i[3] != 0
+        seed_f = torch.zeros((4, R), device=cuda)
+        seed_f[0] = torch.where(active, bound, -torch.inf)
+        seed_i = torch.stack([torch.full_like(carry_i[0], -1), carry_i[0]])
+        mesh_f, mesh_i = bn.walk(static, carry_f[:6].contiguous(), seed_f,
+                                 seed_i, *arrays)
+        mesh_f[0][~active] = torch.inf
+        return mesh_f, mesh_i
+
+    mesh = walk(carry_f, carry_i, torch.full((R,), torch.inf, device=cuda))
+    if not scan_in_kernel:
+        out = mk.shade_step(static, 0, 3, 1, prims, carry_f, carry_u,
+                            carry_i, spect, *mesh)
+        carry_f, carry_u, carry_i = out[:3]
+        depth, un = 1, out[6:]
+        mesh = walk(carry_f, carry_i, un[0][0])
+    inputs = (static, depth, 3, 1, prims, carry_f, carry_u, carry_i, spect,
+              *mesh, *un)
+    before = mk.launches_shade
+    got = mk.shade_step(*inputs)
+    torch.cuda.synchronize()
+    assert mk.launches_shade == before + 1
+    want = mk.shade_step_reference(*inputs)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), k
+    lsel = got[5][1::2] != 0
+    assert lsel.any(dim=1).all()  # every light picked somewhere
+    assert (got[3] >= 0).any() and (got[2][3] != 0).any()
+
+
+def test_card_wavefront(cuda):
+    """wavefront=True on the card: radiance bit-equal to the mesh forward
+    kernel's, through shade-step and walk launches only (a shade step per
+    bounce, a main cast and a shadow cast per light per bounce); under
+    grad, the same launches taped and gradients bit-equal to the in-kernel
+    path's."""
+    from computeraytracer_tpu_torch.kernels import binned as bn
+
+    scene, static, planes, args, arrays = _wavefront_case(cuda, lights=2)
+    depth = 3
+    want = mk.forward(static, depth, 1, *args, *arrays)
+    counters = lambda: (mk.launches, mk.launches_mesh, mk.launches_winners,
+                        mk.launches_shade, bn.launches_walk)
+    before = counters()
+    got = kt.trace_radiance(scene, *planes, depth, static=static,
+                            backward="none", wavefront=True)
+    torch.cuda.synchronize()
+    n = depth + 1
+    expect = (0, 0, 0, n, n * (1 + len(static.light_rows)))
+    assert tuple(a - b for a, b in zip(counters(), before)) == expect
+    assert torch.equal(got, want)
+
+    def grads(wavefront):
+        sp = scene.spectra.clone().requires_grad_(True)
+        d1 = scene.primitives.data1.clone().requires_grad_(True)
+        s = dataclasses.replace(
+            scene, spectra=sp,
+            primitives=dataclasses.replace(scene.primitives, data1=d1))
+        img = kt.render_sample(s, 64, 48, 2, depth, static=static,
+                               wavefront=wavefront)
+        return torch.autograd.grad((img ** 2).sum(), (sp, d1))
+
+    before = counters()
+    wf = grads(True)
+    assert tuple(a - b for a, b in zip(counters(), before)) == expect
+    for a, b in zip(wf, grads(False)):
+        assert torch.equal(a, b)
+    assert wf[1][6:].abs().max() > 0
