@@ -98,24 +98,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    x0.3 against the undimmed target: finite losses, the last below the
    first.
 17. the wavefront (wavefront=True) at phase 11's workload, depth 3,
-   sample 1: render_sample_planar(backward="none") with the counters reset
-   just before launches exactly (depth + 1) shade steps and (depth + 1) *
-   (1 + lights) walks and nothing else, and its image is the in-kernel
-   path's bit for bit; its radiance is the mesh kernel's on all 1,048,576
-   rays. On phase 11's band every walk and shade-step launch of the
-   wavefront is held against its plain version (walk_reference,
-   shade_step_reference): integer planes equal, at least 99.9% of rays'
-   float planes within rel 1e-4 (denominator floored at 1e-2 of the
-   plane's scale; the bit-equal share printed). The walks' counting build
-   (radiance bit-equal) gives their casts, box tests and triangle tests.
-   Times: every launch of both kernels (CUDA events), the wavefront sample
-   and the mesh kernel in turns (mesh, wavefront, wavefront, mesh), and a
-   torch.profiler pass over the sample.
+   sample 1, its mesh casts binned (candidate and pair kernels, the walk
+   for the rays they leave unresolved): render_sample_planar(
+   backward="none") with the counters reset just before launches (depth
+   + 1) shade steps and, per pipeline the casts logged
+   (kernels.binned.cast_log), one candidate and one pair launch per mesh
+   part and a walk where it finished unresolved rays, and nothing else;
+   its image is the in-kernel path's bit for bit, its radiance the mesh
+   kernel's on all 1,048,576 rays. Per cast: live rays, candidates per
+   ray, live pairs, unresolved share, finish, batches; the host reads per
+   sample. On phase 11's band every launch of the five kernels is held
+   against its plain version (shade_step_reference, candidates_reference,
+   pair_reference, pair_occluded_reference, walk_reference): integer
+   outputs equal, at least 99.9% of rays' float planes within rel 1e-4
+   (denominator floored at 1e-2 of the plane's scale; the bit-equal share
+   printed). At the full film, one launch each of the candidate kernel
+   (the one with the most active lanes, on every 8th ray) and the two pair
+   scans (the ones with the most live pairs) is held against its plain
+   version the same way. The counting builds (radiance bit-equal) give the
+   kernels' slab, plane and inside tests. Times: every launch (CUDA
+   events), the wavefront sample and the mesh kernel in turns (mesh,
+   wavefront, wavefront, mesh), and a torch.profiler pass over the
+   sample.
 18. wavefront gradients: phase 14's value_and_grad with wavefront=True,
-   every counter reset just before: the same shade-step and walk launches
-   and no other; gradients bit-equal to phase 14's; the taped wavefront's
+   every counter reset just before: the shade-step, candidate,
+   closest-hit pair and walk launches its casts logged and no other (no
+   any-hit cast: the taped wavefront's shadow casts are closest-hit
+   casts); gradients bit-equal to phase 14's; the taped wavefront's
    radiance and tapes equal to the winner-taped kernel's (full film). The
    step's host wall and its peak device memory.
+19. the binned casts at the full film: every cast of phase 17's sample,
+   recorded, cast again through mesh_closest_hit_batched and against one
+   walk over all its rays seeded as the wavefront seeded it before the
+   binned casts (a live ray with its bound, a dead one with -inf): idx,
+   t and normals bit-equal on every lane, a binned hit beyond the bound
+   read as no hit (the fold and the occlusion test discard it); the
+   any-hit cast's flag equal to the closest hit's (idx >= 0) & (t <=
+   bound). Per cast its numbers and the two casts' times in turns
+   (binned, walk, walk, binned). Then each finish of _walk_finish (none,
+   each compaction tier, the full walk) forced with k = 1 on the cast
+   that leaves the most rays unresolved, winners bit-equal to the walk's.
 Then one JSON line of kernels, each with its bound (the larger of the
 bytes it must move over 3.35 TB/s and a lower count of its float
 operations over 67 TFLOP/s, both at 700 W). The last line is
@@ -180,7 +202,11 @@ FD_EPS = 0.05
 # the shadow scans and the scans of the output rays). Where the work
 # depends on the data, the bytes count what this run's data needs: the
 # tape-fed kernel reads only its rays' live tape rows and the active words
-# up to the first dead row.
+# up to the first dead row; the candidate kernel every lane's bound and the
+# other 6 ray words of its active lanes; a pair scan every pair's chunk id,
+# the ray words (6 closest, 7 any-hit) and exclude word of its live pairs
+# and the triangle rows of each chunk that a live pair reads; every kernel
+# writes all its outputs.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 PRIM_TEST_OPS = 35
@@ -259,7 +285,8 @@ def _profile(fn, top=5):
 def _reset_counters():
     mk.launches = mk.launches_mesh = mk.launches_taped = 0
     mk.launches_bwd = mk.launches_bwd_tape = mk.launches_winners = 0
-    mk.launches_shade = bn.launches_walk = 0
+    mk.launches_shade = bn.launches_walk = bn.launches_candidates = 0
+    bn.launches_pair = bn.launches_pair_occl = 0
 
 
 def _counters():
@@ -267,7 +294,9 @@ def _counters():
             "forward_taped": mk.launches_taped, "backward": mk.launches_bwd,
             "backward_tape": mk.launches_bwd_tape,
             "forward_winners": mk.launches_winners,
-            "shade_step": mk.launches_shade, "walk": bn.launches_walk}
+            "shade_step": mk.launches_shade, "walk": bn.launches_walk,
+            "candidates": bn.launches_candidates, "pair": bn.launches_pair,
+            "pair_occl": bn.launches_pair_occl}
 
 
 def _only(**counts):
@@ -734,29 +763,44 @@ def _mesh_train(mscene, mstatic):
                            f"{losses}")
 
 
+# The wavefront's kernels: name -> (module, wrapper attribute, plain
+# version taking the wrapper's positional arguments).
+WAVEFRONT_KERNELS = {
+    "shade": (mk, "shade_step", mk.shade_step_reference),
+    "candidates": (bn, "candidate_kernel", bn.candidates_reference),
+    "pair_closest": (bn, "pair_intersect", bn.pair_reference),
+    "pair_any": (bn, "pair_occluded", bn.pair_occluded_reference),
+    "walk": (bn, "walk", bn.walk_reference),
+}
+
+
 def _recorded_wavefront(static, args, marrays, **kw):
-    """wavefront_forward on kernel operands args with every walk and
-    shade-step call recorded: (its result, [(kind, args, kwargs,
-    outputs)]), tensors cloned when the call returns (wavefront_forward
-    adds NEE to the carry in place afterwards)."""
+    """wavefront_forward on kernel operands args with every call of the
+    wavefront's kernel wrappers recorded: (its result, [(kind, args,
+    kwargs, outputs)]), tensors cloned when the call returns
+    (wavefront_forward adds NEE to the carry in place afterwards)."""
     calls = []
-    walk, shade = bn.walk, mk.shade_step
+    saved = {kind: getattr(mod, attr)
+             for kind, (mod, attr, _) in WAVEFRONT_KERNELS.items()}
 
     def recorder(kind, fn):
         def call(*a, **k):
             out = fn(*a, **k)
             keep = lambda xs: tuple(x.clone() if torch.is_tensor(x) else x
                                     for x in xs)
-            calls.append((kind, keep(a), k, keep(out)))
+            calls.append((kind, keep(a), k,
+                          keep((out,) if torch.is_tensor(out) else out)))
             return out
         return call
 
-    bn.walk, mk.shade_step = recorder("walk", walk), recorder("shade", shade)
+    for kind, (mod, attr, _) in WAVEFRONT_KERNELS.items():
+        setattr(mod, attr, recorder(kind, saved[kind]))
     try:
         out = kt.wavefront_forward(static, MESH_DEPTH, RR_START, *args,
                                    *marrays, **kw)
     finally:
-        bn.walk, mk.shade_step = walk, shade
+        for kind, (mod, attr, _) in WAVEFRONT_KERNELS.items():
+            setattr(mod, attr, saved[kind])
     return out, calls
 
 
@@ -767,10 +811,11 @@ def _agreement(got, want):
     abs err of the finite entries). Equal infinities agree."""
     ints = all(torch.equal(g, w) for g, w in zip(got, want)
                if not g.is_floating_point())
-    f_got = torch.cat([g.reshape(-1, g.shape[-1]) for g in got
-                       if g.is_floating_point()])
-    f_want = torch.cat([w.reshape(-1, w.shape[-1]) for w in want
-                        if w.is_floating_point()])
+    floats = [(g, w) for g, w in zip(got, want) if g.is_floating_point()]
+    if not floats:
+        return ints, 1.0, float(ints), 0.0
+    f_got = torch.cat([g.reshape(-1, g.shape[-1]) for g, _ in floats])
+    f_want = torch.cat([w.reshape(-1, w.shape[-1]) for _, w in floats])
     same = f_got == f_want
     mag = torch.where(torch.isfinite(f_want), f_want.abs(), 0.0)
     scale = mag.amax(dim=1, keepdim=True).clamp(min=1.0)
@@ -785,21 +830,121 @@ def _agreement(got, want):
     return ints, close, exact, max_err
 
 
+def _candidate_bytes(a, out):
+    """Bytes a candidate launch must move: every lane's bound, the o and d
+    words of the active lanes, the chunk boxes and the outputs."""
+    rays7, bbox = a[0], a[1]
+    active = int((rays7[6] > -math.inf).sum())
+    return rays7.shape[1] * 4 + active * 6 * 4 + _nbytes(bbox, *out)
+
+
+def _pair_bytes(a, out, ray_words):
+    """Bytes a pair launch must move: every pair's chunk id and outputs,
+    ray_words ray words and the exclude word of each live pair (a chunk id
+    in [0, n_chunks)), and the triangle rows of each chunk read."""
+    pair_i, tri = a[1], a[2]
+    n_chunks = tri.shape[0] // meshpack.ROWS_PER_CHUNK
+    chunk = pair_i[0]
+    live = (chunk >= 0) & (chunk < n_chunks)
+    chunks_read = int(torch.unique(chunk[live]).numel())
+    return (chunk.numel() * 4 + int(live.sum()) * (ray_words + 1) * 4
+            + chunks_read * meshpack.ROWS_PER_CHUNK * tri.shape[1] * 4
+            + _nbytes(*out))
+
+
+def _full_film_check(calls):
+    """One launch of each binned kernel of a full-film sample against its
+    plain version on the same inputs: the pair scans' launch with the most
+    live pairs, the candidate launch with the most active lanes on every
+    8th ray. -> {kind: (pairs or rays, (ints, close, exact, err), plain
+    seconds)}; raises where they disagree."""
+    def live(kind, a):
+        if kind == "candidates":
+            return int((a[0][6] > -math.inf).sum())
+        n_chunks = a[2].shape[0] // meshpack.ROWS_PER_CHUNK
+        return int(((a[1][0] >= 0) & (a[1][0] < n_chunks)).sum())
+
+    checked = {}
+    for kind in ("candidates", "pair_closest", "pair_any"):
+        mine = [(live(kind, a), a, out) for k, a, _, out in calls
+                if k == kind]
+        if not mine:
+            continue
+        _, a, got = max(mine, key=lambda m: m[0])
+        if kind == "candidates":
+            a = (a[0][:, ::8].contiguous(), *a[1:])
+            got = tuple(g[..., ::8] for g in got)
+        plain = WAVEFRONT_KERNELS[kind][2]
+        t_s, want = _host_s(lambda: plain(*a))
+        want = (want,) if torch.is_tensor(want) else tuple(want)
+        agree = _agreement(got, want)
+        if not agree[0] or agree[1] < 0.999:
+            raise RuntimeError(f"full film: the {kind} launch disagrees with "
+                               f"its plain version (integers equal "
+                               f"{agree[0]}, floats close on {agree[1]})")
+        checked[kind] = (a[1].shape[1] if kind != "candidates"
+                         else a[0].shape[1], agree, t_s)
+    return checked
+
+
+def _logged(fn):
+    """fn() with every counter reset just before and the binned casts
+    logged: (host seconds, result, counters, cast log, host reads)."""
+    _reset_counters()
+    reads = bn.host_reads
+    bn.cast_log = log = []
+    try:
+        secs, out = _host_s(fn)
+    finally:
+        bn.cast_log = None
+    return secs, out, _counters(), log, bn.host_reads - reads
+
+
+def _casts(log):
+    """The cast log grouped per cast: [(header, [pipeline entries])], the
+    device scalars read."""
+    casts = []
+    for e in log:
+        e = {k: int(v) if torch.is_tensor(v) else v for k, v in e.items()}
+        if "cast" in e:
+            casts.append((e, []))
+        else:
+            casts[-1][1].append(e)
+    return casts
+
+
+def _cast_summary(header, pipes):
+    """One cast's numbers: live rays, real candidates per live ray, live
+    pairs, unresolved share of the live rays, the finishes, batches."""
+    live = sum(p["live"] for p in pipes)
+    pairs = sum(p["pairs"] for p in pipes)
+    unres = sum(p["unres"] for p in pipes)
+    return {"kind": header["cast"], "live": live,
+            "cand_per_ray": round(pairs / max(live, 1), 4), "pairs": pairs,
+            "unres_share": round(unres / max(live, 1), 6),
+            "finish": [p["finish"] for p in pipes],
+            "batches": header["batches"]}
+
+
+def _want_counts(D, log):
+    return _only(shade_step=D, **bn.logged_launches(log))
+
+
 def _wavefront(mscene, mstatic, fargs, marrays, y0, mesh_counts):
     """Phase 17: the wavefront render at phase 11's workload. Returns the
-    kernels-line numbers of the shade step and the walk."""
+    kernels-line numbers of the shade step, the walk and the binned casts'
+    kernels."""
     D = MESH_DEPTH + 1
-    n_lights = len(mstatic.light_rows)
-    want_counts = _only(shade_step=D, walk=D * (1 + n_lights))
     planar = lambda wavefront: kt.render_sample_planar(
         mscene, WIDTH, HEIGHT, 1, MESH_DEPTH, RR_START, mstatic, "none",
         wavefront=wavefront)
-    _reset_counters()
-    wf_s, img = _host_s(lambda: planar(True))
-    counts = _counters()
+    wf_s, img, counts, log, reads = _logged(lambda: planar(True))
+    want_counts = _want_counts(D, log)
     if counts != want_counts:
         raise RuntimeError(f"the wavefront launched {counts}, expected "
-                           f"{want_counts}")
+                           f"{want_counts} from its casts")
+    if not counts["candidates"] or not counts["pair_occl"]:
+        raise RuntimeError(f"the wavefront launched no binned cast: {counts}")
     if not torch.equal(img, planar(False)):
         raise RuntimeError("the wavefront's image is not the in-kernel "
                            "path's bit for bit")
@@ -809,24 +954,27 @@ def _wavefront(mscene, mstatic, fargs, marrays, y0, mesh_counts):
     if not torch.equal(rad, ref):
         raise RuntimeError("the wavefront's radiance is not the mesh "
                            "kernel's bit for bit")
-    print(f"wavefront: {counts['shade_step']} shade steps = depth + 1 and "
-          f"{counts['walk']} walks = (depth + 1) * (1 + {n_lights} lights), "
-          f"no other launch; image bit-equal to the in-kernel path's, "
-          f"radiance bit-equal to the mesh kernel's on all {rad.shape[1]} "
-          f"rays; {wf_s * 1e3:.1f} ms for the first render on the host "
-          f"clock")
+    casts = [_cast_summary(h, p) for h, p in _casts(log)]
+    print(f"wavefront: launches {counts} (shade steps = depth + 1; "
+          f"candidate, pair and walk launches as its {len(casts)} casts "
+          f"logged); {reads} host reads per sample; image bit-equal to the "
+          f"in-kernel path's, radiance bit-equal to the mesh kernel's on "
+          f"all {rad.shape[1]} rays; {wf_s * 1e3:.1f} ms for the first "
+          f"render on the host clock")
+    for c in casts:
+        print(f"wavefront cast: {c}")
 
     # every launch on the band against its plain version
     band = _band(fargs, y0)
     _, calls = _recorded_wavefront(mstatic, band, marrays)
     nb = band[1].shape[1]
-    plain = {"walk": bn.walk_reference, "shade": mk.shade_step_reference}
-    report = {"walk": [], "shade": []}
+    report = {kind: [] for kind in WAVEFRONT_KERNELS}
     plain_s = {}
     for kind, a, k, got in calls:
-        t_s, want = _host_s(lambda: plain[kind](*a))
-        want = tuple(want)
-        plain_s.setdefault(kind, t_s)  # the depth-0 launch of each kernel
+        plain = WAVEFRONT_KERNELS[kind][2]
+        t_s, want = _host_s(lambda: plain(*a))
+        want = (want,) if torch.is_tensor(want) else tuple(want)
+        plain_s.setdefault(kind, t_s)  # the first launch of each kernel
         ints, close, exact, err = _agreement(got, want)
         report[kind].append((ints, close, exact, err))
         if not ints or close < 0.999:
@@ -834,36 +982,50 @@ def _wavefront(mscene, mstatic, fargs, marrays, y0, mesh_counts):
                                f"with its plain version (integers equal "
                                f"{ints}, floats close on {close})")
     for kind, rows in report.items():
+        if not rows:
+            print(f"wavefront band ({nb} rays): no {kind} launch")
+            continue
         print(f"wavefront band ({nb} rays, rows {y0}-"
-              f"{y0 + MESH_BAND_ROWS - 1}), {kind} launches vs plain: "
-              f"integers equal, floats within rel 1e-4 on "
+              f"{y0 + MESH_BAND_ROWS - 1}), {len(rows)} {kind} launches vs "
+              f"plain: integers equal, floats within rel 1e-4 on "
               f"{[round(r[1], 6) for r in rows]}, bit-equal on "
               f"{[round(r[2], 6) for r in rows]} of rays, max abs err "
               f"{max(r[3] for r in rows):.3g}; plain {plain_s[kind]:.2f} s "
               f"for the first launch")
 
-    # the walks' counting build over the sample
-    work = torch.zeros(4, dtype=torch.int64, device=rad.device)
+    # the counting builds over the sample
+    work = bn.new_work(rad.device)
     counted = kt.wavefront_forward(mstatic, MESH_DEPTH, RR_START, *fargs,
                                    *marrays, work=work)
     if not torch.equal(counted, rad):
-        raise RuntimeError("the walk's counting build changed the radiance")
-    casts, box_tests, plane_tests, inside_tests = work.tolist()
-    print(f"wavefront walk work (counting build, radiance bit-equal): "
-          f"{casts} casts, {box_tests} box tests, {plane_tests} triangle "
-          f"plane tests, {inside_tests} inside tests; per cast "
-          f"{box_tests / casts:.2f} boxes, {plane_tests / casts:.2f} planes, "
-          f"{inside_tests / casts:.2f} inside (mesh kernel: {mesh_counts})")
+        raise RuntimeError("the counting builds changed the radiance")
+    work = {k: v.tolist() for k, v in work.items()}
+    w_casts, box_tests, plane_tests, inside_tests = work["walk"]
+    print(f"wavefront work (counting builds, radiance bit-equal): "
+          f"candidates {work['candidates'][0]} rays, "
+          f"{work['candidates'][1]} slab tests; closest pairs "
+          f"{work['pair'][0]} live, {work['pair'][2]} plane and "
+          f"{work['pair'][3]} inside tests; any-hit pairs "
+          f"{work['pair_any'][0]} live, {work['pair_any'][2]} plane and "
+          f"{work['pair_any'][3]} inside tests; walk {w_casts} casts, "
+          f"{box_tests} box tests, {plane_tests} plane tests, "
+          f"{inside_tests} inside tests (mesh kernel: {mesh_counts})")
 
     # times of every launch at the full film, CUDA events
     _, calls = _recorded_wavefront(mstatic, fargs, marrays)
-    fns = {"walk": bn.walk, "shade": mk.shade_step}
-    per = {"walk": [], "shade": []}
+    per = {kind: [] for kind in WAVEFRONT_KERNELS}
     for kind, a, k, _ in calls:
-        per[kind].append(_events_ms(lambda: fns[kind](*a, **k), 3))
-    print(f"wavefront ms per launch, in launch order: walk "
-          f"{[round(t, 4) for t in per['walk']]}, shade step "
-          f"{[round(t, 4) for t in per['shade']]}")
+        mod, attr, _ = WAVEFRONT_KERNELS[kind]
+        per[kind].append(_events_ms(lambda: getattr(mod, attr)(*a, **k), 3))
+    print(f"wavefront ms per launch, in launch order: "
+          f"{ {kind: [round(t, 4) for t in ts] for kind, ts in per.items()} }")
+    full = _full_film_check(calls)
+    for kind, (n, (_, _, exact, err), t_s) in full.items():
+        print(f"wavefront full film: the {kind} launch with the most live "
+              f"work ({n} {'rays, every 8th' if kind == 'candidates' else 'pairs'}"
+              f") vs plain: integers equal, bit-equal on {exact:.6f} of "
+              f"{'rays' if kind == 'candidates' else 'pairs'}, max abs err "
+              f"{err:.3g}; plain {t_s:.2f} s")
     fwd = lambda: mk.forward(mstatic, MESH_DEPTH, RR_START, *fargs, *marrays)
     wf = lambda: kt.wavefront_forward(mstatic, MESH_DEPTH, RR_START, *fargs,
                                       *marrays)
@@ -878,69 +1040,86 @@ def _wavefront(mscene, mstatic, fargs, marrays, y0, mesh_counts):
           f"top {top}")
 
     # bounds, per launch on average over the sample's launches
-    walk_calls = [c for c in calls if c[0] == "walk"]
-    shade_calls = [c for c in calls if c[0] == "shade"]
-    walk_bytes = sum(_nbytes(*a[1:4], *marrays) + _nbytes(*out)
-                     for _, a, _, out in walk_calls)
-    walk_ops = (box_tests * BOX_TEST_OPS + plane_tests * TRI_PLANE_OPS
-                + inside_tests * TRI_INSIDE_OPS)
-    b_walk = _bound(walk_bytes / len(walk_calls), walk_ops / len(walk_calls))
+    by_kind = {kind: [c for c in calls if c[0] == kind]
+               for kind in WAVEFRONT_KERNELS}
+
+    ops = {
+        "candidates": work["candidates"][1] * BOX_TEST_OPS,
+        "pair_closest": (work["pair"][2] * TRI_PLANE_OPS
+                         + work["pair"][3] * TRI_INSIDE_OPS),
+        "pair_any": (work["pair_any"][2] * TRI_PLANE_OPS
+                     + work["pair_any"][3] * TRI_INSIDE_OPS),
+        "walk": (box_tests * BOX_TEST_OPS + plane_tests * TRI_PLANE_OPS
+                 + inside_tests * TRI_INSIDE_OPS),
+    }
+    nbytes = {
+        "candidates": sum(_candidate_bytes(a, out)
+                          for _, a, _, out in by_kind["candidates"]),
+        "pair_closest": sum(_pair_bytes(a, out, 6)
+                            for _, a, _, out in by_kind["pair_closest"]),
+        "pair_any": sum(_pair_bytes(a, out, 7)
+                        for _, a, _, out in by_kind["pair_any"]),
+        "walk": sum(_nbytes(*a[1:4], *marrays, *out)
+                    for _, a, _, out in by_kind["walk"]),
+    }
     scans = 0
     shade_bytes = 0
-    for _, a, _, out in shade_calls:
+    for _, a, _, out in by_kind["shade"]:
         first = len(a) == 11  # no un_f / un_i: it scans the main rays
         live_in = int(a[7][3].sum())
         scans += (live_in if first else 0) + int(out[5][1::2].sum()) \
             + int(out[2][3].sum())
         shade_bytes += _nbytes(*a[4:], *out)
-    row_ops = len(mstatic.rows) * PRIM_TEST_OPS
-    b_shade = _bound(shade_bytes / len(shade_calls),
-                     scans * row_ops / len(shade_calls))
-    print(f"wavefront bounds per launch: walk {b_walk} ({walk_bytes / 1e9:.3f} "
-          f"GB, {walk_ops:.4g} operations per sample), shade step {b_shade} "
-          f"({shade_bytes / 1e9:.3f} GB, {scans} scans of "
-          f"{len(mstatic.rows)} unrolled rows per sample)")
+    ops["shade"] = scans * len(mstatic.rows) * PRIM_TEST_OPS
+    nbytes["shade"] = shade_bytes
+    bounds = {kind: _bound(nbytes[kind] / max(len(by_kind[kind]), 1),
+                           ops[kind] / max(len(by_kind[kind]), 1))
+              for kind in WAVEFRONT_KERNELS}
+    print(f"wavefront bounds per launch: {bounds} (bytes per sample "
+          f"{ {k: round(v / 1e9, 4) for k, v in nbytes.items()} } GB, "
+          f"operations per sample {ops})")
     wf_ms = [t for k, t in timed if k == "wavefront"]
-    common = {"route": "cuda", "library_ms": None, "plain_rays": nb,
-              "rays": rad.shape[1], "max_depth": MESH_DEPTH,
-              "wavefront_ms": wf_ms,
-              "mesh_ms": [t for k, t in timed if k == "mesh"]}
-    return {
-        "shade": dict(common, **{
-            "launches": counts["shade_step"],
-            "max_abs_err": max(r[3] for r in report["shade"]),
-            "ms": sum(per["shade"]) / len(per["shade"]),
-            "ms_per_launch": per["shade"],
-            "plain_ms": plain_s["shade"] * 1e3,
-            "bound_ms": b_shade[0], "bound_by": b_shade[1],
-            "bit_equal_share": min(r[2] for r in report["shade"]),
-            "unrolled_scans": scans}),
-        "walk": dict(common, **{
-            "launches": counts["walk"],
-            "max_abs_err": max(r[3] for r in report["walk"]),
-            "ms": sum(per["walk"]) / len(per["walk"]),
-            "ms_per_launch": per["walk"],
-            "plain_ms": plain_s["walk"] * 1e3,
-            "bound_ms": b_walk[0], "bound_by": b_walk[1],
-            "bit_equal_share": min(r[2] for r in report["walk"]),
-            "casts": casts, "box_tests": box_tests,
-            "triangle_plane_tests": plane_tests,
-            "triangle_inside_tests": inside_tests}),
-    }
+    launch_key = {"shade": "shade_step", "candidates": "candidates",
+                  "pair_closest": "pair", "pair_any": "pair_occl",
+                  "walk": "walk"}
+    out = {}
+    for kind in WAVEFRONT_KERNELS:
+        rows = report[kind] + [full[kind][1]] if kind in full else report[kind]
+        out[kind] = {
+            "route": "cuda", "library_ms": None, "plain_rays": nb,
+            "rays": rad.shape[1], "max_depth": MESH_DEPTH,
+            "wavefront_ms": wf_ms,
+            "mesh_ms": [t for k, t in timed if k == "mesh"],
+            "launches": counts[launch_key[kind]],
+            "max_abs_err": max((r[3] for r in rows), default=None),
+            "ms": sum(per[kind]) / len(per[kind]) if per[kind] else None,
+            "ms_per_launch": per[kind],
+            "plain_ms": plain_s[kind] * 1e3 if kind in plain_s else None,
+            "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1],
+            "bit_equal_share": min((r[2] for r in rows), default=None),
+            "work": work.get({"pair_closest": "pair", "pair_any": "pair_any"}
+                             .get(kind, kind)),
+        }
+        if kind in full:
+            n, _, t_s = full[kind]
+            out[kind]["full_film_check"] = {
+                "rays" if kind == "candidates" else "pairs": n,
+                "plain_ms": t_s * 1e3}
+    out["casts"] = casts
+    out["host_reads"] = reads
+    return out
 
 
 def _wavefront_grads(mscene, mstatic, fargs, marrays, grads_in_kernel):
     """Phase 18: phase 14's value_and_grad through the wavefront."""
     D = MESH_DEPTH + 1
-    want_counts = _only(shade_step=D,
-                        walk=D * (1 + len(mstatic.light_rows)))
-    _reset_counters()
-    step_s, (loss, gsp, gd1) = _host_s(lambda: _mesh_vg(mscene, mstatic,
-                                                        wavefront=True))
-    counts = _counters()
-    if counts != want_counts:
+    step_s, (loss, gsp, gd1), counts, log, reads = _logged(
+        lambda: _mesh_vg(mscene, mstatic, wavefront=True))
+    want_counts = _want_counts(D, log)
+    if counts != want_counts or counts["pair_occl"]:
         raise RuntimeError(f"wavefront value_and_grad launched {counts}, "
-                           f"expected {want_counts}")
+                           f"expected {want_counts} from its casts, "
+                           f"closest-hit shadow casts only")
     same = [torch.equal(g, w) for g, w in zip((gsp, gd1), grads_in_kernel)]
     if not all(same):
         raise RuntimeError(f"wavefront gradients differ from phase 14's: "
@@ -961,11 +1140,141 @@ def _wavefront_grads(mscene, mstatic, fargs, marrays, grads_in_kernel):
     torch.cuda.synchronize()
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     print(f"wavefront value_and_grad (1024^2, depth {MESH_DEPTH}, spp 1): "
-          f"loss {loss:.6e}, launches {counts}; gradients bit-equal to phase "
-          f"14's; taped radiance and tapes equal to the winner-taped "
-          f"kernel's (full film); {step_s * 1e3:.1f} ms, {step2_s * 1e3:.1f} "
-          f"ms on the host clock; peak device memory above the inputs per "
-          f"step {peak:.3f} GB")
+          f"loss {loss:.6e}, launches {counts} as its casts logged, "
+          f"{reads} host reads; gradients bit-equal to phase 14's; taped "
+          f"radiance and tapes equal to the winner-taped kernel's (full "
+          f"film); {step_s * 1e3:.1f} ms, {step2_s * 1e3:.1f} ms on the host "
+          f"clock; peak device memory above the inputs per step {peak:.3f} "
+          f"GB")
+
+
+def _walk_seeded(mstatic, marrays, rays, exclude, bound, live):
+    """The walk-only cast: one walk over every ray, a live ray seeded with
+    its bound (idx -1), a dead one with t = -inf and mapped to +inf
+    after."""
+    seed_f = torch.zeros((4, rays.shape[1]), device=rays.device)
+    seed_f[0] = torch.where(live, bound, -math.inf)
+    seed_i = torch.stack([torch.full_like(exclude, -1), exclude])
+    f, i = bn.walk(mstatic, rays, seed_f, seed_i, *marrays)
+    f[0] = torch.where(live, f[0], math.inf)
+    return f, i
+
+
+def _within_bound(f, i, bound, live):
+    """A closest-hit result as the walk seeded with the bound returns it:
+    a hit beyond the bound (a chunk entered before the padded bound) is no
+    hit, (bound, 0, 0, 0, -1); dead rays +inf. The shade step's fold and
+    the occlusion test read nothing else."""
+    within = (i[0] >= 0) & (f[0] <= bound)
+    miss = torch.stack([bound, *(torch.zeros_like(bound),) * 3])
+    f = torch.where(within, f, miss)
+    f[0] = torch.where(live, f[0], math.inf)
+    return f, torch.where(within, i, -1)
+
+
+def _binned_casts(mstatic, fargs, marrays):
+    """Phase 19: every cast of one wavefront sample at the full film
+    through the binned pipeline against one seeded walk of the same rays;
+    each _walk_finish branch forced with k = 1."""
+    recorded = []
+    saved = bn.mesh_closest_hit_batched, bn.mesh_occluded_batched
+
+    def recorder(kind, fn):
+        def call(static, arrays, rays, exclude, bound, **kw):
+            recorded.append((kind, rays.clone(), exclude.clone(),
+                             bound.clone(), kw["active"].clone()))
+            return fn(static, arrays, rays, exclude, bound, **kw)
+        return call
+
+    bn.mesh_closest_hit_batched = recorder("closest", saved[0])
+    bn.mesh_occluded_batched = recorder("any", saved[1])
+    try:
+        kt.wavefront_forward(mstatic, MESH_DEPTH, RR_START, *fargs, *marrays)
+    finally:
+        bn.mesh_closest_hit_batched, bn.mesh_occluded_batched = saved
+    for n, (kind, rays, exclude, bound, live) in enumerate(recorded):
+        R = rays.shape[1]
+        kw = dict(active=live, batch=R // kt.MESH_CAST_BATCH_FRACTION,
+                  threshold=R // kt.MESH_CAST_THRESHOLD_FRACTION)
+        closest = lambda: bn.mesh_closest_hit_batched(
+            mstatic, marrays, rays, exclude, bound, **kw)
+        anyhit = lambda: bn.mesh_occluded_batched(
+            mstatic, marrays, rays, exclude, bound, **kw)
+        walked = lambda: _walk_seeded(mstatic, marrays, rays, exclude, bound,
+                                      live)
+        bn.cast_log = log = []
+        try:
+            f, i = closest()
+            occl = anyhit()
+        finally:
+            bn.cast_log = None
+        wf, wi = walked()
+        gf, gi = _within_bound(f, i, bound, live)
+        if not (torch.equal(gi, wi) and torch.equal(gf, wf)):
+            raise RuntimeError(f"binned cast {n} ({kind}) differs from the "
+                               f"seeded walk on "
+                               f"{int((gi != wi).sum())} lanes' idx")
+        flag = live & (i[0] >= 0) & (f[0] <= bound)
+        if not torch.equal(occl, flag):
+            raise RuntimeError(f"binned cast {n}: the any-hit flag differs "
+                               f"from the closest hit's on "
+                               f"{int((occl != flag).sum())} lanes")
+        (h_c, p_c), (h_a, p_a) = _casts(log)
+        timed = [(k, _events_ms(fn, 2)) for k, fn in
+                 [("binned", closest), ("walk", walked), ("walk", walked),
+                  ("binned", closest)]]
+        any_ms = _events_ms(anyhit, 2)
+        row = dict(_cast_summary(h_c, p_c), cast=n, recorded=kind,
+                   ms_binned_walk=timed, ms_any=any_ms,
+                   any_unres_share=_cast_summary(h_a, p_a)["unres_share"],
+                   any_finish=_cast_summary(h_a, p_a)["finish"])
+        print(f"binned cast {n} ({kind}): {row}; idx, t and normals "
+              f"bit-equal to the seeded walk's on all {R} lanes, any-hit "
+              f"flag equal to the closest hit's")
+
+    # each finish of _walk_finish, forced by k = 1 on the cast that it
+    # leaves the most rays unresolved in
+    tri_rows, bbox = bn._part(marrays, 0)
+    unres = [~bn.mesh_winner(tri_rows, bbox, rays, exclude, bound, 1,
+                             live)[3] & live
+             for _, rays, exclude, bound, live in recorded]
+    n = max(range(len(recorded)), key=lambda c: int(unres[c].sum()))
+    _, rays, exclude, bound, live = recorded[n]
+    R = rays.shape[1]
+    tiers = bn._finish_tiers(R)
+    ids = torch.nonzero(unres[n])[:, 0]
+    unres = unres[n]
+    resolved = torch.nonzero(live & ~unres)[:, 0]
+    if ids.shape[0] <= tiers[-1]:
+        raise RuntimeError(f"k = 1 leaves {ids.shape[0]} rays unresolved, "
+                           f"too few to force the full walk")
+    forced = []
+    cases = ([(0, None)]
+             + [((lo + u) // 2, u) for lo, u in zip([0] + tiers, tiers)]
+             + [(ids.shape[0], "full")])
+    for n_unres, finish in cases:
+        act = torch.zeros_like(live)
+        act[resolved] = True
+        act[ids[:n_unres]] = True
+        bn.cast_log = log = []
+        try:
+            f, i = bn.mesh_closest_hit(mstatic, marrays, rays, exclude, bound,
+                                       1, act)
+        finally:
+            bn.cast_log = None
+        got = log[-1]["finish"]
+        wf, wi = _walk_seeded(mstatic, marrays, rays, exclude, bound, act)
+        gf, gi = _within_bound(f, i, bound, act)
+        if got != finish or not (torch.equal(gi, wi) and torch.equal(gf, wf)):
+            raise RuntimeError(f"k = 1, {n_unres} unresolved: finish {got} "
+                               f"(expected {finish}), winners equal to the "
+                               f"walk's {torch.equal(gi, wi)}")
+        ms = _events_ms(lambda: bn.mesh_closest_hit(
+            mstatic, marrays, rays, exclude, bound, 1, act), 2)
+        forced.append((n_unres, finish, round(ms, 3)))
+    print(f"binned finishes forced with k = 1 on cast {n} (tiers {tiers}): "
+          f"(unresolved, finish, ms) {forced}; winners bit-equal to the "
+          f"seeded walk's in each")
 
 
 def main() -> int:
@@ -1372,11 +1681,12 @@ def main() -> int:
     _mesh_train(mscene, mstatic)
     print(f"chip_smoke phases 1-16: {time.perf_counter() - t_start:.1f} s")
 
-    # 17-18. the wavefront and its gradients
+    # 17-19. the wavefront, its gradients and its binned casts
     wave = _wavefront(mscene, mstatic, fargs, marrays, y0,
                       (casts, box_tests, plane_tests, inside_tests))
     _wavefront_grads(mscene, mstatic, fargs, marrays, grads_in_kernel)
-    print(f"chip_smoke phases 1-18: {time.perf_counter() - t_start:.1f} s")
+    _binned_casts(mstatic, fargs, marrays)
+    print(f"chip_smoke phases 1-19: {time.perf_counter() - t_start:.1f} s")
 
     # bounds at the shapes timed above
     b_fwd, b_taped = bounds["forward"], bounds["taped"]
@@ -1497,14 +1807,16 @@ def main() -> int:
          "1480", "tape_bwd"),
         ("megakernel_forward_taped_tri", "megakernel_fwd.cu",
          "897 (taped=\"full\")", "taped"))] + [dict({
-            "name": "shade_step",
-            "source": src + "shade_step.cu",
-            "replaces": "computeraytracer_tpu/kernels/megakernel.py:1087",
-        }, **wave["shade"]), dict({
-            "name": "walk",
-            "source": src + "walk.cu",
-            "replaces": "computeraytracer_tpu/kernels/binned.py:640",
-        }, **wave["walk"])]}))
+            "name": name,
+            "source": src + source,
+            "replaces": "computeraytracer_tpu/kernels/" + line,
+            "host_reads_per_sample": wave["host_reads"],
+        }, **wave[key]) for name, source, line, key in (
+            ("shade_step", "shade_step.cu", "megakernel.py:1087", "shade"),
+            ("walk", "walk.cu", "binned.py:640", "walk"),
+            ("candidates", "candidates.cu", "binned.py:215", "candidates"),
+            ("pair_closest", "pair.cu", "binned.py:392", "pair_closest"),
+            ("pair_any", "pair.cu", "binned.py:898", "pair_any"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

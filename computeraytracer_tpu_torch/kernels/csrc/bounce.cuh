@@ -262,12 +262,26 @@ __device__ __forceinline__ bool watertight_inside(const Watertight& w, V3 v0,
   return (pos || neg) && (u + v + ww) != 0.0f;
 }
 
+// Reciprocal direction of the slab tests (megakernel.py:362-367): a
+// component below 1e-12 in magnitude becomes +-1e30, keeping its sign.
+__device__ __forceinline__ void inv_dir(V3 d, float inv_d[3]) {
+  const float dc[3] = {d.x, d.y, d.z};
+  for (int c = 0; c < 3; ++c) {
+    const bool tiny = fabsf(dc[c]) < 1e-12f;
+    const float sign = dc[c] < 0.0f ? -1.0f : 1.0f;
+    inv_d[c] = tiny ? sign * 1e30f : 1.0f / dc[c];
+  }
+}
+
 // Slab test of a ray against box bb (lo.xyz, hi.xyz), the interval padded
 // by 4 ulp on both ends (Ize 2013; megakernel.py:369-390): the box may be
 // hit closer than t_best. Degenerate empty boxes (lo == hi == BIG) give an
-// infinite entry and are excluded explicitly.
-__device__ __forceinline__ bool slab(const float* __restrict__ bb, V3 o,
-                                     const float* inv_d, float t_best) {
+// infinite entry and are excluded explicitly. t_enter receives the padded
+// entry distance (binned.py:72 _slab_t_enter), which ranks the candidate
+// chunks (candidates.cu).
+__device__ __forceinline__ bool slab_enter(const float* __restrict__ bb, V3 o,
+                                           const float* inv_d, float t_best,
+                                           float& t_enter_out) {
   const float oc[3] = {o.x, o.y, o.z};
   float t_enter = -INFINITY, t_exit = INFINITY;
   for (int c = 0; c < 3; ++c) {
@@ -279,8 +293,62 @@ __device__ __forceinline__ bool slab(const float* __restrict__ bb, V3 o,
   const float pad = 4.0f * 1.1920928955078125e-7f;  // 4 * 2^-23
   t_exit = t_exit + fabsf(t_exit) * pad;
   t_enter = t_enter - fabsf(t_enter) * pad;
+  t_enter_out = t_enter;
   return t_enter <= t_exit && t_exit >= T_MIN && t_enter <= t_best &&
          t_enter < INFINITY;
+}
+
+__device__ __forceinline__ bool slab(const float* __restrict__ bb, V3 o,
+                                     const float* inv_d, float t_best) {
+  float t_enter;
+  return slab_enter(bb, o, inv_d, t_best, t_enter);
+}
+
+// One chunk's 128 triangles against one ray (the inner loop of
+// megakernel.py:337 _scan_mesh_part; binned.py:392 build_pair_kernel and
+// :898 build_pair_kernel_occl test them op for op the same way). Padding
+// triangles (id -1) and the triangle `exclude` are skipped.
+// - ANY false: closest hit under the mesh tie rule (t < best, or t == best
+//   and the higher id); updates h, whose hits record `slot`. Returns false.
+// - ANY true: whether some triangle is hit at T_MIN <= t <= t_light;
+//   returns at the first one and leaves h alone. Its t is the closest
+//   scan's, so the answer is exactly "closest t <= t_light".
+// With COUNT, counts its plane and inside tests into mesh_work.
+template <bool ANY, bool COUNT>
+__device__ __forceinline__ bool scan_chunk(const float* __restrict__ tri,
+                                           int slot, V3 o, V3 d, int exclude,
+                                           const Watertight& wt, Hit& h,
+                                           float t_light) {
+  for (int j = 0; j < TRIS_PER_CHUNK; ++j, tri += TRI_WORDS) {
+    const int tid = (int)tri[9];
+    if (tid < 0 || tid == exclude) continue;
+    if (COUNT) ++mesh_work[W_PLANE][threadIdx.x];
+    const V3 n0 = {tri[10], tri[11], tri[12]};
+    const float ndotd = n0.x * d.x + n0.y * d.y + n0.z * d.z;
+    const bool flip = ndotd > 0.0f;
+    if (fabsf(flip ? -ndotd : ndotd) < 1e-4f) continue;  // grazing
+    const V3 p0 = {tri[0], tri[1], tri[2]};
+    const float num = n0.x * (p0.x - o.x) + n0.y * (p0.y - o.y) +
+                      n0.z * (p0.z - o.z);
+    const float t = num / ndotd;
+    if (ANY) {
+      if (!(t >= T_MIN && t <= t_light)) continue;
+    } else if (!(t >= T_MIN && (t < h.t || (t == h.t && tid > h.idx)))) {
+      continue;
+    }
+    if (COUNT) ++mesh_work[W_INSIDE][threadIdx.x];
+    if (!watertight_inside(wt, p0, {tri[3], tri[4], tri[5]},
+                           {tri[6], tri[7], tri[8]}))
+      continue;
+    if (ANY) return true;
+    const float sgn = flip ? -1.0f : 1.0f;
+    h.t = t;
+    h.idx = tid;
+    h.slot = slot;
+    h.pos = vadd(o, vscale(t, d));
+    h.nrm = {sgn * n0.x, sgn * n0.y, sgn * n0.z};
+  }
+  return false;
 }
 
 // Closest hit of one ray against mesh part mp, whose hits record `slot`:
@@ -291,13 +359,8 @@ __device__ __forceinline__ bool slab(const float* __restrict__ bb, V3 o,
 template <bool COUNT>
 __device__ void scan_mesh_part(const MeshPart& mp, int slot, V3 o, V3 d,
                                int exclude, const Watertight& wt, Hit& h) {
-  const float dc[3] = {d.x, d.y, d.z};
   float inv_d[3];
-  for (int c = 0; c < 3; ++c) {
-    const bool tiny = fabsf(dc[c]) < 1e-12f;
-    const float sign = dc[c] < 0.0f ? -1.0f : 1.0f;
-    inv_d[c] = tiny ? sign * 1e30f : 1.0f / dc[c];
-  }
+  inv_dir(d, inv_d);
   int node = 0;
   while (node < mp.n_nodes) {
     if (COUNT) ++mesh_work[W_BOX][threadIdx.x];
@@ -310,31 +373,9 @@ __device__ void scan_mesh_part(const MeshPart& mp, int slot, V3 o, V3 d,
         if (k >= mp.n_real_chunks) break;  // padding: no rows stored
         if (COUNT) ++mesh_work[W_BOX][threadIdx.x];
         if (!slab(mp.cbox + (long long)k * BOX_WORDS, o, inv_d, h.t)) continue;
-        const float* tri = mp.tri + (long long)k * TRIS_PER_CHUNK * TRI_WORDS;
-        for (int j = 0; j < TRIS_PER_CHUNK; ++j, tri += TRI_WORDS) {
-          const int tid = (int)tri[9];
-          if (tid < 0 || tid == exclude) continue;
-          if (COUNT) ++mesh_work[W_PLANE][threadIdx.x];
-          const V3 n0 = {tri[10], tri[11], tri[12]};
-          const float ndotd = n0.x * d.x + n0.y * d.y + n0.z * d.z;
-          const bool flip = ndotd > 0.0f;
-          if (fabsf(flip ? -ndotd : ndotd) < 1e-4f) continue;  // grazing
-          const V3 p0 = {tri[0], tri[1], tri[2]};
-          const float num = n0.x * (p0.x - o.x) + n0.y * (p0.y - o.y) +
-                            n0.z * (p0.z - o.z);
-          const float t = num / ndotd;
-          if (!(t >= T_MIN && (t < h.t || (t == h.t && tid > h.idx)))) continue;
-          if (COUNT) ++mesh_work[W_INSIDE][threadIdx.x];
-          if (!watertight_inside(wt, p0, {tri[3], tri[4], tri[5]},
-                                 {tri[6], tri[7], tri[8]}))
-            continue;
-          const float sgn = flip ? -1.0f : 1.0f;
-          h.t = t;
-          h.idx = tid;
-          h.slot = slot;
-          h.pos = vadd(o, vscale(t, d));
-          h.nrm = {sgn * n0.x, sgn * n0.y, sgn * n0.z};
-        }
+        scan_chunk<false, COUNT>(
+            mp.tri + (long long)k * TRIS_PER_CHUNK * TRI_WORDS, slot, o, d,
+            exclude, wt, h, 0.0f);
       }
     }
     node = (hit && !leaf) ? node + 1 : meta[0];

@@ -3,8 +3,9 @@
 //
 // Replaces computeraytracer_tpu/kernels/megakernel.py:1087 build_shade_step
 // in both of its variants. The wavefront (tracer/kernel.py
-// wavefront_forward) launches it once per bounce, with the walk kernel
-// (walk.cu) casting the rays against the mesh parts in between. Per ray it:
+// wavefront_forward) launches it once per bounce, with the binned casts
+// (candidates.cu, pair.cu, and walk.cu for the rays they leave unresolved)
+// casting the rays against the mesh parts in between. Per ray it:
 // - reads the carry from (k, R) planes: carry_f (16) o, d, L, beta,
 //   last_pdf, eta_scale; carry_u (4) the seed words' bits; carry_i (4)
 //   exclude, specular, in_trans, active;

@@ -3,9 +3,10 @@
 // Replaces computeraytracer_tpu/kernels/binned.py:640 build_walk_kernel: the
 // exact closest mesh hit of each ray, starting from a seed (t, n.xyz, idx)
 // and skipping the triangle `exclude`, under the mesh tie rule (t < best, or
-// t == best and the higher id). Every mesh cast of the wavefront
-// (tracer/kernel.py wavefront_forward) runs here: the main cast of each
-// bounce and each light's shadow cast.
+// t == best and the higher id). The binned casts of the wavefront
+// (kernels/binned.py _walk_finish) run it on the rays that the candidate and
+// pair kernels leave unresolved, seeded with their binned winner (closest
+// hit) or empty (any hit): compacted into a tier, or over the whole film.
 //
 // One thread walks one ray through bounce.cuh scan_mesh_part, the code of
 // the mesh forward's in-kernel scan, so a walk from an empty seed finds the

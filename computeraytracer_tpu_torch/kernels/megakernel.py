@@ -40,7 +40,7 @@ Port of computeraytracer_tpu/kernels/megakernel.py ``build_forward``
   with the mesh winner given and NEE deferred (``build_shade_step``,
   ``csrc/shade_step.cu``; the plain version is ``_bounce(defer_nee=
   True)``). ``tracer/kernel.py`` ``wavefront_forward`` launches it once
-  per bounce, with the walk of ``kernels/binned.py`` casting in between.
+  per bounce, with the binned casts of ``kernels/binned.py`` in between.
 - ``TraceFn``, ``TraceTapedFn`` and ``MeshTraceFn``: the autograd
   Functions, analogues of the JAX package's ``tracer/pallas.py``
   ``_call_with_vjp``, ``_call_taped`` and ``_mesh_call``; the guided
@@ -93,7 +93,7 @@ MESH_BLOCK = 1 << 22
 # (CPU calls launch nothing and do not count): the forward in its plain
 # mode and in its mesh mode, the taped forward, the retrace backward, the
 # tape-fed backward, the winner-taped forward and the wavefront's shade
-# step (its walk kernel counts in kernels/binned.py).
+# step (the mesh casts' kernels count in kernels/binned.py).
 launches = 0
 launches_mesh = 0
 launches_taped = 0
@@ -898,6 +898,9 @@ SIGNATURES = {
     "megakernel_bwd_tape": "ppipipipppppppqiiip",
     "shade_step": "ppipipi" + "p" * 15 + "qiiiip",
     "walk": "pppppqipppp",
+    "candidates": "pppppqiiipp",
+    "pair_closest": "pppppqipp",
+    "pair_any": "ppppqipp",
 }
 
 

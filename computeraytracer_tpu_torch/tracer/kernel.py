@@ -40,10 +40,10 @@ the initial geometry (``mesh_plans``, as ``kernels/meshpack.py``
 
 ``wavefront=True`` renders scenes with mesh parts through the wavefront
 (``wavefront_forward``, the JAX package's ``_wavefront_forward``): one
-shade-step launch per bounce (``kernels.megakernel.shade_step``) with
-every mesh cast in between done by the seeded walk
-(``kernels.binned.walk``). Its radiance is the in-kernel loop's bit for
-bit. Under grad it runs taped and differentiates through the same guided
+shade-step launch per bounce (``kernels.megakernel.shade_step``) with the
+mesh casts in between done by the binned pipeline of ``kernels.binned``
+(candidate and pair kernels, the seeded walk for the rays they leave
+unresolved). Its radiance is the in-kernel loop's bit for bit. Under grad it runs taped and differentiates through the same guided
 replay (``MeshWavefrontFn``); with ``backward="none"``, or under
 no_grad, it runs untaped. ``wavefront=None`` resolves to
 ``MESH_WAVEFRONT_DEFAULT``; scenes without mesh parts ignore the flag, as
@@ -67,11 +67,18 @@ from computeraytracer_tpu_torch.ops import spectrum as spec
 SceneStatic = mk.SceneStatic
 
 # What trace_radiance(wavefront=None) resolves to for mesh scenes. The
-# JAX package defaults to its binned wavefront; the port's wavefront casts
-# through the walk kernel only (the binned candidate and pair kernels are
-# not ported yet), and it stays off until it is measured faster on the
-# card than the in-kernel loop, whose radiance it matches bit for bit.
+# JAX package defaults to its binned wavefront, whose casts the port runs
+# on the card too (kernels/binned.py); the port's default stays the
+# in-kernel loop, whose radiance the wavefront matches bit for bit, until
+# the bench script measures both end to end on the card.
 MESH_WAVEFRONT_DEFAULT = False
+
+# A sparse cast is compacted and cast in batches of R // BATCH_FRACTION
+# rays; a cast with more than R // THRESHOLD_FRACTION live rays runs in one
+# piece (the JAX package's tracer/pallas.py:66-67 and
+# kernels/binned.py:1182 mesh_closest_hit_batched).
+MESH_CAST_BATCH_FRACTION = 8
+MESH_CAST_THRESHOLD_FRACTION = 4
 
 BACKWARDS = ("pallas", "pallas_taped", "none", "xla", "replay")
 
@@ -127,17 +134,19 @@ def wavefront_forward(static: SceneStatic, max_depth: int, rr_start: int,
     (L, tape_idx (max_depth+1, R) i32, tape_sh (max_depth+1, n_lights, R)
     i32), the contract of ``forward_winners``.
 
-    Each bounce runs the main cast (the walk kernel), one shade step and,
-    per light, a shadow cast whose hit occludes the light where
-    ``(i >= 0) & (t <= t_su)``; the unoccluded contributions are added to
-    L in ascending light order. The casts launch over every ray with no
-    host sync: a dead ray is seeded with t = -inf and costs nothing. A
-    live ray is seeded with its occlusion bound, which is exact: the main
-    cast with the unrolled winner's t that the previous step wrote (+inf
-    in the first bounce), the shadow cast with t_su. A mesh hit beyond the
-    bound loses the fold anyway, and one at the bound keeps its tie.
-    ``work``, a zeroed (4,) int64 CUDA tensor, gathers the walks' counts
-    (``kernels.binned.walk``)."""
+    Each bounce runs the main cast, one shade step and, per light, a
+    shadow cast; the unoccluded contributions are added to L in ascending
+    light order. Every cast is binned (``kernels.binned``) over its live
+    rays, bounded by the occlusion bound: the main cast by the unrolled
+    rows' winner t (the first bounce scans them here, in torch; later
+    bounces read the previous shade step's), a shadow cast by the light
+    distance t_su. A sparse cast is compacted into batches
+    (MESH_CAST_BATCH_FRACTION, MESH_CAST_THRESHOLD_FRACTION) and a cast
+    with no live ray launches nothing. Untaped, a shadow cast is the
+    any-hit cast (``mesh_occluded_batched``); taped, the closest-hit cast,
+    whose winner feeds tape_sh where it occludes ``(i >= 0) & (t <=
+    t_su)``. ``work``, ``kernels.binned.new_work``'s counters, gathers the
+    counting builds' work of the casts' kernels."""
     R = rays.shape[1]
     D = int(max_depth) + 1
     n_lights = len(static.light_rows)
@@ -149,26 +158,41 @@ def wavefront_forward(static: SceneStatic, max_depth: int, rr_start: int,
     carry_i = torch.zeros((4, R), **i32)
     carry_i[0] = -1
     carry_i[3] = 1
-    zero = torch.zeros((R,), device=dev)
-    no_hit = torch.full((R,), -1, **i32)
     if taped:
         tape_idx = torch.empty((D, R), **i32)
         tape_sh = torch.empty((D, n_lights, R), **i32)
+    batch = R // MESH_CAST_BATCH_FRACTION
+    threshold = R // MESH_CAST_THRESHOLD_FRACTION
 
     def cast(ray_planes, bound, live, exclude):
-        seed_f = torch.stack([torch.where(live, bound, -math.inf), zero,
-                              zero, zero])
-        return bn.walk(static, ray_planes, seed_f,
-                       torch.stack([no_hit, exclude]), *mesh_arrays,
-                       work=work)
+        """The gated closest-hit cast (tracer/pallas.py:253-275)."""
+        n_live = bn.count_live(live)
+        if n_live == 0:
+            empty_f = torch.zeros((4, R), device=dev)
+            empty_f[0] = math.inf
+            return empty_f, torch.full((1, R), -1, **i32)
+        return bn.mesh_closest_hit_batched(
+            static, mesh_arrays, ray_planes, exclude, bound, active=live,
+            batch=batch, threshold=threshold, n_live=n_live, work=work)
+
+    def occluded(ray_planes, t_su, live, exclude):
+        """The gated any-hit cast (tracer/pallas.py:326-338)."""
+        n_live = bn.count_live(live)
+        if n_live == 0:
+            return torch.zeros((R,), dtype=torch.bool, device=dev)
+        return bn.mesh_occluded_batched(
+            static, mesh_arrays, ray_planes, exclude, t_su, active=live,
+            batch=batch, threshold=threshold, n_live=n_live, work=work)
 
     un = ()
     for depth in range(D):
         active = carry_i[3] != 0
-        bound = un[0][0] if un else torch.full((R,), math.inf, device=dev)
+        if un:
+            bound = un[0][0]
+        else:  # the camera rays' unrolled winner (tracer/pallas.py:285-294)
+            bound = mk._scan_primitives(static, prims, tuple(carry_f[0:3]),
+                                        tuple(carry_f[3:6]), carry_i[0])["t"]
         mesh_f, mesh_i = cast(carry_f[:6], bound, active, carry_i[0])
-        # a dead ray's seed comes back: the inactive encoding is +inf
-        mesh_f[0].masked_fill_(~active, math.inf)
         (carry_f, carry_u, carry_i, t_idx, sh_f, sh_i,
          *un) = mk.shade_step(static, depth, max_depth, rr_start, prims,
                               carry_f, carry_u, carry_i, spect, mesh_f,
@@ -176,12 +200,15 @@ def wavefront_forward(static: SceneStatic, max_depth: int, rr_start: int,
         for l in range(n_lights):
             fb = 3 + 8 * l
             t_su = sh_f[fb + 3]
-            sh_t, sh_id = cast(torch.cat([sh_f[0:3], sh_f[fb:fb + 3]]), t_su,
-                               sh_i[2 * l + 1] != 0, t_idx)
-            occl = (sh_id[0] >= 0) & (sh_t[0] <= t_su)
-            carry_f[6:10] += torch.where(occl, 0.0, sh_f[fb + 4:fb + 8])
+            lsel = sh_i[2 * l + 1] != 0
+            sh_rays = torch.cat([sh_f[0:3], sh_f[fb:fb + 3]])
             if taped:
+                sh_t, sh_id = cast(sh_rays, t_su, lsel, t_idx)
+                occl = (sh_id[0] >= 0) & (sh_t[0] <= t_su)
                 tape_sh[depth, l] = torch.where(occl, sh_id[0], sh_i[2 * l])
+            else:
+                occl = occluded(sh_rays, t_su, lsel, t_idx)
+            carry_f[6:10] += torch.where(occl, 0.0, sh_f[fb + 4:fb + 8])
         if taped:
             tape_idx[depth] = t_idx
     if taped:

@@ -8,7 +8,10 @@ the tape-fed backward against the retrace kernel (bit for bit: the same
 reverse sweep on the same tape), the mesh mode of the forward against
 its plain version, the winner-taped forward against its plain version,
 both backward kernels on a scene with triangle rows, and the gradient of
-a mesh render through the guided replay against the CPU's.
+a mesh render through the guided replay against the CPU's; the wavefront's
+shade step, walk, candidate and pair kernels against their plain versions,
+the binned casts against the walk, and the wavefront against the mesh
+kernel.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -573,24 +576,41 @@ def test_shade_step_kernel_matches_plain_version(cuda, lights,
 
 def test_card_wavefront(cuda):
     """wavefront=True on the card: radiance bit-equal to the mesh forward
-    kernel's, through shade-step and walk launches only (a shade step per
-    bounce, a main cast and a shadow cast per light per bounce); under
-    grad, the same launches taped and gradients bit-equal to the in-kernel
-    path's."""
+    kernel's, through shade-step launches (one per bounce) and the binned
+    casts' launches only, as many as the casts logged (per pipeline and
+    mesh part one candidate and one pair launch, the walk where rays were
+    left unresolved); untaped, the shadow casts are any-hit casts. Under
+    grad the same path runs taped, with closest-hit shadow casts, and its
+    gradients are bit-equal to the in-kernel path's."""
     from computeraytracer_tpu_torch.kernels import binned as bn
 
     scene, static, planes, args, arrays = _wavefront_case(cuda, lights=2)
     depth = 3
     want = mk.forward(static, depth, 1, *args, *arrays)
     counters = lambda: (mk.launches, mk.launches_mesh, mk.launches_winners,
-                        mk.launches_shade, bn.launches_walk)
-    before = counters()
-    got = kt.trace_radiance(scene, *planes, depth, static=static,
-                            backward="none", wavefront=True)
-    torch.cuda.synchronize()
-    n = depth + 1
-    expect = (0, 0, 0, n, n * (1 + len(static.light_rows)))
-    assert tuple(a - b for a, b in zip(counters(), before)) == expect
+                        mk.launches_shade, bn.launches_candidates,
+                        bn.launches_pair, bn.launches_pair_occl,
+                        bn.launches_walk)
+
+    def logged(fn):
+        before = counters()
+        bn.cast_log = log = []
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            bn.cast_log = None
+        n = bn.logged_launches(log)
+        expect = (0, 0, 0, depth + 1, n["candidates"], n["pair"],
+                  n["pair_occl"], n["walk"])
+        assert tuple(a - b for a, b in zip(counters(), before)) == expect
+        assert n["candidates"] > 0
+        return out, n
+
+    got, n = logged(lambda: kt.trace_radiance(
+        scene, *planes, depth, static=static, backward="none",
+        wavefront=True))
+    assert n["pair_occl"] > 0
     assert torch.equal(got, want)
 
     def grads(wavefront):
@@ -603,9 +623,174 @@ def test_card_wavefront(cuda):
                                wavefront=wavefront)
         return torch.autograd.grad((img ** 2).sum(), (sp, d1))
 
-    before = counters()
-    wf = grads(True)
-    assert tuple(a - b for a, b in zip(counters(), before)) == expect
+    wf, n = logged(lambda: grads(True))
+    assert n["pair_occl"] == 0
     for a, b in zip(wf, grads(False)):
         assert torch.equal(a, b)
     assert wf[1][6:].abs().max() > 0
+
+
+def _blob_rays(cuda, R, seed=0):
+    """The port's pack of displaced_blob(4) (5,120 triangles, 40 chunks in
+    three supernodes) on the card, and R random rays around it."""
+    from computeraytracer_tpu_torch.kernels import meshpack
+    from computeraytracer_tpu_torch.scene import mesh as mesh_ops
+
+    verts, faces = mesh_ops.displaced_blob(4)
+    v = [torch.tensor(verts[faces[:, c]], dtype=torch.float32, device=cuda)
+         for c in range(3)]
+    pack = meshpack.pack_mesh(*v, torch.arange(len(faces), device=cuda))
+    g = np.random.default_rng(seed)
+    o = g.uniform(-2, 2, (3, R))
+    d = g.normal(size=(3, R))
+    d /= np.linalg.norm(d, axis=0)
+    rays = torch.tensor(np.concatenate([o, d]), dtype=torch.float32,
+                        device=cuda)
+    bound = torch.tensor(g.uniform(0.5, 10, R), dtype=torch.float32,
+                         device=cuda)
+    active = torch.tensor(g.uniform(size=R) < 0.8, device=cuda)
+    return pack, rays, bound, active
+
+
+@pytest.mark.parametrize("k", [1, 4, 6])
+def test_candidates_kernel_matches_plain_version(cuda, k):
+    """The candidate kernel (candidates.cu) against candidates_reference on
+    the same card tensors, bit for bit, with an active mask and a bound;
+    its counting build gives the same slots, one cast per active lane and
+    at least one slab test per supernode."""
+    from computeraytracer_tpu_torch.kernels import binned as bn
+
+    pack, rays, bound, active = _blob_rays(cuda, 8192)
+    n_real = pack.tri_rows.shape[0] // 16
+    bbox = pack.chunk_bbox[:n_real]
+    before = bn.launches_candidates
+    got = bn.candidates(bbox, rays, bound, k, active)
+    torch.cuda.synchronize()
+    assert bn.launches_candidates == before + 1
+    padded = bound + bound.abs() * bn.PAD_BOUND
+    rays7 = torch.cat([rays, torch.where(active, padded, -torch.inf)[None]])
+    want = bn.candidates_reference(rays7, bbox, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[0] >= 0).any() and torch.isfinite(got[1]).any()
+    work = torch.zeros(4, dtype=torch.int64, device=cuda)
+    counted = bn.candidates(bbox, rays, bound, k, active, work=work)
+    for g, w in zip(counted, got):
+        assert torch.equal(g, w)
+    casts, slabs = work.tolist()[:2]
+    assert casts == int(active.sum())
+    assert slabs >= casts * -(-n_real // bn.SUP_CHUNKS)
+
+
+def test_pair_kernels_match_plain_version(cuda):
+    """Both instantiations of pair.cu against pair_reference and
+    pair_occluded_reference on the chunk-sorted pairs of the candidate
+    kernel, bit for bit; the flag is the closest hit's t <= t_light;
+    chunk ids at or beyond the real count test nothing; the counting
+    builds give the same outputs and count every live pair."""
+    from computeraytracer_tpu_torch.kernels import binned as bn
+
+    pack, rays, bound, active = _blob_rays(cuda, 8192, seed=1)
+    n_real = pack.tri_rows.shape[0] // 16
+    cand, _ = bn.candidates(pack.chunk_bbox[:n_real], rays, None, 6, active)
+    exclude = torch.randint(-1, 5120, (8192,), dtype=torch.int32,
+                            device=cuda, generator=torch.Generator(
+                                device=cuda).manual_seed(0))
+    pair_f, pair_i, _ = bn._pairs(cand, rays, exclude, bound)
+    pair_i[0, -4:] = torch.tensor([n_real, n_real + 1, 1 << 30, -1],
+                                  dtype=torch.int32, device=cuda)
+    before = (bn.launches_pair, bn.launches_pair_occl)
+    got = bn.pair_intersect(pair_f, pair_i, pack.tri_rows)
+    flag = bn.pair_occluded(pair_f, pair_i, pack.tri_rows)
+    torch.cuda.synchronize()
+    assert (bn.launches_pair, bn.launches_pair_occl) == (before[0] + 1,
+                                                         before[1] + 1)
+    want = bn.pair_reference(pair_f, pair_i, pack.tri_rows)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(flag, bn.pair_occluded_reference(pair_f, pair_i,
+                                                        pack.tri_rows))
+    hit = got[1][0] >= 0
+    derived = hit & (got[0][0] <= pair_f[6])
+    assert torch.equal(flag[0] != 0, derived)
+    assert derived.any() and (hit & ~derived).any()
+    assert not hit[-4:].any() and not flag[0, -4:].any()
+    live = int(((pair_i[0] >= 0) & (pair_i[0] < n_real)).sum())
+    for fn, out in ((bn.pair_intersect, got), (bn.pair_occluded, (flag,))):
+        work = torch.zeros(4, dtype=torch.int64, device=cuda)
+        counted = fn(pair_f, pair_i, pack.tri_rows, work=work)
+        counted = counted if isinstance(counted, tuple) else (counted,)
+        for g, w in zip(counted, out):
+            assert torch.equal(g, w)
+        pairs, _, planes, inside = work.tolist()
+        assert pairs == live and 0 < inside <= planes <= 128 * live
+
+
+def test_binned_casts_match_walk(cuda):
+    """On the card, mesh_closest_hit (default k, and k = 1 through each
+    finish of _walk_finish at 16,384 rays) and the batched cast equal the
+    walk kernel seeded empty on every lane; mesh_occluded and its batched
+    form equal the flag derived from the closest hit."""
+    from computeraytracer_tpu_torch.kernels import binned as bn
+
+    _, static, _, _, arrays = _wavefront_case(cuda)
+    R = 16384
+    g = np.random.default_rng(2)
+    bb = arrays[1][:arrays[0].shape[0] // 16].cpu().numpy()
+    lo, hi = bb[:, 0:3].min(0), bb[:, 3:6].max(0)
+    ctr, ext = (lo + hi) / 2, hi - lo
+    on = ctr + g.uniform(-1.5, 1.5, (R, 3)) * ext
+    dn = ctr + g.uniform(-0.5, 0.5, (R, 3)) * ext - on
+    dn /= np.linalg.norm(dn, axis=1, keepdims=True)
+    rays = torch.tensor(np.ascontiguousarray(np.concatenate([on.T, dn.T])),
+                        dtype=torch.float32, device=cuda)
+    exclude = torch.full((R,), -1, dtype=torch.int32, device=cuda)
+
+    def walked(active):
+        seed_f = torch.zeros((4, R), device=cuda)
+        seed_f[0] = torch.where(active, torch.inf, -torch.inf)
+        f, i = bn.walk(static, rays, seed_f,
+                       torch.stack([torch.full_like(exclude, -1), exclude]),
+                       *arrays)
+        f[0][~active] = torch.inf
+        return f, i
+
+    tri_rows, bbox = bn._part(arrays, 0)
+    unres = ~bn.mesh_winner(tri_rows, bbox, rays, exclude, k=1)[3]
+    ids = torch.nonzero(unres)[:, 0]
+    res_ids = torch.nonzero(~unres)[:, 0]
+    assert ids.shape[0] > 2048
+    bn.cast_log = log = []
+    try:
+        for n_unres, finish in ((0, None), (700, 1024), (1500, 2048),
+                                (ids.shape[0], "full")):
+            active = torch.zeros(R, dtype=torch.bool, device=cuda)
+            active[res_ids[:1000]] = True
+            active[ids[:n_unres]] = True
+            got = bn.mesh_closest_hit(static, arrays, rays, exclude, k=1,
+                                      active=active)
+            assert log[-1]["finish"] == finish
+            want = walked(active)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    finally:
+        bn.cast_log = None
+    active = torch.tensor(g.uniform(size=R) < 0.1, device=cuda)
+    want = walked(active)
+    for got in (bn.mesh_closest_hit(static, arrays, rays, exclude,
+                                    active=active),
+                bn.mesh_closest_hit_batched(static, arrays, rays, exclude,
+                                            active=active, batch=1024)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    tsu = torch.tensor(g.uniform(0.5, 3.0, R) * float(ext.max()),
+                       dtype=torch.float32, device=cuda)
+    f, i = bn.mesh_closest_hit(static, arrays, rays, exclude, tsu,
+                               active=active)
+    flag = (i[0] >= 0) & (f[0] <= tsu)
+    assert flag.any()
+    for k in (None, 1):
+        assert torch.equal(bn.mesh_occluded(static, arrays, rays, exclude,
+                                            tsu, k, active), flag)
+    assert torch.equal(bn.mesh_occluded_batched(
+        static, arrays, rays, exclude, tsu, active=active, batch=1024,
+        threshold=R // 4), flag)

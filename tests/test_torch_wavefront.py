@@ -27,7 +27,8 @@ interpret-mode tests take 92-116 s and are not rerun):
 - ``trace_radiance(wavefront=True)`` equal to ``wavefront=False`` on
   ``mesh_scene(64, 32, 2)`` (``mesh_min=64``, 2,048 rays, depth 3), with
   one light and with a second light patch added (the per-light planes and
-  the light order);
+  the light order), and at 128x64 with two lights, where sparse casts run
+  in two batches of 1,024 rays (the binned casts' batched branch);
 - the taped wavefront's tapes equal to ``forward_winners_reference``'s;
 - gradients of ``sum(img ** 2)`` with respect to data1 and spectra at
   32x16, ``mesh_scene(32, 16, 1)``, ``mesh_min=16``, depth 2, bit-equal
@@ -282,27 +283,51 @@ def _two_lights(doc):
     return doc
 
 
-def _path_case(lights):
-    doc = presets.mesh_scene(64, 32, 2)
+def _path_case(lights, w=64, h=32):
+    doc = presets.mesh_scene(w, h, 2)
     if lights == 2:
         doc = _two_lights(doc)
     scene, _ = scene_from_dict(doc, device="cpu")
     static = mk.SceneStatic.from_scene(scene, mesh_min=64)
     assert len(static.light_rows) == lights and static.mesh_parts
-    planes = kt.camera_planes(scene, 64, 32, *kt.tile_coords(64, 32, 0), 1)
+    planes = kt.camera_planes(scene, w, h, *kt.tile_coords(w, h, 0), 1)
     return scene, static, planes
+
+
+def _launch_counts():
+    return (mk.launches_mesh, mk.launches_shade, bn.launches_walk,
+            bn.launches_candidates, bn.launches_pair, bn.launches_pair_occl)
 
 
 @pytest.mark.parametrize("lights", [1, 2])
 def test_wavefront_radiance_is_in_kernel(lights):
     scene, static, planes = _path_case(lights)
-    before = (mk.launches_mesh, mk.launches_shade, bn.launches_walk)
+    before = _launch_counts()
     got, want = (kt.trace_radiance(scene, *planes, MAX_DEPTH, static=static,
                                    backward="none", wavefront=wf)
                  for wf in (True, False))
-    assert (mk.launches_mesh, mk.launches_shade, bn.launches_walk) == before
+    assert _launch_counts() == before
     assert torch.isfinite(got).all() and (got != 0).any()
     assert torch.equal(got, want)
+
+
+def test_wavefront_batched_casts_are_in_kernel():
+    """8,192 rays: a cast with at most 2,048 live rays is compacted and
+    cast in batches of 1,024; the two lights' shadow casts take two."""
+    scene, static, planes = _path_case(2, 128, 64)
+    bn.cast_log = log = []
+    try:
+        got = kt.trace_radiance(scene, *planes, MAX_DEPTH, static=static,
+                                backward="none", wavefront=True)
+    finally:
+        bn.cast_log = None
+    want = kt.trace_radiance(scene, *planes, MAX_DEPTH, static=static,
+                             backward="none", wavefront=False)
+    assert torch.equal(got, want)
+    batches = [e["batches"] for e in log if "cast" in e]
+    assert 0 in batches and max(batches) >= 2
+    kinds = {e["cast"] for e in log if "cast" in e and e["batches"]}
+    assert kinds == {"closest", "any"}
 
 
 @pytest.mark.parametrize("lights", [1, 2])
