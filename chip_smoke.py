@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, in order; any failure raises and the script exits non-zero:
 1. device: the card's name, and its name and power limit from nvidia-smi.
-2. build: nvcc compiles every kernel source (registers and spills shown).
+2. build: nvcc compiles every kernel source (each kernel's name,
+   registers and spills shown).
 3. kernel vs plain: the CUDA forward megakernel and its plain torch
    version on the same CUDA tensors, Cornell box 1024^2, depth 8, sample
    1: at least 99.9% of rays within rel 1e-4 (denominator floored at
@@ -62,8 +63,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-3 relative of the plain render. Times: the mesh kernel per sample
    (CUDA events), the render's Mpaths/s, and a torch.profiler pass over
    the render. Then the mesh kernel's counting build on the full film:
-   radiance bit-equal to the mesh kernel's, and its casts, box tests and
-   triangle tests, which the mesh kernel's bound counts.
+   radiance bit-equal to the mesh kernel's, and its casts, box tests,
+   triangle plane tests and the inside tests its chunk scans need, which
+   the mesh kernel's bound counts, with the inside tests its lanes made,
+   its chunk scans and the lanes that ran them (the lanes of a warp scan
+   each entered chunk together). Then tie_mesh_scene(256, 256), a grid of
+   exact ties in each layout (duplicates in one chunk or across two,
+   shared edges): the mesh kernel and the winner-taped forward against
+   their plain versions on all 65,536 rays (winner tapes equal, at least
+   99.9% of rays within rel 1e-4, the bit-equal share printed), and the
+   walk on 4,096 tie_mesh_rays against walk_reference, bit for bit.
 12. triangle rows: mesh_scene(1024, 1024, subdivisions=1), 80 triangle
    rows and 6 patches, no mesh part, depth 3. The forward, the retrace
    backward, the taped forward and the tape-fed backward, whose builds
@@ -116,8 +125,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the one with the most active lanes, on every 8th ray) and the two pair
    scans (the ones with the most live pairs) is held against its plain
    version the same way. The counting builds (radiance bit-equal) give the
-   kernels' slab, plane and inside tests. Times: every launch (CUDA
-   events), the wavefront sample and the mesh kernel in turns (mesh,
+   kernels' slab, plane and inside tests, and the walk's chunk scans, the
+   lanes that ran them and the inside tests they need. Times: every
+   launch (CUDA events), the wavefront sample and the mesh kernel in turns (mesh,
    wavefront, wavefront, mesh), and a torch.profiler pass over the
    sample.
 18. wavefront gradients: phase 14's value_and_grad with wavefront=True,
@@ -196,8 +206,11 @@ FD_EPS = 0.05
 # taped forward's active and specular planes tell them apart), each about
 # 35 operations per patch or sphere. On the mesh scene, the counting
 # build's casts, each 35 per unrolled row, and its tests: 24 per box
-# (three slabs), 14 per triangle plane test and 32 more per triangle that
-# reaches the inside test; the walk counts only the tests, the shade step
+# (three slabs), 14 per triangle plane test and 32 more per inside test.
+# The mesh kernel and the walk count the inside tests that any order of
+# their chunk scans needs (the triangles whose plane t the chunk's final
+# best does not beat), not those that their lanes' culling makes; the pair
+# scans count their own. The walk counts only the tests, the shade step
 # only its scans of the unrolled rows (the main scan of the first bounce,
 # the shadow scans and the scans of the output rays). Where the work
 # depends on the data, the bytes count what this run's data needs: the
@@ -581,6 +594,57 @@ def _triangle_rows(dev):
           f"({bounds['tape_read'] / 1e9:.3f} GB read by the tape-fed "
           f"kernel); bounds {[bounds[k] for k in out]}")
     return out
+
+
+TIE_SIDE = 256
+TIE_RAYS = 4096
+
+
+def _tie_scenes(dev):
+    """Phase 11's tie scenes: per layout of tie_mesh_scene, the mesh kernel
+    and the winner-taped forward against forward_winners_reference on the
+    full film, and the walk on tie_mesh_rays against walk_reference."""
+    for layout in presets.TIE_LAYOUTS:
+        scene, _ = scene_from_dict(presets.tie_mesh_scene(TIE_SIDE, TIE_SIDE,
+                                                          layout), device=dev)
+        static = mk.SceneStatic.from_scene(scene)
+        arrays = tuple(a for p in kt.mesh_packs_for(scene, static)
+                       for a in p.arrays)
+        px, py = kt.tile_coords(TIE_SIDE, TIE_SIDE, 0, dev)
+        args = kt.kernel_inputs(scene, *kt.camera_planes(
+            scene, TIE_SIDE, TIE_SIDE, px, py, 1), static)
+        rad = mk.forward(static, MESH_DEPTH, RR_START, *args, *arrays)
+        win = mk.forward_winners(static, MESH_DEPTH, RR_START, *args,
+                                 *arrays)
+        t_plain, want = _host_s(lambda: mk.forward_winners_reference(
+            static, MESH_DEPTH, RR_START, *args, *arrays))
+        rel = (rad - want[0]).abs() / want[0].abs().clamp(min=1e-2)
+        frac = (rel < 1e-4).all(dim=0).float().mean().item()
+        exact = (rad == want[0]).all(dim=0).float().mean().item()
+        tapes = torch.equal(win[1], want[1]) and torch.equal(win[2], want[2])
+        on_mesh = int((win[1] >= static.mesh_parts[0].start).sum())
+        R = TIE_RAYS
+        rays = torch.from_numpy(presets.tie_mesh_rays(R, seed=3)).to(dev)
+        seed_f = torch.zeros((4, R), device=dev)
+        seed_f[0] = torch.where(torch.arange(R, device=dev) % 3 == 2,
+                                -math.inf, math.inf)
+        seed_i = torch.full((2, R), -1, dtype=torch.int32, device=dev)
+        walked = bn.walk(static, rays, seed_f, seed_i, *arrays)
+        walk_want = bn.walk_reference(static, rays, seed_f, seed_i, *arrays)
+        walk_same = all(torch.equal(g, w) for g, w in zip(walked, walk_want))
+        print(f"tie scene {layout} ({static.mesh_parts[0].count} triangles, "
+              f"{TIE_SIDE}x{TIE_SIDE}, depth {MESH_DEPTH}): mesh kernel vs "
+              f"plain {frac:.6f} of rays within rel 1e-4, bit-equal "
+              f"{exact:.6f}; winner-taped radiance bit-equal to the mesh "
+              f"kernel's {torch.equal(win[0], rad)}, tapes equal to the "
+              f"plain version's {tapes} ({on_mesh} mesh winners taped); "
+              f"walk on {R} tie rays bit-equal {walk_same} "
+              f"({int((walked[1][0] >= 0).sum())} hits); plain "
+              f"{t_plain:.1f} s")
+        if not (frac >= 0.999 and tapes and walk_same and on_mesh
+                and torch.equal(win[0], rad)):
+            raise RuntimeError(f"tie scene {layout}: the mesh kernels "
+                               f"disagree with their plain versions")
 
 
 def _winners(mstatic, fargs, marrays, y0, mesh_ops):
@@ -1000,7 +1064,8 @@ def _wavefront(mscene, mstatic, fargs, marrays, y0, mesh_counts):
     if not torch.equal(counted, rad):
         raise RuntimeError("the counting builds changed the radiance")
     work = {k: v.tolist() for k, v in work.items()}
-    w_casts, box_tests, plane_tests, inside_tests = work["walk"]
+    (w_casts, box_tests, plane_tests, inside_tests, w_scans, w_lanes,
+     w_needed) = work["walk"]
     print(f"wavefront work (counting builds, radiance bit-equal): "
           f"candidates {work['candidates'][0]} rays, "
           f"{work['candidates'][1]} slab tests; closest pairs "
@@ -1009,7 +1074,10 @@ def _wavefront(mscene, mstatic, fargs, marrays, y0, mesh_counts):
           f"{work['pair_any'][0]} live, {work['pair_any'][2]} plane and "
           f"{work['pair_any'][3]} inside tests; walk {w_casts} casts, "
           f"{box_tests} box tests, {plane_tests} plane tests, "
-          f"{inside_tests} inside tests (mesh kernel: {mesh_counts})")
+          f"{w_needed} inside tests needed, {inside_tests} made, "
+          f"{w_scans} chunk scans on "
+          f"{w_lanes} lanes in all ({w_lanes / max(w_scans, 1):.2f} per "
+          f"scan) (mesh kernel: {mesh_counts})")
 
     # times of every launch at the full film, CUDA events
     _, calls = _recorded_wavefront(mstatic, fargs, marrays)
@@ -1050,7 +1118,7 @@ def _wavefront(mscene, mstatic, fargs, marrays, y0, mesh_counts):
         "pair_any": (work["pair_any"][2] * TRI_PLANE_OPS
                      + work["pair_any"][3] * TRI_INSIDE_OPS),
         "walk": (box_tests * BOX_TEST_OPS + plane_tests * TRI_PLANE_OPS
-                 + inside_tests * TRI_INSIDE_OPS),
+                 + w_needed * TRI_INSIDE_OPS),
     }
     nbytes = {
         "candidates": sum(_candidate_bytes(a, out)
@@ -1172,10 +1240,9 @@ def _within_bound(f, i, bound, live):
     return f, torch.where(within, i, -1)
 
 
-def _binned_casts(mstatic, fargs, marrays):
-    """Phase 19: every cast of one wavefront sample at the full film
-    through the binned pipeline against one seeded walk of the same rays;
-    each _walk_finish branch forced with k = 1."""
+def _recorded_casts(mstatic, fargs, marrays):
+    """The casts of one wavefront sample on kernel operands fargs, in cast
+    order: [(kind "closest" or "any", rays, exclude, bound, live)]."""
     recorded = []
     saved = bn.mesh_closest_hit_batched, bn.mesh_occluded_batched
 
@@ -1192,6 +1259,14 @@ def _binned_casts(mstatic, fargs, marrays):
         kt.wavefront_forward(mstatic, MESH_DEPTH, RR_START, *fargs, *marrays)
     finally:
         bn.mesh_closest_hit_batched, bn.mesh_occluded_batched = saved
+    return recorded
+
+
+def _binned_casts(mstatic, fargs, marrays):
+    """Phase 19: every cast of one wavefront sample at the full film
+    through the binned pipeline against one seeded walk of the same rays;
+    each _walk_finish branch forced with k = 1."""
+    recorded = _recorded_casts(mstatic, fargs, marrays)
     for n, (kind, rays, exclude, bound, live) in enumerate(recorded):
         R = rays.shape[1]
         kw = dict(active=live, batch=R // kt.MESH_CAST_BATCH_FRACTION,
@@ -1299,7 +1374,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for src, log in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 print(f"ptxas[{src}]: {line.strip()}")
 
     # 3. kernel vs plain version at the main path's shape
@@ -1643,22 +1719,30 @@ def main() -> int:
     mesh_ms = _events_ms(lambda: mk.forward(mstatic, MESH_DEPTH, RR_START,
                                             *fargs, *marrays), 3)
     got_f = mk.forward(mstatic, MESH_DEPTH, RR_START, *fargs, *marrays)
-    work = torch.zeros(4, dtype=torch.int64, device=dev)
+    work = torch.zeros(mk.WORK_KINDS, dtype=torch.int64, device=dev)
     counted = mk.forward(mstatic, MESH_DEPTH, RR_START, *fargs, *marrays,
                          work=work)
     if not torch.equal(counted, got_f):
         raise RuntimeError("the mesh kernel's counting build changed its "
                            "radiance")
-    casts, box_tests, plane_tests, inside_tests = work.tolist()
+    mesh_counts = work.tolist()
+    (casts, box_tests, plane_tests, inside_tests, chunk_scans, scan_lanes,
+     inside_needed) = mesh_counts
     counted_ms = _events_ms(lambda: mk.forward(
         mstatic, MESH_DEPTH, RR_START, *fargs, *marrays,
-        work=torch.zeros(4, dtype=torch.int64, device=dev)), 1)
+        work=torch.zeros(mk.WORK_KINDS, dtype=torch.int64, device=dev)), 1)
     print(f"mesh work (counting build, radiance bit-equal, {counted_ms:.1f} "
           f"ms): {casts} casts, {box_tests} box tests, {plane_tests} "
-          f"triangle plane tests, {inside_tests} inside tests; per cast "
-          f"{box_tests / casts:.2f} boxes, {plane_tests / casts:.2f} planes, "
-          f"{inside_tests / casts:.2f} inside")
+          f"triangle plane tests, {inside_needed} inside tests needed "
+          f"(the bound's), {inside_tests} made by the lanes' culling, "
+          f"{chunk_scans} chunk scans on {scan_lanes} lanes in all; per "
+          f"cast {box_tests / casts:.2f} boxes, {plane_tests / casts:.2f} "
+          f"planes, {inside_needed / casts:.2f} inside needed, "
+          f"{inside_tests / casts:.2f} made, {chunk_scans / casts:.2f} "
+          f"chunk scans; lanes per chunk scan "
+          f"{scan_lanes / max(chunk_scans, 1):.2f}")
     del got_f, counted
+    _tie_scenes(dev)
     wall, dev_ms, idle, n_k, top = _profile(lambda: render(mscene, mcfg))
     print(f"profile of the mesh render: wall {wall:.1f} ms, device "
           f"{dev_ms:.1f} ms, idle share {idle:.3f}, {n_k} kernel launches; "
@@ -1674,7 +1758,7 @@ def main() -> int:
     tri = _triangle_rows(dev)
     mesh_ops = (casts * len(mstatic.rows) * PRIM_TEST_OPS
                 + box_tests * BOX_TEST_OPS + plane_tests * TRI_PLANE_OPS
-                + inside_tests * TRI_INSIDE_OPS)
+                + inside_needed * TRI_INSIDE_OPS)
     win = _winners(mstatic, fargs, marrays, y0, mesh_ops)
     win["launches"], *grads_in_kernel = _mesh_grads(mscene, mstatic)
     _finite_difference(dev)
@@ -1682,8 +1766,7 @@ def main() -> int:
     print(f"chip_smoke phases 1-16: {time.perf_counter() - t_start:.1f} s")
 
     # 17-19. the wavefront, its gradients and its binned casts
-    wave = _wavefront(mscene, mstatic, fargs, marrays, y0,
-                      (casts, box_tests, plane_tests, inside_tests))
+    wave = _wavefront(mscene, mstatic, fargs, marrays, y0, mesh_counts)
     _wavefront_grads(mscene, mstatic, fargs, marrays, grads_in_kernel)
     _binned_casts(mstatic, fargs, marrays)
     print(f"chip_smoke phases 1-19: {time.perf_counter() - t_start:.1f} s")
@@ -1788,7 +1871,10 @@ def main() -> int:
         "casts": casts,
         "box_tests": box_tests,
         "triangle_plane_tests": plane_tests,
+        "triangle_inside_tests_needed": inside_needed,
         "triangle_inside_tests": inside_tests,
+        "chunk_scans": chunk_scans,
+        "chunk_scan_lanes": scan_lanes,
     }, dict({
         "name": "megakernel_forward_winners",
         "route": "cuda",

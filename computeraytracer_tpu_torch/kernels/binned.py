@@ -130,8 +130,10 @@ def _w(work, name):
 
 def new_work(device) -> dict:
     """Zeroed work counters for every kernel of a cast (the counting
-    builds): {"candidates", "pair", "pair_any", "walk"} -> (4,) int64."""
-    return {name: torch.zeros(4, dtype=torch.int64, device=device)
+    builds): {"candidates", "pair", "pair_any", "walk"} ->
+    (mk.WORK_KINDS,) int64."""
+    return {name: torch.zeros(mk.WORK_KINDS, dtype=torch.int64,
+                              device=device)
             for name in ("candidates", "pair", "pair_any", "walk")}
 
 
@@ -153,7 +155,8 @@ def _slab_t_enter(cbox_blk, o, d, t_bound, inv=None):
 
     cbox_blk (B, 8) [lo.xyz, hi.xyz, pad, pad]; o, d (3, R); t_bound (R,).
     Returns (B, R), chunk-major; the arithmetic of bounce.cuh
-    ``slab_enter``."""
+    ``slab_enter``: an axis the ray runs parallel to bounds nothing where
+    lo <= o <= hi and misses the box elsewhere."""
     if inv is None:
         inv = _inv_dir(d)
     B, R = cbox_blk.shape[0], o.shape[1]
@@ -162,8 +165,12 @@ def _slab_t_enter(cbox_blk, o, d, t_bound, inv=None):
     t_exit = torch.full((B, R), math.inf, dtype=torch.float32,
                         device=o.device)
     for c in range(3):
-        t0 = (cbox_blk[:, c, None] - o[c][None]) * inv[c][None]
-        t1 = (cbox_blk[:, 3 + c, None] - o[c][None]) * inv[c][None]
+        lo, hi = cbox_blk[:, c, None], cbox_blk[:, 3 + c, None]
+        par = (inv[c].abs() == 1e30)[None]
+        inside = (lo <= o[c][None]) & (o[c][None] <= hi)
+        t0 = torch.where(par, torch.where(inside, -math.inf, math.inf),
+                         (lo - o[c][None]) * inv[c][None])
+        t1 = torch.where(par, math.inf, (hi - o[c][None]) * inv[c][None])
         t_enter = torch.maximum(t_enter, torch.minimum(t0, t1))
         t_exit = torch.minimum(t_exit, torch.maximum(t0, t1))
     t_exit = t_exit + t_exit.abs() * PAD_BOX
@@ -261,8 +268,9 @@ def candidate_kernel(rays7, chunk_bbox, k: int,
     CPU tensors run ``candidates_reference``; CUDA tensors launch
     csrc/candidates.cu over the boxes padded to whole supernodes; a failed
     build or launch raises. k is one of CAND_KS, on either device.
-    ``work``, a zeroed (4,) int64 CUDA tensor, selects the build that also
-    adds its active rays and slab tests to it (columns 0 and 1)."""
+    ``work``, a zeroed (mk.WORK_KINDS,) int64 CUDA tensor, selects the
+    build that also adds its active rays and slab tests to it (columns 0
+    and 1)."""
     global launches_candidates
     R = rays7.shape[-1] if rays7.dim() == 2 else -1
     dev = rays7.device
@@ -273,7 +281,7 @@ def candidate_kernel(rays7, chunk_bbox, k: int,
         raise ValueError(f"k = {k}: the candidate kernel is built for k in "
                          f"{CAND_KS}")
     if work is not None:
-        mk._check_tensor("work", work, (4,), torch.int64, dev)
+        mk._check_tensor("work", work, (mk.WORK_KINDS,), torch.int64, dev)
     if dev.type == "cpu":
         if work is not None:
             raise ValueError("work counts are taken on the card: the plain "
@@ -390,7 +398,7 @@ def _check_pairs(pair_f, pair_i, tri_rows, work):
         raise ValueError(f"tri_rows: {tri_rows.shape[0]} rows is not a whole "
                          f"number of {meshpack.ROWS_PER_CHUNK}-row chunks")
     if work is not None:
-        mk._check_tensor("work", work, (4,), torch.int64, dev)
+        mk._check_tensor("work", work, (mk.WORK_KINDS,), torch.int64, dev)
         if dev.type == "cpu":
             raise ValueError("work counts are taken on the card: the plain "
                              "version counts nothing")
@@ -401,9 +409,9 @@ def pair_intersect(pair_f, pair_i, tri_rows, work: torch.Tensor | None = None):
     """Closest hit of each (ray, chunk) pair -> (out_f (4, P), out_i
     (1, P)), the contract of ``pair_reference``. CPU tensors run it; CUDA
     tensors launch ``pair_closest`` of csrc/pair.cu; a failed build or
-    launch raises. ``work`` (a zeroed (4,) int64 CUDA tensor) selects the
-    build that adds its live pairs, plane tests and inside tests (columns
-    0, 2, 3)."""
+    launch raises. ``work`` (a zeroed (mk.WORK_KINDS,) int64 CUDA tensor)
+    selects the build that adds its live pairs, plane tests and inside
+    tests (columns 0, 2, 3)."""
     global launches_pair
     P, dev = _check_pairs(pair_f, pair_i, tri_rows, work)
     if dev.type == "cpu":
@@ -808,9 +816,11 @@ def walk(static: mk.SceneStatic, rays: torch.Tensor, seed_f: torch.Tensor,
 
     CPU tensors run ``walk_reference``; CUDA tensors launch the kernel of
     csrc/walk.cu, built at first use; a failed build or launch raises.
-    ``work``, a zeroed (4,) int64 CUDA tensor, selects the build that also
-    adds its casts (active lanes), box tests, triangle plane tests and
-    triangle inside tests to it."""
+    ``work``, a zeroed (mk.WORK_KINDS,) int64 CUDA tensor, selects the
+    build that also adds its casts (active lanes), box tests, triangle
+    plane tests, triangle inside tests, chunk scans, the lanes that ran
+    them (a warp's 32 lanes scan each entered chunk together) and the
+    inside tests those scans need to it."""
     global launches_walk
     if not static.mesh_parts:
         raise ValueError("the walk casts against mesh parts; the scene has "
@@ -824,7 +834,7 @@ def walk(static: mk.SceneStatic, rays: torch.Tensor, seed_f: torch.Tensor,
         mk._check_tensor(name, t, shape, dtype, dev)
     mk._check_parts(static, mesh_arrays, dev)
     if work is not None:
-        mk._check_tensor("work", work, (4,), torch.int64, dev)
+        mk._check_tensor("work", work, (mk.WORK_KINDS,), torch.int64, dev)
     if dev.type == "cpu":
         if work is not None:
             raise ValueError("work counts are taken on the card: the plain "

@@ -20,11 +20,14 @@
 // watertight test, and each mesh part is traversed from device memory by
 // scan_mesh_part, the port of megakernel.py:337 _scan_mesh_part. The TPU
 // kernel walks the chunk BVH once per ray TILE (a box is entered when any
-// ray of the tile can hit it); here each thread walks it for its own ray.
-// The result is the same: the boxes are conservative (padded by 4 ulp) and
-// the mesh tie rule (t < best, or t == best and the higher id) does not
-// depend on the order in which triangles are tested. A mesh hit records
-// slot = P + part, whose meta row carries the part's material and spectra.
+// ray of the tile can hit it) and broadcasts each triangle to every lane of
+// the tile. Here each lane walks the boxes for its own ray, and the lanes of
+// a warp scan each entered chunk together, 128 triangles spread over the
+// lanes (scan_mesh_part). The result is the same: the boxes are
+// conservative (padded by 4 ulp) and the mesh tie rule (t < best, or t ==
+// best and the higher id) does not depend on the order in which triangles
+// are tested. A mesh hit records slot = P + part, whose meta row carries
+// the part's material and spectra.
 //
 // Deferred mode (bounce's DEFER; the wavefront's shade step, shade_step.cu):
 // the closest hit comes in from outside (the walk kernel's mesh winner
@@ -65,15 +68,26 @@ enum { DIFFUSE = 0, LIGHT = 1, GLASS = 2, MIRROR = 3 };
 
 // The MESH argument of scan and bounce: no mesh, the mesh mode, the mesh
 // mode that also counts its work into mesh_work, or triangle rows through
-// the watertight test with no mesh part walked (the shade step's scans of
-// the unrolled rows, shade_step.cu).
+// the watertight test with no mesh part walked (the builds that never see
+// a part: the shade step's scans of the unrolled rows, shade_step.cu, the
+// taped="full" forward and both backward kernels), which then compile no
+// traversal.
 enum { MESH_NONE = 0, MESH_WALK = 1, MESH_COUNT = 2, MESH_ROWS = 3 };
 
-// Work counts of MESH_COUNT, one column per thread of the block: casts
-// (closest-hit and shadow scans), box tests (nodes and chunks), triangle
-// plane tests and triangle inside tests. Only the kernel that counts
-// references them.
-enum { W_CAST = 0, W_BOX = 1, W_PLANE = 2, W_INSIDE = 3, WORK_KINDS = 4 };
+// Work counts of the counting builds, one column per thread of the block:
+// casts (closest-hit and shadow scans), box tests (nodes and chunks),
+// triangle plane tests and triangle inside tests; the mesh traversal
+// (scan_mesh_part) also counts its chunk scans (one per ray and entered
+// chunk), the lanes that ran them, summed over the scans, and the inside
+// tests that any scan of those chunks must make (W_NEEDED: those of the
+// triangles whose plane t the chunk's final best does not beat, the
+// winner's included), which no order of the scan can avoid. Kernels
+// without a traversal leave the last three at zero. Only the kernels that
+// count reference them.
+enum {
+  W_CAST = 0, W_BOX = 1, W_PLANE = 2, W_INSIDE = 3, W_SCAN = 4, W_LANES = 5,
+  W_NEEDED = 6, WORK_KINDS = 7
+};
 __shared__ unsigned mesh_work[WORK_KINDS][THREADS];
 
 // Zero this thread's work counts.
@@ -266,6 +280,7 @@ __device__ __forceinline__ bool watertight_inside(const Watertight& w, V3 v0,
 // component below 1e-12 in magnitude becomes +-1e30, keeping its sign.
 __device__ __forceinline__ void inv_dir(V3 d, float inv_d[3]) {
   const float dc[3] = {d.x, d.y, d.z};
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
     const bool tiny = fabsf(dc[c]) < 1e-12f;
     const float sign = dc[c] < 0.0f ? -1.0f : 1.0f;
@@ -278,17 +293,41 @@ __device__ __forceinline__ void inv_dir(V3 d, float inv_d[3]) {
 // hit closer than t_best. Degenerate empty boxes (lo == hi == BIG) give an
 // infinite entry and are excluded explicitly. t_enter receives the padded
 // entry distance (binned.py:72 _slab_t_enter), which ranks the candidate
-// chunks (candidates.cu).
+// chunks (candidates.cu). An axis the ray runs parallel to (inv_dir's
+// +-1e30) bounds nothing where lo <= o <= hi, and misses the box
+// elsewhere: the reference's product (face - o) * 1e30 is 0 for a ray
+// lying in a face, an exit at t = 0 that missed a box whose triangles
+// the ray hits. Such rays are rare, so they take a path of their own,
+// chosen per ray (the condition does not depend on the box), and every
+// other ray runs the reference's three slabs alone.
 __device__ __forceinline__ bool slab_enter(const float* __restrict__ bb, V3 o,
                                            const float* inv_d, float t_best,
                                            float& t_enter_out) {
   const float oc[3] = {o.x, o.y, o.z};
   float t_enter = -INFINITY, t_exit = INFINITY;
-  for (int c = 0; c < 3; ++c) {
-    const float t0 = (bb[c] - oc[c]) * inv_d[c];
-    const float t1 = (bb[3 + c] - oc[c]) * inv_d[c];
-    t_enter = fmaxf(t_enter, fminf(t0, t1));
-    t_exit = fminf(t_exit, fmaxf(t0, t1));
+  if (fabsf(inv_d[0]) != 1e30f && fabsf(inv_d[1]) != 1e30f &&
+      fabsf(inv_d[2]) != 1e30f) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float t0 = (bb[c] - oc[c]) * inv_d[c];
+      const float t1 = (bb[3 + c] - oc[c]) * inv_d[c];
+      t_enter = fmaxf(t_enter, fminf(t0, t1));
+      t_exit = fminf(t_exit, fmaxf(t0, t1));
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float t0, t1;
+      if (fabsf(inv_d[c]) == 1e30f) {  // parallel to this axis's slab
+        t0 = bb[c] <= oc[c] && oc[c] <= bb[3 + c] ? -INFINITY : INFINITY;
+        t1 = INFINITY;
+      } else {
+        t0 = (bb[c] - oc[c]) * inv_d[c];
+        t1 = (bb[3 + c] - oc[c]) * inv_d[c];
+      }
+      t_enter = fmaxf(t_enter, fminf(t0, t1));
+      t_exit = fminf(t_exit, fmaxf(t0, t1));
+    }
   }
   const float pad = 4.0f * 1.1920928955078125e-7f;  // 4 * 2^-23
   t_exit = t_exit + fabsf(t_exit) * pad;
@@ -304,12 +343,67 @@ __device__ __forceinline__ bool slab(const float* __restrict__ bb, V3 o,
   return slab_enter(bb, o, inv_d, t_best, t_enter);
 }
 
-// One chunk's 128 triangles against one ray (the inner loop of
-// megakernel.py:337 _scan_mesh_part; binned.py:392 build_pair_kernel and
-// :898 build_pair_kernel_occl test them op for op the same way). Padding
-// triangles (id -1) and the triangle `exclude` are skipped.
-// - ANY false: closest hit under the mesh tie rule (t < best, or t == best
-//   and the higher id); updates h, whose hits record `slot`. Returns false.
+// One triangle of a chunk against one ray, scan_mesh_part's per-lane test
+// and op for op the body of scan_chunk's loop: whether triangle row `tri`
+// (not padding, id -1, and not the triangle `exclude`) is hit at a t that
+// beats (best_t, best_i) under the mesh tie rule (t < best_t, or t ==
+// best_t and the higher id). The hit's t, id and the normal facing the ray
+// come back in t, tid and nrm. With COUNT, counts its plane and inside
+// tests into mesh_work.
+template <bool COUNT>
+__device__ __forceinline__ bool tri_test(const float* __restrict__ tri, V3 o,
+                                         V3 d, int exclude,
+                                         const Watertight& wt, float best_t,
+                                         int best_i, float& t, int& tid,
+                                         V3& nrm) {
+  tid = (int)tri[9];
+  if (tid < 0 || tid == exclude) return false;
+  if (COUNT) ++mesh_work[W_PLANE][threadIdx.x];
+  const V3 n0 = {tri[10], tri[11], tri[12]};
+  const float ndotd = n0.x * d.x + n0.y * d.y + n0.z * d.z;
+  const bool flip = ndotd > 0.0f;
+  if (fabsf(flip ? -ndotd : ndotd) < 1e-4f) return false;  // grazing
+  const V3 p0 = {tri[0], tri[1], tri[2]};
+  const float num = n0.x * (p0.x - o.x) + n0.y * (p0.y - o.y) +
+                    n0.z * (p0.z - o.z);
+  t = num / ndotd;
+  if (!(t >= T_MIN && (t < best_t || (t == best_t && tid > best_i))))
+    return false;
+  if (COUNT) ++mesh_work[W_INSIDE][threadIdx.x];
+  if (!watertight_inside(wt, p0, {tri[3], tri[4], tri[5]},
+                         {tri[6], tri[7], tri[8]}))
+    return false;
+  const float sgn = flip ? -1.0f : 1.0f;
+  nrm = {sgn * n0.x, sgn * n0.y, sgn * n0.z};
+  return true;
+}
+
+// tri_test's plane stage alone, computed as tri_test computes it, for
+// scan_mesh_part's count of the inside tests its chunk scans need: whether
+// triangle row `tri` is a triangle (not padding, and not `exclude`) whose
+// plane the ray does not graze, with its id and the plane's t.
+__device__ __forceinline__ bool tri_plane(const float* __restrict__ tri, V3 o,
+                                          V3 d, int exclude, int& tid,
+                                          float& t) {
+  tid = (int)tri[9];
+  if (tid < 0 || tid == exclude) return false;
+  const V3 n0 = {tri[10], tri[11], tri[12]};
+  const float ndotd = n0.x * d.x + n0.y * d.y + n0.z * d.z;
+  if (fabsf(ndotd) < 1e-4f) return false;  // grazing
+  const V3 p0 = {tri[0], tri[1], tri[2]};
+  const float num = n0.x * (p0.x - o.x) + n0.y * (p0.y - o.y) +
+                    n0.z * (p0.z - o.z);
+  t = num / ndotd;
+  return true;
+}
+
+// One chunk's 128 triangles against one ray, in order, on one thread
+// (binned.py:392 build_pair_kernel and :898 build_pair_kernel_occl: their
+// pairs arrive sorted by chunk, so a warp's threads read the same rows).
+// Its loop body is tri_test's arithmetic written out: the pair kernels
+// built through tri_test ran the closest-hit scan ~9% slower.
+// - ANY false: closest hit under the mesh tie rule; updates h, whose hits
+//   record `slot`. Returns false.
 // - ANY true: whether some triangle is hit at T_MIN <= t <= t_light;
 //   returns at the first one and leaves h alone. Its t is the closest
 //   scan's, so the answer is exactly "closest t <= t_light".
@@ -351,34 +445,158 @@ __device__ __forceinline__ bool scan_chunk(const float* __restrict__ tri,
   return false;
 }
 
-// Closest hit of one ray against mesh part mp, whose hits record `slot`:
-// the stackless skip-link walk of the DFS node array (descend on a box hit,
-// else jump to `skip`), each leaf's chunk boxes re-tested before their 128
-// triangles. Updates h under the mesh tie rule; with COUNT, counts its
-// tests into mesh_work.
+// One lane's stackless skip-link walk of part mp's DFS node array (descend
+// on a box hit, else jump to `skip`; an entered leaf re-tests each of its
+// chunk boxes), advanced to the next chunk it enters, boxes culled by
+// best_t: returns that chunk, or -1 when the walk is done. The walk's state
+// is `node`, the node it is at, and `leaf_i`, the next chunk of an entered
+// leaf to test (-1 before the leaf's own box test). With COUNT, counts its
+// box tests into mesh_work.
+template <bool COUNT>
+__device__ __forceinline__ int next_chunk(const MeshPart& mp, V3 o,
+                                          const float* inv_d, float best_t,
+                                          int& node, int& leaf_i) {
+  while (node < mp.n_nodes) {
+    const int* meta = mp.nmeta + (long long)node * NODE_WORDS;
+    if (leaf_i < 0) {
+      if (COUNT) ++mesh_work[W_BOX][threadIdx.x];
+      const bool hit =
+          slab(mp.nbox + (long long)node * BOX_WORDS, o, inv_d, best_t);
+      if (!(hit && meta[2] > 0)) {  // a miss, or an inner node entered
+        node = hit ? node + 1 : meta[0];
+        continue;
+      }
+      leaf_i = 0;
+    }
+    while (leaf_i < LEAF_CHUNKS) {
+      const int k = meta[1] + leaf_i++;
+      if (k >= mp.n_real_chunks) break;  // padding: no rows stored
+      if (COUNT) ++mesh_work[W_BOX][threadIdx.x];
+      if (slab(mp.cbox + (long long)k * BOX_WORDS, o, inv_d, best_t)) return k;
+    }
+    leaf_i = -1;
+    node = meta[0];
+  }
+  return -1;
+}
+
+// The order of t values as unsigned keys: ascending with t for every t
+// that is not NaN (a hit's t is never NaN: it passed t >= T_MIN).
+__device__ __forceinline__ unsigned t_key(float t) {
+  const unsigned b = __float_as_uint(t);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// Closest hit against mesh part mp, whose hits record `slot`, of the rays
+// of the warp's lanes in `mask`, which must all call it together (every
+// collective below uses that mask, and they all leave together). A lane
+// with `walking` false has no ray here: it only helps the others scan.
+//
+// A while-while traversal (Aila and Laine 2009) whose triangle loop is
+// spread across the lanes. Each walking lane advances its own box walk
+// (next_chunk) until it has one entered chunk to scan or is done. Then, for
+// each lane with a chunk, in lane order, every lane of the mask scans that
+// chunk against the owner's ray (o, d, the watertight constants, exclude
+// and its best, broadcast by shuffles): the lane of rank q among m tests
+// triangles q, q+m, q+2m, ..., so neighbouring lanes read neighbouring
+// 64-byte rows, and keeps its own best under the tie rule from the owner's
+// best at the chunk's entry. A reduction over the lanes (min t, then max id
+// among the lanes at that t) picks the winner, whose t, id and normal the
+// owner takes, with pos = o + t*d as scan_chunk computes it.
+//
+// Exact: the tie rule is a strict total order on (t, id), ids are unique in
+// the scene, and the serial scan and the reduction both compute its maximum
+// over the owner's entry best and the chunk's hits; a lane's culling by its
+// running best saves only inside tests, never a winner. Each lane visits
+// the same boxes and chunks, in the same order and with the same best at
+// every chunk boundary, as a walk that scans its chunks alone, so h
+// updates as that walk's would. With COUNT, counts box, plane and inside
+// tests, chunk scans (W_SCAN), the lanes that ran them (W_LANES) and, in a
+// second pass over each chunk once its winner is known, the inside tests
+// that any order of its scan needs (W_NEEDED): the lanes' own culling
+// starts from the entry best and tests more.
 template <bool COUNT>
 __device__ void scan_mesh_part(const MeshPart& mp, int slot, V3 o, V3 d,
-                               int exclude, const Watertight& wt, Hit& h) {
+                               int exclude, const Watertight& wt, Hit& h,
+                               bool walking, unsigned mask) {
+  const int lane = threadIdx.x & 31;
+  const int rank = __popc(mask & ((1u << lane) - 1u));
+  const int m = __popc(mask);
   float inv_d[3];
   inv_dir(d, inv_d);
-  int node = 0;
-  while (node < mp.n_nodes) {
-    if (COUNT) ++mesh_work[W_BOX][threadIdx.x];
-    const bool hit = slab(mp.nbox + (long long)node * BOX_WORDS, o, inv_d, h.t);
-    const int* meta = mp.nmeta + (long long)node * NODE_WORDS;
-    const bool leaf = meta[2] > 0;
-    if (hit && leaf) {
-      for (int i = 0; i < LEAF_CHUNKS; ++i) {
-        const int k = meta[1] + i;
-        if (k >= mp.n_real_chunks) break;  // padding: no rows stored
-        if (COUNT) ++mesh_work[W_BOX][threadIdx.x];
-        if (!slab(mp.cbox + (long long)k * BOX_WORDS, o, inv_d, h.t)) continue;
-        scan_chunk<false, COUNT>(
-            mp.tri + (long long)k * TRIS_PER_CHUNK * TRI_WORDS, slot, o, d,
-            exclude, wt, h, 0.0f);
+  int node = 0, leaf_i = -1;
+  int k = walking ? next_chunk<COUNT>(mp, o, inv_d, h.t, node, leaf_i) : -1;
+  for (unsigned todo; (todo = __ballot_sync(mask, k >= 0)) != 0u;) {
+    for (; todo; todo &= todo - 1u) {
+      const int src = __ffs(todo) - 1;
+      const int kc = __shfl_sync(mask, k, src);
+      const V3 so = {__shfl_sync(mask, o.x, src), __shfl_sync(mask, o.y, src),
+                     __shfl_sync(mask, o.z, src)};
+      const V3 sd = {__shfl_sync(mask, d.x, src), __shfl_sync(mask, d.y, src),
+                     __shfl_sync(mask, d.z, src)};
+      Watertight sw;
+      sw.kx = __shfl_sync(mask, wt.kx, src);
+      sw.ky = __shfl_sync(mask, wt.ky, src);
+      sw.kz = __shfl_sync(mask, wt.kz, src);
+      sw.sx = __shfl_sync(mask, wt.sx, src);
+      sw.sy = __shfl_sync(mask, wt.sy, src);
+      sw.okx = __shfl_sync(mask, wt.okx, src);
+      sw.oky = __shfl_sync(mask, wt.oky, src);
+      sw.okz = __shfl_sync(mask, wt.okz, src);
+      const int sex = __shfl_sync(mask, exclude, src);
+      float bt = __shfl_sync(mask, h.t, src);
+      int bi = __shfl_sync(mask, h.idx, src);
+      V3 bn = {0.0f, 0.0f, 0.0f};
+      bool found = false;
+      const float* rows = mp.tri + (long long)kc * TRIS_PER_CHUNK * TRI_WORDS;
+      for (int j = rank; j < TRIS_PER_CHUNK; j += m) {
+        float t;
+        int tid;
+        V3 nrm;
+        if (tri_test<COUNT>(rows + j * TRI_WORDS, so, sd, sex, sw, bt, bi, t,
+                            tid, nrm)) {
+          bt = t;
+          bi = tid;
+          bn = nrm;
+          found = true;
+        }
+      }
+      const unsigned key = found ? t_key(bt) : 0xFFFFFFFFu;
+      const unsigned key_min = __reduce_min_sync(mask, key);
+      const bool at_min = found && key == key_min;
+      const int id_max = __reduce_max_sync(mask, at_min ? bi : -2147483647 - 1);
+      const unsigned win = __ballot_sync(mask, at_min && bi == id_max);
+      if (win) {
+        const int w = __ffs(win) - 1;
+        const float t_w = __shfl_sync(mask, bt, w);
+        const V3 n_w = {__shfl_sync(mask, bn.x, w), __shfl_sync(mask, bn.y, w),
+                        __shfl_sync(mask, bn.z, w)};
+        if (lane == src) {
+          h.t = t_w;
+          h.idx = id_max;
+          h.slot = slot;
+          h.pos = vadd(o, vscale(t_w, d));
+          h.nrm = n_w;
+        }
+      }
+      if (COUNT) {
+        if (lane == src) {
+          ++mesh_work[W_SCAN][threadIdx.x];
+          mesh_work[W_LANES][threadIdx.x] += m;
+        }
+        // the chunk's final best, the owner's h: its winner or its entry
+        const float t_f = __shfl_sync(mask, h.t, src);
+        const int i_f = __shfl_sync(mask, h.idx, src);
+        for (int j = rank; j < TRIS_PER_CHUNK; j += m) {
+          float t;
+          int tid;
+          if (tri_plane(rows + j * TRI_WORDS, so, sd, sex, tid, t) &&
+              t >= T_MIN && (t < t_f || (t == t_f && tid >= i_f)))
+            ++mesh_work[W_NEEDED][threadIdx.x];
+        }
       }
     }
-    node = (hit && !leaf) ? node + 1 : meta[0];
+    if (k >= 0) k = next_chunk<COUNT>(mp, o, inv_d, h.t, node, leaf_i);
   }
 }
 
@@ -453,9 +671,10 @@ __device__ Hit scan(const Scene& s, int P, V3 o, V3 d, int exclude) {
     }
   }
   if (MESH == MESH_WALK || MESH == MESH_COUNT)
+    // the lanes that reach here together scan each chunk together
     for (int pi = 0; pi < s.n_parts; ++pi)
       scan_mesh_part<MESH == MESH_COUNT>(s.part[pi], P + pi, o, d, exclude,
-                                         wt, h);
+                                         wt, h, true, __activemask());
   return h;
 }
 

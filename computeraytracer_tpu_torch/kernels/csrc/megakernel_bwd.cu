@@ -32,11 +32,13 @@
 //
 // Triangle rows: a scene whose unrolled rows include triangles (category
 // 2; a mesh part never reaches this kernel, its gradient is the guided
-// replay's) runs the MESH_WALK build with no part, whose replay and
+// replay's) runs the MESH_ROWS build, which walks no part, whose replay and
 // recompute scan them with the watertight test as the forward does and
 // whose adjoint carries a triangle winner's cotangent into its vertices
 // (reverse.cuh hit_bwd). Every other scene runs the MESH_NONE build, which
-// compiles none of that.
+// compiles none of that. The MESH_ROWS build is held to 4 resident blocks
+// per SM (128 registers, a few spilled): at its own 165 registers only 3
+// fit, and it ran 12% slower.
 //
 // Numerics: built with --fmad=false, like the forward, so the replay's
 // hit winners, Fresnel choices and Russian-roulette decisions are the
@@ -49,7 +51,7 @@ namespace {
 using namespace pathtrace;
 
 template <int MESH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MESH == MESH_ROWS ? 4 : 1)
     megakernel_bwd_kernel(const float* __restrict__ prims,
                           const int* __restrict__ meta, int P,
                           const int* __restrict__ lights, int n_lights,
@@ -134,7 +136,7 @@ extern "C" int megakernel_bwd(const float* prims, const int* meta, int n_prims,
   const size_t dyn = (size_t)WARPS * n_prims * 12 * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
   const int err =
-      (mesh_mode ? launch_bwd<MESH_WALK> : launch_bwd<MESH_NONE>)(
+      (mesh_mode ? launch_bwd<MESH_ROWS> : launch_bwd<MESH_NONE>)(
           blocks, dyn, st, prims, meta, n_prims, lights, n_lights, rays,
           seeds, spect, n_spectra, dL, partial, d_rays, d_spect, tape_f,
           tape_i, n_rays, max_depth, rr_start);

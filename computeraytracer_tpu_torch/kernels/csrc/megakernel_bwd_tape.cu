@@ -25,8 +25,9 @@
 // addresses (ray-minor planes); d_prims and d_spect are summed in a fixed
 // order (reverse.cuh).
 //
-// Triangle rows: as the retrace kernel, the MESH_WALK build (no part) for a
-// scene with category-2 rows, the MESH_NONE build for every other scene.
+// Triangle rows: as the retrace kernel, the MESH_ROWS build (no part
+// walked) for a scene with category-2 rows, the MESH_NONE build for every
+// other scene.
 //
 // Numerics: built with --fmad=false, like the forward, so the recomputed
 // decisions are the forward's bit for bit.
@@ -112,7 +113,7 @@ extern "C" int megakernel_bwd_tape(const float* prims, const int* meta,
   const size_t dyn = (size_t)WARPS * n_prims * 12 * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
   const int err =
-      (mesh_mode ? launch_bwd_tape<MESH_WALK> : launch_bwd_tape<MESH_NONE>)(
+      (mesh_mode ? launch_bwd_tape<MESH_ROWS> : launch_bwd_tape<MESH_NONE>)(
           blocks, dyn, st, prims, meta, n_prims, lights, n_lights, spect,
           n_spectra, tape_f, tape_i, dL, partial, d_rays, d_spect, n_rays,
           max_depth, rr_start);

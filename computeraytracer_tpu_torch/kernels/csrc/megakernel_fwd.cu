@@ -5,18 +5,23 @@
 // - plain (megakernel_fwd with no mesh part and no triangle row);
 // - mesh (megakernel_fwd with mesh parts or triangle rows): triangle rows
 //   join the unrolled scan through the watertight test, and every mesh
-//   part is traversed per ray from device memory (bounce.cuh
-//   scan_mesh_part). Given a work array, the same code also counts its
-//   casts, box tests and triangle tests into it (MESH_COUNT: a separate
-//   instantiation, so the uncounted kernel carries no counter). On the card the packed triangle rows always live in
-//   device memory, so the TPU kernel's HBM-streaming mode
-//   (megakernel.py:849-853, stream_tris) has the same contract here and is
-//   covered by this mode;
+//   part is traversed from device memory (bounce.cuh scan_mesh_part): each
+//   lane walks the boxes for its own ray, and the lanes that reach the
+//   traversal together (__activemask(): a dead ray has left the bounce
+//   loop, and only diffuse hits cast a shadow ray) scan each chunk that one
+//   of them enters together. Given a work array, the same code also counts
+//   its casts, box tests, triangle tests, chunk scans and the lanes that
+//   ran them into it (MESH_COUNT: a separate instantiation, so the
+//   uncounted kernel carries no counter). On the card the packed triangle
+//   rows always live in device memory, so the TPU kernel's HBM-streaming
+//   mode (megakernel.py:849-853, stream_tris) has the same contract here
+//   and is covered by this mode;
 // - taped="full" (megakernel_fwd_taped, scenes without mesh parts): each
 //   bounce's input carry is also written to the tape that
 //   megakernel_bwd_tape.cu reads (bounce.cuh tape_write), the layout
 //   megakernel_bwd.cu's replay writes, rows after the ray died included;
-//   in the mesh mode when the scene has triangle rows;
+//   triangle rows scanned as the mesh mode scans them (the MESH_ROWS
+//   build, which walks no part) when the scene has some;
 // - taped=True (megakernel_fwd_winners, plain or mesh mode): each bounce's
 //   closest-hit winner and the shadow winner of the light its NEE picked,
 //   the tape of the guided replay (tracer/replay.py). They are what
@@ -39,10 +44,12 @@
 // spectrum words per bounce, and writes 4: a few hundred bytes against
 // thousands of flops per bounce. The taped mode adds 96 B per bounce row
 // per ray of writes (864 B per ray at depth 8); the winner tape 4 B per
-// bounce row and light. The mesh mode adds the
-// traversal: dependent reads of boxes and triangle rows from device memory
-// (L2-resident at 81,920 triangles, 5.2 MB of rows), divergent across the
-// warp, and one watertight test per triangle of each entered chunk.
+// bounce row and light. The mesh mode adds the traversal: dependent reads
+// of boxes from device memory, divergent across the warp, and the chunk
+// scans, one plane test per triangle of each entered chunk and a
+// watertight test for each plane hit in front of the running best, on
+// triangle rows (L2-resident at 81,920 triangles, 5.2 MB) that the lanes
+// of a warp read together, 2 KB at a time.
 //
 // What the design does about it:
 // - The carry stays in registers for the whole path; nothing round-trips
@@ -60,6 +67,10 @@
 //   shared memory once per block, with the per-patch plane constants
 //   precomputed there in the reference's op order. One build serves every
 //   non-mesh scene up to MAX_PRIMS primitives and MAX_LIGHTS lights.
+// - The mesh traversal keeps the lanes of a warp together where the rays
+//   diverge most: each lane's box walk stops at every chunk it enters, and
+//   the lanes scan the entered chunks side by side, instead of each lane
+//   looping alone over its own 128 triangles while the others wait.
 //
 // Numerics: built with --fmad=false (no contraction of a*b+c into an FMA)
 // and IEEE division and square root, so every operation rounds as the plain
@@ -152,9 +163,10 @@ int check_args(int n_prims, int n_lights, int n_spectra, long long n_rays,
 // device pointers; part_info: per part (n_nodes, n_real_chunks), host
 // arrays. meta holds n_prims slot rows, then n_parts part rows. With no
 // part and no category-2 row, the plain-mode kernel runs. work, null or
-// (in mesh mode) 4 zeroed counters, receives the counted mesh mode's
-// casts, box tests, triangle plane tests and triangle inside tests.
-// Returns the CUDA error code of the launch (0 on success).
+// (in mesh mode) WORK_KINDS zeroed counters, receives the counted mesh
+// mode's casts, box tests, triangle plane tests, triangle inside tests,
+// chunk scans, the lanes that ran them and the inside tests those scans
+// need. Returns the CUDA error code of the launch (0 on success).
 extern "C" int megakernel_fwd(const float* prims, const int* meta, int n_prims,
                               const int* lights, int n_lights,
                               const float* rays, const int* seeds,
@@ -176,8 +188,13 @@ extern "C" int megakernel_fwd(const float* prims, const int* meta, int n_prims,
     megakernel_fwd_kernel<MESH_COUNT, TAPE_NONE><<<blocks, THREADS, 0, st>>>(
         prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
         out, nullptr, nullptr, nullptr, n_rays, max_depth, rr_start, mp, work);
-  else if (mesh_mode)
+  else if (n_parts > 0)
     megakernel_fwd_kernel<MESH_WALK, TAPE_NONE><<<blocks, THREADS, 0, st>>>(
+        prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
+        out, nullptr, nullptr, nullptr, n_rays, max_depth, rr_start, mp,
+        nullptr);
+  else if (mesh_mode)  // triangle rows only: no part to walk
+    megakernel_fwd_kernel<MESH_ROWS, TAPE_NONE><<<blocks, THREADS, 0, st>>>(
         prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
         out, nullptr, nullptr, nullptr, n_rays, max_depth, rr_start, mp,
         nullptr);
@@ -207,7 +224,7 @@ extern "C" int megakernel_fwd_taped(const float* prims, const int* meta,
   const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
   cudaStream_t st = (cudaStream_t)stream;
   if (mesh_mode)
-    megakernel_fwd_kernel<MESH_WALK, TAPE_FULL><<<blocks, THREADS, 0, st>>>(
+    megakernel_fwd_kernel<MESH_ROWS, TAPE_FULL><<<blocks, THREADS, 0, st>>>(
         prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
         out, tape_f, tape_i, nullptr, n_rays, max_depth, rr_start, mp,
         nullptr);

@@ -98,8 +98,8 @@ int launch(const float* pair_f, const int* pair_i, const float* tri,
 // pair_f (7, n_pairs) f32 [o, d, unused]; pair_i (2, n_pairs) i32 [chunk
 // (-1 dead), exclude]; tri (n_chunks * 16, 128) f32, the part's triangle
 // rows -> out_f (4, n_pairs) f32 [t, n.xyz], out_i (1, n_pairs) i32 [idx].
-// work, null or 4 zeroed counters, receives the counting build's live
-// pairs, plane tests and inside tests (columns 0, 2 and 3). Returns the
+// work, null or WORK_KINDS zeroed counters, receives the counting build's
+// live pairs, plane tests and inside tests (columns 0, 2 and 3). Returns the
 // CUDA error code of the launch (0 on success).
 extern "C" int pair_closest(const float* pair_f, const int* pair_i,
                             const float* tri, float* out_f, int* out_i,

@@ -545,7 +545,7 @@ __device__ __forceinline__ void add_contrib(float* __restrict__ acc,
 // [0, n_live), warp-uniform so that the warp can add its d_prims
 // contributions in lane order into its table acc. Writes d_rays; d_spect's
 // column must be zero on entry. Every thread of the warp must call it.
-// MESH: the scan mode of the recompute, MESH_WALK for a scene with
+// MESH: the scan mode of the recompute, MESH_ROWS for a scene with
 // triangle rows (no mesh part reaches a backward kernel), so that it scans
 // them as the forward did.
 template <int MESH>

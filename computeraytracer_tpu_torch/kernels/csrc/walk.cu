@@ -8,17 +8,22 @@
 // pair kernels leave unresolved, seeded with their binned winner (closest
 // hit) or empty (any hit): compacted into a tier, or over the whole film.
 //
-// One thread walks one ray through bounce.cuh scan_mesh_part, the code of
-// the mesh forward's in-kernel scan, so a walk from an empty seed finds the
-// winner the mesh forward finds. The TPU kernel walks the tree once per ray
-// tile (a box is entered when any ray of the tile can hit it); here each
-// thread walks it for its own ray, which changes no winner (the boxes are
-// conservative and the tie rule does not depend on the test order).
+// One thread walks one ray's boxes through bounce.cuh scan_mesh_part, the
+// code of the mesh forward's in-kernel scan, so a walk from an empty seed
+// finds the winner the mesh forward finds. The TPU kernel walks the tree
+// once per ray tile (a box is entered when any ray of the tile can hit it)
+// and broadcasts each triangle to the tile's lanes; here each thread walks
+// the boxes for its own ray, and the 32 lanes of a warp scan every chunk
+// that one of them enters together, four triangles each, which changes no
+// winner (the boxes are conservative and the tie rule does not depend on
+// the test order). Every lane of a warp, a tail lane beyond the last ray
+// or an inactive one included, stays to the end of the traversal and helps
+// scan: the collectives run under the full mask.
 //
 // Seeds:
 // - t = -inf marks an inactive lane (binned.py:866, walk_compact): the
-//   thread writes its seed back and exits at once, so a launch over every
-//   lane of a film costs nothing for the dead ones and needs no compaction
+//   thread walks nothing and writes its seed back, so a launch over every
+//   lane of a film costs the dead ones no box test and needs no compaction
 //   or host-side count. (The JAX walk_full fallback, binned.py:803-817,
 //   seeds inactive rays with their stale winner and can return real hits
 //   there; this kernel does not.)
@@ -26,11 +31,13 @@
 //   can be taken (a tie at the bound is taken, since every id exceeds -1),
 //   and boxes entered beyond it are culled.
 //
-// What bounds it: the dependent, divergent reads of node boxes, chunk boxes
-// and triangle rows (L2-resident at 81,920 triangles) and one watertight
-// test per triangle plane hit in front of the running best, as in the mesh
-// forward. Given a work array, a separate instantiation (MESH_COUNT's
-// counters) also counts its casts, box tests and triangle tests.
+// What bounds it: the dependent, divergent reads of node and chunk boxes
+// of each lane's own walk (L2-resident at 81,920 triangles), and the chunk
+// scans: one watertight test per triangle plane hit in front of the
+// running best, on rows that a warp reads 2 KB at a time. Given a work
+// array, a separate instantiation (MESH_COUNT's counters) also counts its
+// casts, box tests, triangle tests, chunk scans and the lanes that ran
+// them.
 //
 // Numerics: --fmad=false, as every kernel of the port.
 
@@ -50,22 +57,31 @@ __global__ void __launch_bounds__(THREADS)
                 unsigned long long* __restrict__ work) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (COUNT) work_clear();
-  if (r < R) {
-    Hit h;
-    h.t = seed_f[r];
+  const bool in = r < R;
+  Hit h;
+  h.t = in ? seed_f[r] : -INFINITY;
+  h.nrm = {0.0f, 0.0f, 0.0f};
+  h.idx = -1;
+  h.slot = -1;
+  h.pos = {0.0f, 0.0f, 0.0f};
+  const bool walking = h.t > -INFINITY;
+  V3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
+  int exclude = -1;
+  if (in) {
     h.nrm = {seed_f[R + r], seed_f[2 * R + r], seed_f[3 * R + r]};
     h.idx = seed_i[r];
-    h.slot = -1;
-    h.pos = {0.0f, 0.0f, 0.0f};
-    if (h.t > -INFINITY) {
-      if (COUNT) ++mesh_work[W_CAST][threadIdx.x];
-      const V3 o = {rays[r], rays[R + r], rays[2 * R + r]};
-      const V3 d = {rays[3 * R + r], rays[4 * R + r], rays[5 * R + r]};
-      const int exclude = seed_i[R + r];
-      const Watertight wt = watertight_setup(o, d);
-      for (int pi = 0; pi < mp.n; ++pi)
-        scan_mesh_part<COUNT>(mp.part[pi], pi, o, d, exclude, wt, h);
-    }
+  }
+  if (walking) {
+    if (COUNT) ++mesh_work[W_CAST][threadIdx.x];
+    o = {rays[r], rays[R + r], rays[2 * R + r]};
+    d = {rays[3 * R + r], rays[4 * R + r], rays[5 * R + r]};
+    exclude = seed_i[R + r];
+  }
+  const Watertight wt = watertight_setup(o, d);
+  for (int pi = 0; pi < mp.n; ++pi)
+    scan_mesh_part<COUNT>(mp.part[pi], pi, o, d, exclude, wt, h, walking,
+                          0xFFFFFFFFu);
+  if (in) {
     out_f[r] = h.t;
     out_f[R + r] = h.nrm.x;
     out_f[2 * R + r] = h.nrm.y;
@@ -80,9 +96,10 @@ __global__ void __launch_bounds__(THREADS)
 // rays (6, n_rays) f32 [o, d]; seed_f (4, n_rays) f32 [t, n.xyz]; seed_i
 // (2, n_rays) i32 [idx, exclude] -> out_f (4, n_rays) f32 [t, n.xyz],
 // out_i (1, n_rays) i32 [idx]. part_ptrs, part_info: megakernel_fwd's. work,
-// null or 4 zeroed counters, receives the counting build's casts, box
-// tests, triangle plane tests and triangle inside tests. Returns the CUDA
-// error code of the launch (0 on success).
+// null or WORK_KINDS zeroed counters, receives the counting build's casts,
+// box tests, triangle plane tests, triangle inside tests, chunk scans, the
+// lanes that ran them and the inside tests those scans need. Returns the
+// CUDA error code of the launch (0 on success).
 extern "C" int walk(const float* rays, const float* seed_f, const int* seed_i,
                     float* out_f, int* out_i, long long n_rays, int n_parts,
                     const long long* part_ptrs, const int* part_info,

@@ -78,6 +78,12 @@ from computeraytracer_tpu_torch.ops.camera import sqrt
 T_MIN = 0.001
 ETA1, ETA2 = 1.0, 1.5
 ARRAYS_PER_PART = 4  # tri_rows, chunk_bbox, node_bbox, node_meta
+# Work counters of every counting build (csrc/bounce.cuh W_*): casts, box
+# tests, triangle plane tests, triangle inside tests and, where a build
+# traverses mesh parts (the mesh forward and the walk), its chunk scans,
+# the lanes that ran them and the inside tests that any order of those
+# scans needs; zero elsewhere.
+WORK_KINDS = 7
 
 # Bounds of the CUDA kernels' shared-memory tables (csrc/bounce.cuh): the
 # unrolled rows, lights and mesh parts.
@@ -937,18 +943,19 @@ def forward(static: SceneStatic, max_depth: int, rr_start: int,
     CPU tensors run ``forward_reference``. CUDA tensors launch the CUDA
     kernel, built from csrc/megakernel_fwd.cu at first use, in its mesh
     mode when the scene has mesh parts or triangle rows; a failed build or
-    launch raises. ``work``, a (4,) int64 CUDA tensor, makes the mesh mode
-    add its work to it: casts (closest-hit and shadow scans), box tests,
-    triangle plane tests and triangle inside tests. It selects a build of
-    the same code that also counts, for a kernel's operation count; the
-    plain version counts nothing."""
+    launch raises. ``work``, a (WORK_KINDS,) int64 CUDA tensor, makes the
+    mesh mode add its work to it: casts (closest-hit and shadow scans),
+    box tests, triangle plane tests, triangle inside tests, chunk scans,
+    the lanes that ran them (the warp's lanes scan an entered chunk
+    together) and the inside tests those scans need. It selects a build of the same code that also counts, for a
+    kernel's operation count; the plain version counts nothing."""
     global launches, launches_mesh
     _check(static, prims, rays, seeds, spect, mesh_arrays)
     dev = rays.device
     if work is not None:
         if not static.mesh_mode:
             raise ValueError("work counts are taken in the mesh mode only")
-        _check_tensor("work", work, (4,), torch.int64, dev)
+        _check_tensor("work", work, (WORK_KINDS,), torch.int64, dev)
     if dev.type == "cpu":
         if work is not None:
             raise ValueError("work counts are taken on the card: the plain "

@@ -2,7 +2,9 @@
 computeraytracer_tpu/scene/presets.py).
 
 The builders are the JAX package's, line for line, so both packages
-load identical scenes.
+load identical scenes. ``tie_mesh_scene`` and ``tie_mesh_rays`` are the
+port's own: a scene of exact ties under the mesh tie rule, and rays that
+meet them, for the tests of the mesh traversal.
 """
 
 from __future__ import annotations
@@ -180,6 +182,91 @@ def mesh_scene(width: int = 1024, height: int = 1024,
         "emission": "dark", "reflectance": "white", "type": "diffuse",
     }]
     return doc
+
+
+TIE_LAYOUTS = ("edges", "packed", "split")
+TIE_GRID = (20, 118, 90, 400)  # cell size, x and y of the first vertex, z
+TIE_CELLS = 16  # cells along each side of the grid
+
+
+def tie_mesh_scene(width: int = 256, height: int = 256,
+                   layout: str = "split") -> dict:
+    """Cornell walls and light plus a scene of exact ties for the mesh tie
+    rule (t < best, or t == best and the higher id): a flat grid of 16 x
+    16 squares, two triangles each, facing the camera in the plane
+    z = 400, 20 units a cell, every vertex coordinate an integer. A ray
+    along z meets every triangle of the grid at the same exact t, and one
+    through a shared edge or vertex is inside every triangle there.
+
+    layout:
+    - "edges": each triangle once; ties only on shared edges and vertices;
+    - "packed": each triangle twice in a row, under two ids (exact
+      duplicates); the pairs start at even slots of the Morton order, so
+      each pair lies in one chunk of 128;
+    - "split": as "packed" with the first triangle three times, so that
+      the pairs after it start at odd slots and every chunk boundary among
+      them falls inside a pair: its two triangles lie in two chunks.
+    """
+    if layout not in TIE_LAYOUTS:
+        raise ValueError(f"layout must be one of {TIE_LAYOUTS}, not "
+                         f"{layout!r}")
+    doc = cornell_box(width, height)
+    doc["objects"]["spheres"] = []
+    doc["objects"]["patches"] = doc["objects"]["patches"][:6]
+    step, x0, y0, z = TIE_GRID
+    n = TIE_CELLS
+    verts = [[x0 + step * i, y0 + step * j, z]
+             for j in range(n + 1) for i in range(n + 1)]
+    faces = []
+    for j in range(n):
+        for i in range(n):
+            v = j * (n + 1) + i
+            w = v + n + 1
+            faces += [[v, v + 1, w + 1], [v, w + 1, w]]
+    if layout != "edges":
+        faces = [f for f in faces for _ in range(2)]
+    if layout == "split":
+        faces.insert(0, faces[0])
+    doc["objects"]["meshes"] = [{
+        "vertices": verts, "faces": faces,
+        "emission": "dark", "reflectance": "white", "type": "diffuse",
+    }]
+    return doc
+
+
+def tie_mesh_rays(n: int, seed: int = 0) -> np.ndarray:
+    """(6, n) f32 rays [o, d] at tie_mesh_scene's grid, lane i of kind
+    i % 8: along +z from z = 0 through a cell's interior (0), the middle
+    of a horizontal (1), vertical (2) or diagonal (3) edge, or a vertex
+    (4), each met at t = 400 exactly; along -z from z = 800 through an
+    edge or vertex (5); from the camera's eye towards a point inside a
+    cell, off its edges (7 and 4 units into the cell) (6); and from a
+    random point in the box in a random direction (7). Cells and points
+    are drawn from ``seed``. An oblique ray aims off the edges because
+    there the inside test holds only under separately rounded products,
+    which XLA on the CPU does not keep (it fuses them into FMAs)."""
+    step, x0, y0, z = TIE_GRID
+    g = np.random.default_rng(seed)
+    a = g.integers(0, TIE_CELLS, n)
+    b = g.integers(0, TIE_CELLS, n)
+    kind = np.arange(n) % 8
+    off = np.array([[5, 13], [10, 0], [0, 10], [10, 10], [0, 0]])
+    pick = np.where(kind < 5, kind, g.integers(1, 5, n))
+    px = x0 + step * a + off[pick, 0]
+    py = y0 + step * b + off[pick, 1]
+    o = np.stack([px, py, np.where(kind == 5, 2 * z, 0)]).astype(np.float64)
+    d = np.zeros((3, n))
+    d[2] = np.where(kind == 5, -1.0, 1.0)
+    eye = np.array([278.0, 273.0, -800.0])[:, None]
+    cam = kind == 6
+    o[:, cam] = eye
+    d[:, cam] = np.stack([x0 + step * a + 7, y0 + step * b + 4,
+                          np.full(n, z)])[:, cam] - eye
+    rnd = kind == 7
+    o[:, rnd] = g.uniform([0, 0, 0], [556, 548, 559], (n, 3)).T[:, rnd]
+    d[:, rnd] = g.standard_normal((3, n))[:, rnd]
+    d /= np.linalg.norm(d, axis=0)
+    return np.concatenate([o, d]).astype(np.float32)
 
 
 def cornell_box_glassless(width: int = 512, height: int = 512) -> dict:

@@ -1,42 +1,85 @@
 #!/usr/bin/env python3
-"""Time the Cornell-box kernels of one checkout of the port on a CUDA card.
+"""Time the kernels of one checkout of the port on a CUDA card.
 
     python3 scripts/kernel_times.py [ROOT]
 
 ROOT (default: the checkout holding this script) is the root of a
 checkout of the repository; its package is imported and its kernels are
-built from its own sources. The script prints the card's name and power
-limit, each kernel's registers and spills from ``-Xptxas -v``, and one
-JSON line with the CUDA-event times (ms per sample, the mean of 10
-launches after a warm-up) of the forward, the taped forward, the retrace
-backward and the tape-fed backward at Cornell 1024^2, depth 8, sample 1:
-the shape of ``chip_smoke.py``'s phases 5, 8 and 10. Compare two
-checkouts in turns within one call (parent, change, change, parent):
-times taken on different cards or calls differ by a few percent.
+built from its own sources. The workloads, the timer (CUDA events, the
+mean of a few calls after a warm-up) and the recorders of the wavefront's
+launches and casts are those of ``chip_smoke.py`` beside this script, run
+on ROOT's package. The script prints the card's name and power limit,
+each kernel's name, registers and spills from ``-Xptxas -v``, and one
+JSON line of times in ms:
+- ``cornell``: the forward, taped forward, retrace backward and tape-fed
+  backward per sample at Cornell 1024^2, depth 8 (phases 5, 8 and 10);
+- ``tri_rows``: the same four at ``mesh_scene(1024, 1024, 1)``, 80
+  triangle rows, depth 3 (phase 12);
+- ``mesh``: at ``mesh_scene(1024, 1024, 6)``, 81,920 triangles in one
+  mesh part, depth 3 (phases 11, 13, 17 and 19): the mesh-mode forward
+  and the winner-taped forward per sample, one ``wavefront=True`` sample
+  (host reads included), every launch of that sample's wavefront kernels
+  in launch order (``shade``, ``candidates``, ``pair_closest``,
+  ``pair_any``, ``walk``, with the walks' active rays), and each of its
+  casts walked whole as phase 19 seeds it (``walk_casts``).
+Compare two checkouts in turns within one call (parent, change, change,
+parent): times taken on different cards or calls differ by a few percent.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import math
 import pathlib
 import subprocess
 import sys
 
-WIDTH = HEIGHT = 1024
-MAX_DEPTH = 8
-REPS = 10
+HERE = pathlib.Path(__file__).resolve().parents[1]
+REPS = {"cornell": 10, "tri_rows": 10, "mesh": 3}
+
+
+def _chip_smoke():
+    """chip_smoke.py beside this script, importing ROOT's package."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _four_kernels(cs, static, depth, args, seed):
+    """The forward, taped forward and both backward kernels on args."""
+    mk, torch = cs.mk, cs.torch
+    R = args[1].shape[1]
+    dL = torch.randn((4, R), generator=torch.Generator(device=args[1].device)
+                     .manual_seed(seed), device=args[1].device)
+    _, tape_f, tape_i = mk.forward_taped(static, depth, cs.RR_START, *args)
+    return {
+        "forward": lambda: mk.forward(static, depth, cs.RR_START, *args),
+        "forward_taped": lambda: mk.forward_taped(static, depth, cs.RR_START,
+                                                  *args),
+        "backward": lambda: mk.backward(static, depth, cs.RR_START, *args,
+                                        dL),
+        "backward_from_tape": lambda: mk.backward_from_tape(
+            static, depth, cs.RR_START, args[0], args[3], tape_f, tape_i,
+            dL),
+    }
+
+
+def _film(cs, scene, static, dev):
+    kt = cs.kt
+    px, py = kt.tile_coords(cs.WIDTH, cs.HEIGHT, 0, dev)
+    return kt.kernel_inputs(scene, *kt.camera_planes(
+        scene, cs.WIDTH, cs.HEIGHT, px, py, 1), static)
 
 
 def main() -> int:
-    root = pathlib.Path(sys.argv[1] if len(sys.argv) > 1
-                        else pathlib.Path(__file__).resolve().parents[1])
+    root = pathlib.Path(sys.argv[1] if len(sys.argv) > 1 else HERE)
     sys.path.insert(0, str(root.resolve()))
-    import torch
-
-    from computeraytracer_tpu_torch.kernels import _build
-    from computeraytracer_tpu_torch.kernels import megakernel as mk
-    from computeraytracer_tpu_torch.scene import presets, scene_from_dict
-    from computeraytracer_tpu_torch.tracer import kernel as kt
+    cs = _chip_smoke()
+    torch, mk, bn, kt = cs.torch, cs.mk, cs.bn, cs.kt
+    presets, scene_from_dict = cs.presets, cs.scene_from_dict
 
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_times.py needs a CUDA device")
@@ -44,41 +87,66 @@ def main() -> int:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True,
                          timeout=60).stdout.strip())
-    _build.build_all()
-    for src, log in _build.build_log.items():
+    cs._build.build_all()
+    for src, log in cs._build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 print(f"ptxas[{src}]: {line.strip()}")
     dev = torch.device("cuda", 0)
-    scene, _ = scene_from_dict(presets.cornell_box(WIDTH, HEIGHT), device=dev)
-    static = mk.SceneStatic.from_scene(scene)
-    px, py = kt.tile_coords(WIDTH, HEIGHT, 0, dev)
-    args = kt.kernel_inputs(scene, *kt.camera_planes(scene, WIDTH, HEIGHT,
-                                                     px, py, 1))
-    R = args[1].shape[1]
-    dL = torch.randn((4, R), generator=torch.Generator(device=dev)
-                     .manual_seed(0), device=dev)
-    _, tape_f, tape_i = mk.forward_taped(static, MAX_DEPTH, 1, *args)
-    calls = {
-        "forward": lambda: mk.forward(static, MAX_DEPTH, 1, *args),
-        "forward_taped": lambda: mk.forward_taped(static, MAX_DEPTH, 1,
-                                                  *args),
-        "backward": lambda: mk.backward(static, MAX_DEPTH, 1, *args, dL),
-        "backward_from_tape": lambda: mk.backward_from_tape(
-            static, MAX_DEPTH, 1, args[0], args[3], tape_f, tape_i, dL),
-    }
+    timed = lambda fns, reps: {k: cs._events_ms(fn, reps)
+                               for k, fn in fns.items()}
     ms = {}
-    for name, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(REPS):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        ms[name] = start.elapsed_time(stop) / REPS
+
+    scene, _ = scene_from_dict(presets.cornell_box(cs.WIDTH, cs.HEIGHT),
+                               device=dev)
+    static = mk.SceneStatic.from_scene(scene)
+    args = _film(cs, scene, static, dev)
+    ms["cornell"] = timed(_four_kernels(cs, static, cs.MAX_DEPTH, args, 0),
+                          REPS["cornell"])
+
+    scene, _ = scene_from_dict(presets.mesh_scene(cs.WIDTH, cs.HEIGHT,
+                                                  cs.TRI_SUBDIVISIONS),
+                               device=dev)
+    static = mk.SceneStatic.from_scene(scene)
+    args = _film(cs, scene, static, dev)
+    ms["tri_rows"] = timed(_four_kernels(cs, static, cs.MESH_DEPTH, args, 1),
+                           REPS["tri_rows"])
+
+    scene, _ = scene_from_dict(presets.mesh_scene(cs.WIDTH, cs.HEIGHT,
+                                                  cs.MESH_SUBDIVISIONS),
+                               device=dev)
+    static = mk.SceneStatic.from_scene(scene)
+    arrays = tuple(a for p in kt.mesh_packs_for(scene, static)
+                   for a in p.arrays)
+    args = _film(cs, scene, static, dev)
+    reps = REPS["mesh"]
+    mesh = timed({
+        "mesh": lambda: mk.forward(static, cs.MESH_DEPTH, cs.RR_START, *args,
+                                   *arrays),
+        "winners": lambda: mk.forward_winners(static, cs.MESH_DEPTH,
+                                              cs.RR_START, *args, *arrays),
+        "wavefront": lambda: kt.wavefront_forward(
+            static, cs.MESH_DEPTH, cs.RR_START, *args, *arrays),
+    }, reps)
+    rad, calls = cs._recorded_wavefront(static, args, arrays)
+    if not torch.equal(rad, mk.forward(static, cs.MESH_DEPTH, cs.RR_START,
+                                       *args, *arrays)):
+        raise RuntimeError("the wavefront's radiance is not the mesh "
+                           "kernel's")
+    for kind, (mod, attr, _) in cs.WAVEFRONT_KERNELS.items():
+        mesh[kind] = [cs._events_ms(lambda: getattr(mod, attr)(*a, **k),
+                                    reps)
+                      for c, a, k, _ in calls if c == kind]
+    mesh["walk_rays"] = [int((a[2][0] > -math.inf).sum())
+                         for c, a, _, _ in calls if c == "walk"]
+    mesh["walk_casts"] = [
+        cs._events_ms(lambda c=c: cs._walk_seeded(static, arrays, *c[1:]),
+                      reps)
+        for c in cs._recorded_casts(static, args, arrays)]
+    for key in ("walk", "walk_casts"):
+        mesh[key + "_sum"] = sum(mesh[key])
+    ms["mesh"] = mesh
     print(json.dumps({"root": str(root), "device":
                       torch.cuda.get_device_name(0), "ms": ms}))
     return 0

@@ -377,4 +377,4 @@ def test_binned_wrappers_check(blob, bad):
             bn.pair_occluded(pair_f, pair_i, tri[:-1])
         else:
             bn.pair_intersect(pair_f, pair_i, tri,
-                              work=torch.zeros(4, dtype=torch.int64))
+                              work=torch.zeros(mk.WORK_KINDS, dtype=torch.int64))

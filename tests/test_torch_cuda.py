@@ -11,7 +11,9 @@ both backward kernels on a scene with triangle rows, and the gradient of
 a mesh render through the guided replay against the CPU's; the wavefront's
 shade step, walk, candidate and pair kernels against their plain versions,
 the binned casts against the walk, and the wavefront against the mesh
-kernel.
+kernel; the walk with ragged and idle warps, and the walk and the mesh
+forwards on a scene of exact ties (presets.tie_mesh_scene), where the
+lanes of a warp scan each chunk together.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -346,15 +348,21 @@ def test_mesh_kernel_counting_build(cuda):
     args = kt.kernel_inputs(scene, o, d, hero, seed, static)
     arrays = [a for p in kt.mesh_packs_for(scene, static) for a in p.arrays]
     want = mk.forward(static, 3, 1, *args, *arrays)
-    work = torch.zeros(4, dtype=torch.int64, device=cuda)
+    work = torch.zeros(mk.WORK_KINDS, dtype=torch.int64, device=cuda)
     got = mk.forward(static, 3, 1, *args, *arrays, work=work)
     assert torch.equal(got, want)
-    casts, boxes, planes, inside = work.tolist()
+    casts, boxes, planes, inside, scans, lanes, needed = counts = \
+        work.tolist()
     assert casts >= 48 * 32          # a closest-hit scan per camera ray
     assert boxes >= casts            # each cast tests the root box
     assert planes > 0 and 0 < inside <= planes
+    # the inside tests any scan order needs are among those the lanes made
+    assert 0 < needed <= inside
+    # every chunk scan ran on 1 to 32 lanes, and tested its triangles once
+    assert 0 < scans <= lanes <= 32 * scans
+    assert planes <= 128 * scans
     mk.forward(static, 3, 1, *args, *arrays, work=work)
-    assert work.tolist() == [2 * casts, 2 * boxes, 2 * planes, 2 * inside]
+    assert work.tolist() == [2 * c for c in counts]
 
 
 def _mesh_case(cuda, subdivisions, mesh_min, w=64, h=48, sample=2):
@@ -514,13 +522,99 @@ def test_walk_kernel_matches_plain_version(cuda):
     assert (hit & (kind == 0)).any() and (hit & (kind == 1)).any()
     short = (kind == 1) & (lane % 2 == 1) & torch.isfinite(t_hit)
     assert short.any() and not (hit & short).any()
-    work = torch.zeros(4, dtype=torch.int64, device=cuda)
+    work = torch.zeros(mk.WORK_KINDS, dtype=torch.int64, device=cuda)
     counted = bn.walk(static, rays, seed_f, seed_i, *arrays, work=work)
     for g, w in zip(counted, got):
         assert torch.equal(g, w)
-    casts, boxes, planes, inside = work.tolist()
+    casts, boxes, planes, inside, scans, lanes, needed = work.tolist()
     assert casts == int((kind != 2).sum())
-    assert boxes >= casts and 0 < inside <= planes
+    assert boxes >= casts and 0 < needed <= inside <= planes
+    # the walk's warps scan every chunk on all 32 lanes
+    assert scans > 0 and lanes == 32 * scans and planes <= 128 * scans
+
+
+def test_walk_kernel_ragged_warps(cuda):
+    """The walk at R = 1,000 (the last warp's last 24 lanes beyond the
+    rays), every third lane inactive (t = -inf): the idle lanes help the
+    others scan their chunks, and the winners are walk_reference's bit for
+    bit."""
+    from computeraytracer_tpu_torch.kernels import binned as bn
+
+    _, static, _, args, arrays = _wavefront_case(cuda)
+    R = 1000
+    rays = args[1][:, 1408:1408 + R].contiguous()  # rows across the blob
+    lane = torch.arange(R, device=cuda)
+    seed_f = torch.zeros((4, R), device=cuda)
+    seed_f[0] = torch.where(lane % 3 == 2, -torch.inf, torch.inf)
+    seed_i = torch.stack([torch.full((R,), -1, device=cuda),
+                          torch.where(lane % 7 == 0,
+                                      static.mesh_parts[0].start + lane,
+                                      -1)]).to(torch.int32)
+    got = bn.walk(static, rays, seed_f, seed_i, *arrays)
+    torch.cuda.synchronize()
+    want = bn.walk_reference(static, rays, seed_f, seed_i, *arrays)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1][0] >= 0).sum() > R // 8
+    assert torch.equal(got[0][:, lane % 3 == 2], seed_f[:, lane % 3 == 2])
+
+
+def _tie_seeds(cuda, static, rays, arrays):
+    """Per lane i of the tie rays: empty, bounded at exactly the grid's t
+    (or short of it on odd lanes), or inactive, by i % 3; every fifth lane
+    excludes the winner of an unseeded walk."""
+    from computeraytracer_tpu_torch.kernels import binned as bn
+
+    R = rays.shape[1]
+    seed_f = torch.zeros((4, R), device=cuda)
+    seed_f[0] = torch.inf
+    seed_i = torch.full((2, R), -1, dtype=torch.int32, device=cuda)
+    first = bn.walk_reference(static, rays, seed_f, seed_i, *arrays)[1][0]
+    lane = torch.arange(R, device=cuda)
+    grid_t = float(presets.TIE_GRID[3])
+    bound = torch.where(rays[3] == 0,
+                        torch.where(lane % 2 == 0, grid_t, grid_t - 0.01),
+                        1e3)
+    seed_f[0] = torch.where(lane % 3 == 0, torch.inf,
+                            torch.where(lane % 3 == 1, bound, -torch.inf))
+    seed_i[1] = torch.where(lane % 5 == 1, first, -1)
+    return seed_f, seed_i
+
+
+@pytest.mark.parametrize("layout", presets.TIE_LAYOUTS)
+def test_tie_mesh_kernels(cuda, layout):
+    """On tie_mesh_scene (exact ties: duplicated triangles, in one chunk or
+    across two, and shared edges and vertices), the walk kernel on
+    tie_mesh_rays and the mesh-mode forward and winner-taped forward on
+    camera rays against their plain versions: the walk's t, normals and idx
+    bit for bit, the winner tapes equal and the radiance bit-equal."""
+    from computeraytracer_tpu_torch.kernels import binned as bn
+
+    scene, _ = scene_from_dict(presets.tie_mesh_scene(64, 48, layout),
+                               device=cuda)
+    static = mk.SceneStatic.from_scene(scene)
+    assert len(static.mesh_parts) == 1
+    arrays = [a for p in kt.mesh_packs_for(scene, static) for a in p.arrays]
+    rays = torch.from_numpy(presets.tie_mesh_rays(1000, seed=2)).to(cuda)
+    seed_f, seed_i = _tie_seeds(cuda, static, rays, arrays)
+    got = bn.walk(static, rays, seed_f, seed_i, *arrays)
+    want = bn.walk_reference(static, rays, seed_f, seed_i, *arrays)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1][0] >= 0).sum() > 200
+
+    px, py = kt.tile_coords(64, 48, 0, cuda)
+    args = kt.kernel_inputs(scene, *kt.camera_planes(scene, 64, 48, px, py,
+                                                     1), static)
+    rad = mk.forward(static, 3, 1, *args, *arrays)
+    win = mk.forward_winners(static, 3, 1, *args, *arrays)
+    torch.cuda.synchronize()
+    want = mk.forward_winners_reference(static, 3, 1, *args, *arrays)
+    assert torch.equal(win[0], rad)
+    assert torch.equal(win[1], want[1]) and torch.equal(win[2], want[2])
+    assert torch.equal(rad, want[0])
+    on_mesh = (win[1] >= static.mesh_parts[0].start).sum()
+    assert on_mesh > 500
 
 
 @pytest.mark.parametrize("lights,scan_in_kernel", [
@@ -673,12 +767,12 @@ def test_candidates_kernel_matches_plain_version(cuda, k):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert (got[0] >= 0).any() and torch.isfinite(got[1]).any()
-    work = torch.zeros(4, dtype=torch.int64, device=cuda)
+    work = torch.zeros(mk.WORK_KINDS, dtype=torch.int64, device=cuda)
     counted = bn.candidates(bbox, rays, bound, k, active, work=work)
     for g, w in zip(counted, got):
         assert torch.equal(g, w)
-    casts, slabs = work.tolist()[:2]
-    assert casts == int(active.sum())
+    casts, slabs, *rest = work.tolist()
+    assert casts == int(active.sum()) and rest == [0] * (mk.WORK_KINDS - 2)
     assert slabs >= casts * -(-n_real // bn.SUP_CHUNKS)
 
 
@@ -717,13 +811,14 @@ def test_pair_kernels_match_plain_version(cuda):
     assert not hit[-4:].any() and not flag[0, -4:].any()
     live = int(((pair_i[0] >= 0) & (pair_i[0] < n_real)).sum())
     for fn, out in ((bn.pair_intersect, got), (bn.pair_occluded, (flag,))):
-        work = torch.zeros(4, dtype=torch.int64, device=cuda)
+        work = torch.zeros(mk.WORK_KINDS, dtype=torch.int64, device=cuda)
         counted = fn(pair_f, pair_i, pack.tri_rows, work=work)
         counted = counted if isinstance(counted, tuple) else (counted,)
         for g, w in zip(counted, out):
             assert torch.equal(g, w)
-        pairs, _, planes, inside = work.tolist()
+        pairs, boxes, planes, inside, *rest = work.tolist()
         assert pairs == live and 0 < inside <= planes <= 128 * live
+        assert boxes == 0 and rest == [0] * (mk.WORK_KINDS - 4)
 
 
 def test_binned_casts_match_walk(cuda):

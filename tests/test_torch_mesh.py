@@ -442,7 +442,7 @@ def test_forward_checks_mesh_arrays(bad):
     work = None
     if bad.startswith("work"):
         # the plain version counts no work, and only the mesh mode counts
-        work = torch.zeros(4, dtype=torch.int64)
+        work = torch.zeros(mk.WORK_KINDS, dtype=torch.int64)
     if bad == "work_without_mesh":
         scene = scene_from_dict(presets.cornell_box(4, 4), device="cpu")[0]
         static = mk.SceneStatic.from_scene(scene)

@@ -428,7 +428,7 @@ def test_wavefront_wrappers_check(case, bad):
         seed_i = torch.full((2, R), -1, dtype=torch.int32)
         kw = {}
         if bad == "walk_work_on_cpu":
-            kw["work"] = torch.zeros(4, dtype=torch.int64)
+            kw["work"] = torch.zeros(mk.WORK_KINDS, dtype=torch.int64)
         elif bad == "walk_no_parts":
             static = dataclasses.replace(static, mesh_parts=())
         else:
