@@ -24,7 +24,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    shape, for a radiance cotangent dL from a fixed seed: d_prims within
    1e-3 of its largest entry; d_rays and d_spect with at least 99.9% of
    rays within rel 1e-3 (denominator floored at 1e-3 of the plane's
-   largest magnitude); all finite.
+   largest magnitude); all finite. Then a scene of 10 spectra (Cornell
+   with four added, two of them read): both backward kernels on a band of
+   131072 rays against backward_reference with the same tolerances, and
+   bit-equal to each other on one tape.
 7. training path: value_and_grad of mean((accum / 4) ** 2) at 1024^2,
    spp 4, depth 8 with respect to spectra and primitives.data1, with both
    launch counters reset just before: exactly 4 forward and 4 backward
@@ -37,7 +40,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    finite losses, the last below the first.
 8. timing: the backward kernel per sample and the plain backward on one
    band (CUDA events, after a warm-up); the fwd+bwd step on the host
-   clock, split into its forward pass, backward pass and Adam step.
+   clock, split into its forward pass, backward pass and Adam step. The
+   retrace kernel's sections from its sweep's timed build (each section's
+   share of the clock64() cycles summed over warps, mk.SWEEP_SECTIONS, and
+   the timed build's ms; its replay is the taped forward's launch, timed
+   in phase 10) and the registers and spills of its builds.
 9. tape-fed backward at the phase-3 shape: the taped forward kernel's
    radiance bit-equal to phase 3's forward kernel; its tape against
    forward_taped_reference (int planes equal, float planes within rel 1e-4
@@ -45,6 +52,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    99.9% of rays; the bit-equal share printed); the tape-fed kernel on
    that tape bit-equal to phase 6's retrace kernel (d_prims, d_rays,
    d_spect) and within phase 6's tolerances of phase 6's plain result.
+   The tape-fed kernel's sections from its timed build, and its builds'
+   registers and spills.
 10. the pallas_taped training path: phase 7's value_and_grad with
    backward="pallas_taped", every counter reset just before: exactly 4
    taped forwards, 4 tape-fed backwards, 0 retrace backwards and 0
@@ -258,6 +267,43 @@ def _plain_render_accum(scene, static, spp, width=None, height=None,
         cie_p = spec.gather_hero(spec.cie_window_exp(scene.cie), hero)
         accum = accum + spec.spectral_to_xyz_p(cie_p, radiance)
     return accum.T.reshape(height, width, 3)
+
+
+def _ptxas(src):
+    """The entry-function, register and spill lines that -Xptxas -v
+    printed for csrc/<src>.cu."""
+    return [line.strip() for line in _build.build_log.get(src, "").splitlines()
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill"))]
+
+
+def _sections(run, reps=3):
+    """run(times) on a backward kernel's timed build: each section's share
+    of the clock64() cycles summed over warps (mk.SWEEP_SECTIONS), the
+    cycles, and the timed build's ms (CUDA events)."""
+    times = torch.zeros(len(mk.SWEEP_SECTIONS), dtype=torch.int64,
+                        device="cuda")
+    run(times)
+    cycles = times.tolist()
+    total = max(sum(cycles), 1)
+    scratch = torch.zeros_like(times)
+    return {"share": {k: c / total for k, c in zip(mk.SWEEP_SECTIONS,
+                                                    cycles)},
+            "cycles": cycles,
+            "timed_ms": _events_ms(lambda: run(scratch), reps)}
+
+
+def _wide_cornell(width, height):
+    """Cornell with four spectra added, two of them read by walls: S = 10,
+    each ray's d_spect column 40 rows."""
+    doc = presets.cornell_box(width, height)
+    doc["spectra"].update({
+        f"pad{i}": {"wavelength": [400, 550, 700],
+                    "value": [0.2 + 0.1 * i, 0.5, 0.6 - 0.1 * i]}
+        for i in range(4)})
+    doc["objects"]["patches"][0]["reflectance"] = "pad0"
+    doc["objects"]["patches"][1]["reflectance"] = "pad1"
+    return doc
 
 
 def _nbytes(*tensors) -> int:
@@ -1453,6 +1499,29 @@ def main() -> int:
           + f"; bit-equal rays {equal:.6f}; max abs err {bwd_abs_err:.3g}")
     if not ok:
         raise RuntimeError("backward kernel disagrees with plain version")
+    wscene, _ = scene_from_dict(_wide_cornell(WIDTH, HEIGHT), device=dev)
+    wstatic = mk.SceneStatic.from_scene(wscene)
+    wargs = kt.kernel_inputs(wscene, *kt.camera_planes(
+        wscene, WIDTH, HEIGHT, px[:BAND], py[:BAND], 1), wstatic)
+    wdL = dL[:, :BAND].contiguous()
+    got_w = mk.backward(wstatic, MAX_DEPTH, RR_START, *wargs, wdL)
+    _, wtf, wti = mk.forward_taped(wstatic, MAX_DEPTH, RR_START, *wargs)
+    got_wt = mk.backward_from_tape(wstatic, MAX_DEPTH, RR_START, wargs[0],
+                                   wargs[3], wtf, wti, wdL)
+    torch.cuda.synchronize()
+    if any(bool((g != w).any()) for g, w in zip(got_wt, got_w)):
+        raise RuntimeError("with 10 spectra, the two backward kernels "
+                           "differ on one tape")
+    ok, report, _, equal_w = _backward_agreement(
+        got_w, mk.backward_reference(wstatic, MAX_DEPTH, RR_START, *wargs,
+                                     wdL))
+    print(f"backward with S = {wstatic.n_spectra} spectra ({BAND} "
+          f"rays): " + report
+          + f"; bit-equal rays {equal_w:.6f}; tape-fed kernel bit-equal")
+    if not ok:
+        raise RuntimeError("backward kernel disagrees with plain version "
+                           "with 10 spectra")
+    del got_w, got_wt, wtf, wti
 
     # 7. the training path at full width
     sp, d1, train_scene = _train_leaves(scene)
@@ -1501,6 +1570,14 @@ def main() -> int:
         static, MAX_DEPTH, RR_START, args[0], *band), 1)
     print(f"backward: kernel {bwd_ms:.4f} ms per sample of {rays} rays; "
           f"plain {plain_bwd_ms:.1f} ms per band of {BAND} rays")
+    bwd_sections = _sections(lambda t: mk.backward(
+        static, MAX_DEPTH, RR_START, *args, dL, times=t))
+    print(f"backward sections (timed build, {bwd_sections['timed_ms']:.4f} "
+          f"ms; the replay is the taped forward's launch): "
+          + json.dumps({k: round(v, 4) for k, v in
+                        bwd_sections["share"].items()}))
+    for line in _ptxas("megakernel_bwd"):
+        print(f"ptxas[megakernel_bwd]: {line}")
     steps = [_host_s(lambda: _vg(_train_leaves(scene)[2], static))[0]
              for _ in range(3)]
     paths = WIDTH * HEIGHT * SPP
@@ -1567,6 +1644,15 @@ def main() -> int:
     if not ok:
         raise RuntimeError("tape-fed kernel disagrees with plain version")
     del want_b, got_tb
+    tape_sections = _sections(lambda t: mk.backward_from_tape(
+        static, MAX_DEPTH, RR_START, args[0], args[3], tape_f, tape_i, dL,
+        times=t))
+    print(f"tape-fed sections (timed build, "
+          f"{tape_sections['timed_ms']:.4f} ms): "
+          + json.dumps({k: round(v, 4) for k, v in
+                        tape_sections["share"].items()}))
+    for line in _ptxas("megakernel_bwd_tape"):
+        print(f"ptxas[megakernel_bwd_tape]: {line}")
 
     # 10. the pallas_taped training path
     sp, d1, train_scene = _train_leaves(scene)
@@ -1832,6 +1918,7 @@ def main() -> int:
         "rays": rays,
         "max_depth": MAX_DEPTH,
         "fwdbwd_mpaths_per_s": [paths / t / 1e6 for t in steps],
+        "sections": bwd_sections,
     }, {
         "name": "megakernel_backward_from_tape",
         "route": "cuda",
@@ -1850,6 +1937,7 @@ def main() -> int:
         "fwdbwd_mpaths_per_s": [paths / t / 1e6 for t in steps_t],
         "peak_gb_per_step": peak["pallas_taped"],
         "tape_bytes_read": tape_read,
+        "sections": tape_sections,
     }, {
         "name": "megakernel_forward_mesh",
         "route": "cuda",

@@ -807,14 +807,21 @@ __device__ __forceinline__ Hit main_hit(const Scene& s, const Trace& tr,
 // mesh mode. With DEFER (the shade step, make_bounce's defer_nee), the
 // closest hit is *given, and NEE writes *dn instead of adding to L: the
 // shadow scan covers only what scan<MESH> covers (the unrolled rows under
-// MESH_ROWS), and the caller tests the mesh parts.
-template <bool REC, int MESH = MESH_NONE, bool DEFER = false>
+// MESH_ROWS), and the caller tests the mesh parts. With TIMED (the timed
+// builds of the backward's reverse sweep only), the clock64() cycles this
+// thread spends in its scans are added to *scan_clk.
+template <bool REC, int MESH = MESH_NONE, bool DEFER = false,
+          bool TIMED = false>
 __device__ __forceinline__ bool bounce(const Scene& s, const Trace& tr,
                                        long long r, int depth, Carry& c,
                                        BounceRec* rec,
                                        const Hit* given = nullptr,
-                                       DeferredNee* dn = nullptr) {
+                                       DeferredNee* dn = nullptr,
+                                       long long* scan_clk = nullptr) {
+  long long t_scan = 0;
+  if constexpr (TIMED) t_scan = clock64();
   const Hit hit = main_hit<MESH, DEFER>(s, tr, c, given);
+  if constexpr (TIMED) *scan_clk += clock64() - t_scan;
   if (REC) {
     rec->hit = hit;
     rec->scatter = false;
@@ -873,7 +880,9 @@ __device__ __forceinline__ bool bounce(const Scene& s, const Trace& tr,
     const int sl = s.light_slot[li];
     const V3 p_l = nee_target(s, li, u_p, v_p);
     const V3 ldir = vnormalize(vsub(p_l, hit.pos));
+    if constexpr (TIMED) t_scan = clock64();
     const Hit sh = scan<MESH>(s, tr.P, hit.pos, ldir, hit.idx);
+    if constexpr (TIMED) *scan_clk += clock64() - t_scan;
     const bool unocc = sh.idx >= 0 && sh.idx == s.light_row[li];
     if (REC) {
       rec->u_p = u_p;

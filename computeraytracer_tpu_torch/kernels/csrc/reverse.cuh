@@ -24,6 +24,18 @@
 // row per block (block_partial), and reduce_partials sums the blocks in a
 // fixed order. Two runs give bit-equal gradients, so a resumed training
 // run repeats bit for bit.
+//
+// The launch is sweep_kernel, one thread per ray. What bounds it on this
+// card: the recompute's scans and the adjoint's divergent per-thread code,
+// at 128 registers and 4 resident blocks per SM; the tape reads, the
+// d_spect traffic and the d_prims fold are small shares of it (the timed
+// build's sections, PERF.md §6). The design holds both builds to 4 blocks
+// per SM: the triangle-row build ran slower at its own budget, which fit
+// 3. Measured against this layout and dropped, each slower at Cornell
+// (PERF.md §6): the rays' spectrum and d_spect columns staged in shared
+// memory, the contributions staged there, a scene table sized by the
+// scene, a fold that groups the lanes by slot, 5 blocks per SM (96
+// registers, spilled) and blocks of 32 or 64 threads.
 
 #pragma once
 
@@ -34,6 +46,72 @@ namespace pathtrace {
 constexpr int WARPS = THREADS / 32;
 constexpr int NC = 9;  // gradient columns a primitive can receive (0..8)
 constexpr unsigned FULL = 0xffffffffu;
+
+// Sections of the sweep's timed build (the TIMED template argument; never
+// launched on the main path), in clock64() cycles summed over warps
+// (kernels/megakernel.py SWEEP_SECTIONS): the tape-row reads, the
+// recompute's scans, the rest of the recompute, the adjoint, the d_spect
+// traffic, the d_prims fold and the rest (the scene load, d_rays, the
+// block's partial row and the wait for the block's slowest warp).
+enum {
+  T_TAPE = 0, T_SCAN = 1, T_RECOMP = 2, T_ADJOINT = 3, T_DSPECT = 4,
+  T_FOLD = 5, T_OTHER = 6, T_KINDS = 7
+};
+
+// A warp's section clock in a timed build. mark(k) adds the cycles since
+// the last mark to section k; every lane calls it, at a point where the
+// warp has converged. Inside code where the lanes diverge, each lane
+// counts its own cycles of a part (the tape read, its scans, its d_spect
+// traffic); move() then moves the warp's largest such count out of the
+// section that received the whole interval. A load's latency falls where
+// its value is first used. With TIMED false, nothing is compiled.
+template <bool TIMED>
+struct SweepClock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void move(int, int, long long) {}
+  __device__ __forceinline__ void flush(unsigned long long*) {}
+};
+
+template <>
+struct SweepClock<true> {
+  long long sec[T_KINDS];
+  long long last;
+  __device__ __forceinline__ void start() {
+    for (int k = 0; k < T_KINDS; ++k) sec[k] = 0;
+    __syncwarp();
+    last = clock64();
+  }
+  __device__ __forceinline__ void mark(int k) {
+    __syncwarp();
+    const long long now = clock64();
+    sec[k] += now - last;
+    last = now;
+  }
+  // Moves the warp's largest lane count `lane` from section `from` to `to`.
+  __device__ __forceinline__ void move(int from, int to, long long lane) {
+    long long w = (long long)__reduce_max_sync(
+        FULL, (unsigned)(lane < 0 ? 0 : (lane > 0xffffffffLL ? 0xffffffffLL
+                                                              : lane)));
+    w = w < sec[from] ? w : sec[from];
+    sec[from] -= w;
+    sec[to] += w;
+  }
+  __device__ __forceinline__ void flush(unsigned long long* times) {
+    if ((threadIdx.x & 31) == 0)
+      for (int k = 0; k < T_KINDS; ++k)
+        atomicAdd(times + k, (unsigned long long)sec[k]);
+  }
+};
+
+// clock64() read after x is available: the timed builds end a load's
+// interval with it, so that the load's latency counts there.
+__device__ __forceinline__ long long clock_after(float x) {
+  long long t;
+  asm volatile("add.f32 %1, %1, 0f00000000;\n\tmov.u64 %0, %%clock64;"
+               : "=l"(t), "+f"(x)::"memory");
+  return t;
+}
 
 __device__ __forceinline__ V3 vzero() { return {0.0f, 0.0f, 0.0f}; }
 __device__ __forceinline__ void vacc(V3& a, V3 b) { a = vadd(a, b); }
@@ -263,18 +341,22 @@ __device__ void reflect_bwd(V3 d, V3 m, V3 g_out, V3& g_d, V3& g_m) {
 // forward recompute recorded; g holds the output carry's cotangent on
 // entry and the input carry's on exit. Primitive cotangents go to cA (the
 // hit) and cB (the NEE light), spectrum cotangents into this ray's column
-// of d_spect. TRI: the scene has triangle rows (hit_bwd).
-template <bool TRI>
+// of d_spect. TRI: the scene has triangle rows (hit_bwd). TIMED: add the
+// cycles of the d_spect updates to *dsp_clk.
+template <bool TRI, bool TIMED>
 __device__ void bounce_bwd(const Scene& s, const Trace& tr, long long r,
                            int depth, const Carry& cin, const BounceRec& rec,
                            Grad& g, Contrib& cA, Contrib& cB,
-                           float* __restrict__ dsp) {
+                           float* __restrict__ dsp, long long* dsp_clk) {
   const Hit& h = rec.hit;
   if (h.idx < 0) return;  // a miss changes no differentiable word
   const int* m = &s.meta[h.slot * META];
   const int mat = m[2];
   auto dspect = [&](int row, int j, float v) {
+    long long t = 0;
+    if constexpr (TIMED) t = clock64();
     dsp[(long long)(row * 4 + j) * tr.R + r] += v;
+    if constexpr (TIMED) *dsp_clk += clock64() - t;
   };
   if (mat != LIGHT && !rec.scatter) return;  // depth == max_depth
   contrib_init(cA, h.slot);
@@ -540,15 +622,14 @@ __device__ __forceinline__ void add_contrib(float* __restrict__ acc,
   for (int k = 0; k < NC; ++k) acc[c.slot * 12 + k] += c.v[k];
 }
 
-
-// Phase B for one thread's ray: the reverse sweep over the tape rows
+// One thread's ray: the reverse sweep over the tape rows
 // [0, n_live), warp-uniform so that the warp can add its d_prims
 // contributions in lane order into its table acc. Writes d_rays; d_spect's
 // column must be zero on entry. Every thread of the warp must call it.
 // MESH: the scan mode of the recompute, MESH_ROWS for a scene with
 // triangle rows (no mesh part reaches a backward kernel), so that it scans
-// them as the forward did.
-template <int MESH>
+// them as the forward did. TIMED: the timed build, clk its clock.
+template <int MESH, bool TIMED>
 __device__ void reverse_sweep(const Scene& s, const Trace& tr, long long r,
                               bool valid, int n_live,
                               const float* __restrict__ tape_f,
@@ -556,7 +637,8 @@ __device__ void reverse_sweep(const Scene& s, const Trace& tr, long long r,
                               const float* __restrict__ dL,
                               float* __restrict__ d_rays,
                               float* __restrict__ d_spect,
-                              float* __restrict__ acc) {
+                              float* __restrict__ acc,
+                              SweepClock<TIMED>& clk) {
   const long long R = tr.R;
   const int lane = threadIdx.x & 31;
   Grad g;
@@ -573,14 +655,32 @@ __device__ void reverse_sweep(const Scene& s, const Trace& tr, long long r,
     Contrib cA, cB;
     cA.slot = -1;
     cB.slot = -1;
+    long long l_tape = 0, l_rec = 0, l_scan = 0, l_dsp = 0;
     if (depth < n_live) {
+      long long t0 = 0;
+      if constexpr (TIMED) t0 = clock64();
       const Carry cin = tape_read(tape_f, tape_i, R, r, depth);
+      if constexpr (TIMED) {
+        const long long t1 = clock_after(cin.o.x + cin.d.x + cin.beta[0] +
+                                         cin.eta_scale +
+                                         (float)cin.seed[0] +
+                                         (float)cin.exclude);
+        l_tape = t1 - t0;
+        t0 = t1;
+      }
       Carry c = cin;
       BounceRec rec;
-      bounce<true, MESH>(s, tr, r, depth, c, &rec);
-      bounce_bwd<MESH != MESH_NONE>(s, tr, r, depth, cin, rec, g, cA, cB,
-                                    d_spect);
+      bounce<true, MESH, false, TIMED>(s, tr, r, depth, c, &rec, nullptr,
+                                       nullptr, &l_scan);
+      if constexpr (TIMED) l_rec = clock64() - t0;
+      bounce_bwd<MESH != MESH_NONE, TIMED>(s, tr, r, depth, cin, rec, g, cA,
+                                           cB, d_spect, &l_dsp);
     }
+    clk.mark(T_ADJOINT);
+    clk.move(T_ADJOINT, T_TAPE, l_tape);
+    clk.move(T_ADJOINT, T_RECOMP, l_rec);
+    clk.move(T_RECOMP, T_SCAN, l_scan);
+    clk.move(T_ADJOINT, T_DSPECT, l_dsp);
     unsigned pending = __ballot_sync(FULL, cA.slot >= 0 || cB.slot >= 0);
     while (pending) {
       const int l = __ffs(pending) - 1;
@@ -591,6 +691,7 @@ __device__ void reverse_sweep(const Scene& s, const Trace& tr, long long r,
       __syncwarp();
       pending &= pending - 1;
     }
+    clk.mark(T_FOLD);
   }
   if (valid) {
     d_rays[0 * R + r] = g.o.x;
@@ -641,6 +742,109 @@ inline int finish_d_prims(const float* partial, unsigned blocks, int n_prims,
   reduce_partials<<<n_prims * 12, RED_THREADS, 0, st>>>(partial, (int)blocks,
                                                         n_prims * 12, d_prims);
   return (int)cudaGetLastError();
+}
+
+// The reverse sweep over a tape (build_backward_from_tape): one thread per
+// ray. Its live depth is the number of leading tape rows whose active word
+// is set. The tape-fed kernel (megakernel_bwd_tape.cu) is this launch; the
+// retrace kernel (megakernel_bwd.cu) is the taped forward's launch, then
+// this one. partial: (gridDim.x, P * 12) scratch for block_partial.
+// TIMED: the timed build, which adds each section's cycles to times.
+template <int MESH, bool TIMED>
+__global__ void __launch_bounds__(THREADS, 4)
+    sweep_kernel(const float* __restrict__ prims, const int* __restrict__ meta,
+                 int P, const int* __restrict__ lights, int n_lights,
+                 const float* __restrict__ spect, int S,
+                 const float* __restrict__ tape_f,
+                 const int* __restrict__ tape_i, const float* __restrict__ dL,
+                 float* __restrict__ partial, float* __restrict__ d_rays,
+                 float* __restrict__ d_spect, long long R, int max_depth,
+                 int rr_start, unsigned long long* __restrict__ times) {
+  SweepClock<TIMED> clk;
+  clk.start();
+  __shared__ Scene s;
+  extern __shared__ float acc_all[];  // [WARPS][P * 12]
+  const int P12 = P * 12;
+  for (int i = threadIdx.x; i < WARPS * P12; i += blockDim.x) acc_all[i] = 0.0f;
+  load_scene(s, prims, meta, P, lights, n_lights);
+
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = r < R;
+  const Trace tr = {P, n_lights, S, spect, R, max_depth, rr_start};
+
+  clk.mark(T_OTHER);
+  int n_live = 0;
+  long long l_zero = 0;
+  if (valid) {
+    while (n_live <= max_depth &&
+           tape_i[((long long)n_live * TAPE_I + 7) * R + r] != 0)
+      ++n_live;
+    long long t0 = 0;
+    if constexpr (TIMED) t0 = clock64();
+    for (int k = 0; k < S * 4; ++k) d_spect[(long long)k * R + r] = 0.0f;
+    if constexpr (TIMED) l_zero = clock64() - t0;
+  }
+  clk.mark(T_TAPE);
+  clk.move(T_TAPE, T_DSPECT, l_zero);
+  reverse_sweep<MESH, TIMED>(s, tr, r, valid, n_live, tape_f, tape_i, dL,
+                             d_rays, d_spect,
+                             acc_all + (threadIdx.x >> 5) * P12, clk);
+  block_partial(acc_all, P12, partial);
+  clk.mark(T_OTHER);
+  clk.flush(times);
+}
+
+// Checks the arguments of a backward launch; cudaErrorInvalidValue or 0.
+inline int check_bwd_args(int n_prims, int n_lights, int n_spectra,
+                          long long n_rays, int max_depth) {
+  if (n_prims < 1 || n_prims > MAX_PRIMS || n_lights < 1 ||
+      n_lights > MAX_LIGHTS || n_spectra < 1 || n_rays < 1 || max_depth < 0 ||
+      (n_rays + THREADS - 1) / THREADS > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+template <int MESH, bool TIMED>
+int launch_sweep_as(unsigned blocks, size_t dyn, cudaStream_t st,
+                    const float* prims, const int* meta, int n_prims,
+                    const int* lights, int n_lights, const float* spect,
+                    int n_spectra, const float* tape_f, const int* tape_i,
+                    const float* dL, float* partial, float* d_rays,
+                    float* d_spect, long long n_rays, int max_depth,
+                    int rr_start, unsigned long long* times) {
+  cudaError_t err = cudaFuncSetAttribute(
+      sweep_kernel<MESH, TIMED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dyn);
+  if (err != cudaSuccess) return (int)err;
+  sweep_kernel<MESH, TIMED><<<blocks, THREADS, dyn, st>>>(
+      prims, meta, n_prims, lights, n_lights, spect, n_spectra, tape_f, tape_i,
+      dL, partial, d_rays, d_spect, n_rays, max_depth, rr_start, times);
+  return (int)cudaGetLastError();
+}
+
+// The reverse sweep's launches on stream st: sweep_kernel in the build of
+// the scene's mode (mesh_mode: triangle rows), timed when times is given,
+// then reduce_partials into d_prims. Arguments as megakernel_bwd_tape's;
+// returns the CUDA error code (0 on success).
+inline int launch_sweep(const float* prims, const int* meta, int n_prims,
+                        const int* lights, int n_lights, const float* spect,
+                        int n_spectra, const float* tape_f, const int* tape_i,
+                        const float* dL, float* d_prims, float* partial,
+                        float* d_rays, float* d_spect, long long n_rays,
+                        int max_depth, int rr_start, int mesh_mode,
+                        unsigned long long* times, cudaStream_t st) {
+  const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
+  const size_t dyn = (size_t)WARPS * n_prims * 12 * sizeof(float);
+  const int err =
+      (times ? (mesh_mode ? launch_sweep_as<MESH_ROWS, true>
+                          : launch_sweep_as<MESH_NONE, true>)
+             : (mesh_mode ? launch_sweep_as<MESH_ROWS, false>
+                          : launch_sweep_as<MESH_NONE, false>))(
+          blocks, dyn, st, prims, meta, n_prims, lights, n_lights, spect,
+          n_spectra, tape_f, tape_i, dL, partial, d_rays, d_spect, n_rays,
+          max_depth, rr_start, times);
+  if (err) return err;
+  return finish_d_prims(partial, blocks, n_prims, d_prims, st);
 }
 
 }  // namespace pathtrace

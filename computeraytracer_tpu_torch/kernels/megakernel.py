@@ -84,6 +84,13 @@ ARRAYS_PER_PART = 4  # tri_rows, chunk_bbox, node_bbox, node_meta
 # the lanes that ran them and the inside tests that any order of those
 # scans needs; zero elsewhere.
 WORK_KINDS = 7
+# Sections of the reverse sweep's timed build (csrc/reverse.cuh T_*), in
+# clock64() cycles summed over warps: the tape reads, the recompute's
+# scans, the rest of the recompute, the adjoint, the d_spect traffic, the
+# d_prims fold, and the rest (scene load, d_rays, the block's partial row
+# and the wait for its slowest warp).
+SWEEP_SECTIONS = ("tape_read", "scans", "recompute_rest", "adjoint",
+                  "d_spect", "fold", "other")
 
 # Bounds of the CUDA kernels' shared-memory tables (csrc/bounce.cuh): the
 # unrolled rows, lights and mesh parts.
@@ -901,7 +908,9 @@ SIGNATURES = {
     "megakernel_fwd_taped": "ppipipppipppqiiip",
     "megakernel_fwd_winners": "ppipipppipppqiiiippp",
     "megakernel_bwd": "ppipipppipppppppqiiip",
+    "megakernel_bwd_timed": "ppipipppipppppppqiiipp",
     "megakernel_bwd_tape": "ppipipipppppppqiiip",
+    "megakernel_bwd_tape_timed": "ppipipipppppppqiiipp",
     "shade_step": "ppipipi" + "p" * 15 + "qiiiip",
     "walk": "pppppqipppp",
     "candidates": "pppppqiiipp",
@@ -1311,29 +1320,48 @@ def _backward_outputs(prims, spect, R):
             torch.empty(((R + 127) // 128, P * 12), **f32))
 
 
+def _check_times(times, dev):
+    """times: None, or the (len(SWEEP_SECTIONS),) int64 CUDA counters of
+    a timed build."""
+    if times is None:
+        return
+    _check_tensor("times", times, (len(SWEEP_SECTIONS),), torch.int64, dev)
+    if dev.type == "cpu":
+        raise ValueError("section times are taken on the card: the plain "
+                         "version times nothing")
+
+
 def backward(static: SceneStatic, max_depth: int, rr_start: int,
              prims: torch.Tensor, rays: torch.Tensor, seeds: torch.Tensor,
-             spect: torch.Tensor, dL: torch.Tensor, tape=None):
+             spect: torch.Tensor, dL: torch.Tensor, tape=None,
+             times: torch.Tensor | None = None):
     """Backward megakernel -> (d_prims (P, 12), d_rays (6, R),
     d_spect (S*4, R)) for the radiance cotangent dL (4, R).
 
-    CPU tensors run ``backward_reference``. CUDA tensors launch the CUDA
-    kernel built from csrc/megakernel_bwd.cu; a failed build or launch
-    raises. d_prims is summed in a fixed order, so two calls on the same
+    CPU tensors run ``backward_reference``. CUDA tensors launch
+    csrc/megakernel_bwd.cu: the taped forward's kernel replays the paths
+    into the tape, then the tape-fed kernel's sweep runs on it, so the
+    result is ``forward_taped`` followed by ``backward_from_tape`` bit for
+    bit; a failed build or launch raises. One call counts one backward
+    launch. d_prims is summed in a fixed order, so two calls on the same
     inputs give bit-equal results. tape: optional (tape_f, tape_i) of
     ``forward_taped``'s shapes that receives the replay's tape (scratch
-    otherwise; CUDA only)."""
+    otherwise; CUDA only). times: a (len(SWEEP_SECTIONS),) int64 CUDA
+    tensor selects the sweep's timed build, which adds each section's
+    clock64() cycles, summed over warps, to it."""
     global launches_bwd
     _require_no_parts(static)
     _check(static, prims, rays, seeds, spect, ())
     R = rays.shape[1]
     dev = rays.device
     _check_tensor("dL", dL, (4, R), torch.float32, dev)
+    _check_times(times, dev)
     if dev.type == "cpu":
         return backward_reference(static, max_depth, rr_start, prims, rays,
                                   seeds, spect, dL)
     _require_cuda(dev)
-    fn = _fn("megakernel_bwd", "megakernel_bwd")
+    name = "megakernel_bwd" if times is None else "megakernel_bwd_timed"
+    fn = _fn("megakernel_bwd", name)
     meta, lights = _tables(static, dev)
     D = int(max_depth) + 1
     d_prims, d_rays, d_spect, partial = _backward_outputs(prims, spect, R)
@@ -1346,13 +1374,14 @@ def backward(static: SceneStatic, max_depth: int, rr_start: int,
     _check_tensor("tape_f", tape_f, (D * TAPE_F, R), torch.float32, dev)
     _check_tensor("tape_i", tape_i, (D * TAPE_I, R), torch.int32, dev)
     seeds32 = _u32_bits(seeds)
-    _launch("megakernel_bwd", fn, dev, prims.data_ptr(), meta.data_ptr(),
+    _launch(name, fn, dev, prims.data_ptr(), meta.data_ptr(),
             len(static.rows), lights.data_ptr(), lights.shape[0],
             rays.data_ptr(), seeds32.data_ptr(), spect.data_ptr(),
             static.n_spectra, dL.data_ptr(), d_prims.data_ptr(),
             partial.data_ptr(), d_rays.data_ptr(), d_spect.data_ptr(),
             tape_f.data_ptr(), tape_i.data_ptr(), R, int(max_depth),
-            int(rr_start), int(static.mesh_mode))
+            int(rr_start), int(static.mesh_mode),
+            *(() if times is None else (times.data_ptr(),)))
     launches_bwd += 1
     return d_prims, d_rays, d_spect
 
@@ -1360,14 +1389,15 @@ def backward(static: SceneStatic, max_depth: int, rr_start: int,
 def backward_from_tape(static: SceneStatic, max_depth: int, rr_start: int,
                        prims: torch.Tensor, spect: torch.Tensor,
                        tape_f: torch.Tensor, tape_i: torch.Tensor,
-                       dL: torch.Tensor):
+                       dL: torch.Tensor, times: torch.Tensor | None = None):
     """Tape-fed backward megakernel -> (d_prims (P, 12), d_rays (6, R),
     d_spect (S*4, R)) from the tape of ``forward_taped`` and the radiance
     cotangent dL (4, R).
 
     CPU tensors run ``backward_from_tape_reference``; CUDA tensors launch
     csrc/megakernel_bwd_tape.cu, whose reverse sweep is the retrace
-    kernel's: on the same tape both give bit-equal results."""
+    kernel's: on the same tape both give bit-equal results. times: as
+    ``backward``'s, the timed build."""
     global launches_bwd_tape
     _require_no_parts(static)
     P = len(static.rows)
@@ -1381,22 +1411,26 @@ def backward_from_tape(static: SceneStatic, max_depth: int, rr_start: int,
             ("tape_i", tape_i, (D * TAPE_I, R), torch.int32)):
         _check_tensor(name, t, shape, dtype, dev)
     _check_tensor("dL", dL, (4, R), torch.float32, dev)
+    _check_times(times, dev)
     if dev.type == "cpu":
         return backward_from_tape_reference(static, max_depth, rr_start,
                                             prims, spect, tape_f, tape_i, dL)
     _require_cuda(dev)
-    fn = _fn("megakernel_bwd_tape", "megakernel_bwd_tape")
+    name = ("megakernel_bwd_tape" if times is None
+            else "megakernel_bwd_tape_timed")
+    fn = _fn("megakernel_bwd_tape", name)
     meta, lights = _tables(static, dev)
     d_prims, d_rays, d_spect, partial = _backward_outputs(prims, spect, R)
     if R == 0:
         return d_prims.zero_(), d_rays, d_spect
-    _launch("megakernel_bwd_tape", fn, dev, prims.data_ptr(),
+    _launch(name, fn, dev, prims.data_ptr(),
             meta.data_ptr(), len(static.rows), lights.data_ptr(),
             lights.shape[0], spect.data_ptr(), static.n_spectra,
             tape_f.data_ptr(), tape_i.data_ptr(), dL.data_ptr(),
             d_prims.data_ptr(), partial.data_ptr(), d_rays.data_ptr(),
             d_spect.data_ptr(), R, int(max_depth), int(rr_start),
-            int(static.mesh_mode))
+            int(static.mesh_mode),
+            *(() if times is None else (times.data_ptr(),)))
     launches_bwd_tape += 1
     return d_prims, d_rays, d_spect
 

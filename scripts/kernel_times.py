@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the kernels of one checkout of the port on a CUDA card.
 
-    python3 scripts/kernel_times.py [ROOT]
+    python3 scripts/kernel_times.py [ROOT] [--parts cornell,tri_rows,mesh]
 
 ROOT (default: the checkout holding this script) is the root of a
 checkout of the repository; its package is imported and its kernels are
@@ -12,9 +12,14 @@ on ROOT's package. The script prints the card's name and power limit,
 each kernel's name, registers and spills from ``-Xptxas -v``, and one
 JSON line of times in ms:
 - ``cornell``: the forward, taped forward, retrace backward and tape-fed
-  backward per sample at Cornell 1024^2, depth 8 (phases 5, 8 and 10);
-- ``tri_rows``: the same four at ``mesh_scene(1024, 1024, 1)``, 80
-  triangle rows, depth 3 (phase 12);
+  backward per sample at Cornell 1024^2, depth 8 (phases 5, 8 and 10),
+  and the sections of both backward kernels from their sweep's timed
+  build (``sections``: each section's share of the clock64() cycles
+  summed over warps, and the timed build's own ms; the retrace kernel's
+  replay is the taped forward's launch; absent where ROOT's package has
+  no timed build);
+- ``tri_rows``: the same at ``mesh_scene(1024, 1024, 1)``, 80 triangle
+  rows, depth 3 (phase 12);
 - ``mesh``: at ``mesh_scene(1024, 1024, 6)``, 81,920 triangles in one
   mesh part, depth 3 (phases 11, 13, 17 and 19): the mesh-mode forward
   and the winner-taped forward per sample, one ``wavefront=True`` sample
@@ -24,6 +29,7 @@ JSON line of times in ms:
   casts walked whole as phase 19 seeds it (``walk_casts``).
 Compare two checkouts in turns within one call (parent, change, change,
 parent): times taken on different cards or calls differ by a few percent.
+``--parts`` runs only the named parts (all three by default).
 """
 
 from __future__ import annotations
@@ -67,6 +73,25 @@ def _four_kernels(cs, static, depth, args, seed):
     }
 
 
+def _sections(cs, static, depth, args, seed, reps):
+    """The timed builds of both backward kernels on args (chip_smoke.py
+    _sections: each section's share of the cycles, the cycles and the
+    timed build's ms); None when the package has no timed build."""
+    mk, torch = cs.mk, cs.torch
+    if not hasattr(mk, "SWEEP_SECTIONS"):
+        return None
+    R = args[1].shape[1]
+    dL = torch.randn((4, R), generator=torch.Generator(device=args[1].device)
+                     .manual_seed(seed), device=args[1].device)
+    _, tape_f, tape_i = mk.forward_taped(static, depth, cs.RR_START, *args)
+    return {
+        "backward": cs._sections(lambda t: mk.backward(
+            static, depth, cs.RR_START, *args, dL, times=t), reps),
+        "backward_from_tape": cs._sections(lambda t: mk.backward_from_tape(
+            static, depth, cs.RR_START, args[0], args[3], tape_f, tape_i, dL,
+            times=t), reps)}
+
+
 def _film(cs, scene, static, dev):
     kt = cs.kt
     px, py = kt.tile_coords(cs.WIDTH, cs.HEIGHT, 0, dev)
@@ -75,7 +100,13 @@ def _film(cs, scene, static, dev):
 
 
 def main() -> int:
-    root = pathlib.Path(sys.argv[1] if len(sys.argv) > 1 else HERE)
+    argv = sys.argv[1:]
+    parts = set(REPS)
+    if "--parts" in argv:
+        k = argv.index("--parts")
+        parts = set(argv[k + 1].split(","))
+        del argv[k:k + 2]
+    root = pathlib.Path(argv[0] if argv else HERE)
     sys.path.insert(0, str(root.resolve()))
     cs = _chip_smoke()
     torch, mk, bn, kt = cs.torch, cs.mk, cs.bn, cs.kt
@@ -98,20 +129,25 @@ def main() -> int:
                                for k, fn in fns.items()}
     ms = {}
 
-    scene, _ = scene_from_dict(presets.cornell_box(cs.WIDTH, cs.HEIGHT),
-                               device=dev)
-    static = mk.SceneStatic.from_scene(scene)
-    args = _film(cs, scene, static, dev)
-    ms["cornell"] = timed(_four_kernels(cs, static, cs.MAX_DEPTH, args, 0),
-                          REPS["cornell"])
-
-    scene, _ = scene_from_dict(presets.mesh_scene(cs.WIDTH, cs.HEIGHT,
-                                                  cs.TRI_SUBDIVISIONS),
-                               device=dev)
-    static = mk.SceneStatic.from_scene(scene)
-    args = _film(cs, scene, static, dev)
-    ms["tri_rows"] = timed(_four_kernels(cs, static, cs.MESH_DEPTH, args, 1),
-                           REPS["tri_rows"])
+    for part, doc, depth, seed in (
+            ("cornell", presets.cornell_box(cs.WIDTH, cs.HEIGHT),
+             cs.MAX_DEPTH, 0),
+            ("tri_rows", presets.mesh_scene(cs.WIDTH, cs.HEIGHT,
+                                            cs.TRI_SUBDIVISIONS),
+             cs.MESH_DEPTH, 1)):
+        if part not in parts:
+            continue
+        scene, _ = scene_from_dict(doc, device=dev)
+        static = mk.SceneStatic.from_scene(scene)
+        args = _film(cs, scene, static, dev)
+        ms[part] = timed(_four_kernels(cs, static, depth, args, seed),
+                         REPS[part])
+        ms[part]["sections"] = _sections(cs, static, depth, args, seed,
+                                         REPS[part])
+    if "mesh" not in parts:
+        print(json.dumps({"root": str(root), "device":
+                          torch.cuda.get_device_name(0), "ms": ms}))
+        return 0
 
     scene, _ = scene_from_dict(presets.mesh_scene(cs.WIDTH, cs.HEIGHT,
                                                   cs.MESH_SUBDIVISIONS),

@@ -13,7 +13,10 @@ shade step, walk, candidate and pair kernels against their plain versions,
 the binned casts against the walk, and the wavefront against the mesh
 kernel; the walk with ragged and idle warps, and the walk and the mesh
 forwards on a scene of exact ties (presets.tie_mesh_scene), where the
-lanes of a warp scan each chunk together.
+lanes of a warp scan each chunk together; the retrace kernel as the taped
+forward's launch followed by the tape-fed kernel's sweep, bit for bit,
+both kernels' d_prims across runs, and both kernels on a scene of 10
+spectra.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -265,6 +268,94 @@ def test_tape_fed_kernel_is_the_retrace_kernel(cuda, name, depth):
     plain = mk.backward_from_tape_reference(static, depth, 1, args[0],
                                             args[3], tape_f, tape_i, dL)
     _assert_backward_close(got, plain)
+
+
+def _film_case(cuda, kind, side=1024):
+    """Kernel operands of a whole side x side film: Cornell at depth 8, or
+    mesh_scene(subdivisions=1), 80 triangle rows, at depth 3."""
+    if kind == "cornell_box":
+        doc, depth = presets.cornell_box(side, side), 8
+    else:
+        doc, depth = presets.mesh_scene(side, side, 1), 3
+    scene, _ = scene_from_dict(doc, device=cuda)
+    static = mk.SceneStatic.from_scene(scene)
+    assert not static.mesh_parts
+    args = kt.kernel_inputs(scene, *kt.camera_planes(
+        scene, side, side, *kt.tile_coords(side, side, 0, cuda), 1), static)
+    return static, depth, args, _dL(args[1].shape[1], cuda, seed=5)
+
+
+@pytest.mark.parametrize("kind", ["cornell_box", "triangle_rows"])
+def test_retrace_is_taped_forward_then_tape_fed(cuda, kind):
+    """The retrace kernel launches the taped forward's kernel, then the
+    tape-fed kernel's sweep: on the full film its tape is forward_taped's
+    and its cotangents are backward_from_tape's on that tape, bit for bit.
+    It counts one backward launch and no taped forward."""
+    static, depth, args, dL = _film_case(cuda, kind)
+    _, tape_f, tape_i = mk.forward_taped(static, depth, 1, *args)
+    want = mk.backward_from_tape(static, depth, 1, args[0], args[3], tape_f,
+                                 tape_i, dL)
+    before = (mk.launches_taped, mk.launches_bwd, mk.launches_bwd_tape)
+    replay = (torch.full_like(tape_f, float("nan")),
+              torch.full_like(tape_i, -7))
+    got = mk.backward(static, depth, 1, *args, dL, tape=replay)
+    torch.cuda.synchronize()
+    assert (mk.launches_taped, mk.launches_bwd, mk.launches_bwd_tape) == (
+        before[0], before[1] + 1, before[2])
+    assert torch.equal(replay[0], tape_f) and torch.equal(replay[1], tape_i)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kernel", ["retrace", "tape_fed"])
+def test_backward_d_prims_bit_equal_across_runs(cuda, kernel):
+    """Each kernel's d_prims (the warps' slot-grouped folds, the blocks'
+    fixed-order sum) is bit-equal over two runs, at Cornell 512^2."""
+    static, depth, args, dL = _film_case(cuda, "cornell_box", 512)
+    if kernel == "retrace":
+        run = lambda: mk.backward(static, depth, 1, *args, dL)
+    else:
+        _, tape_f, tape_i = mk.forward_taped(static, depth, 1, *args)
+        run = lambda: mk.backward_from_tape(static, depth, 1, args[0],
+                                            args[3], tape_f, tape_i, dL)
+    first, second = run(), run()
+    assert float(first[0].abs().max()) > 0
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _wide_cornell(w, h):
+    """Cornell with four spectra added, two of them read by walls: S = 10,
+    each ray's d_spect column 40 rows."""
+    doc = presets.cornell_box(w, h)
+    doc["spectra"].update({
+        f"pad{i}": {"wavelength": [400, 550, 700],
+                    "value": [0.2 + 0.1 * i, 0.5, 0.6 - 0.1 * i]}
+        for i in range(4)})
+    doc["objects"]["patches"][0]["reflectance"] = "pad0"
+    doc["objects"]["patches"][1]["reflectance"] = "pad1"
+    return doc
+
+
+def test_backward_kernels_on_many_spectra(cuda):
+    """Both backward kernels on a scene of 10 spectra: within the plain
+    version's tolerances, bit-equal on one tape, and the added rows get a
+    gradient."""
+    scene, _ = scene_from_dict(_wide_cornell(128, 96), device=cuda)
+    static = mk.SceneStatic.from_scene(scene)
+    assert static.n_spectra == 10
+    args = _inputs(scene, 128, 96, 3)
+    dL = _dL(args[1].shape[1], cuda, seed=6)
+    got = mk.backward(static, 6, 1, *args, dL)
+    _assert_backward_close(got, mk.backward_reference(static, 6, 1, *args,
+                                                      dL))
+    _, tape_f, tape_i = mk.forward_taped(static, 6, 1, *args)
+    taped = mk.backward_from_tape(static, 6, 1, args[0], args[3], tape_f,
+                                  tape_i, dL)
+    for g, w in zip(taped, got):
+        assert torch.equal(g, w)
+    for row in static.reflectance_idx[:2]:
+        assert got[2][4 * row:4 * row + 4].abs().max() > 0
 
 
 def test_card_taped_gradient_matches_cpu(cuda):
