@@ -11,14 +11,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    registers and spills shown).
 3. kernel vs plain: the CUDA forward megakernel and its plain torch
    version on the same CUDA tensors, Cornell box 1024^2, depth 8, sample
-   1: at least 99.9% of rays within rel 1e-4 (denominator floored at
-   1e-2), all finite.
+   1: all finite, bit-equal on every ray (at least 99.9% of rays within
+   rel 1e-4, denominator floored at 1e-2, is the tolerance of the other
+   kernels), and a second launch bit-equal to the first (the refill
+   schedule hands rays to lanes in an order that varies).
 4. served path: tracer.api.render at 1024^2, spp 4, depth 8 with the
    launch counter reset just before; exactly 4 kernel launches, a finite
    non-zero image whose mean XYZ is within 1e-3 relative of the same
    render through the plain version; the PNG is written to a temp dir.
 5. timing: forward kernel and plain version at the phase-3 shape (CUDA
-   events, after a warm-up).
+   events, after a warm-up). The bounce loop's schedule: the one-thread
+   schedule's SIMT efficiency from the taped forward's tape (lane trips
+   over warp trips, a warp of 32 consecutive rays running as many trips
+   as its longest ray), and the refill schedule's lane and warp trips
+   from its counting build (radiance bit-equal; its lane trips equal to
+   the tape's exactly); the registers and spills of every forward build.
 6. backward kernel vs plain: the CUDA backward megakernel and
    backward_reference (in bands of at most 131072 rays) at the phase-3
    shape, for a radiance cotangent dL from a fixed seed: d_prims within
@@ -87,7 +94,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward, the taped forward and the tape-fed backward, whose builds
    scan the triangle rows in the mesh mode: the taped forward's radiance
    bit-equal to the forward's and the two backward kernels bit-equal on
-   one tape (full film); each backward against its plain version on a
+   one tape (full film); phase 5's schedule numbers; each backward against its plain version on a
    band of 16,384 rays across the blob with phase 6's tolerances. Then
    value_and_grad of mean(img ** 2) (spp 1) through backward="pallas"
    and "pallas_taped", counters reset before each: one mesh-mode forward
@@ -291,6 +298,45 @@ def _sections(run, reps=3):
                                                     cycles)},
             "cycles": cycles,
             "timed_ms": _events_ms(lambda: run(scratch), reps)}
+
+
+def _frac_within(got, want):
+    """Share of rays whose radiance is within rel 1e-4 of the plain one
+    (denominator floored at 1e-2)."""
+    rel = (got - want).abs() / want.abs().clamp(min=1e-2)
+    return (rel < 1e-4).all(dim=0).float().mean().item()
+
+
+def _schedule(static, max_depth, args, radiance):
+    """The bounce loop's schedule at kernel operands args: the one-thread
+    schedule's SIMT efficiency from the taped forward's tape, and the
+    refill schedule's lane and warp trips from its counting build, whose
+    radiance must be `radiance` and whose lane trips must be the tape's."""
+    _, _, tape_i = mk.forward_taped(static, max_depth, RR_START, *args)
+    tape_trips = mk.trips_from_tape(tape_i)
+    trips = torch.zeros(len(mk.TRIP_COUNTS), dtype=torch.int64,
+                        device=tape_i.device)
+    counted = mk.forward(static, max_depth, RR_START, *args, trips=trips)
+    if not torch.equal(counted, radiance):
+        raise RuntimeError("the refill schedule's counting build changed "
+                           "its radiance")
+    lane_trips, warp_trips = trips.tolist()
+    out = {"mean_trips": tape_trips.double().mean().item(),
+           "simt_efficiency_one_thread": mk.schedule_efficiency(tape_trips),
+           "lane_trips": lane_trips, "warp_trips": warp_trips,
+           "simt_efficiency": lane_trips / warp_trips}
+    hist = torch.bincount(tape_trips, minlength=max_depth + 2).tolist()
+    print(f"bounce loop schedule: {out['mean_trips']:.5f} trips per ray "
+          f"(rays per trip count 0..{max_depth + 1}: {hist}); one-thread "
+          f"schedule SIMT efficiency {out['simt_efficiency_one_thread']:.4f}"
+          f" (from the tape); refill schedule {lane_trips} lane trips, "
+          f"{warp_trips} warp trips, SIMT efficiency "
+          f"{out['simt_efficiency']:.4f} (counting build, radiance "
+          f"bit-equal)")
+    if lane_trips != int(tape_trips.sum()):
+        raise RuntimeError(f"counted lane trips {lane_trips} are not the "
+                           f"tape's {int(tape_trips.sum())}")
+    return out
 
 
 def _wide_cornell(width, height):
@@ -503,7 +549,8 @@ def _mesh_vg(scene, static, backward="pallas", wavefront=None):
 def _triangle_rows(dev):
     """Phase 12: the builds of the forward, taped forward and both
     backward kernels that scan triangle rows. Returns the kernels-line
-    numbers of the taped forward and the two backward kernels."""
+    numbers of the forward, the taped forward and the two backward
+    kernels."""
     t0 = time.perf_counter()
     scene, _ = scene_from_dict(presets.mesh_scene(WIDTH, HEIGHT,
                                                   TRI_SUBDIVISIONS),
@@ -541,6 +588,7 @@ def _triangle_rows(dev):
           f"{MESH_DEPTH}, {R} rays ({time.perf_counter() - t0:.1f} s to "
           f"here); taped forward bit-equal to the forward, tape-fed kernel "
           f"bit-equal to the retrace kernel (full film)")
+    _schedule(static, MESH_DEPTH, args, fwd)
 
     y0 = HEIGHT // 2 - MESH_BAND_ROWS // 2
     band = _band(args, y0)
@@ -580,6 +628,19 @@ def _triangle_rows(dev):
         raise RuntimeError("triangle rows: the taped forward's tape "
                            "disagrees with its plain version")
     out["taped"] = {"max_abs_err": taped_err, "plain_ms": t_plain_f * 1e3}
+    t_plain_fwd, want_fwd = _host_s(lambda: mk.forward_reference(
+        static, MESH_DEPTH, RR_START, *band))
+    got_fwd = mk.forward(static, MESH_DEPTH, RR_START, *band)
+    torch.cuda.synchronize()
+    print(f"triangle rows, forward vs plain ({nb} rays, plain "
+          f"{t_plain_fwd:.1f} s): within rel 1e-4 on "
+          f"{_frac_within(got_fwd, want_fwd):.6f} of rays, bit-equal "
+          f"{(got_fwd == want_fwd).all(dim=0).float().mean().item():.6f}")
+    if _frac_within(got_fwd, want_fwd) < 0.999:
+        raise RuntimeError("triangle rows: the forward disagrees with its "
+                           "plain version")
+    out["forward"] = {"max_abs_err": (got_fwd - want_fwd).abs().max().item(),
+                      "plain_ms": t_plain_fwd * 1e3}
 
     # the two training paths, counters reset before each
     grads = {}
@@ -603,6 +664,8 @@ def _triangle_rows(dev):
             counts["backward" if bw == "pallas" else "backward_tape"]
         if bw == "pallas_taped":
             out["taped"]["launches"] = counts["forward_taped"]
+        else:
+            out["forward"]["launches"] = counts["forward_mesh"]
         print(f"triangle rows, value_and_grad ({bw}, spp 1): loss "
               f"{loss:.6e}, {step_s * 1e3:.1f} ms (first call), launches "
               f"{counts}")
@@ -614,8 +677,7 @@ def _triangle_rows(dev):
         raise RuntimeError("triangle rows: the two backward paths disagree")
 
     times = {
-        "forward_mesh": lambda: mk.forward(static, MESH_DEPTH, RR_START,
-                                           *args),
+        "forward": lambda: mk.forward(static, MESH_DEPTH, RR_START, *args),
         "taped": lambda: mk.forward_taped(static, MESH_DEPTH, RR_START,
                                           *args),
         "backward": lambda: mk.backward(static, MESH_DEPTH, RR_START, *args,
@@ -629,7 +691,7 @@ def _triangle_rows(dev):
     bounds = _unrolled_bounds(args, tape_i, MESH_DEPTH,
                               n_patch * PRIM_TEST_OPS
                               + len(tri_slots) * TRI_PLANE_OPS)
-    for key in ("backward", "tape_bwd", "taped"):
+    for key in out:
         out[key].update({
             "ms": ms[key], "bound_ms": bounds[key][0],
             "bound_by": bounds[key][1], "library_ms": None,
@@ -1440,11 +1502,14 @@ def main() -> int:
     frac = (rel < 1e-4).all(dim=0).float().mean().item()
     max_abs_err = abs_err.max().item()
     exact = (got == want).all(dim=0).float().mean().item()
+    again = torch.equal(mk.forward(static, MAX_DEPTH, RR_START, *args), got)
     print(f"kernel vs plain: {frac:.6f} of {got.shape[1]} rays within rel "
           f"1e-4; worst rel {rel.max().item():.3g}, worst abs "
-          f"{max_abs_err:.3g}; bit-equal {exact:.6f}")
-    if frac < 0.999:
-        raise RuntimeError(f"kernel disagrees with plain version: {frac}")
+          f"{max_abs_err:.3g}; bit-equal {exact:.6f}; a second launch "
+          f"bit-equal: {again}")
+    if frac < 0.999 or exact < 1.0 or not again:
+        raise RuntimeError(f"kernel disagrees with plain version or with "
+                           f"itself: {frac}, {exact}, {again}")
 
     # 4. the served path
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=SPP,
@@ -1486,6 +1551,9 @@ def main() -> int:
     rays = args[1].shape[1]
     print(f"forward: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms per "
           f"sample of {rays} rays")
+    schedule = _schedule(static, MAX_DEPTH, args, got)
+    for line in _ptxas("megakernel_fwd"):
+        print(f"ptxas[megakernel_fwd]: {line}")
 
     # 6. backward kernel vs plain version at the phase-3 shape
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1886,6 +1954,7 @@ def main() -> int:
         "max_depth": MAX_DEPTH,
         "live_bounces": live,
         "shadow_scans_counted": diffuse_on,
+        "schedule": schedule,
     }, {
         "name": "megakernel_forward_taped",
         "route": "cuda",
@@ -1980,7 +2049,9 @@ def main() -> int:
         ("megakernel_backward_from_tape_tri", "megakernel_bwd_tape.cu",
          "1480", "tape_bwd"),
         ("megakernel_forward_taped_tri", "megakernel_fwd.cu",
-         "897 (taped=\"full\")", "taped"))] + [dict({
+         "897 (taped=\"full\")", "taped"),
+        ("megakernel_forward_tri", "megakernel_fwd.cu", "897", "forward"))]
+        + [dict({
             "name": name,
             "source": src + source,
             "replaces": "computeraytracer_tpu/kernels/" + line,

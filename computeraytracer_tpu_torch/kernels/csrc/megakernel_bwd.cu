@@ -8,12 +8,13 @@
 //
 // Two launches on the caller's stream, with no host synchronisation
 // between them:
-// - the replay: the taped="full" forward's own kernel (forward.cuh
-//   megakernel_fwd_kernel<MESH, TAPE_FULL>, the build that
-//   megakernel_fwd_taped launches) writes each bounce's INPUT carry to the
-//   tape, (max_depth+1, 16, R) f32 (o3 d3 L4 beta4 last_pdf eta_scale) and
-//   (max_depth+1, 8, R) i32 (seed words, exclude, specular, in_trans,
-//   active); rows after the ray died hold its final carry with active = 0.
+// - the replay: the taped="full" forward's own launch (forward.cuh
+//   taped_launch, which megakernel_fwd_taped calls: the refill schedule on
+//   triangle rows, the one-thread schedule otherwise) writes each bounce's
+//   INPUT carry to the tape, (max_depth+1, 16, R) f32 (o3 d3 L4 beta4
+//   last_pdf eta_scale) and (max_depth+1, 8, R) i32 (seed words, exclude,
+//   specular, in_trans, active); rows after the ray died hold its final
+//   carry with active = 0.
 //   Its radiance goes to d_rays' first four planes, which the sweep then
 //   overwrites;
 // - the reverse sweep (reverse.cuh sweep_kernel), the tape-fed kernel's
@@ -33,7 +34,8 @@
 // resident blocks, and would keep nothing on chip between them: the tape
 // goes through device memory either way. The tape is backward()'s
 // scratch, or the caller's tape= buffers, so the two launches allocate
-// nothing more than one would.
+// nothing more than one would (but, on triangle rows, the replay's ray
+// counter: 8 bytes).
 //
 // Triangle rows: a scene whose unrolled rows include triangles (category
 // 2; a mesh part never reaches this kernel, its gradient is the guided
@@ -58,24 +60,17 @@ int bwd(const float* prims, const int* meta, int n_prims, const int* lights,
         int n_spectra, const float* dL, float* d_prims, float* partial,
         float* d_rays, float* d_spect, float* tape_f, int* tape_i,
         long long n_rays, int max_depth, int rr_start, int mesh_mode,
-        unsigned long long* times, void* stream) {
+        unsigned long long* next_ray, unsigned long long* times,
+        void* stream) {
   const int err =
       check_bwd_args(n_prims, n_lights, n_spectra, n_rays, max_depth);
   if (err) return err;
-  const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
-  const MeshParts mp = {};
+  if (mesh_mode && !next_ray) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (mesh_mode)
-    megakernel_fwd_kernel<MESH_ROWS, TAPE_FULL><<<blocks, THREADS, 0, st>>>(
-        prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-        d_rays, tape_f, tape_i, nullptr, n_rays, max_depth, rr_start, mp,
-        nullptr);
-  else
-    megakernel_fwd_kernel<MESH_NONE, TAPE_FULL><<<blocks, THREADS, 0, st>>>(
-        prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-        d_rays, tape_f, tape_i, nullptr, n_rays, max_depth, rr_start, mp,
-        nullptr);
-  const cudaError_t replay = cudaGetLastError();
+  const cudaError_t replay = taped_launch(
+      prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
+      d_rays, tape_f, tape_i, n_rays, max_depth, rr_start, mesh_mode,
+      next_ray, st);
   if (replay != cudaSuccess) return (int)replay;
   return launch_sweep(prims, meta, n_prims, lights, n_lights, spect,
                       n_spectra, tape_f, tape_i, dL, d_prims, partial, d_rays,
@@ -87,8 +82,10 @@ int bwd(const float* prims, const int* meta, int n_prims, const int* lights,
 
 // partial: (ceil(n_rays / 128), n_prims * 12) scratch; tape_f
 // ((max_depth+1) * 16, n_rays) and tape_i ((max_depth+1) * 8, n_rays)
-// scratch; mesh_mode: the scene has triangle rows. Returns the CUDA error
-// code of the launches (0 on success).
+// scratch; mesh_mode: the scene has triangle rows, whose replay runs on
+// the refill schedule with the ray counter next_ray (one zeroed u64;
+// null allowed otherwise). Returns the CUDA error code of the launches (0
+// on success).
 extern "C" int megakernel_bwd(const float* prims, const int* meta, int n_prims,
                               const int* lights, int n_lights,
                               const float* rays, const int* seeds,
@@ -96,10 +93,12 @@ extern "C" int megakernel_bwd(const float* prims, const int* meta, int n_prims,
                               const float* dL, float* d_prims, float* partial,
                               float* d_rays, float* d_spect, float* tape_f,
                               int* tape_i, long long n_rays, int max_depth,
-                              int rr_start, int mesh_mode, void* stream) {
+                              int rr_start, int mesh_mode,
+                              unsigned long long* next_ray, void* stream) {
   return bwd(prims, meta, n_prims, lights, n_lights, rays, seeds, spect,
              n_spectra, dL, d_prims, partial, d_rays, d_spect, tape_f, tape_i,
-             n_rays, max_depth, rr_start, mesh_mode, nullptr, stream);
+             n_rays, max_depth, rr_start, mesh_mode, next_ray, nullptr,
+             stream);
 }
 
 // megakernel_bwd with the sweep's timed build: the same outputs, and each
@@ -116,8 +115,9 @@ extern "C" int megakernel_bwd_timed(const float* prims, const int* meta,
                                     float* tape_f, int* tape_i,
                                     long long n_rays, int max_depth,
                                     int rr_start, int mesh_mode,
+                                    unsigned long long* next_ray,
                                     unsigned long long* times, void* stream) {
   return bwd(prims, meta, n_prims, lights, n_lights, rays, seeds, spect,
              n_spectra, dL, d_prims, partial, d_rays, d_spect, tape_f, tape_i,
-             n_rays, max_depth, rr_start, mesh_mode, times, stream);
+             n_rays, max_depth, rr_start, mesh_mode, next_ray, times, stream);
 }

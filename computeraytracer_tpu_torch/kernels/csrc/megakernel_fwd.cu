@@ -30,18 +30,25 @@
 //   and the shadow entries of the lights a bounce did not pick. The TPU
 //   kernel scans every light for every lane of a tile and skips whole
 //   tiles; those entries are never read, and the radiance is the same.
-// One thread traces one ray to completion: up to max_depth+1 bounces of
+// A thread traces a ray to completion: up to max_depth+1 bounces of
 // make_bounce (megakernel.py:467),
 // each an in-order closest-hit scan over every primitive, next-event
 // estimation with the power-heuristic MIS, diffuse / glass / mirror
 // scattering with Beer-Lambert, Russian roulette, and masked pcg4d draws.
 // The bounce itself lives in bounce.cuh, which the backward kernels share,
-// and the kernel in forward.cuh, whose taped="full" build the retrace
-// backward launches as its replay (megakernel_bwd.cu).
+// and the kernels in forward.cuh, whose taped="full" build the retrace
+// backward launches as its replay (megakernel_bwd.cu). Two schedules
+// (forward.cuh): the plain mode, triangle rows and the triangle rows'
+// taped="full" forward run on persistent warps that refill their dead
+// lanes (refill_fwd_kernel); the mesh parts, the counting mesh build, the
+// winner tape and the plain mode's taped="full" forward run one thread per
+// ray on a grid that covers the rays (megakernel_fwd_kernel).
 //
 // What bounds it on this card: per-thread control flow that diverges
-// (rays of one warp hit different materials and die at different depths)
-// and register pressure from the live carry (16 f32, 4 u32 and 4 i32
+// (rays of one warp hit different materials and die at different depths:
+// at Cornell 1024^2, depth 8, a ray makes 2.72 trips of the bounce loop
+// and a warp of 32 consecutive rays runs 5.24, so one thread per ray keeps
+// 52% of the loop's lane slots busy) and register pressure from the live carry (16 f32, 4 u32 and 4 i32
 // words plus a hit record), not bytes. Each ray reads 6+4 words, a few
 // spectrum words per bounce, and writes 4: a few hundred bytes against
 // thousands of flops per bounce. The taped mode adds 96 B per bounce row
@@ -56,9 +63,19 @@
 // What the design does about it:
 // - The carry stays in registers for the whole path; nothing round-trips
 //   through memory between bounces.
-// - A thread leaves the loop as soon as its ray is dead (the SIMT form of
-//   the TPU kernel's all-dead-tile skip; exact, because every update of a
-//   dead lane is a masked identity there).
+// - A dead lane takes a new ray (the refill schedule): a warp with
+//   REFILL_AT dead lanes takes that many ray ids from one counter, each
+//   lane keeps its own ray, depth and carry, and the grid holds only the
+//   blocks that stay resident, each loading the scene table once. At
+//   Cornell 1024^2 that keeps 0.88 of the lane slots busy (counting build,
+//   PERF.md). In the one-thread builds a thread leaves the loop as soon as
+//   its ray is dead (the SIMT form of the TPU kernel's all-dead-tile skip;
+//   exact, because every update of a dead lane is a masked identity
+//   there). The mesh traversal needs the lanes that reach it together, and
+//   the full tape's stores coalesce only while a warp holds consecutive
+//   rays at one depth: at Cornell depth 8 (864 B of tape per ray) a refill
+//   build of the taped forward ran 3-4x slower, on triangle rows (depth
+//   3, 80 triangles scanned twice per bounce) faster.
 // - Material branches are real branches: a lane computes only its own
 //   material's work, where the TPU kernel computes all and selects. NEE
 //   scans for the one light the ray picked; the TPU kernel scans for every
@@ -98,12 +115,17 @@ int check_args(int n_prims, int n_lights, int n_spectra, long long n_rays,
 
 // part_ptrs: per mesh part (tri_rows, chunk_bbox, node_bbox, node_meta)
 // device pointers; part_info: per part (n_nodes, n_real_chunks), host
-// arrays. meta holds n_prims slot rows, then n_parts part rows. With no
-// part and no category-2 row, the plain-mode kernel runs. work, null or
-// (in mesh mode) WORK_KINDS zeroed counters, receives the counted mesh
-// mode's casts, box tests, triangle plane tests, triangle inside tests,
-// chunk scans, the lanes that ran them and the inside tests those scans
-// need. Returns the CUDA error code of the launch (0 on success).
+// arrays. meta holds n_prims slot rows, then n_parts part rows. A scene
+// with no part runs the refill schedule (forward.cuh refill_fwd_kernel),
+// in its triangle-row build when mesh_mode is set; next_ray is its ray
+// counter, one zeroed u64. trips, null or (with no part) TRIP_KINDS zeroed
+// counters, selects its counting build, which adds its lane and warp
+// trips. A scene with parts runs the one-thread schedule in the mesh mode;
+// work, null or (in mesh mode) WORK_KINDS zeroed counters, receives the
+// counted mesh mode's casts, box tests, triangle plane tests, triangle
+// inside tests, chunk scans, the lanes that ran them and the inside tests
+// those scans need. Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int megakernel_fwd(const float* prims, const int* meta, int n_prims,
                               const int* lights, int n_lights,
                               const float* rays, const int* seeds,
@@ -111,32 +133,36 @@ extern "C" int megakernel_fwd(const float* prims, const int* meta, int n_prims,
                               long long n_rays, int max_depth, int rr_start,
                               int mesh_mode, int n_parts,
                               const long long* part_ptrs, const int* part_info,
-                              unsigned long long* work, void* stream) {
+                              unsigned long long* work,
+                              unsigned long long* next_ray,
+                              unsigned long long* trips, void* stream) {
   int err = check_args(n_prims, n_lights, n_spectra, n_rays, max_depth);
   if (err) return err;
   if (n_parts < 0 || n_parts > MAX_PARTS || (n_parts > 0 && !mesh_mode) ||
-      (work && !mesh_mode))
+      (work && !mesh_mode) || (trips && (n_parts > 0 || work)) ||
+      (n_parts == 0 && !work && !next_ray))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n_parts == 0 && !work) {
+    using Launch = decltype(&refill_launch<MESH_NONE, TAPE_NONE, false>);
+    const Launch launch =
+        mesh_mode ? (trips ? &refill_launch<MESH_ROWS, TAPE_NONE, true>
+                           : &refill_launch<MESH_ROWS, TAPE_NONE, false>)
+                  : (trips ? &refill_launch<MESH_NONE, TAPE_NONE, true>
+                           : &refill_launch<MESH_NONE, TAPE_NONE, false>);
+    return (int)launch(prims, meta, n_prims, lights, n_lights, rays, seeds,
+                       spect, n_spectra, out, nullptr, nullptr, n_rays,
+                       max_depth, rr_start, next_ray, trips, st);
+  }
   const MeshParts mp = make_parts(n_parts, part_ptrs, part_info);
   const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
-  cudaStream_t st = (cudaStream_t)stream;
   if (work)
     megakernel_fwd_kernel<MESH_COUNT, TAPE_NONE><<<blocks, THREADS, 0, st>>>(
         prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
         out, nullptr, nullptr, nullptr, n_rays, max_depth, rr_start, mp, work);
-  else if (n_parts > 0)
-    megakernel_fwd_kernel<MESH_WALK, TAPE_NONE><<<blocks, THREADS, 0, st>>>(
-        prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-        out, nullptr, nullptr, nullptr, n_rays, max_depth, rr_start, mp,
-        nullptr);
-  else if (mesh_mode)  // triangle rows only: no part to walk
-    megakernel_fwd_kernel<MESH_ROWS, TAPE_NONE><<<blocks, THREADS, 0, st>>>(
-        prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-        out, nullptr, nullptr, nullptr, n_rays, max_depth, rr_start, mp,
-        nullptr);
   else
-    megakernel_fwd_kernel<MESH_NONE, TAPE_NONE><<<blocks, THREADS, 0, st>>>(
+    megakernel_fwd_kernel<MESH_WALK, TAPE_NONE><<<blocks, THREADS, 0, st>>>(
         prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
         out, nullptr, nullptr, nullptr, n_rays, max_depth, rr_start, mp,
         nullptr);
@@ -145,7 +171,10 @@ extern "C" int megakernel_fwd(const float* prims, const int* meta, int n_prims,
 
 // The taped="full" forward of a scene without mesh parts: out as
 // megakernel_fwd, and tape_f ((max_depth+1) * 16, n_rays), tape_i
-// ((max_depth+1) * 8, n_rays). mesh_mode: the scene has triangle rows.
+// ((max_depth+1) * 8, n_rays). mesh_mode: the scene has triangle rows,
+// traced on the refill schedule with the ray counter next_ray (one zeroed
+// u64); without them the one-thread schedule runs and next_ray may be
+// null.
 extern "C" int megakernel_fwd_taped(const float* prims, const int* meta,
                                     int n_prims, const int* lights,
                                     int n_lights, const float* rays,
@@ -153,24 +182,17 @@ extern "C" int megakernel_fwd_taped(const float* prims, const int* meta,
                                     int n_spectra, float* out, float* tape_f,
                                     int* tape_i, long long n_rays,
                                     int max_depth, int rr_start,
-                                    int mesh_mode, void* stream) {
+                                    int mesh_mode,
+                                    unsigned long long* next_ray,
+                                    void* stream) {
   int err = check_args(n_prims, n_lights, n_spectra, n_rays, max_depth);
   if (err) return err;
+  if (mesh_mode && !next_ray) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  const MeshParts mp = {};
-  const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (mesh_mode)
-    megakernel_fwd_kernel<MESH_ROWS, TAPE_FULL><<<blocks, THREADS, 0, st>>>(
-        prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-        out, tape_f, tape_i, nullptr, n_rays, max_depth, rr_start, mp,
-        nullptr);
-  else
-    megakernel_fwd_kernel<MESH_NONE, TAPE_FULL><<<blocks, THREADS, 0, st>>>(
-        prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-        out, tape_f, tape_i, nullptr, n_rays, max_depth, rr_start, mp,
-        nullptr);
-  return (int)cudaGetLastError();
+  return (int)taped_launch(prims, meta, n_prims, lights, n_lights, rays,
+                           seeds, spect, n_spectra, out, tape_f, tape_i,
+                           n_rays, max_depth, rr_start, mesh_mode, next_ray,
+                           (cudaStream_t)stream);
 }
 
 // The taped=True forward: out as megakernel_fwd, and the winner tape,

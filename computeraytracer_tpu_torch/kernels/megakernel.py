@@ -21,6 +21,13 @@ Port of computeraytracer_tpu/kernels/megakernel.py ``build_forward``
   part. CPU tensors run ``forward_reference``; CUDA tensors launch the
   hand-written kernel in ``csrc/megakernel_fwd.cu``. There is no other
   route.
+- ``forward_refill_reference``, ``trips_from_tape`` and
+  ``schedule_efficiency``: the plain model of the schedule on which the
+  CUDA forward traces a scene without mesh parts (persistent warps that
+  refill their dead lanes, ``csrc/forward.cuh``), and the bounce loop's
+  SIMT efficiency of the one-thread schedule from a tape; the tests hold
+  the model bit-equal to ``forward_reference``, and the card's counting
+  build (``forward(..., trips=)``) against the tape.
 - ``forward_taped_reference`` / ``forward_taped``: the forward that also
   returns the ``taped="full"`` tape, every bounce's input carry (the
   kernel ``megakernel_fwd_taped``); ``tape_to_jax`` turns it into the JAX
@@ -811,6 +818,125 @@ def tape_to_jax(tape_f: torch.Tensor, tape_i: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# the refill schedule of the forward kernel (csrc/forward.cuh)
+# ---------------------------------------------------------------------------
+
+WARP = 32
+# Dead lanes at which a warp of the refill schedule takes new rays
+# (csrc/forward.cuh REFILL_AT).
+REFILL_AT = 8
+# Counters of the refill schedule's counting build (csrc/forward.cuh
+# TRIP_*): bounce calls, and 32 per trip of a warp.
+TRIP_COUNTS = ("lane_trips", "warp_trips")
+
+
+def trips_from_tape(tape_i: torch.Tensor) -> torch.Tensor:
+    """Bounce-loop trips per ray (R,) int64 from a taped="full" tape: the
+    rows whose active word is set (a ray enters one bounce per live
+    row)."""
+    R = tape_i.shape[-1]
+    return tape_i.reshape(-1, TAPE_I, R)[:, 7].to(torch.int64).sum(dim=0)
+
+
+def schedule_efficiency(trips: torch.Tensor, width: int = WARP) -> float:
+    """SIMT efficiency of the one-thread schedule: rays in order, `width`
+    consecutive rays per warp (the last warp padded with idle lanes), each
+    warp running as many trips as its longest ray. Lane trips over warp
+    trips times width."""
+    n = trips.numel()
+    padded = torch.zeros(-(-n // width) * width, dtype=torch.int64)
+    padded[:n] = trips.detach().cpu().to(torch.int64)
+    slots = padded.reshape(-1, width).amax(dim=1).sum() * width
+    return float(padded.sum()) / float(slots) if slots else 1.0
+
+
+def forward_refill_reference(static: SceneStatic, max_depth: int,
+                             rr_start: int, prims: torch.Tensor,
+                             rays: torch.Tensor, seeds: torch.Tensor,
+                             spect: torch.Tensor, *mesh_arrays,
+                             lanes: int = 4 * WARP,
+                             threshold: int = REFILL_AT,
+                             taped: bool = False):
+    """Plain model of the refill schedule (csrc/forward.cuh
+    refill_fwd_kernel), for the tests: a pool of `lanes` lanes in warps
+    of 32 and one ray counter. At the top of each trip, warp by warp, a
+    warp with `threshold` dead lanes (or all of them) takes that many ray
+    ids from the counter, by rank among its dead lanes; an id >= R leaves
+    the lane dead. Then every live lane runs one bounce at its own depth
+    (the lanes grouped by depth, one ``_bounce`` per group); a ray that
+    dies writes its radiance and, with `taped`, its remaining tape rows
+    (final carry, active = 0), and frees its lane. The loop ends when no
+    lane is live after a refill. Returns what ``forward_reference``
+    returns, or with `taped` what ``forward_taped_reference`` returns
+    (mesh parts not taped), and (lane trips, warp trips) as the counting
+    build counts them. On the card the taped forward runs this schedule
+    on triangle rows only: at Cornell depth 8 its tape stores, which do
+    not coalesce here, cost more than the idle lanes."""
+    if lanes <= 0 or lanes % WARP or not 1 <= threshold <= WARP:
+        raise ValueError(f"lanes must be a positive multiple of {WARP} and "
+                         f"threshold in 1..{WARP} (got {lanes}, "
+                         f"{threshold})")
+    mesh = _mesh(static, mesh_arrays)
+    R = rays.shape[1]
+    D = int(max_depth) + 1
+    dev = rays.device
+    out = torch.zeros((4, R), dtype=torch.float32, device=dev)
+    if taped:
+        tape_f = torch.empty((D * TAPE_F, R), dtype=torch.float32,
+                             device=dev)
+        tape_i = torch.empty((D * TAPE_I, R), dtype=torch.int32, device=dev)
+    # each lane's carry, as tape planes; its ray (-1: dead) and depth
+    pool_f = torch.zeros((TAPE_F, lanes), dtype=torch.float32, device=dev)
+    pool_i = torch.zeros((TAPE_I, lanes), dtype=torch.int32, device=dev)
+    ray = torch.full((lanes,), -1, dtype=torch.int64, device=dev)
+    depth = torch.zeros((lanes,), dtype=torch.int64, device=dev)
+    issued = lane_trips = warp_trips = 0
+    while True:
+        dead = (ray < 0).reshape(-1, WARP)
+        for w, n in enumerate(dead.sum(dim=1).tolist()):
+            if issued >= R or not (n >= threshold or n == WARP):
+                continue
+            idx = w * WARP + torch.nonzero(dead[w]).flatten()
+            ids = issued + torch.arange(n, device=dev)
+            issued += n
+            idx, ids = idx[ids < R], ids[ids < R]
+            ray[idx] = ids
+            depth[idx] = 0
+            pool_f[:, idx], pool_i[:, idx] = _tape_row(
+                _init_state(rays[:, ids], seeds[:, ids]))
+        live = ray >= 0
+        if not bool(live.any()):
+            break
+        lane_trips += int(live.sum())
+        warp_trips += WARP * int(live.reshape(-1, WARP).any(dim=1).sum())
+        groups = [(d, torch.nonzero(live & (depth == d)).flatten())
+                  for d in torch.unique(depth[live]).tolist()]
+        for d, idx in groups:
+            r = ray[idx]
+            if taped:
+                tape_f[d * TAPE_F:(d + 1) * TAPE_F, r] = pool_f[:, idx]
+                tape_i[d * TAPE_I:(d + 1) * TAPE_I, r] = pool_i[:, idx]
+            state = _bounce(static, prims, spect[:, r],
+                            _state_from_tape(pool_f[:, idx], pool_i[:, idx]),
+                            d, max_depth, rr_start, mesh)
+            f, i = _tape_row(state)
+            pool_f[:, idx], pool_i[:, idx] = f, i
+            died = i[7] == 0
+            rd = r[died]
+            out[:, rd] = f[6:10, died]
+            if taped:
+                for k in range(d + 1, D):
+                    tape_f[k * TAPE_F:(k + 1) * TAPE_F, rd] = f[:, died]
+                    tape_i[k * TAPE_I:(k + 1) * TAPE_I, rd] = i[:, died]
+            ray[idx[died]] = -1
+            depth[idx[~died]] += 1
+    trips = (lane_trips, warp_trips)
+    if taped:
+        return out, tape_f, tape_i, trips
+    return out, trips
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -904,11 +1030,11 @@ def _tables(static: SceneStatic, device: torch.device):
 # Argument kinds of each C entry point (csrc/*.cu): "p" a pointer or the
 # stream, "i" an int, "q" a long long.
 SIGNATURES = {
-    "megakernel_fwd": "ppipipppipqiiiipppp",
-    "megakernel_fwd_taped": "ppipipppipppqiiip",
+    "megakernel_fwd": "ppipipppipqiiiipppppp",
+    "megakernel_fwd_taped": "ppipipppipppqiiipp",
     "megakernel_fwd_winners": "ppipipppipppqiiiippp",
-    "megakernel_bwd": "ppipipppipppppppqiiip",
-    "megakernel_bwd_timed": "ppipipppipppppppqiiipp",
+    "megakernel_bwd": "ppipipppipppppppqiiipp",
+    "megakernel_bwd_timed": "ppipipppipppppppqiiippp",
     "megakernel_bwd_tape": "ppipipipppppppqiiip",
     "megakernel_bwd_tape_timed": "ppipipipppppppqiiipp",
     "shade_step": "ppipipi" + "p" * 15 + "qiiiip",
@@ -946,18 +1072,24 @@ def _require_cuda(device):
 def forward(static: SceneStatic, max_depth: int, rr_start: int,
             prims: torch.Tensor, rays: torch.Tensor, seeds: torch.Tensor,
             spect: torch.Tensor, *mesh_arrays,
-            work: torch.Tensor | None = None) -> torch.Tensor:
+            work: torch.Tensor | None = None,
+            trips: torch.Tensor | None = None) -> torch.Tensor:
     """Forward megakernel -> radiance (4, R) f32.
 
     CPU tensors run ``forward_reference``. CUDA tensors launch the CUDA
     kernel, built from csrc/megakernel_fwd.cu at first use, in its mesh
     mode when the scene has mesh parts or triangle rows; a failed build or
-    launch raises. ``work``, a (WORK_KINDS,) int64 CUDA tensor, makes the
+    launch raises. A scene without mesh parts runs on persistent warps
+    that refill their dead lanes (``forward_refill_reference`` models the
+    schedule). ``work``, a (WORK_KINDS,) int64 CUDA tensor, makes the
     mesh mode add its work to it: casts (closest-hit and shadow scans),
     box tests, triangle plane tests, triangle inside tests, chunk scans,
     the lanes that ran them (the warp's lanes scan an entered chunk
-    together) and the inside tests those scans need. It selects a build of the same code that also counts, for a
-    kernel's operation count; the plain version counts nothing."""
+    together) and the inside tests those scans need. ``trips``, a
+    (len(TRIP_COUNTS),) int64 CUDA tensor, makes the refill schedule of a
+    scene without mesh parts add its lane and warp trips to it. Each
+    selects a build of the same code that also counts; the plain version
+    counts nothing."""
     global launches, launches_mesh
     _check(static, prims, rays, seeds, spect, mesh_arrays)
     dev = rays.device
@@ -965,10 +1097,15 @@ def forward(static: SceneStatic, max_depth: int, rr_start: int,
         if not static.mesh_mode:
             raise ValueError("work counts are taken in the mesh mode only")
         _check_tensor("work", work, (WORK_KINDS,), torch.int64, dev)
+    if trips is not None:
+        if static.mesh_parts or work is not None:
+            raise ValueError("trip counts are taken on scenes without mesh "
+                             "parts, and not with work counts")
+        _check_tensor("trips", trips, (len(TRIP_COUNTS),), torch.int64, dev)
     if dev.type == "cpu":
-        if work is not None:
-            raise ValueError("work counts are taken on the card: the plain "
-                             "version counts nothing")
+        if work is not None or trips is not None:
+            raise ValueError("work and trip counts are taken on the card: "
+                             "the plain version counts nothing")
         return forward_reference(static, max_depth, rr_start, prims, rays,
                                  seeds, spect, *mesh_arrays)
     _require_cuda(dev)
@@ -978,18 +1115,28 @@ def forward(static: SceneStatic, max_depth: int, rr_start: int,
     out = torch.empty((4, R), dtype=torch.float32, device=dev)
     ptrs, info = _part_tables(static, mesh_arrays)
     seeds32 = _u32_bits(seeds)
+    counter = (_ray_counter(dev) if not static.mesh_parts and work is None
+               else None)
     _launch("megakernel_fwd", fn, dev, prims.data_ptr(), meta.data_ptr(),
             len(static.rows), lights.data_ptr(), lights.shape[0],
             rays.data_ptr(), seeds32.data_ptr(), spect.data_ptr(),
             static.n_spectra, out.data_ptr(), R, int(max_depth),
             int(rr_start), int(static.mesh_mode), len(static.mesh_parts),
             ctypes.addressof(ptrs), ctypes.addressof(info),
-            None if work is None else work.data_ptr())
+            None if work is None else work.data_ptr(),
+            None if counter is None else counter.data_ptr(),
+            None if trips is None else trips.data_ptr())
     if static.mesh_mode:
         launches_mesh += 1
     else:
         launches += 1
     return out
+
+
+def _ray_counter(device):
+    """The refill schedule's ray counter: one zeroed u64 (as int64) on
+    the device, zeroed on its current stream."""
+    return torch.zeros(1, dtype=torch.int64, device=device)
 
 
 def _part_tables(static: SceneStatic, mesh_arrays):
@@ -1056,8 +1203,8 @@ def forward_taped(static: SceneStatic, max_depth: int, rr_start: int,
 
     CPU tensors run ``forward_taped_reference``; CUDA tensors launch
     ``megakernel_fwd_taped`` of csrc/megakernel_fwd.cu, in its mesh mode
-    when the scene has triangle rows. Scenes without mesh parts: the tape
-    feeds the tape-fed backward."""
+    (on the refill schedule) when the scene has triangle rows. Scenes
+    without mesh parts: the tape feeds the tape-fed backward."""
     global launches_taped
     _require_no_parts(static)
     _check(static, prims, rays, seeds, spect, ())
@@ -1074,12 +1221,14 @@ def forward_taped(static: SceneStatic, max_depth: int, rr_start: int,
     tape_f = torch.empty((D * TAPE_F, R), dtype=torch.float32, device=dev)
     tape_i = torch.empty((D * TAPE_I, R), dtype=torch.int32, device=dev)
     seeds32 = _u32_bits(seeds)
+    counter = _ray_counter(dev) if static.mesh_mode else None
     _launch("megakernel_fwd_taped", fn, dev, prims.data_ptr(),
             meta.data_ptr(), len(static.rows), lights.data_ptr(),
             lights.shape[0], rays.data_ptr(), seeds32.data_ptr(),
             spect.data_ptr(), static.n_spectra, out.data_ptr(),
             tape_f.data_ptr(), tape_i.data_ptr(), R, int(max_depth),
-            int(rr_start), int(static.mesh_mode))
+            int(rr_start), int(static.mesh_mode),
+            None if counter is None else counter.data_ptr())
     launches_taped += 1
     return out, tape_f, tape_i
 
@@ -1374,6 +1523,7 @@ def backward(static: SceneStatic, max_depth: int, rr_start: int,
     _check_tensor("tape_f", tape_f, (D * TAPE_F, R), torch.float32, dev)
     _check_tensor("tape_i", tape_i, (D * TAPE_I, R), torch.int32, dev)
     seeds32 = _u32_bits(seeds)
+    counter = _ray_counter(dev) if static.mesh_mode else None
     _launch(name, fn, dev, prims.data_ptr(), meta.data_ptr(),
             len(static.rows), lights.data_ptr(), lights.shape[0],
             rays.data_ptr(), seeds32.data_ptr(), spect.data_ptr(),
@@ -1381,6 +1531,7 @@ def backward(static: SceneStatic, max_depth: int, rr_start: int,
             partial.data_ptr(), d_rays.data_ptr(), d_spect.data_ptr(),
             tape_f.data_ptr(), tape_i.data_ptr(), R, int(max_depth),
             int(rr_start), int(static.mesh_mode),
+            None if counter is None else counter.data_ptr(),
             *(() if times is None else (times.data_ptr(),)))
     launches_bwd += 1
     return d_prims, d_rays, d_spect

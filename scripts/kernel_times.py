@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the kernels of one checkout of the port on a CUDA card.
 
-    python3 scripts/kernel_times.py [ROOT] [--parts cornell,tri_rows,mesh]
+    python3 scripts/kernel_times.py [ROOT] [--parts cornell,tri_rows,mesh,e2e]
 
 ROOT (default: the checkout holding this script) is the root of a
 checkout of the repository; its package is imported and its kernels are
@@ -17,7 +17,11 @@ JSON line of times in ms:
   build (``sections``: each section's share of the clock64() cycles
   summed over warps, and the timed build's own ms; the retrace kernel's
   replay is the taped forward's launch; absent where ROOT's package has
-  no timed build);
+  no timed build), and the bounce loop's schedule (``schedule``:
+  ``chip_smoke.py`` ``_schedule``, the one-thread schedule's SIMT
+  efficiency from the taped forward's tape and the refill schedule's
+  counted lane and warp trips; where ROOT's package has no refill
+  schedule, the efficiency from the tape alone);
 - ``tri_rows``: the same at ``mesh_scene(1024, 1024, 1)``, 80 triangle
   rows, depth 3 (phase 12);
 - ``mesh``: at ``mesh_scene(1024, 1024, 6)``, 81,920 triangles in one
@@ -27,9 +31,15 @@ JSON line of times in ms:
   in launch order (``shade``, ``candidates``, ``pair_closest``,
   ``pair_any``, ``walk``, with the walks' active rays), and each of its
   casts walked whole as phase 19 seeds it (``walk_casts``).
+- ``e2e``: the served render (``tracer.api.render``, Cornell 1024^2,
+  spp 4, depth 8; phase 4) and one retrace training step (phase 7's
+  ``value_and_grad``), each on the host clock around work that ends in a
+  synchronize (``render_ms``, ``step_ms``: a few runs after a warm-up)
+  and as device time under torch.profiler (``render_device_ms``,
+  ``step_device_ms``: one run each).
 Compare two checkouts in turns within one call (parent, change, change,
 parent): times taken on different cards or calls differ by a few percent.
-``--parts`` runs only the named parts (all three by default).
+``--parts`` runs only the named parts (all four by default).
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ import subprocess
 import sys
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
-REPS = {"cornell": 10, "tri_rows": 10, "mesh": 3}
+REPS = {"cornell": 10, "tri_rows": 10, "mesh": 3, "e2e": 3}
 
 
 def _chip_smoke():
@@ -90,6 +100,23 @@ def _sections(cs, static, depth, args, seed, reps):
         "backward_from_tape": cs._sections(lambda t: mk.backward_from_tape(
             static, depth, cs.RR_START, args[0], args[3], tape_f, tape_i, dL,
             times=t), reps)}
+
+
+def _schedule(cs, static, depth, args):
+    """The bounce loop's schedule at args (chip_smoke.py _schedule); for a
+    package without the refill schedule, the one-thread schedule's SIMT
+    efficiency from the tape alone (warps of 32 consecutive rays)."""
+    mk, torch = cs.mk, cs.torch
+    if hasattr(mk, "TRIP_COUNTS"):
+        return cs._schedule(static, depth, args, mk.forward(
+            static, depth, cs.RR_START, *args))
+    _, _, tape_i = mk.forward_taped(static, depth, cs.RR_START, *args)
+    R = tape_i.shape[1]
+    trips = tape_i.reshape(-1, mk.TAPE_I, R)[:, 7].to(torch.int64).sum(0)
+    warps = torch.nn.functional.pad(trips, (0, -R % 32)).reshape(-1, 32)
+    return {"mean_trips": trips.double().mean().item(),
+            "simt_efficiency_one_thread":
+                trips.sum().item() / (32 * warps.amax(dim=1).sum().item())}
 
 
 def _film(cs, scene, static, dev):
@@ -144,6 +171,22 @@ def main() -> int:
                          REPS[part])
         ms[part]["sections"] = _sections(cs, static, depth, args, seed,
                                          REPS[part])
+        ms[part]["schedule"] = _schedule(cs, static, depth, args)
+    if "e2e" in parts:
+        scene, _ = scene_from_dict(presets.cornell_box(cs.WIDTH, cs.HEIGHT),
+                                   device=dev)
+        static = mk.SceneStatic.from_scene(scene)
+        cfg = cs.RenderConfig(width=cs.WIDTH, height=cs.HEIGHT, spp=cs.SPP,
+                              max_depth=cs.MAX_DEPTH, kernel="pallas")
+        step = lambda: cs._vg(cs._train_leaves(scene)[2], static)
+        e2e = {}
+        for key, fn in (("render", lambda: cs.render(scene, cfg)),
+                        ("step", step)):
+            fn()
+            e2e[key + "_ms"] = [cs._host_s(fn)[0] * 1e3
+                                for _ in range(REPS["e2e"])]
+            e2e[key + "_device_ms"] = cs._profile(fn)[1]
+        ms["e2e"] = e2e
     if "mesh" not in parts:
         print(json.dumps({"root": str(root), "device":
                           torch.cuda.get_device_name(0), "ms": ms}))

@@ -16,7 +16,10 @@ forwards on a scene of exact ties (presets.tie_mesh_scene), where the
 lanes of a warp scan each chunk together; the retrace kernel as the taped
 forward's launch followed by the tape-fed kernel's sweep, bit for bit,
 both kernels' d_prims across runs, and both kernels on a scene of 10
-spectra.
+spectra; the refill schedule of the forward (persistent warps that refill
+their dead lanes) against its plain version at ragged ray counts and edge
+cases, in the triangle rows' taped forward, across launches, and its
+counting build against the tape's trips.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -322,6 +325,91 @@ def test_backward_d_prims_bit_equal_across_runs(cuda, kernel):
     assert float(first[0].abs().max()) > 0
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def _refill_case(cuda, kind="cornell_box", side=64, n_rays=None):
+    """Kernel operands of the refill schedule's scenes: Cornell, Cornell
+    with its camera turned away from the box (every ray misses on its
+    first trip), or mesh_scene(subdivisions=1), 80 triangle rows; the
+    first n_rays rays of a side x side film."""
+    if kind == "triangle_rows":
+        doc = presets.mesh_scene(side, side, 1)
+    else:
+        doc = presets.cornell_box(side, side)
+    if kind == "looking_away":
+        doc["camera"]["lookat"] = [278, 273, -1600]
+    scene, _ = scene_from_dict(doc, device=cuda)
+    static = mk.SceneStatic.from_scene(scene)
+    assert not static.mesh_parts
+    px, py = kt.tile_coords(side, side, 0, cuda)
+    if n_rays is not None:
+        px, py = px[:n_rays], py[:n_rays]
+    return static, kt.kernel_inputs(scene, *kt.camera_planes(
+        scene, side, side, px, py, 1), static)
+
+
+@pytest.mark.parametrize("kind,n_rays,max_depth,rr_start", [
+    ("cornell_box", 1, 8, 1), ("cornell_box", 31, 8, 1),
+    ("cornell_box", 33, 8, 1), ("cornell_box", 1000, 8, 1),
+    ("cornell_box", None, 0, 1), ("cornell_box", None, 8, 8),
+    ("looking_away", None, 8, 1), ("triangle_rows", None, 3, 1)])
+def test_refill_kernel_is_bit_equal(cuda, kind, n_rays, max_depth,
+                                    rr_start):
+    """The refill schedule (a scene without mesh parts) against the plain
+    version, bit for bit: ragged counts that leave lanes and warps
+    without a ray, max_depth 0, rays that all die on their first trip,
+    no Russian roulette (rr_start = max_depth), and triangle rows. One
+    launch counts one forward."""
+    static, args = _refill_case(cuda, kind, n_rays=n_rays)
+    before = (mk.launches, mk.launches_mesh)
+    got = mk.forward(static, max_depth, rr_start, *args)
+    torch.cuda.synchronize()
+    mesh = kind == "triangle_rows"
+    assert (mk.launches, mk.launches_mesh) == (before[0] + (not mesh),
+                                               before[1] + mesh)
+    want = mk.forward_reference(static, max_depth, rr_start, *args)
+    assert torch.equal(got, want)
+    if kind == "looking_away":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("n_rays", [33, 1000, None])
+def test_refill_taped_kernel_is_bit_equal(cuda, n_rays):
+    """The taped forward of triangle rows runs the refill schedule: its
+    radiance and both tape planes are forward_taped_reference's bit for
+    bit (the dead rows written when a ray dies), and the retrace kernel's
+    replay writes the same tape."""
+    static, args = _refill_case(cuda, "triangle_rows", n_rays=n_rays)
+    rad, tape_f, tape_i = mk.forward_taped(static, 3, 1, *args)
+    want = mk.forward_taped_reference(static, 3, 1, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(rad, want[0])
+    assert torch.equal(tape_f, want[1]) and torch.equal(tape_i, want[2])
+    replay = (torch.full_like(tape_f, float("nan")),
+              torch.full_like(tape_i, -7))
+    mk.backward(static, 3, 1, *args, _dL(rad.shape[1], cuda), tape=replay)
+    assert torch.equal(replay[0], tape_f) and torch.equal(replay[1], tape_i)
+
+
+@pytest.mark.parametrize("kind", ["cornell_box", "triangle_rows"])
+def test_refill_kernel_counting_build(cuda, kind):
+    """At 512^2, two launches are bit-equal (which lane traces a ray, and
+    when, varies), the counting build's radiance is the kernel's, its lane
+    trips are the tape's trips exactly, and its warp trips are a multiple
+    of 32 at least the lane trips."""
+    static, args = _refill_case(cuda, kind, side=512)
+    depth = 3 if kind == "triangle_rows" else 8
+    first = mk.forward(static, depth, 1, *args)
+    second = mk.forward(static, depth, 1, *args)
+    trips = torch.zeros(len(mk.TRIP_COUNTS), dtype=torch.int64,
+                        device=cuda)
+    counted = mk.forward(static, depth, 1, *args, trips=trips)
+    _, _, tape_i = mk.forward_taped(static, depth, 1, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(counted, first)
+    lane_trips, warp_trips = trips.tolist()
+    assert lane_trips == int(mk.trips_from_tape(tape_i).sum())
+    assert warp_trips % 32 == 0 and warp_trips >= lane_trips
 
 
 def _wide_cornell(w, h):
