@@ -142,7 +142,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    scans (the ones with the most live pairs) is held against its plain
    version the same way. The counting builds (radiance bit-equal) give the
    kernels' slab, plane and inside tests, and the walk's chunk scans, the
-   lanes that ran them and the inside tests they need. Times: every
+   lanes that ran them and the inside tests they need; per candidate
+   launch of the full film, its counting build's chunk-loop lane and warp
+   trips must equal the trips its lanes' supernode masks give
+   (binned.candidate_trips), printed with the SIMT efficiency of the
+   warp-drained pass and of the one-thread pass it replaced. Times: every
    launch (CUDA events), the wavefront sample and the mesh kernel in turns (mesh,
    wavefront, wavefront, mesh), and a torch.profiler pass over the
    sample.
@@ -1059,6 +1063,35 @@ def _full_film_check(calls):
     return checked
 
 
+def _candidate_simt(calls):
+    """The candidate kernel's chunk loop per cast of a full-film sample:
+    each launch's counting build (lane trips: chunk tests; warp trips: the
+    drain's passes) against the trips its lanes' supernode masks give
+    (binned.candidate_trips), and the SIMT efficiency, lane trips over 32
+    per warp trip, of the drain and of the one-thread pass it replaced.
+    -> [(drain, one-thread)] per launch; raises where the counts differ."""
+    simt = []
+    for i, (kind, a, _, _) in enumerate(c for c in calls
+                                        if c[0] == "candidates"):
+        work = torch.zeros(mk.WORK_KINDS, dtype=torch.int64,
+                           device=a[0].device)
+        bn.candidate_kernel(*a, work=work)
+        w = work.tolist()
+        want = bn.candidate_trips(a[0], a[1])
+        if (w[5], w[4]) != (want["lane_trips"], want["warp_trips"]):
+            raise RuntimeError(f"candidate launch {i}: counted lane and warp "
+                               f"trips {w[5]}, {w[4]}, its masks give "
+                               f"{want}")
+        eff = w[5] / max(32 * w[4], 1)
+        one = w[5] / max(32 * want["warp_trips_one_thread"], 1)
+        simt.append((eff, one))
+        print(f"candidate cast {i}: {w[0]} rays, {w[1]} slab tests; chunk "
+              f"loop {w[5]} lane trips, {w[4]} warp trips (as the masks "
+              f"give), SIMT efficiency {eff:.4f}; the one-thread pass's "
+              f"{want['warp_trips_one_thread']} warp trips, {one:.4f}")
+    return simt
+
+
 def _logged(fn):
     """fn() with every counter reset just before and the binned casts
     logged: (host seconds, result, counters, cast log, host reads)."""
@@ -1195,6 +1228,7 @@ def _wavefront(mscene, mstatic, fargs, marrays, y0, mesh_counts):
         per[kind].append(_events_ms(lambda: getattr(mod, attr)(*a, **k), 3))
     print(f"wavefront ms per launch, in launch order: "
           f"{ {kind: [round(t, 4) for t in ts] for kind, ts in per.items()} }")
+    simt = _candidate_simt(calls)
     full = _full_film_check(calls)
     for kind, (n, (_, _, exact, err), t_s) in full.items():
         print(f"wavefront full film: the {kind} launch with the most live "
@@ -1259,6 +1293,16 @@ def _wavefront(mscene, mstatic, fargs, marrays, y0, mesh_counts):
                   "pair_closest": "pair", "pair_any": "pair_occl",
                   "walk": "walk"}
     out = {}
+    redesigned = {
+        "candidates": "warp-drained: each lane's supernode bitmask; "
+                      "supernodes most lanes entered tested lane by lane, "
+                      "the other (lane, supernode) items two per pass, 16 "
+                      "lanes to an item; entries inserted by their owners "
+                      "side by side from pending lists; boxes through L1",
+        "pair_closest": "its own loop: the record as 128-bit loads, the next "
+                        "one loaded ahead, the inside test before the "
+                        "plane's division, unrolled by two",
+        "pair_any": "the pair_closest loop's any-hit instantiation"}
     for kind in WAVEFRONT_KERNELS:
         rows = report[kind] + [full[kind][1]] if kind in full else report[kind]
         out[kind] = {
@@ -1276,6 +1320,11 @@ def _wavefront(mscene, mstatic, fargs, marrays, y0, mesh_counts):
             "work": work.get({"pair_closest": "pair", "pair_any": "pair_any"}
                              .get(kind, kind)),
         }
+        if kind in redesigned:
+            out[kind]["redesigned"] = redesigned[kind]
+        if kind == "candidates":
+            out[kind]["simt_efficiency"] = [e for e, _ in simt]
+            out[kind]["simt_efficiency_one_thread"] = [e for _, e in simt]
         if kind in full:
             n, _, t_s = full[kind]
             out[kind]["full_film_check"] = {

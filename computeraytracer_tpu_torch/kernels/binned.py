@@ -218,6 +218,152 @@ def candidates_reference(rays7, chunk_bbox, k: int):
     return cand.to(torch.int32), best_t[k].contiguous()
 
 
+WARP = 32  # lanes of a warp of csrc/candidates.cu
+DENSE_LANES = 12  # csrc/candidates.cu: a supernode this many lanes enter
+                  # is tested lane by lane, not drained
+
+
+def _insert(entries_t, entries_i, k: int):
+    """The k-slot insertion of csrc/candidates.cu (there each slot is
+    placed by its own comparison, here by a compare-swap chain: the same
+    slots), one entry per step along dim 0 of entries_t / entries_i (E,
+    R), +inf / -1 where a ray has no entry (a padding entry changes
+    nothing) -> (slot_t (k, R), slot_i (k, R), t_next (R,)): ascending by
+    t_enter, equal entries by the lower chunk id, t_next the least evicted
+    t_enter."""
+    R = entries_t.shape[1]
+    dev = entries_t.device
+    slot_t = [torch.full((R,), math.inf, device=dev) for _ in range(k)]
+    slot_i = [torch.full((R,), -1, dtype=torch.int64, device=dev)
+              for _ in range(k)]
+    t_next = torch.full((R,), math.inf, device=dev)
+    for t_new, i_new in zip(entries_t, entries_i):
+        for j in range(k):
+            swap = (t_new < slot_t[j]) | ((t_new == slot_t[j])
+                                          & (i_new < slot_i[j]))
+            slot_t[j], t_new = (torch.where(swap, t_new, slot_t[j]),
+                                torch.where(swap, slot_t[j], t_new))
+            slot_i[j], i_new = (torch.where(swap, i_new, slot_i[j]),
+                                torch.where(swap, slot_i[j], i_new))
+        t_next = torch.minimum(t_next, t_new)
+    return torch.stack(slot_t), torch.stack(slot_i), t_next
+
+
+def candidates_drained_reference(rays7, chunk_bbox, k: int, order=None):
+    """Plain model of the warp-drained schedule of csrc/candidates.cu,
+    used by no path on the card: rays7 (7, R) and chunk_bbox (C, 8) as
+    ``candidates_reference``'s -> (cand (k, R) i32, t_next (R,) f32,
+    schedule dict), equal to ``candidates_reference``.
+
+    Lanes are rays r, warps the WARP consecutive lanes. Per group of 32
+    supernodes: each active lane's mask of the supernodes it enters
+    (``schedule["masks"]``, (n_groups, R) int64); first the dense
+    supernodes, entered by DENSE_LANES lanes of the warp or more, in
+    ascending order, each lane that entered one testing its chunks for
+    its own ray; then the warp's other (lane, supernode) items in rank
+    order (by lane, then supernode), taken two per pass, each tested
+    against its owner's ray on the supernode's SUP_CHUNKS chunk boxes. The
+    entries that pass queue at their owner in the order they are found
+    (chunks ascending within a supernode), and the owner inserts them in
+    that order. ``order``, a torch.Generator, shuffles each ray's queue
+    first instead (the insertion is order-free). ``schedule``: the masks,
+    the chunk loop's warp trips (``warp_trips``: a dense supernode's
+    chunks and the drain's passes, summed over warps) and its chunk tests
+    (``lane_trips``)."""
+    R = rays7.shape[1]
+    dev = rays7.device
+    C = chunk_bbox.shape[0]
+    o, d, bound = rays7[0:3], rays7[3:6], rays7[6]
+    active = bound > -math.inf
+    cboxes, sboxes = _supernodes(chunk_bbox)
+    n_sup = sboxes.shape[0]
+    inv = _inv_dir(d)
+    entered = ((_slab_t_enter(sboxes, o, d, bound, inv) < math.inf)
+               & active[None]).cpu()
+    te = _slab_t_enter(cboxes, o, d, bound, inv).cpu()
+    n_groups = -(-n_sup // 32)
+    masks = torch.zeros((n_groups, R), dtype=torch.int64)
+    for s in range(n_sup):
+        masks[s // 32] |= entered[s].to(torch.int64) << (s % 32)
+    mask_of = masks.tolist()
+    passed = (te < math.inf).T.tolist()  # (R, n_sup * SUP_CHUNKS)
+    real = [max(min(SUP_CHUNKS, C - s * SUP_CHUNKS), 0) for s in range(n_sup)]
+    queues = [[] for _ in range(R)]
+    warp_trips = lane_trips = 0
+    for w0 in range(0, R, WARP):
+        lanes = range(w0, min(w0 + WARP, R))
+        for g in range(n_groups):
+            dense = 0
+            for b in range(min(32, n_sup - 32 * g)):
+                n = sum((mask_of[g][r] >> b) & 1 for r in lanes)
+                if n < DENSE_LANES:
+                    continue
+                dense |= 1 << b
+                s = 32 * g + b
+                warp_trips += real[s]
+                for r in lanes:
+                    if (mask_of[g][r] >> b) & 1:
+                        lane_trips += real[s]
+                        c0 = s * SUP_CHUNKS
+                        queues[r] += [c for c in range(c0, c0 + real[s])
+                                      if passed[r][c]]
+            items = [(r, 32 * g + b) for r in lanes for b in range(32)
+                     if ((mask_of[g][r] & ~dense) >> b) & 1]
+            for p in range(0, len(items), 2):
+                warp_trips += 1
+                for r, s in items[p:p + 2]:
+                    c0 = s * SUP_CHUNKS
+                    lane_trips += real[s]
+                    queues[r] += [c for c in range(c0, c0 + real[s])
+                                  if passed[r][c]]
+    if order is not None:
+        queues = [[q[i] for i in torch.randperm(len(q), generator=order)]
+                  for q in queues]
+    E = max((len(q) for q in queues), default=0)
+    ids = torch.full((E, R), -1, dtype=torch.int64)
+    for r, q in enumerate(queues):
+        ids[:len(q), r] = torch.tensor(q, dtype=torch.int64)
+    ent_t = torch.where(ids >= 0, te.gather(0, ids.clamp(min=0)), math.inf)
+    _, slot_i, t_next = _insert(ent_t, ids, k)
+    schedule = {"masks": masks, "warp_trips": warp_trips,
+                "lane_trips": lane_trips}
+    return (slot_i.to(torch.int32).to(dev), t_next.to(dev), schedule)
+
+
+def candidate_trips(rays7, chunk_bbox) -> dict:
+    """The candidate pass's chunk-loop trips on rays7 (7, R) and chunk_bbox
+    (C, 8), from the lanes' supernode masks alone (any device): the chunk
+    tests (``lane_trips``), the chunk loop's warp trips of csrc/
+    candidates.cu (``warp_trips``: per warp and group of 32 supernodes,
+    the chunks of each supernode that DENSE_LANES lanes or more entered,
+    and half its other entered items, rounded up: the drain's passes) and
+    the one-thread pass's chunk-loop trips
+    (``warp_trips_one_thread``: the real chunks of every supernode that any
+    lane of a warp entered). SIMT efficiency is lane trips over 32 per
+    warp trip."""
+    R = rays7.shape[1]
+    C = chunk_bbox.shape[0]
+    dev = rays7.device
+    _, sboxes = _supernodes(chunk_bbox)
+    n_sup = sboxes.shape[0]
+    G = -(-n_sup // 32)
+    W = -(-R // WARP)
+    entered = ((_slab_t_enter(sboxes, rays7[0:3], rays7[3:6], rays7[6])
+                < math.inf) & (rays7[6] > -math.inf)[None])
+    entered = torch.nn.functional.pad(
+        entered, (0, W * WARP - R, 0, 32 * G - n_sup)).reshape(
+            G, 32, W, WARP).to(torch.int64)
+    real = (C - SUP_CHUNKS * torch.arange(32 * G, device=dev)).clamp(
+        0, SUP_CHUNKS).reshape(G, 32, 1, 1)
+    lanes = entered.sum(dim=3, keepdim=True)          # (G, 32, W, 1)
+    dense = lanes >= DENSE_LANES
+    items = torch.where(dense, 0, lanes).sum(dim=(1, 3))
+    return {"lane_trips": int((entered * real).sum()),
+            "warp_trips": int((dense * real).sum() + ((items + 1) // 2).sum()),
+            "warp_trips_one_thread": int(
+                (entered.amax(dim=3, keepdim=True) * real).sum())}
+
+
 def _supernodes(chunk_bbox):
     """(cboxes (n_sup * SUP_CHUNKS, 8), sboxes (n_sup, 8)): the chunk boxes
     padded to whole supernodes with meshpack.BIG boxes, and each
@@ -386,6 +532,64 @@ def pair_occluded_reference(pair_f, pair_i, tri_rows):
     return flag
 
 
+def pair_scan_order_reference(pair_f, pair_i, tri_rows, any_hit: bool):
+    """Plain model of the order in which csrc/pair.cu scans a pair's
+    chunk, used by no path on the card: the 128 triangles one at a time;
+    for each, its id (padding, the excluded triangle), the grazing test,
+    the watertight inside test and only then, for a triangle the ray
+    passes through, the plane's t and its range: T_MIN <= t and (t, id)
+    beating the running best under the tie rule, or, for any_hit, t <=
+    t_light, where the scan stops. -> pair_reference's outputs (any_hit
+    False) or pair_occluded_reference's flag (True), which it equals: a
+    hit needs every test, whatever their order."""
+    P = pair_f.shape[1]
+    dev = pair_f.device
+    out_f = torch.zeros((4, P), dtype=torch.float32, device=dev)
+    out_f[0] = math.inf
+    out_i = torch.full((1, P), -1, dtype=torch.int32, device=dev)
+    flag = torch.zeros((1, P), dtype=torch.int32, device=dev)
+
+    def scan(lanes, o, d, exclude, blk):
+        o, d = tuple(x[:, 0] for x in o), tuple(x[:, 0] for x in d)
+        wt = isect.watertight_setup(o, d)
+        n = lanes.shape[0]
+        best_t = torch.full((n,), math.inf, device=dev)
+        best_i = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        best_n = [torch.zeros(n, device=dev) for _ in range(3)]
+        done = torch.zeros(n, dtype=torch.bool, device=dev)
+        t_light = pair_f[6, lanes]
+        for j in range(meshpack.TRIS_PER_CHUNK):
+            w = lambda k: blk[:, j, k]
+            tid = w(9).to(torch.int64)
+            n0 = (w(10), w(11), w(12))
+            p0 = (w(0), w(1), w(2))
+            ndotd = n0[0] * d[0] + n0[1] * d[1] + n0[2] * d[2]
+            flip = ndotd > 0.0
+            grazing = torch.where(flip, -ndotd, ndotd).abs() < 1e-4
+            test = (tid >= 0) & (tid != exclude[:, 0]) & ~grazing & ~done
+            test &= isect.watertight_inside(wt, p0, (w(3), w(4), w(5)),
+                                            (w(6), w(7), w(8)))
+            t, _, _ = isect.plane_t(n0, p0, o, d)
+            if any_hit:
+                done |= test & (t >= T_MIN) & (t <= t_light)
+                continue
+            take = test & (t >= T_MIN) & ((t < best_t) | ((t == best_t)
+                                                          & (tid > best_i)))
+            best_t = torch.where(take, t, best_t)
+            best_i = torch.where(take, tid, best_i)
+            sgn = torch.where(flip, -1.0, 1.0)
+            for c in range(3):
+                best_n[c] = torch.where(take, sgn * n0[c], best_n[c])
+        flag[0, lanes] = done.to(torch.int32)
+        out_f[0, lanes] = best_t
+        for c in range(3):
+            out_f[1 + c, lanes] = best_n[c]
+        out_i[0, lanes] = best_i.to(torch.int32)
+
+    _pair_scan(pair_f, pair_i, tri_rows, scan)
+    return flag if any_hit else (out_f, out_i)
+
+
 def _check_pairs(pair_f, pair_i, tri_rows, work):
     P = pair_f.shape[-1] if pair_f.dim() == 2 else -1
     dev = pair_f.device
@@ -397,6 +601,9 @@ def _check_pairs(pair_f, pair_i, tri_rows, work):
     if tri_rows.shape[0] % meshpack.ROWS_PER_CHUNK:
         raise ValueError(f"tri_rows: {tri_rows.shape[0]} rows is not a whole "
                          f"number of {meshpack.ROWS_PER_CHUNK}-row chunks")
+    if dev.type == "cuda" and tri_rows.data_ptr() % 16:
+        raise ValueError("tri_rows: the pair kernels read 16-byte aligned "
+                         "triangle records")
     if work is not None:
         mk._check_tensor("work", work, (mk.WORK_KINDS,), torch.int64, dev)
         if dev.type == "cpu":
@@ -446,6 +653,27 @@ def pair_occluded(pair_f, pair_i, tri_rows, work: torch.Tensor | None = None):
                None if work is None else work.data_ptr())
     launches_pair_occl += 1
     return flag
+
+
+# Sections of the pair scans' timed build (csrc/pair.cu S_*).
+PAIR_SECTIONS = ("head", "plane_t", "inside", "update", "loop")
+
+
+def pair_sections(pair_f, pair_i, tri_rows, any_hit: bool) -> torch.Tensor:
+    """The timed build of a pair scan (``pair_timed`` of csrc/pair.cu; CUDA
+    only, never on the main path, counts no launch): each of
+    PAIR_SECTIONS' clock64() cycles summed over lanes, (5,) int64."""
+    P, dev = _check_pairs(pair_f, pair_i, tri_rows, None)
+    mk._require_cuda(dev)
+    fn = mk._fn("pair", "pair_timed")
+    out_f = torch.empty((4, P), dtype=torch.float32, device=dev)
+    out_i = torch.empty((1, P), dtype=torch.int32, device=dev)
+    times = torch.zeros(len(PAIR_SECTIONS), dtype=torch.int64, device=dev)
+    mk._launch("pair_timed", fn, dev, pair_f.data_ptr(), pair_i.data_ptr(),
+               tri_rows.data_ptr(), out_f.data_ptr(), out_i.data_ptr(), P,
+               tri_rows.shape[0] // meshpack.ROWS_PER_CHUNK, int(any_hit),
+               times.data_ptr())
+    return times
 
 
 def _pairs(cand, rays, exclude, t_pair=None):

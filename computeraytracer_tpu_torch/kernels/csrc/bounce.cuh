@@ -344,7 +344,7 @@ __device__ __forceinline__ bool slab(const float* __restrict__ bb, V3 o,
 }
 
 // One triangle of a chunk against one ray, scan_mesh_part's per-lane test
-// and op for op the body of scan_chunk's loop: whether triangle row `tri`
+// (pair.cu's scan_pair runs the same arithmetic): whether triangle row `tri`
 // (not padding, id -1, and not the triangle `exclude`) is hit at a t that
 // beats (best_t, best_i) under the mesh tie rule (t < best_t, or t ==
 // best_t and the higher id). The hit's t, id and the normal facing the ray
@@ -395,54 +395,6 @@ __device__ __forceinline__ bool tri_plane(const float* __restrict__ tri, V3 o,
                     n0.z * (p0.z - o.z);
   t = num / ndotd;
   return true;
-}
-
-// One chunk's 128 triangles against one ray, in order, on one thread
-// (binned.py:392 build_pair_kernel and :898 build_pair_kernel_occl: their
-// pairs arrive sorted by chunk, so a warp's threads read the same rows).
-// Its loop body is tri_test's arithmetic written out: the pair kernels
-// built through tri_test ran the closest-hit scan ~9% slower.
-// - ANY false: closest hit under the mesh tie rule; updates h, whose hits
-//   record `slot`. Returns false.
-// - ANY true: whether some triangle is hit at T_MIN <= t <= t_light;
-//   returns at the first one and leaves h alone. Its t is the closest
-//   scan's, so the answer is exactly "closest t <= t_light".
-// With COUNT, counts its plane and inside tests into mesh_work.
-template <bool ANY, bool COUNT>
-__device__ __forceinline__ bool scan_chunk(const float* __restrict__ tri,
-                                           int slot, V3 o, V3 d, int exclude,
-                                           const Watertight& wt, Hit& h,
-                                           float t_light) {
-  for (int j = 0; j < TRIS_PER_CHUNK; ++j, tri += TRI_WORDS) {
-    const int tid = (int)tri[9];
-    if (tid < 0 || tid == exclude) continue;
-    if (COUNT) ++mesh_work[W_PLANE][threadIdx.x];
-    const V3 n0 = {tri[10], tri[11], tri[12]};
-    const float ndotd = n0.x * d.x + n0.y * d.y + n0.z * d.z;
-    const bool flip = ndotd > 0.0f;
-    if (fabsf(flip ? -ndotd : ndotd) < 1e-4f) continue;  // grazing
-    const V3 p0 = {tri[0], tri[1], tri[2]};
-    const float num = n0.x * (p0.x - o.x) + n0.y * (p0.y - o.y) +
-                      n0.z * (p0.z - o.z);
-    const float t = num / ndotd;
-    if (ANY) {
-      if (!(t >= T_MIN && t <= t_light)) continue;
-    } else if (!(t >= T_MIN && (t < h.t || (t == h.t && tid > h.idx)))) {
-      continue;
-    }
-    if (COUNT) ++mesh_work[W_INSIDE][threadIdx.x];
-    if (!watertight_inside(wt, p0, {tri[3], tri[4], tri[5]},
-                           {tri[6], tri[7], tri[8]}))
-      continue;
-    if (ANY) return true;
-    const float sgn = flip ? -1.0f : 1.0f;
-    h.t = t;
-    h.idx = tid;
-    h.slot = slot;
-    h.pos = vadd(o, vscale(t, d));
-    h.nrm = {sgn * n0.x, sgn * n0.y, sgn * n0.z};
-  }
-  return false;
 }
 
 // One lane's stackless skip-link walk of part mp's DFS node array (descend
@@ -502,7 +454,7 @@ __device__ __forceinline__ unsigned t_key(float t) {
 // 64-byte rows, and keeps its own best under the tie rule from the owner's
 // best at the chunk's entry. A reduction over the lanes (min t, then max id
 // among the lanes at that t) picks the winner, whose t, id and normal the
-// owner takes, with pos = o + t*d as scan_chunk computes it.
+// owner takes, with pos = o + t*d as a serial scan computes it.
 //
 // Exact: the tie rule is a strict total order on (t, id), ids are unique in
 // the scene, and the serial scan and the reduction both compute its maximum

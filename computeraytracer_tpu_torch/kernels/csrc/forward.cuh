@@ -190,8 +190,12 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // Launch refill_fwd_kernel on as many blocks as stay resident (the SM
-// count times the kernel's occupancy, taken once per build), or fewer
-// when the rays fill fewer. *next_ray must be 0.
+// count times the kernel's occupancy), or fewer when the rays fill fewer.
+// *next_ray must be 0. The resident count is kept per device ordinal, taken
+// at the first launch on each device: cards of one host may differ in SM
+// count, and a grid sized for another card would leave SMs idle or queue
+// blocks behind persistent ones.
+constexpr int MAX_DEVICES = 64;
 template <int MESH, int TAPE, bool COUNT>
 cudaError_t refill_launch(const float* prims, const int* meta, int P,
                           const int* lights, int n_lights, const float* rays,
@@ -200,20 +204,23 @@ cudaError_t refill_launch(const float* prims, const int* meta, int P,
                           int max_depth, int rr_start,
                           unsigned long long* next_ray,
                           unsigned long long* trips, cudaStream_t st) {
-  static long long resident = 0;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  static long long resident[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, refill_fwd_kernel<MESH, TAPE, COUNT>, THREADS, 0);
     if (err != cudaSuccess) return err;
-    resident = (long long)sms * per_sm;
+    resident[dev] = (long long)sms * per_sm;
   }
   const long long need = (R + THREADS - 1) / THREADS;
-  const unsigned blocks = (unsigned)(need < resident ? need : resident);
+  const unsigned blocks =
+      (unsigned)(need < resident[dev] ? need : resident[dev]);
   refill_fwd_kernel<MESH, TAPE, COUNT><<<blocks, THREADS, 0, st>>>(
       prims, meta, P, lights, n_lights, rays, seeds, spect, S, out, tape_f,
       tape_i, R, max_depth, rr_start, next_ray, trips);

@@ -1042,6 +1042,7 @@ SIGNATURES = {
     "candidates": "pppppqiiipp",
     "pair_closest": "pppppqipp",
     "pair_any": "ppppqipp",
+    "pair_timed": "pppppqiipp",
 }
 
 

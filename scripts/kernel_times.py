@@ -37,9 +37,20 @@ JSON line of times in ms:
   synchronize (``render_ms``, ``step_ms``: a few runs after a warm-up)
   and as device time under torch.profiler (``render_device_ms``,
   ``step_device_ms``: one run each).
+- ``binned``: at the same workload, the binned casts' kernels alone:
+  each candidate, ``pair_closest`` and ``pair_any`` launch of one
+  wavefront sample timed, the candidate kernel's counting build per
+  launch (active rays, slab tests, the chunk loop's warp and lane trips
+  and their SIMT efficiency, lane trips over 32 per warp trip), the pair
+  scans' timed build per launch where ROOT's package has one
+  (``bn.pair_sections``: each section's share of the lanes' clock64()
+  cycles), and the SASS of ``csrc/pair.cu`` and ``csrc/candidates.cu``
+  (``cuobjdump -sass``, written to ``sass/`` in ROOT's kernel build
+  directory, ``kernels/build/``, with each
+  kernel's instruction count printed).
 Compare two checkouts in turns within one call (parent, change, change,
 parent): times taken on different cards or calls differ by a few percent.
-``--parts`` runs only the named parts (all four by default).
+``--parts`` runs only the named parts (all five by default).
 """
 
 from __future__ import annotations
@@ -52,7 +63,7 @@ import subprocess
 import sys
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
-REPS = {"cornell": 10, "tri_rows": 10, "mesh": 3, "e2e": 3}
+REPS = {"cornell": 10, "tri_rows": 10, "mesh": 3, "e2e": 3, "binned": 5}
 
 
 def _chip_smoke():
@@ -117,6 +128,66 @@ def _schedule(cs, static, depth, args):
     return {"mean_trips": trips.double().mean().item(),
             "simt_efficiency_one_thread":
                 trips.sum().item() / (32 * warps.amax(dim=1).sum().item())}
+
+
+def _sass(cs, root):
+    """cuobjdump -sass of the pair and candidate libraries, written to
+    sass/ in the kernel build directory; {kernel symbol: instruction
+    count}."""
+    build = cs._build
+    tool = pathlib.Path(build.nvcc()).with_name("cuobjdump")
+    out_dir = build.BUILD_DIR / "sass"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    counts = {}
+    for stem in ("pair", "candidates"):
+        lib = next(build.BUILD_DIR.glob(f"{stem}.*.so"))
+        sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        (out_dir / f"{root.name or 'root'}_{stem}.sass").write_text(sass)
+        name = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                counts[name] = 0
+            elif name and line.strip().startswith("/*") and "*/" in line \
+                    and line.strip()[2:6].strip().isalnum():
+                counts[name] += 1
+    return counts
+
+
+def _binned(cs, static, args, arrays, reps):
+    """The binned casts' kernels of one wavefront sample on args: times,
+    the candidate kernel's per-launch counts and the pair scans' sections."""
+    torch, bn, mk = cs.torch, cs.bn, cs.mk
+    _, calls = cs._recorded_wavefront(static, args, arrays)
+    out = {"candidates": [], "pair_closest": [], "pair_any": []}
+    for kind, a, k, _ in calls:
+        if kind not in out:
+            continue
+        mod, attr, _ = cs.WAVEFRONT_KERNELS[kind]
+        entry = {"ms": cs._events_ms(lambda: getattr(mod, attr)(*a, **k),
+                                     reps)}
+        work = torch.zeros(mk.WORK_KINDS, dtype=torch.int64,
+                           device=a[0].device)
+        getattr(mod, attr)(*a, work=work)
+        w = work.tolist()
+        if kind == "candidates":
+            entry.update(rays=w[0], slab_tests=w[1], warp_trips=w[4],
+                         lane_trips=w[5],
+                         simt_efficiency=w[5] / max(32 * w[4], 1))
+        else:
+            entry.update(live=w[0], plane_tests=w[2], inside_tests=w[3])
+            if hasattr(bn, "pair_sections"):
+                t = bn.pair_sections(*a, kind == "pair_any").tolist()
+                entry["sections"] = {
+                    name: t[i] / max(t[-1], 1)
+                    for i, name in enumerate(bn.PAIR_SECTIONS[:-1])}
+                entry["loop_cycles_per_plane_test"] = t[-1] / max(w[2], 1)
+        out[kind].append(entry)
+    for kind in list(out):
+        out[kind + "_sum_ms"] = sum(e["ms"] for e in out[kind])
+    return out
 
 
 def _film(cs, scene, static, dev):
@@ -187,7 +258,9 @@ def main() -> int:
                                 for _ in range(REPS["e2e"])]
             e2e[key + "_device_ms"] = cs._profile(fn)[1]
         ms["e2e"] = e2e
-    if "mesh" not in parts:
+    if "binned" in parts:
+        print(f"sass instructions: {_sass(cs, root)}")
+    if not parts & {"mesh", "binned"}:
         print(json.dumps({"root": str(root), "device":
                           torch.cuda.get_device_name(0), "ms": ms}))
         return 0
@@ -199,6 +272,12 @@ def main() -> int:
     arrays = tuple(a for p in kt.mesh_packs_for(scene, static)
                    for a in p.arrays)
     args = _film(cs, scene, static, dev)
+    if "binned" in parts:
+        ms["binned"] = _binned(cs, static, args, arrays, REPS["binned"])
+    if "mesh" not in parts:
+        print(json.dumps({"root": str(root), "device":
+                          torch.cuda.get_device_name(0), "ms": ms}))
+        return 0
     reps = REPS["mesh"]
     mesh = timed({
         "mesh": lambda: mk.forward(static, cs.MESH_DEPTH, cs.RR_START, *args,

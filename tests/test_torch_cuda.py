@@ -19,7 +19,11 @@ both kernels' d_prims across runs, and both kernels on a scene of 10
 spectra; the refill schedule of the forward (persistent warps that refill
 their dead lanes) against its plain version at ragged ray counts and edge
 cases, in the triangle rows' taped forward, across launches, and its
-counting build against the tape's trips.
+counting build against the tape's trips; the warp-drained candidate
+kernel over several groups of supernodes, coherent and incoherent warps
+and boxes with equal entry distances, its counted chunk-loop trips equal
+to its plain model's, and the pair kernels on unsorted pairs of tie
+chunks with dead pairs among them.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -950,9 +954,73 @@ def test_candidates_kernel_matches_plain_version(cuda, k):
     counted = bn.candidates(bbox, rays, bound, k, active, work=work)
     for g, w in zip(counted, got):
         assert torch.equal(g, w)
-    casts, slabs, *rest = work.tolist()
-    assert casts == int(active.sum()) and rest == [0] * (mk.WORK_KINDS - 2)
-    assert slabs >= casts * -(-n_real // bn.SUP_CHUNKS)
+    casts, slabs, plane, inside, passes, chunk_tests, needed = work.tolist()
+    assert casts == int(active.sum()) and plane == inside == needed == 0
+    assert slabs == casts * -(-n_real // bn.SUP_CHUNKS) + chunk_tests
+    sched = bn.candidates_drained_reference(rays7, bbox, k)[2]
+    assert (passes, chunk_tests) == (sched["warp_trips"],
+                                     sched["lane_trips"])
+
+
+def _tie_boxes(n, g):
+    """(n, 8) f32 chunk boxes (tests/test_torch_binned_drain.py's): each run
+    of 16 around a centre of its own, every fifth box a copy of the one
+    before it, every seventh sharing its near corner with the one before
+    it."""
+    centre = np.repeat(g.uniform(-2, 2, (-(-n // 16), 3)), 16, axis=0)[:n]
+    lo = centre + g.uniform(-0.5, 0.5, (n, 3))
+    hi = lo + g.uniform(0.05, 0.4, (n, 3))
+    for i in range(1, n):
+        if i % 5 == 0:
+            lo[i], hi[i] = lo[i - 1], hi[i - 1]
+        elif i % 7 == 0:
+            lo[i] = lo[i - 1]
+            hi[i] = np.maximum(hi[i], hi[i - 1])
+    box = np.zeros((n, 8), np.float32)
+    box[:, 0:3], box[:, 3:6] = lo, hi
+    return box
+
+
+@pytest.mark.parametrize("k", [1, 4, 6])
+@pytest.mark.parametrize("n_chunks", [600, 2000])
+def test_candidates_kernel_mask_groups(cuda, k, n_chunks):
+    """The warp-drained candidate kernel against candidates_reference bit
+    for bit, at 600 chunks (38 supernodes: two groups of 32, the last
+    supernode half full) and 2,000 chunks (125 supernodes: four groups,
+    68,000 bytes of boxes, more than the one-thread pass staged in shared
+    memory); 8 coherent warps (supernodes most lanes enter,
+    tested lane by lane) and incoherent rays (drained; a quarter with
+    positive direction components), a fifth of the lanes inactive, a
+    ragged last warp, and boxes with equal entry distances; the counting
+    build's warp trips and chunk tests equal the plain model's."""
+    from computeraytracer_tpu_torch.kernels import binned as bn
+
+    g = np.random.default_rng(n_chunks + k)
+    R = 1000
+    bbox = torch.tensor(_tie_boxes(n_chunks, g), device=cuda)
+    o = g.uniform(-3, 3, (3, R))
+    d = g.normal(size=(3, R))
+    d[:, ::4] = np.abs(d[:, ::4])
+    o[:, ::4] = g.uniform(-3, -2, (3, R))[:, ::4]
+    o[:, :256] = -3 + g.uniform(-0.05, 0.05, (3, 256))
+    d[:, :256] = 1 + g.uniform(-0.1, 0.1, (3, 256))
+    d /= np.linalg.norm(d, axis=0)
+    bound = np.where(g.uniform(size=R) < 0.2, -np.inf,
+                     g.uniform(0.5, 10, R))
+    rays7 = torch.tensor(np.concatenate([o, d, bound[None]]),
+                         dtype=torch.float32, device=cuda)
+    got = bn.candidate_kernel(rays7, bbox, k)
+    torch.cuda.synchronize()
+    cand, t_next, sched = bn.candidates_drained_reference(rays7, bbox, k)
+    want = bn.candidates_reference(rays7, bbox, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(cand, want[0]) and torch.equal(t_next, want[1])
+    assert (got[0] >= 0).sum(0).max() == k
+    work = torch.zeros(mk.WORK_KINDS, dtype=torch.int64, device=cuda)
+    counted = bn.candidate_kernel(rays7, bbox, k, work=work)
+    assert torch.equal(counted[0], got[0])
+    w = work.tolist()
+    assert (w[4], w[5]) == (sched["warp_trips"], sched["lane_trips"])
 
 
 def test_pair_kernels_match_plain_version(cuda):
@@ -998,6 +1066,55 @@ def test_pair_kernels_match_plain_version(cuda):
         pairs, boxes, planes, inside, *rest = work.tolist()
         assert pairs == live and 0 < inside <= planes <= 128 * live
         assert boxes == 0 and rest == [0] * (mk.WORK_KINDS - 4)
+
+
+def test_pair_kernels_on_mixed_chunks(cuda):
+    """Both pair kernels against pair_reference and pair_occluded_reference
+    bit for bit on pairs that are not sorted: the chunk changes from lane
+    to lane inside a warp, and runs of 40 pairs change it inside a block;
+    dead pairs (chunk -1 and at or beyond the real chunks) sit among the
+    live ones; on tie_mesh_scene (exact ties inside one chunk and across
+    chunks) with tie_mesh_rays, a fifth excluding their winner, and
+    t_light at exactly the closest hit on half the pairs."""
+    from computeraytracer_tpu_torch.kernels import binned as bn
+
+    for layout in presets.TIE_LAYOUTS:
+        scene, _ = scene_from_dict(presets.tie_mesh_scene(64, 48, layout),
+                                   device=cuda)
+        static = mk.SceneStatic.from_scene(scene)
+        arrays = [a for p in kt.mesh_packs_for(scene, static)
+                  for a in p.arrays]
+        tri_rows, _ = bn._part(arrays, 0)
+        n_chunks = tri_rows.shape[0] // 16
+        rays = torch.from_numpy(presets.tie_mesh_rays(2000, seed=4)).to(cuda)
+        g = torch.Generator(device=cuda).manual_seed(5)
+        P = 3 * rays.shape[1]
+        ray = torch.randint(0, rays.shape[1], (P,), generator=g,
+                            device=cuda)
+        lane_chunk = torch.randint(-1, n_chunks + 2, (P,), generator=g,
+                                   device=cuda)
+        run_chunk = (torch.arange(P, device=cuda) // 40) % n_chunks
+        chunk = torch.where(torch.arange(P, device=cuda) < P // 2,
+                            lane_chunk, run_chunk).to(torch.int32)
+        pair_f = torch.cat([rays[:, ray], torch.zeros(1, P, device=cuda)])
+        pair_i = torch.stack([chunk, torch.full_like(chunk, -1)])
+        first = bn.pair_reference(pair_f, pair_i, tri_rows)[1][0]
+        pair_i[1] = torch.where(ray % 5 == 1, first, -1)
+        want = bn.pair_reference(pair_f, pair_i, tri_rows)
+        t_hit = want[0][0]
+        pair_f[6] = torch.where(torch.isfinite(t_hit),
+                                torch.where(ray % 2 == 0, t_hit,
+                                            0.5 * t_hit), 1e3)
+        got = bn.pair_intersect(pair_f, pair_i, tri_rows)
+        flag = bn.pair_occluded(pair_f, pair_i, tri_rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        want_flag = bn.pair_occluded_reference(pair_f, pair_i, tri_rows)
+        assert torch.equal(flag, want_flag)
+        hit = want[1][0] >= 0
+        assert hit.sum() > 500 and (flag[0] == 0).any() and flag[0].any()
+        dead = (chunk < 0) | (chunk >= n_chunks)
+        assert dead.any() and not hit[dead].any()
 
 
 def test_binned_casts_match_walk(cuda):
