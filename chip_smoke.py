@@ -168,6 +168,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    (binned, walk, walk, binned). Then each finish of _walk_finish (none,
    each compaction tier, the full walk) forced with k = 1 on the cast
    that leaves the most rays unresolved, winners bit-equal to the walk's.
+20. the eager tracer (tracer/xla.py, plain torch, no kernel of this
+   script): tracer.api.render(kernel="xla") at phase 4's shape (Cornell
+   1024^2, spp 4, depth 8), counters reset just before: no kernel
+   launch; at least 99% of pixels within rtol = atol = 2e-4 of phase 4's
+   kernel render and the mean XYZ within 1e-3 relative. Host seconds
+   (first and second call), Mpaths/s, peak device memory, and a
+   torch.profiler pass over one eager sample.
+21. the gradient oracle: phase 7's value_and_grad (the same loss and
+   samples) with backward="xla", whose backward recomputes each sample
+   through the eager tracer under autograd: the loss equal to phase 7's,
+   gradients finite, each tensor's relative L2 difference from phase 7's
+   (backward="pallas") at most 2e-3, its worst element printed. The
+   step's host seconds and peak device memory (a sample that does not
+   fit would be retried in row bands, whose gradients add up; the band
+   count is printed). Then train.optimize(kernel="xla") for phase 7's 3
+   Adam steps: finite losses, the last below the first.
+22. the BVH on phase 11's scene (81,920 triangles): the native builder's
+   compile and build seconds and node count; intersect_bvh against
+   intersect_brute on a row of 1,024 camera rays and their 1,024
+   bounce rays (random directions, the hit primitive excluded), brute
+   force in chunks of 256 rays: hit flags and winners equal, t within
+   rtol 1e-5 / atol 1e-4. Then the eager BVH render of sample 1 at
+   1024^2, depth 3, counters reset just before: no kernel launch, at
+   least 99% of pixels within phase 20's tolerance of the mesh kernel's
+   render of the same sample and the mean XYZ within 1e-3. Its seconds,
+   the loop steps of each cast and peak device memory.
 Then one JSON line of kernels, each with its bound (the larger of the
 bytes it must move over 3.35 TB/s and a lower count of its float
 operations over 67 TFLOP/s, both at 700 W). The last line is
@@ -188,15 +214,20 @@ import time
 import torch
 
 from computeraytracer_tpu_torch import config as C
+from computeraytracer_tpu_torch import native
+from computeraytracer_tpu_torch.bvh import builder as bvh_builder
+from computeraytracer_tpu_torch.bvh import traverse as bvh_traverse
 from computeraytracer_tpu_torch.config import RenderConfig
 from computeraytracer_tpu_torch.kernels import _build
 from computeraytracer_tpu_torch.kernels import binned as bn
 from computeraytracer_tpu_torch.kernels import megakernel as mk
 from computeraytracer_tpu_torch.kernels import meshpack
+from computeraytracer_tpu_torch.ops import intersect as isect
 from computeraytracer_tpu_torch.ops import spectrum as spec
 from computeraytracer_tpu_torch.scene import presets, scene_from_dict
 from computeraytracer_tpu_torch.tracer import kernel as kt
 from computeraytracer_tpu_torch.tracer import replay
+from computeraytracer_tpu_torch.tracer import xla as xla_tracer
 from computeraytracer_tpu_torch.tracer.api import render
 from computeraytracer_tpu_torch.train import optimize as opt
 from computeraytracer_tpu_torch.utils.image import read_png, write_png
@@ -216,6 +247,9 @@ TRI_SUBDIVISIONS = 1   # 80 triangles, unrolled rows (below mesh_min)
 FD_SCENE = (32, 2)     # film side, subdivisions of the finite-difference check
 FD_DEPTH = 2
 FD_EPS = 0.05
+ORACLE_BANDS = (1, 4, 16)  # row bands tried for the oracle's backward
+ORACLE_L2 = 2e-3       # relative L2 limit, backward="xla" vs "pallas"
+BRUTE_CHUNK = 256      # rays per brute-force chunk over 81,920 triangles
 
 # The bound of a kernel: the larger of its bytes (each input read once,
 # each output written once) over the H100's memory rate and its float
@@ -1509,6 +1543,202 @@ def _binned_casts(mstatic, fargs, marrays):
           f"seeded walk's in each")
 
 
+def _image_agreement(got, want):
+    """Phase 20's comparison of two XYZ images (H, W, 3): (share of pixels
+    within rtol = atol = 2e-4, relative difference of the mean XYZ)."""
+    close = torch.isclose(got, want, rtol=2e-4, atol=2e-4).all(dim=-1)
+    g, w = got.mean(dim=(0, 1)), want.mean(dim=(0, 1))
+    return (close.float().mean().item(),
+            ((g - w).abs() / w.abs()).max().item())
+
+
+def _peak_gb(fn):
+    """(host seconds, peak device memory in GB above what was allocated
+    before, fn's result)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    secs, out = _host_s(fn)
+    return secs, (torch.cuda.max_memory_allocated() - base) / 1e9, out
+
+
+def _eager_render(scene, served_accum):
+    """Phase 20: the eager tracer's render against phase 4's."""
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=SPP,
+                       max_depth=MAX_DEPTH, kernel="xla")
+    _reset_counters()
+    first_s, peak, out = _peak_gb(lambda: render(scene, cfg))
+    if _counters() != _only():
+        raise RuntimeError(f"the eager render launched {_counters()}")
+    again_s, _ = _host_s(lambda: render(scene, cfg))
+    accum = out["accum_xyz"]
+    if not torch.isfinite(accum).all():
+        raise RuntimeError("the eager render is not finite")
+    frac, rel_mean = _image_agreement(accum, served_accum)
+    paths = WIDTH * HEIGHT * SPP
+    print(f"eager render (kernel='xla'): {WIDTH}x{HEIGHT} spp {SPP} depth "
+          f"{MAX_DEPTH} in {first_s:.3f} s, {again_s:.3f} s "
+          f"({paths / first_s / 1e6:.3f}, {paths / again_s / 1e6:.3f} "
+          f"Mpaths/s), peak {peak:.3f} GB, no kernel launch; vs phase 4's "
+          f"kernel render: {frac:.6f} of pixels within 2e-4, mean XYZ rel "
+          f"{rel_mean:.3g}")
+    if frac < 0.99 or rel_mean > 1e-3:
+        raise RuntimeError(f"eager render off the kernel render: {frac}, "
+                           f"{rel_mean}")
+    wall, dev_ms, idle, n_k, top = _profile(lambda: xla_tracer.render_sample(
+        scene, WIDTH, HEIGHT, 1, MAX_DEPTH))
+    print(f"profile of one eager sample: wall {wall:.1f} ms, device "
+          f"{dev_ms:.1f} ms, idle share {idle:.3f}, {n_k} kernel launches; "
+          f"top {top}")
+
+
+def _oracle_vg(scene, static, bands):
+    """value_and_grad of phase 7's loss with backward="xla", the film in
+    `bands` row bands (each band's share of the mean, so their losses and
+    gradients add up): (loss, d spectra, d data1)."""
+    sp, d1, s = _train_leaves(scene)
+    rows = HEIGHT // bands
+    total = 0.0
+    for y0 in range(0, HEIGHT, rows):
+        px, py = kt.tile_coords(WIDTH, rows, y0, scene.device)
+        accum = torch.zeros((3, rows * WIDTH), device=scene.device)
+        for smp in range(1, SPP + 1):
+            accum = accum + kt.render_pixels_planar(
+                s, WIDTH, HEIGHT, px, py, smp, MAX_DEPTH, RR_START, static,
+                "xla")
+        loss = ((accum / float(SPP)) ** 2).sum() / float(3 * WIDTH * HEIGHT)
+        loss.backward()
+        total += loss.item()
+    return total, sp.grad, d1.grad
+
+
+def _gradient_oracle(scene, static, grads_retrace, loss_retrace):
+    """Phase 21: backward="xla" against phase 7's backward="pallas", then
+    optimize(kernel="xla")."""
+    for bands in ORACLE_BANDS:
+        try:
+            step_s, peak, (loss, *grads) = _peak_gb(
+                lambda: _oracle_vg(scene, static, bands))
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"gradient oracle: out of memory in {bands} band(s)")
+            torch.cuda.empty_cache()
+    else:
+        raise RuntimeError("the gradient oracle does not fit in "
+                           f"{ORACLE_BANDS[-1]} bands")
+    report = []
+    for nm, g, w in zip(("spectra", "data1"), grads, grads_retrace):
+        if not torch.isfinite(g).all():
+            raise RuntimeError(f"backward='xla': {nm} gradient not finite")
+        rel_l2 = ((g - w).norm() / w.norm()).item()
+        worst = (g - w).abs().max().item()
+        report.append(f"{nm} rel L2 {rel_l2:.3g}, worst element "
+                      f"{worst:.3g} (largest {w.abs().max().item():.3g})")
+        if not rel_l2 <= ORACLE_L2:
+            raise RuntimeError(f"backward='xla' {nm} gradient off "
+                               f"backward='pallas' by {rel_l2} (L2)")
+    rel_loss = abs(loss - loss_retrace) / loss_retrace
+    print(f"gradient oracle (backward='xla', {WIDTH}x{HEIGHT}, spp {SPP}, "
+          f"depth {MAX_DEPTH}, {bands} band(s)): loss {loss:.6e} (phase 7: "
+          f"{loss_retrace:.6e}), {step_s:.3f} s, peak {peak:.3f} GB; vs "
+          f"backward='pallas': " + "; ".join(report))
+    if rel_loss > 1e-5:
+        raise RuntimeError(f"backward='xla' loss off phase 7's by {rel_loss}")
+    with torch.no_grad():
+        target = opt.render_mean_xyz(scene, WIDTH, HEIGHT, SPP, MAX_DEPTH,
+                                     RR_START, kernel="xla")
+    spectra = scene.spectra.clone()
+    spectra[PERTURB_ROW] = spectra[PERTURB_ROW] * 0.3
+    train_s, peak, (_, losses) = _peak_gb(lambda: opt.optimize(
+        dataclasses.replace(scene, spectra=spectra), target, WIDTH, HEIGHT,
+        steps=TRAIN_STEPS, learning_rate=0.05, spp=SPP, max_depth=MAX_DEPTH,
+        rr_start=RR_START, kernel="xla", spectra_rows=[PERTURB_ROW]))
+    print(f"optimize(kernel='xla'): {TRAIN_STEPS} steps in {train_s:.2f} s, "
+          f"peak {peak:.3f} GB, losses {losses}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise RuntimeError(f"optimize(kernel='xla') did not lower the loss: "
+                           f"{losses}")
+
+
+def _brute_chunks(o, d, exclude, prims):
+    """intersect_brute over every primitive in chunks of BRUTE_CHUNK rays
+    -> (hit, index, t)."""
+    parts = [isect.intersect_brute(o[i:i + BRUTE_CHUNK],
+                                   d[i:i + BRUTE_CHUNK],
+                                   exclude[i:i + BRUTE_CHUNK], prims)
+             for i in range(0, o.shape[0], BRUTE_CHUNK)]
+    return tuple(torch.cat([getattr(h, k) for h in parts])
+                 for k in ("hit", "index", "t"))
+
+
+def _bvh_mesh(mscene, mstatic):
+    """Phase 22: the BVH on phase 11's scene."""
+    dev = mscene.device
+    n_prims = mscene.primitives.count
+    compile_s, _ = _host_s(native._load)
+    build_s, bvh = _host_s(lambda: bvh_builder.scene_bvh(mscene,
+                                                         backend="native"))
+    bvh = bvh_builder.to_device(bvh, dev)
+    print(f"BVH: native builder compiled in {compile_s:.2f} s, "
+          f"{bvh.n_nodes} nodes over {n_prims} primitives built in "
+          f"{build_s:.3f} s")
+    px, py = kt.tile_coords(WIDTH, 1, HEIGHT // 2, dev)
+    o, d = (x.T.contiguous() for x in kt.camera_planes(
+        mscene, WIDTH, HEIGHT, px, py, 1)[:2])
+    gen = torch.Generator(device=dev).manual_seed(22)
+    with torch.no_grad():
+        casts = []
+        ex = torch.full((o.shape[0],), -1, dtype=torch.int64, device=dev)
+        casts.append((o, d, ex))
+        want = _brute_chunks(o, d, ex, mscene.primitives)
+        hit_pos = o + want[2][:, None] * d
+        d2 = torch.randn(o.shape, generator=gen, device=dev)
+        d2 = d2 / d2.norm(dim=-1, keepdim=True)
+        casts.append((hit_pos, d2, want[1]))
+        bvh_traverse.step_log = []
+        report = []
+        for i, (co, cd, cex) in enumerate(casts):
+            ref = want if i == 0 else _brute_chunks(co, cd, cex,
+                                                    mscene.primitives)
+            fast = bvh_traverse.intersect_bvh(co, cd, cex, mscene.primitives,
+                                              bvh)
+            hit = ref[0]
+            ok = (torch.equal(fast.hit, hit)
+                  and torch.equal(fast.index[hit], ref[1][hit])
+                  and torch.allclose(fast.t[hit], ref[2][hit], rtol=1e-5,
+                                     atol=1e-4))
+            report.append(f"cast {i}: {int(hit.sum())} of {hit.numel()} hit,"
+                          f" winners equal {ok}")
+            if not ok:
+                raise RuntimeError(f"intersect_bvh differs from "
+                                   f"intersect_brute on cast {i}")
+        print("BVH vs brute force (a row of camera rays, then their bounce "
+              "rays): " + "; ".join(report) + f"; loop steps "
+              f"{bvh_traverse.step_log}")
+        bvh_traverse.step_log = []
+        _reset_counters()
+        secs, peak, img = _peak_gb(lambda: xla_tracer.render_sample(
+            mscene, WIDTH, HEIGHT, 1, MESH_DEPTH, bvh=bvh))
+        steps = bvh_traverse.step_log
+        bvh_traverse.step_log = None
+        if _counters() != _only():
+            raise RuntimeError(f"the eager BVH render launched {_counters()}")
+        want_img = kt.render_sample(mscene, WIDTH, HEIGHT, 1, MESH_DEPTH,
+                                    static=mstatic, backward="none")
+    if not torch.isfinite(img).all():
+        raise RuntimeError("the eager BVH render is not finite")
+    frac, rel_mean = _image_agreement(img, want_img)
+    print(f"eager BVH render: {WIDTH}x{HEIGHT} sample 1 depth {MESH_DEPTH} "
+          f"in {secs:.3f} s ({WIDTH * HEIGHT / secs / 1e6:.4f} Mpaths/s), "
+          f"peak {peak:.3f} GB, loop steps per cast {steps} "
+          f"({sum(steps)} in all), no kernel launch; vs the mesh kernel's "
+          f"render: {frac:.6f} of pixels within 2e-4, mean XYZ rel "
+          f"{rel_mean:.3g}")
+    if frac < 0.99 or rel_mean > 1e-3:
+        raise RuntimeError(f"eager BVH render off the mesh kernel's: {frac}, "
+                           f"{rel_mean}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -1973,6 +2203,12 @@ def main() -> int:
     _wavefront_grads(mscene, mstatic, fargs, marrays, grads_in_kernel)
     _binned_casts(mstatic, fargs, marrays)
     print(f"chip_smoke phases 1-19: {time.perf_counter() - t_start:.1f} s")
+
+    # 20-22. the eager tracer, the gradient oracle and the BVH
+    _eager_render(scene, out["accum_xyz"])
+    _gradient_oracle(scene, static, grads_retrace, loss_retrace)
+    _bvh_mesh(mscene, mstatic)
+    print(f"chip_smoke phases 1-22: {time.perf_counter() - t_start:.1f} s")
 
     # bounds at the shapes timed above
     b_fwd, b_taped = bounds["forward"], bounds["taped"]

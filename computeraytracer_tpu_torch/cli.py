@@ -10,9 +10,13 @@ computeraytracer_tpu/cli.py).
 
     python -m computeraytracer_tpu_torch render --preset mesh_scene \
         --width 256 --height 256 --spp 4 --depth 3 --out mesh.png
+    python -m computeraytracer_tpu_torch render --preset mesh_scene \
+        --kernel xla --bvh on --width 64 --height 64 --spp 1 --depth 3
 
-The flags are the JAX CLI's. ``--sharded``, ``--bvh`` and ``--profile``
-are not ported yet and raise when given, as does ``--kernel xla``.
+The flags are the JAX CLI's. ``--kernel xla`` renders and trains through
+the eager tracer; ``--bvh auto|on|off`` builds a BVH for it (auto: above
+64 primitives with ``--kernel xla``). ``--sharded`` and ``--profile`` are
+not ported yet and raise when given.
 ``--device`` (default ``cuda``) picks where the scene of ``render`` and
 ``train`` lives: there is no silent move to the CPU. ``info`` traces
 nothing and reads the scene on the CPU.
@@ -24,8 +28,12 @@ import argparse
 import dataclasses
 import json
 import sys
+import time
 
-_NOT_PORTED = ("sharded", "bvh", "profile")
+_NOT_PORTED = ("sharded", "profile")
+
+# --bvh auto builds a BVH for the eager tracer above this many primitives.
+BVH_AUTO_MIN = 64
 
 
 def _load(args):
@@ -54,11 +62,27 @@ def _require_device(device: str) -> None:
             "--device cpu to run the plain torch kernel versions)")
 
 
+def _scene_bvh(args, scene):
+    """The BVH --bvh asks for (printing its node count), or None."""
+    from computeraytracer_tpu_torch.bvh import builder
+
+    n_prims = int(scene.primitives.category.shape[0])
+    if not (args.bvh == "on" or (args.bvh == "auto" and n_prims > BVH_AUTO_MIN
+                                 and args.kernel == "xla")):
+        return None
+    t0 = time.perf_counter()
+    bvh = builder.scene_bvh(scene)
+    print(f"BVH: {bvh.n_nodes} nodes over {n_prims} primitives "
+          f"({time.perf_counter() - t0:.2f}s)", file=sys.stderr)
+    return builder.to_device(bvh, scene.device)
+
+
 def cmd_render(args) -> int:
     import torch
 
     from computeraytracer_tpu_torch.ops import color
     from computeraytracer_tpu_torch.tracer import kernel as kernel_tracer
+    from computeraytracer_tpu_torch.tracer import xla as xla_tracer
     from computeraytracer_tpu_torch.tracer.api import render
     from computeraytracer_tpu_torch.utils.image import write_png
     from computeraytracer_tpu_torch.utils.metrics import RenderMeter
@@ -69,6 +93,7 @@ def cmd_render(args) -> int:
                 f"--{flag} is not ported to computeraytracer_tpu_torch yet")
     _require_device(args.device)
     scene, w, h = _load(args)
+    bvh = _scene_bvh(args, scene)
 
     def sync():
         if scene.device.type == "cuda":
@@ -80,22 +105,27 @@ def cmd_render(args) -> int:
         # render in --progressive N sample chunks, rewriting --out from the
         # running accumulator after each; counter-based seeding makes the
         # chunked sum equal to one --spp shot
-        if args.kernel != "pallas":
-            raise NotImplementedError(
-                f"--kernel {args.kernel} is not ported yet")
         accum = None
         done = 0
         while done < args.spp:
             n = min(args.progressive, args.spp - done)
-            part = kernel_tracer.render_accumulate(
-                scene, w, h, spp=n, max_depth=args.depth,
-                first_sample=done + 1)
+            if args.kernel == "xla":
+                part = xla_tracer.render_accumulate(
+                    scene, w, h, spp=n, max_depth=args.depth,
+                    first_sample=done + 1, bvh=bvh)
+            else:
+                part = kernel_tracer.render_accumulate(
+                    scene, w, h, spp=n, max_depth=args.depth,
+                    first_sample=done + 1)
             accum = part if accum is None else accum + part
             done += n
             write_png(args.out, color.xyz_to_srgb(accum / float(done),
                                                   args.exposure))
             print(f"progressive: {done}/{args.spp} spp -> {args.out}",
                   file=sys.stderr)
+    elif args.kernel == "xla":
+        accum = xla_tracer.render_accumulate(scene, w, h, spp=args.spp,
+                                             max_depth=args.depth, bvh=bvh)
     else:
         accum = render(scene, width=w, height=h, spp=args.spp,
                        max_depth=args.depth, kernel=args.kernel)["accum_xyz"]
@@ -175,8 +205,9 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--kernel", choices=["xla", "pallas"], default="pallas")
     r.add_argument("--device", default="cuda",
                    help="torch device of the scene (default: cuda)")
-    r.add_argument("--bvh", choices=["auto", "on", "off"], default=None,
-                   help="not ported yet: raises when given")
+    r.add_argument("--bvh", choices=["auto", "on", "off"], default="auto",
+                   help="BVH for --kernel xla (auto: above "
+                   f"{BVH_AUTO_MIN} primitives)")
     r.add_argument("--sharded", action="store_true",
                    help="not ported yet: raises when given")
     r.add_argument("--exposure", type=float, default=2.2)
@@ -190,11 +221,11 @@ def build_parser() -> argparse.ArgumentParser:
     t = sub.add_parser("train", help="gradient-based scene optimization")
     common(t)
     t.add_argument("--kernel", choices=["xla", "pallas"], default="pallas",
-                   help="xla (the eager tracer) is not ported yet: raises")
+                   help="xla: the eager tracer under autograd")
     t.add_argument("--backward", choices=["pallas", "pallas_taped"],
                    default="pallas",
-                   help="the trace's backward: the retrace kernel or the "
-                   "taped forward with the tape-fed kernel")
+                   help="the kernel path's backward: the retrace kernel or "
+                   "the taped forward with the tape-fed kernel")
     t.add_argument("--steps", type=int, default=30)
     t.add_argument("--lr", type=float, default=0.05)
     t.add_argument("--trainable", nargs="+", default=["spectra"])

@@ -34,8 +34,9 @@ class RenderConfig:
     """Static configuration of one render.
 
     Same fields as the JAX package's RenderConfig, except that ``kernel``
-    defaults to "pallas" (the hand-written forward kernel): the eager
-    "xla" tracer is not ported yet, so it is the only kernel that runs.
+    defaults to "pallas" (the hand-written forward kernel), where the JAX
+    package defaults to "xla": on the card the kernel path is the fast
+    one, and both compute the same image.
     """
 
     width: int = 256
@@ -45,7 +46,8 @@ class RenderConfig:
     # Russian roulette from depth > rr_start.
     rr_start: int = 1
     # "pallas": the forward megakernel (CUDA on the card, its plain torch
-    # version for CPU tensors). "xla" raises until the eager tracer lands.
+    # version for CPU tensors). "xla": the eager torch tracer
+    # (tracer/xla.py), brute force over every primitive.
     kernel: str = "pallas"
     # Ray-batch chunk for memory control (0 = whole image at once).
     ray_chunk: int = 0

@@ -5,7 +5,8 @@ loaded tables are equal bit for bit): ``resample_spectrum`` and
 ``cie_1931_tables``.
 
 Device part (torch): hero-wavelength sampling, the hero-expanded
-spectra and CIE tables, and the Riemann spectral -> XYZ sum. The hero
+spectra and CIE tables, the per-ray spectra lookup of the eager tracer
+(``sample_spectrum``) and the Riemann spectral -> XYZ sum. The hero
 gather is a plain column index ``table[:, hero]``.
 """
 
@@ -16,6 +17,7 @@ import torch
 
 from computeraytracer_tpu_torch import config as C
 from computeraytracer_tpu_torch.ops import rng
+from computeraytracer_tpu_torch.ops.intersect import take
 
 # ---------------------------------------------------------------------------
 # Host-side (NumPy) preparation
@@ -127,6 +129,16 @@ def spectral_to_xyz_p(cie_p: torch.Tensor,
     xyz = ((b[:, 0] * radiance_p[0] + b[:, 1] * radiance_p[1])
            + b[:, 2] * radiance_p[2]) + b[:, 3] * radiance_p[3]
     return xyz * _XYZ_SCALE
+
+
+def sample_spectrum(spectra: torch.Tensor, index: torch.Tensor,
+                    lambdas: torch.Tensor) -> torch.Tensor:
+    """spectra (S, 301), index (...,) int, lambdas (..., 4) -> (..., 4),
+    spectra[index, lambdas]. Its backward accumulates into spectra with
+    ``index_add_`` (atomics on the card, so the summation order may vary
+    between runs)."""
+    flat = index.long()[..., None] * spectra.shape[1] + lambdas
+    return take(spectra.reshape(-1), flat)
 
 
 def spectral_to_xyz(cie: torch.Tensor, radiance: torch.Tensor,

@@ -26,7 +26,13 @@ Differentiation, by the ``backward`` knob (the JAX package's values):
   package's ``_resolve`` reroutes only ``"pallas"``; its own error text
   says mesh scenes route there automatically.)
 - ``"none"``: the forward alone, with no autograd Function;
-- ``"xla"`` (the eager tracer) raises NotImplementedError naming slice 6.
+- ``"xla"``: ``EagerVjpFn``, the JAX package's recompute-vjp
+  (tracer/pallas.py:639-661). The forward is the kernel path (as
+  ``"none"``); the backward recomputes the pixels through the eager
+  tracer (``tracer.xla.render_pixels``) under autograd and hands each
+  scene tensor its gradient: the gradient oracle, slower and brute force
+  (no BVH) at mesh scale. It needs pixel coordinates, so the planar
+  entry points take it and ``trace_radiance`` refuses it.
 Autograd carries the cotangents of the primitive table, the spectra
 planes and the rays on through ``pack_prims``, the hero gather and the
 camera to every scene leaf (geometry, spectra, camera).
@@ -52,6 +58,7 @@ in the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -63,6 +70,7 @@ from computeraytracer_tpu_torch.kernels import meshpack
 from computeraytracer_tpu_torch.ops import camera as cam_ops
 from computeraytracer_tpu_torch.ops import rng
 from computeraytracer_tpu_torch.ops import spectrum as spec
+from computeraytracer_tpu_torch.tracer import xla as xla_tracer
 
 SceneStatic = mk.SceneStatic
 
@@ -83,14 +91,7 @@ MESH_CAST_THRESHOLD_FRACTION = 4
 BACKWARDS = ("pallas", "pallas_taped", "none", "xla", "replay")
 
 
-def tile_coords(width: int, tile_h: int, y0: int, device=None):
-    """Pixel coordinates (px, py) of film rows [y0, y0+tile_h), row-major,
-    as int64 tensors."""
-    ys = y0 + torch.arange(tile_h, dtype=torch.int64, device=device)
-    xs = torch.arange(width, dtype=torch.int64, device=device)
-    py = ys[:, None].expand(tile_h, width).reshape(-1)
-    px = xs[None, :].expand(tile_h, width).reshape(-1)
-    return px, py
+tile_coords = xla_tracer.tile_coords
 
 
 def camera_planes(scene, width: int, height: int, px, py, sample):
@@ -258,10 +259,6 @@ def _resolve(scene, static, backward, wavefront, mesh_packs, mesh_plans):
     if backward not in BACKWARDS:
         raise ValueError(f"unknown backward {backward!r}; expected one of "
                          f"{BACKWARDS}")
-    if backward == "xla":
-        raise NotImplementedError(
-            "backward='xla' runs the eager tracer, which arrives with slice "
-            "6 of the port (after the mesh slices)")
     if static is None:
         static = SceneStatic.from_scene(scene)
     if wavefront is None:
@@ -303,6 +300,11 @@ def trace_radiance(scene, o, d, hero, seed, max_depth: int,
     """Planar path trace: o, d (3, R), hero (R,), seed (4, R) ->
     spectral radiance (4, R) at the hero wavelengths; differentiable with
     respect to the scene's geometry and spectra and to o, d."""
+    if backward == "xla":
+        raise ValueError(
+            "backward='xla' recomputes the eager tracer from pixel "
+            "coordinates, which trace_radiance does not take: use "
+            "render_pixels_planar or render_sample")
     static, backward, wavefront, mesh_arrays = _resolve(
         scene, static, backward, wavefront, mesh_packs, mesh_plans)
     inputs = kernel_inputs(scene, o, d, hero, seed,
@@ -311,12 +313,96 @@ def trace_radiance(scene, o, d, hero, seed, max_depth: int,
                      *inputs, mesh_arrays, scene.primitives.category)
 
 
+# The floating-point tensors of a Scene, by (sub-dataclass, field): the
+# leaves EagerVjpFn differentiates.
+SCENE_LEAVES = (("primitives", "data1"), ("primitives", "data2"),
+                ("primitives", "data3"), (None, "spectra"), (None, "cie"),
+                ("camera", "eye"), ("camera", "lookat"), ("camera", "up"),
+                ("camera", "fov"))
+
+
+def scene_leaves(scene):
+    """The scene's SCENE_LEAVES tensors, in order."""
+    return [getattr(getattr(scene, part) if part else scene, name)
+            for part, name in SCENE_LEAVES]
+
+
+def with_leaves(scene, leaves):
+    """The scene with its SCENE_LEAVES tensors replaced by leaves."""
+    top, sub = {}, {}
+    for (part, name), leaf in zip(SCENE_LEAVES, leaves):
+        if part is None:
+            top[name] = leaf
+        else:
+            sub.setdefault(part, {})[name] = leaf
+    for part, fields in sub.items():
+        top[part] = dataclasses.replace(getattr(scene, part), **fields)
+    return dataclasses.replace(scene, **top)
+
+
+class EagerVjpFn(torch.autograd.Function):
+    """``backward="xla"``: forward ``fwd()``, the kernel path's XYZ
+    (3, R); backward recomputes ``recompute(leaves)``, the same XYZ by
+    the eager tracer, under autograd from detached copies of the scene
+    leaves, and returns each leaf's gradient.
+
+        xyz = EagerVjpFn.apply(fwd, recompute, *scene_leaves(scene))
+    """
+
+    @classmethod
+    def apply(cls, fwd, recompute, *leaves):
+        # grad mode is off inside forward: decide here (needs_input_grad
+        # ignores no_grad)
+        if not (torch.is_grad_enabled()
+                and any(leaf.requires_grad for leaf in leaves)):
+            with torch.no_grad():
+                return fwd()
+        return super().apply(fwd, recompute, *leaves)
+
+    @staticmethod
+    def forward(ctx, fwd, recompute, *leaves):
+        ctx.recompute = recompute
+        ctx.save_for_backward(*leaves)
+        return fwd()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[2:]
+        leaves = [leaf.detach().requires_grad_(n)
+                  for leaf, n in zip(ctx.saved_tensors, need)]
+        wanted = [leaf for leaf, n in zip(leaves, need) if n]
+        with torch.enable_grad():
+            out = ctx.recompute(leaves)
+            grads = iter(torch.autograd.grad(out, wanted, g,
+                                             allow_unused=True))
+        result = []
+        for leaf, n in zip(leaves, need):
+            gl = next(grads) if n else None
+            if n and gl is None:
+                gl = torch.zeros_like(leaf)
+            result.append(gl)
+        return (None, None, *result)
+
+
 def render_pixels_planar(scene, width: int, height: int, px, py, sample,
                          max_depth: int = 8, rr_start: int = 1,
                          static: SceneStatic | None = None,
                          backward: str = "pallas", mesh_packs=None,
                          wavefront: bool | None = None, mesh_plans=None):
     """Pixels px, py (R,) at a 1-based sample index -> XYZ (3, R)."""
+    if backward == "xla":
+        def fwd():
+            return render_pixels_planar(
+                scene, width, height, px, py, sample, max_depth, rr_start,
+                static, "none", mesh_packs, wavefront, mesh_plans)
+
+        def recompute(leaves):
+            return xla_tracer.render_pixels(
+                with_leaves(scene, leaves), width, height, px, py, sample,
+                max_depth, rr_start).T
+
+        return EagerVjpFn.apply(fwd, recompute, *scene_leaves(scene))
     o, d, hero, seed = camera_planes(scene, width, height, px, py, sample)
     radiance = trace_radiance(scene, o, d, hero, seed, max_depth, rr_start,
                               static, backward, mesh_packs, wavefront,

@@ -3,7 +3,11 @@ computeraytracer_tpu/train/optimize.py).
 
 Pixel gradients flow through the path tracer to primitive geometry
 (``primitives.data1/2/3``) and material spectra, with detached sampling
-(common random numbers): the megakernel's autograd Function
+(common random numbers). With ``kernel="xla"`` the trace is the eager
+tracer (``tracer/xla.py``) under torch autograd, each bounce
+recomputed in the backward when ``use_remat`` (the default, as in the
+JAX package; the kernel path ignores it). With ``kernel="pallas"`` the
+megakernel's autograd Function
 (``kernels.megakernel.TraceFn``, ``TraceTapedFn`` with
 ``backward="pallas_taped"``, or for scenes with mesh parts
 ``MeshTraceFn``, the guided replay) carries them through the trace, torch
@@ -12,11 +16,9 @@ A mesh part's chunk BVH is planned once on the initial geometry
 (``make_loss_fn``), and its boxes follow the trained vertices.
 
 A scene is split into (params, static scene); the loss renders the scene
-from merged params and compares it to a target in XYZ. Only the
-megakernel path (``kernel="pallas"``) is ported: the eager tracer
-(``kernel="xla"``, ``use_remat``), sharded training (``mesh``) and
-visibility gradients (``vis_grads``) raise NotImplementedError naming the
-slice that brings them.
+from merged params and compares it to a target in XYZ. Sharded training
+(``mesh``) and visibility gradients (``vis_grads``) are not ported yet
+and raise NotImplementedError naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -29,25 +31,16 @@ import torch
 
 from computeraytracer_tpu_torch.kernels import meshpack
 from computeraytracer_tpu_torch.tracer import kernel as kernel_tracer
+from computeraytracer_tpu_torch.tracer import xla as xla_tracer
 
 # Leaves of Scene that may be trained.
 GEOMETRY_LEAVES = ("data1", "data2", "data3")
 TRAINABLE = ("spectra",) + GEOMETRY_LEAVES
 
 
-def _require_ported(kernel: str, mesh=None, use_remat: bool = False,
-                    vis_grads: bool = False) -> None:
-    if kernel == "xla":
-        raise NotImplementedError(
-            "kernel='xla' (the eager tracer, tracer/xla.py) is not ported "
-            "yet: it arrives with the eager-tracer slice; use "
-            "kernel='pallas'")
-    if kernel != "pallas":
+def _require_ported(kernel: str, mesh=None, vis_grads: bool = False) -> None:
+    if kernel not in ("pallas", "xla"):
         raise ValueError(f"unknown kernel {kernel!r}")
-    if use_remat:
-        raise NotImplementedError(
-            "use_remat applies to the eager tracer, which arrives with the "
-            "eager-tracer slice")
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (sharded training) arrives with the multi-GPU slice")
@@ -85,24 +78,32 @@ def merge_scene(static_scene, params):
 
 
 def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
-                    first_sample=1, mesh=None, use_remat=False,
+                    first_sample=1, mesh=None, use_remat=True,
                     kernel: str = "pallas", kernel_static=None,
                     kernel_plans=None, vis_grads: bool = False,
                     backward: str = "pallas"):
     """Mean XYZ (H, W, 3) over spp samples, accumulated in sample order;
-    differentiable with respect to the scene's tensors (backward picks
-    the trace's backward, tracer/kernel.py). kernel_plans: one
+    differentiable with respect to the scene's tensors. kernel="xla"
+    renders through the eager tracer (use_remat: each bounce recomputed
+    in the backward); kernel="pallas" through the kernel path, whose
+    backward is the backward knob's (tracer/kernel.py). kernel_plans: one
     meshpack.MeshPlan per mesh part of kernel_static, fixed on the
     initial geometry; the packs are built under them from the live
     vertices (planned from this scene when None)."""
-    _require_ported(kernel, mesh, use_remat, vis_grads)
+    _require_ported(kernel, mesh, vis_grads)
+    accum = torch.zeros((height, width, 3), dtype=torch.float32,
+                        device=scene.device)
+    samples = range(int(first_sample), int(first_sample) + spp)
+    if kernel == "xla":
+        for s in samples:
+            accum = accum + xla_tracer.render_sample(
+                scene, width, height, s, max_depth, rr_start, use_remat)
+        return accum / float(spp)
     if kernel_static is None:
         kernel_static = kernel_tracer.SceneStatic.from_scene(scene)
     packs = (kernel_tracer.mesh_packs_for(scene, kernel_static, kernel_plans)
              if kernel_static.mesh_parts else None)
-    accum = torch.zeros((height, width, 3), dtype=torch.float32,
-                        device=scene.device)
-    for s in range(int(first_sample), int(first_sample) + spp):
+    for s in samples:
         accum = accum + kernel_tracer.render_sample(
             scene, width, height, s, max_depth, rr_start, kernel_static,
             backward, packs)
@@ -110,20 +111,23 @@ def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
 
 
 def make_loss_fn(static_scene, width, height, spp, max_depth,
-                 rr_start: int = 1, mesh=None, use_remat=False,
+                 rr_start: int = 1, mesh=None, use_remat=True,
                  kernel: str = "pallas", backward: str = "pallas"):
     """L2 loss in XYZ between the rendered mean and a target image."""
-    _require_ported(kernel, mesh, use_remat)
-    kernel_static = kernel_tracer.SceneStatic.from_scene(static_scene)
-    # Morton order and tree structure pinned to the INITIAL geometry; the
-    # boxes re-derive from the live parameters at every render
-    kernel_plans = tuple(meshpack.plan_scene_mesh(static_scene, part)
-                         for part in kernel_static.mesh_parts)
+    _require_ported(kernel, mesh)
+    kernel_static = kernel_plans = None
+    if kernel == "pallas":
+        kernel_static = kernel_tracer.SceneStatic.from_scene(static_scene)
+        # Morton order and tree structure pinned to the INITIAL geometry;
+        # the boxes re-derive from the live parameters at every render
+        kernel_plans = tuple(meshpack.plan_scene_mesh(static_scene, part)
+                             for part in kernel_static.mesh_parts)
 
     def loss_fn(params, target, first_sample):
         scene = merge_scene(static_scene, params)
         img = render_mean_xyz(scene, width, height, spp, max_depth,
-                              rr_start, first_sample, kernel=kernel,
+                              rr_start, first_sample, use_remat=use_remat,
+                              kernel=kernel,
                               kernel_static=kernel_static,
                               kernel_plans=kernel_plans,
                               backward=backward)
@@ -207,10 +211,12 @@ def optimize(scene, target, width, height, *, trainable=("spectra",),
     parameters. fresh_samples=True advances the sample counter every
     step. lr_schedule="cosine" decays the learning rate to 0 over
     `steps`. With checkpoint_dir, the run resumes from the latest saved
-    step and saves every checkpoint_every steps and at the end. backward
-    is the trace's backward: "pallas" (the retrace kernel) or
-    "pallas_taped" (the tape-fed pair); a scene with mesh parts takes the
-    guided replay either way. Returns (scene, losses)."""
+    step and saves every checkpoint_every steps and at the end.
+    kernel="xla" differentiates the eager tracer (each bounce
+    recomputed in the backward). With kernel="pallas", backward is the
+    trace's backward: "pallas" (the retrace kernel) or "pallas_taped"
+    (the tape-fed pair); a scene with mesh parts takes the guided replay
+    either way. Returns (scene, losses)."""
     _require_ported(kernel, mesh)
     if lr_schedule not in (None, "cosine"):
         raise ValueError(f"unknown lr_schedule: {lr_schedule!r}")

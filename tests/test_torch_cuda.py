@@ -23,7 +23,9 @@ counting build against the tape's trips; the warp-drained candidate
 kernel over several groups of supernodes, coherent and incoherent warps
 and boxes with equal entry distances, its counted chunk-loop trips equal
 to its plain model's, and the pair kernels on unsorted pairs of tie
-chunks with dead pairs among them.
+chunks with dead pairs among them; the eager tracer on the card (no
+kernel) against the CPU and the kernel path, its gradient oracle against
+the retrace kernel, and the BVH traversal against the brute-force scan.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -1185,3 +1187,53 @@ def test_binned_casts_match_walk(cuda):
     assert torch.equal(bn.mesh_occluded_batched(
         static, arrays, rays, exclude, tsu, active=active, batch=1024,
         threshold=R // 4), flag)
+
+
+def test_card_eager_tracer(cuda):
+    """The eager tracer (tracer/xla.py, no kernel) on the card against
+    itself on the CPU and against the kernel path on the card, and its
+    gradient oracle (backward="xla") against the retrace kernel's."""
+    from computeraytracer_tpu_torch.tracer import xla
+
+    doc = presets.cornell_box(32, 32)
+    cpu = scene_from_dict(doc, device="cpu")[0]
+    card = scene_from_dict(doc, device=cuda)[0]
+    got = xla.render_sample(card, 32, 32, 1, 6)
+    for want in (xla.render_sample(cpu, 32, 32, 1, 6).to(cuda),
+                 kt.render_sample(card, 32, 32, 1, 6)):
+        close = torch.isclose(got, want, rtol=2e-4, atol=2e-4).all(dim=-1)
+        assert close.float().mean().item() >= 0.99
+    grads = []
+    for backward in ("xla", "pallas"):
+        sp = card.spectra.clone().requires_grad_(True)
+        s = dataclasses.replace(card, spectra=sp)
+        (kt.render_sample(s, 32, 32, 1, 6, backward=backward) ** 2
+         ).sum().backward()
+        grads.append(sp.grad)
+    assert torch.isfinite(grads[0]).all()
+    rel = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
+    assert rel <= 2e-3, rel
+
+
+def test_card_bvh_matches_brute(cuda):
+    """The BVH traversal on the card: the brute-force scan's winners, with
+    exclusion, on a mesh scene with patches and triangles."""
+    from computeraytracer_tpu_torch.bvh import builder, traverse
+    from computeraytracer_tpu_torch.ops import intersect as isect
+
+    scene = scene_from_dict(presets.mesh_scene(32, 32, 3), device=cuda)[0]
+    bvh = builder.scene_bvh(scene, backend="native")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n = 4096
+    o = torch.rand((n, 3), generator=gen, device=cuda) * 600.0 - 20.0
+    d = torch.randn((n, 3), generator=gen, device=cuda)
+    d = d / d.norm(dim=-1, keepdim=True)
+    ex = torch.randint(-1, scene.primitives.count, (n,), generator=gen,
+                       device=cuda)
+    fast = traverse.intersect_bvh(o, d, ex, scene.primitives, bvh)
+    brute = isect.intersect_brute(o, d, ex, scene.primitives)
+    hit = brute.hit
+    assert hit.float().mean().item() > 0.3
+    assert torch.equal(fast.hit, hit)
+    assert torch.equal(fast.index[hit], brute.index[hit])
+    assert torch.allclose(fast.t[hit], brute.t[hit], rtol=1e-5, atol=1e-4)

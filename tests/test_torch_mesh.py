@@ -204,9 +204,10 @@ def test_shared_edge_rays_always_hit():
                           [:, None] for c in range(3))
     row = lambda a: tuple(torch.from_numpy(np.ascontiguousarray(a[:, c]))
                           [None, :] for c in range(3))
-    t, ok = isect.triangle_candidates(col(o), col(d), row(verts[faces[:, 0]]),
-                                      row(verts[faces[:, 1]]),
-                                      row(verts[faces[:, 2]]))
+    t, ok = isect.triangle_candidates_c(col(o), col(d),
+                                        row(verts[faces[:, 0]]),
+                                        row(verts[faces[:, 1]]),
+                                        row(verts[faces[:, 2]]))
     hit = (ok & (t >= 0.001)).any(dim=1)
     assert bool(hit.all()), f"{int((~hit).sum())} rays fell through"
     # the same decisions as the JAX package's test, ray by triangle

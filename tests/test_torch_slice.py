@@ -32,6 +32,7 @@ from computeraytracer_tpu_torch.kernels import megakernel as mk
 from computeraytracer_tpu_torch.scene import presets, scene_from_dict
 from computeraytracer_tpu_torch.tracer import api
 from computeraytracer_tpu_torch.tracer import kernel as kt
+from computeraytracer_tpu_torch.tracer import xla
 from computeraytracer_tpu_torch.utils import RenderMeter, read_png, write_png
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -85,8 +86,11 @@ def test_default_config_runs_the_megakernel(scene):
 
 
 def test_xla_kernel_not_ported(scene):
+    # the eager kernel renders; its visibility gradients are not ported
     with pytest.raises(NotImplementedError, match="not ported"):
-        api.render(scene, width=8, height=8, kernel="xla")
+        xla.render_sample(scene, 8, 8, 1, vis_grads=True)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        api.render(scene, width=8, height=8, kernel="triton")
 
 
 def test_ray_chunk_bands_match_whole_film(scene, port_out):
@@ -141,7 +145,8 @@ def test_cli_progressive_matches_one_shot(tmp_path):
                   - read_png(str(b)).astype(int)).max() <= 1
 
 
-@pytest.mark.parametrize("flag", [["--sharded"], ["--bvh", "on"],
+@pytest.mark.parametrize("flag", [["--sharded"],
+                                  ["--bvh", "on", "--sharded"],
                                   ["--profile", "trace_dir"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -181,7 +186,9 @@ def test_package_never_imports_jax():
         "from computeraytracer_tpu_torch.kernels import _build, megakernel\n"
         "from computeraytracer_tpu_torch.kernels import meshpack\n"
         "from computeraytracer_tpu_torch.ops import intersect\n"
-        "from computeraytracer_tpu_torch.tracer import api, kernel\n"
+        "from computeraytracer_tpu_torch.tracer import api, kernel, xla\n"
+        "from computeraytracer_tpu_torch.bvh import builder, traverse\n"
+        "from computeraytracer_tpu_torch import native\n"
         "from computeraytracer_tpu_torch.scene import mesh, presets\n"
         "from computeraytracer_tpu_torch.utils import image, metrics\n"
         "s, _ = p.scene_from_dict(presets.simple_scene(4, 4), device='cpu')\n"
@@ -189,6 +196,9 @@ def test_package_never_imports_jax():
         "m, _ = p.scene_from_dict(presets.mesh_scene(4, 4, subdivisions=1),\n"
         "                         device='cpu')\n"
         "api.render(m, width=4, height=4, spp=1, max_depth=1)\n"
+        "api.render(s, width=4, height=4, spp=1, max_depth=2, kernel='xla')\n"
+        "b = builder.scene_bvh(m, backend='numpy')\n"
+        "xla.render_sample(m, 4, 4, 1, max_depth=1, bvh=b)\n"
         "new = set(sys.modules) - before\n"
         "assert not any(m.startswith(('jax.', 'jaxlib', 'computeraytracer_tpu.'))\n"
         "               for m in new), sorted(new)\n"

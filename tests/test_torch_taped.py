@@ -325,8 +325,11 @@ def test_backward_knob():
     scene, _ = scene_from_dict(presets.simple_scene(4, 4), device="cpu")
     sp = scene.spectra.clone().requires_grad_(True)
     s = dataclasses.replace(scene, spectra=sp)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        kt.render_sample(s, 4, 4, 1, max_depth=1, backward="xla")
+    # backward="xla": the kernel path's forward, the eager backward
+    eager = kt.render_sample(s, 4, 4, 1, max_depth=1, backward="xla")
+    assert eager.requires_grad
+    assert torch.equal(eager.detach(), kt.render_sample(
+        s, 4, 4, 1, max_depth=1, backward="none"))
     with pytest.raises(ValueError, match="unknown backward"):
         kt.render_sample(s, 4, 4, 1, max_depth=1, backward="taped")
     plain = kt.render_sample(s, 4, 4, 1, max_depth=2, backward="none")

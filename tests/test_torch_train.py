@@ -263,8 +263,11 @@ def test_split_merge_roundtrip(recovery):
         opt.split_scene(scene, ("camera",))
 
 
-@pytest.mark.parametrize("kw", [dict(kernel="xla"), dict(mesh=object()),
-                                dict(use_remat=True), dict(vis_grads=True)])
+@pytest.mark.parametrize("kw", [dict(kernel="xla", mesh=object()),
+                                dict(mesh=object()),
+                                dict(kernel="xla", use_remat=True,
+                                     vis_grads=True),
+                                dict(vis_grads=True)])
 def test_unported_options_raise(recovery, kw):
     with pytest.raises(NotImplementedError, match="slice"):
         opt.render_mean_xyz(recovery["dimmed"], W, H, 1, DEPTH, **kw)
@@ -281,10 +284,13 @@ def test_cli_train_cpu(capsys):
 
 
 def test_cli_train_unported_kernel_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # both of the JAX CLI's kernels are ported; any other is refused
+    with pytest.raises(SystemExit):
         cli.main(["train", "--width", "8", "--height", "8", "--spp", "1",
                   "--depth", "1", "--steps", "1", "--device", "cpu",
-                  "--kernel", "xla"])
+                  "--kernel", "triton"])
+    with pytest.raises(ValueError, match="unknown kernel"):
+        opt.render_mean_xyz(None, W, H, 1, DEPTH, kernel="triton")
 
 
 def test_cpu_training_launches_no_kernel(recovery):

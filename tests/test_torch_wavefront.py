@@ -403,7 +403,9 @@ def test_wavefront_routing(monkeypatch):
     # wavefront=None resolves to the in-kernel default
     kt.trace_radiance(scene, *planes, 2, static=static, backward="none")
     assert calls == [] and kt.MESH_WAVEFRONT_DEFAULT is False
-    with pytest.raises(NotImplementedError, match="eager"):
+    # backward="xla" recomputes from pixel coordinates, which the planar
+    # trace does not take
+    with pytest.raises(ValueError, match="eager"):
         kt.trace_radiance(scene, *planes, 2, static=static, backward="xla",
                           wavefront=True)
 
