@@ -194,9 +194,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    least 99% of pixels within phase 20's tolerance of the mesh kernel's
    render of the same sample and the mean XYZ within 1e-3. Its seconds,
    the loop steps of each cast and peak device memory.
+23. observability (utils/profiling.py, utils/debug.py): detect_chip()
+   is "h100"; measure_mean_depth on Cornell 256^2, depth 8, within 1% of
+   the mean trips of the taped forward kernel's tape on the same pixels;
+   roofline(1024, 1024, 4, 8, 18) at that depth, and phase 4's render
+   as a fraction of it; the CLI's render --profile DIR at 256^2, spp 1:
+   one trace that names the forward kernel; debug.checked passes a clean
+   64^2 eager render and raises on a NaN in spectra.
+24. the screen warp of the visibility gradients (ops/warp.py) around the
+   kernels at the headline workload: value_and_grad of phase 7's loss
+   with vis_grads=("screen",), backward "pallas" (kernels 1 and 3) and
+   "pallas_taped" (the taped forward and kernel 4), counters reset just
+   before each: exactly SPP launches of each of the two kernels, the
+   image bit-equal to the kernel path's stratified=False render, the two
+   backwards' gradients within 1e-3 of the largest entry, and the
+   retrace gradients within relative L2 2e-3 of the eager tracer's
+   screen warp on the same samples. The step's host ms in turns with
+   phase 7's step, a profile of each, peak device memory.
+25. the boundary terms at tests/test_visibility_grads.py's sizes
+   (occluder_scene 32^2, depth 1; samples rendered in batches of whole
+   films): the screen silhouette's AD on the kernel path (spp 512)
+   within 25% of a central difference (spp 2048, eps 0.06) of the
+   stratified=False render, interior AD (light domain only, eager, spp
+   256) at most 10% of it; the shadow's light+hemi AD on the eager path
+   (spp 512) between 0.40 and 1.10 of its difference, interior AD
+   (screen warp only) at most 5%; 25 Adam steps (lr 0.05, spp 32) on the
+   kernel path move the occluder from dx 0.22 to |dx| < 0.22/3. Then the
+   light and hemisphere warps on the eager tracer at Cornell 1024^2,
+   depth 3, one sample, in 4 row bands: the image bit-equal to the
+   stratified=False render, gradients finite, seconds and peak memory.
 Then one JSON line of kernels, each with its bound (the larger of the
 bytes it must move over 3.35 TB/s and a lower count of its float
-operations over 67 TFLOP/s, both at 700 W). The last line is
+operations over 67 TFLOP/s, both at 700 W) and, for the four kernels of
+phase 24, its launches there ("launches_vis_grads"). The last line is
 {"ok": true, "device": {...}}. It needs no JAX.
 """
 
@@ -211,8 +241,10 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
+from computeraytracer_tpu_torch import cli
 from computeraytracer_tpu_torch import config as C
 from computeraytracer_tpu_torch import native
 from computeraytracer_tpu_torch.bvh import builder as bvh_builder
@@ -222,14 +254,17 @@ from computeraytracer_tpu_torch.kernels import _build
 from computeraytracer_tpu_torch.kernels import binned as bn
 from computeraytracer_tpu_torch.kernels import megakernel as mk
 from computeraytracer_tpu_torch.kernels import meshpack
+from computeraytracer_tpu_torch.ops import camera as cam_ops
 from computeraytracer_tpu_torch.ops import intersect as isect
 from computeraytracer_tpu_torch.ops import spectrum as spec
+from computeraytracer_tpu_torch.ops import warp
 from computeraytracer_tpu_torch.scene import presets, scene_from_dict
 from computeraytracer_tpu_torch.tracer import kernel as kt
 from computeraytracer_tpu_torch.tracer import replay
 from computeraytracer_tpu_torch.tracer import xla as xla_tracer
 from computeraytracer_tpu_torch.tracer.api import render
 from computeraytracer_tpu_torch.train import optimize as opt
+from computeraytracer_tpu_torch.utils import debug, profiling
 from computeraytracer_tpu_torch.utils.image import read_png, write_png
 
 WIDTH = HEIGHT = 1024
@@ -250,6 +285,22 @@ FD_EPS = 0.05
 ORACLE_BANDS = (1, 4, 16)  # row bands tried for the oracle's backward
 ORACLE_L2 = 2e-3       # relative L2 limit, backward="xla" vs "pallas"
 BRUTE_CHUNK = 256      # rays per brute-force chunk over 81,920 triangles
+PROFILE_SIDE = 256     # film side of phase 23's mean depth and --profile
+CHECKED_SIDE = 64      # film side of phase 23's debug.checked render
+VIS_SCREEN = ("screen",)
+# Phase 25: tests/test_visibility_grads.py's sizes (occluder_scene 32^2,
+# depth 1, FD at spp 2048 and eps 0.06, AD at spp 512, interior AD at spp
+# 256; recovery: steps, lr, spp, initial dx); samples per batched call.
+OCC_SIDE = 32
+OCC_ROW = 3
+OCC_EPS = 0.06
+OCC_FD_SPP = 2048
+OCC_AD_SPP = 512
+OCC_INTERIOR_SPP = 256
+OCC_RECOVERY = (25, 5e-2, 32, 0.22)
+OCC_CHUNK = 256
+LIGHT_HEMI_DEPTH = 3
+LIGHT_HEMI_BANDS = 4
 
 # The bound of a kernel: the larger of its bytes (each input read once,
 # each output written once) over the H100's memory rate and its float
@@ -1739,6 +1790,363 @@ def _bvh_mesh(mscene, mstatic):
                            f"{rel_mean}")
 
 
+def _observability(scene, render_s):
+    """Phase 23: detect_chip, roofline with a measured mean depth, the
+    CLI's --profile and debug.checked."""
+    dev = scene.device
+    chip = profiling.detect_chip()
+    if chip != "h100":
+        raise RuntimeError(f"detect_chip returned {chip!r}")
+    side = PROFILE_SIDE
+    cscene, _ = scene_from_dict(presets.cornell_box(side, side), device=dev)
+    cstatic = mk.SceneStatic.from_scene(cscene)
+    mean_s, m = _host_s(lambda: profiling.measure_mean_depth(
+        cscene, side, side, sample=1, max_depth=MAX_DEPTH, rr_start=RR_START))
+    px, py = kt.tile_coords(side, side, 0, dev)
+    cargs = kt.kernel_inputs(cscene, *kt.camera_planes(cscene, side, side,
+                                                       px, py, 1))
+    tape_i = mk.forward_taped(cstatic, MAX_DEPTH, RR_START, *cargs)[2]
+    tape_mean = mk.trips_from_tape(tape_i).double().mean().item()
+    print(f"observability: detect_chip {chip!r}; measure_mean_depth "
+          f"(Cornell {side}x{side}, depth {MAX_DEPTH}) {m:.6f} in "
+          f"{mean_s:.3f} s; mean trips of the taped forward's tape "
+          f"{tape_mean:.6f} (rel {abs(m - tape_mean) / tape_mean:.3g})")
+    if abs(m - tape_mean) > 1e-2 * tape_mean:
+        raise RuntimeError(f"measure_mean_depth {m} off the tape's "
+                           f"{tape_mean}")
+    n_prims = int(scene.primitives.category.shape[0])
+    roof = profiling.roofline(WIDTH, HEIGHT, SPP, MAX_DEPTH, n_prims,
+                              mean_depth=m, chip=chip)
+    print(f"roofline({WIDTH}, {HEIGHT}, {SPP}, {MAX_DEPTH}, {n_prims}, "
+          f"mean_depth={m:.4f}): " + json.dumps(roof.to_dict())
+          + f"; phase 4's render ({render_s:.3f} s) at "
+          f"{roof.fraction(render_s):.4g} of it")
+    with tempfile.TemporaryDirectory() as tmp:
+        logdir = os.path.join(tmp, "trace")
+        argv = ["render", "--preset", "cornell_box", "--width", str(side),
+                "--height", str(side), "--spp", "1", "--out",
+                os.path.join(tmp, "cornell.png"), "--profile", logdir]
+        cli_s, rc = _host_s(lambda: cli.main(argv))
+        traces = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+        if rc != 0 or len(traces) != 1:
+            raise RuntimeError(f"render --profile: rc {rc}, traces {traces}")
+        with open(traces[0]) as f:
+            text = f.read()
+        size = os.path.getsize(traces[0])
+    if "fwd_kernel" not in text:
+        raise RuntimeError("the --profile trace names no forward kernel")
+    print(f"render --profile ({side}x{side}, spp 1): {cli_s:.2f} s, one "
+          f"trace of {size} bytes that names the forward kernel")
+    small = presets.cornell_box(CHECKED_SIDE, CHECKED_SIDE)
+    sscene, _ = scene_from_dict(small, device=dev)
+
+    def eager(s):
+        return xla_tracer.render_sample(s, CHECKED_SIDE, CHECKED_SIDE, 1, 2,
+                                        use_remat=False)
+
+    checked_s, img = _host_s(lambda: debug.checked(eager)(sscene))
+    if not torch.equal(img, eager(sscene)):
+        raise RuntimeError("debug.checked changed the render")
+    bad = sscene.spectra.clone()
+    bad[0, 0] = float("nan")
+    try:
+        debug.checked(eager)(dataclasses.replace(sscene, spectra=bad))
+    except debug.CheckError as e:
+        caught = str(e)
+    else:
+        raise RuntimeError("debug.checked missed a NaN in the spectra")
+    print(f"debug.checked: a clean {CHECKED_SIDE}x{CHECKED_SIDE} eager "
+          f"render passes ({checked_s:.2f} s); a NaN in spectra[0, 0] "
+          f"raises ({caught})")
+
+
+def _vis_loss(scene, static, backward, vis_grads=VIS_SCREEN,
+              stratified=True):
+    """Phase 7's headline loss with the film coordinates of render_sample
+    (vis_grads, stratified) -> (loss, accum (H, W, 3)); backward None
+    renders through the eager tracer."""
+    accum = torch.zeros((HEIGHT, WIDTH, 3), device=scene.device)
+    for smp in range(1, SPP + 1):
+        if backward is None:
+            img = xla_tracer.render_sample(scene, WIDTH, HEIGHT, smp,
+                                           MAX_DEPTH, RR_START,
+                                           vis_grads=vis_grads,
+                                           stratified=stratified)
+        else:
+            img = kt.render_sample(scene, WIDTH, HEIGHT, smp, MAX_DEPTH,
+                                   RR_START, static, backward,
+                                   vis_grads=vis_grads,
+                                   stratified=stratified)
+        accum = accum + img
+    return torch.mean((accum / float(SPP)) ** 2), accum
+
+
+def _vis_vg(scene, static, backward):
+    """value_and_grad of _vis_loss by (spectra, data1): (loss, accum,
+    d spectra, d data1)."""
+    sp, d1, s = _train_leaves(scene)
+    loss, accum = _vis_loss(s, static, backward)
+    loss.backward()
+    return loss.item(), accum.detach(), sp.grad, d1.grad
+
+
+def _screen_warp_kernels(scene, static):
+    """Phase 24: the screen warp around kernels 1 and 3, or the taped
+    forward and kernel 4, at the headline workload. Returns the launch
+    counts of the two value_and_grads."""
+    with torch.no_grad():
+        plain = _vis_loss(scene, static, "none", vis_grads=False,
+                          stratified=False)[1]
+    runs, launches = {}, {}
+    for bw, want in (("pallas", _only(forward=SPP, backward=SPP)),
+                     ("pallas_taped", _only(forward_taped=SPP,
+                                            backward_tape=SPP))):
+        _reset_counters()
+        secs, peak, out = _peak_gb(lambda: _vis_vg(scene, static, bw))
+        counts = _counters()
+        if counts != want:
+            raise RuntimeError(f"screen-warp value_and_grad ({bw}) launched "
+                               f"{counts}, expected {want}")
+        launches[bw] = counts
+        loss, accum, g_sp, g_d1 = out
+        for nm, g in (("spectra", g_sp), ("data1", g_d1)):
+            if not torch.isfinite(g).all():
+                raise RuntimeError(f"screen-warp {bw} {nm} gradient not "
+                                   f"finite")
+        if not torch.equal(accum, plain):
+            raise RuntimeError(f"the screen warp ({bw}) changed the image")
+        runs[bw] = (loss, g_sp, g_d1)
+        print(f"screen warp value_and_grad ({bw}, {WIDTH}x{HEIGHT}, spp "
+              f"{SPP}, depth {MAX_DEPTH}): loss {loss:.6e}, launches "
+              f"{ {k: v for k, v in counts.items() if v} }, {secs:.3f} s "
+              f"(first call), peak {peak:.3f} GB; image bit-equal to the "
+              f"stratified=False render")
+    errs = [((t - r).abs().max() / r.abs().max()).item()
+            for t, r in zip(runs["pallas_taped"][1:], runs["pallas"][1:])]
+    same = [bool(torch.equal(t, r)) for t, r in
+            zip(runs["pallas_taped"][1:], runs["pallas"][1:])]
+    print(f"screen warp, tape-fed vs retrace gradients (spectra, data1): "
+          f"worst err {errs} of the largest entry, bit-equal {same}")
+    if max(errs) > 1e-3:
+        raise RuntimeError("screen-warp gradients of the two backward "
+                           "kernels differ")
+    eager_s, eager_peak, (loss_e, accum_e, *grads_e) = _peak_gb(
+        lambda: _vis_vg(scene, None, None))
+    report = []
+    for nm, g, w in zip(("spectra", "data1"), runs["pallas"][1:], grads_e):
+        rel_l2 = ((g - w).norm() / w.norm()).item()
+        report.append(f"{nm} rel L2 {rel_l2:.3g}")
+        if not rel_l2 <= ORACLE_L2:
+            raise RuntimeError(f"screen-warp {nm} gradient off the eager "
+                               f"screen warp's by {rel_l2} (L2)")
+    frac, rel_mean = _image_agreement(accum_e, plain)
+    print(f"eager screen warp value_and_grad: {eager_s:.3f} s, peak "
+          f"{eager_peak:.3f} GB, image {frac:.6f} of pixels within 2e-4 of "
+          f"the kernel path's; retrace gradients vs eager: "
+          + "; ".join(report))
+    if frac < 0.99 or rel_mean > 1e-3:
+        raise RuntimeError(f"eager screen-warp image off the kernel path's: "
+                           f"{frac}, {rel_mean}")
+    turns = []
+    for vis in (True, False, False, True):
+        if vis:
+            turns.append(("vis", _host_s(lambda: _vis_vg(scene, static,
+                                                         "pallas"))[0]))
+        else:
+            turns.append(("headline", _host_s(lambda: _vg(
+                _train_leaves(scene)[2], static))[0]))
+    print("step in turns (host ms; vis = the screen warp, headline = phase "
+          "7's): " + ", ".join(f"{k} {t * 1e3:.1f}" for k, t in turns))
+    # the warp's own cost on one sample's film coordinates: its forward
+    # (the graph kept, as in a step) and the auxiliary closest hits alone
+    px, py = kt.tile_coords(WIDTH, HEIGHT, 0, scene.device)
+    gen = torch.Generator(device=scene.device).manual_seed(24)
+    st = torch.rand((2, px.shape[0]), generator=gen, device=scene.device)
+    leaves = _train_leaves(scene)[2]
+    warp_ms = _events_ms(lambda: warp.screen_warp(leaves, WIDTH, HEIGHT,
+                                                  st[0], st[1]), 3)
+    offs = warp.ring_offsets(8, scene.device) * torch.tensor(
+        [1.5 / WIDTH, 1.5 / HEIGHT], device=scene.device)
+    a_k = st.T[:, None, :] + offs
+    frame = cam_ops.film_frame(scene.camera.eye, scene.camera.lookat,
+                               scene.camera.up, scene.camera.fov, WIDTH,
+                               HEIGHT)
+    o_k, d_k = cam_ops.film_ray(scene.camera.eye, *frame, a_k[..., 0],
+                                a_k[..., 1])
+    ex_k = torch.full(a_k.shape[:-1], -1, dtype=torch.int64,
+                      device=scene.device)
+    aux_ms = _events_ms(lambda: warp._aux_hits(o_k, d_k, ex_k,
+                                               scene.primitives), 3)
+    print(f"screen warp forward, one sample ({WIDTH}x{HEIGHT}, K 8): "
+          f"{warp_ms:.2f} ms of device time, of which the auxiliary "
+          f"closest hits ({a_k.shape[0] * 8} rays x "
+          f"{scene.primitives.category.shape[0]} primitives) {aux_ms:.2f}")
+    for label, fn in (("screen warp", lambda: _vis_vg(scene, static,
+                                                      "pallas")),
+                      ("headline", lambda: _vg(_train_leaves(scene)[2],
+                                               static))):
+        wall, dev_ms, idle, n_k, top = _profile(fn)
+        print(f"profile of one value_and_grad ({label}): wall {wall:.1f} "
+              f"ms, device {dev_ms:.1f} ms, idle share {idle:.3f}, {n_k} "
+              f"kernel launches; top {top}")
+    return launches
+
+
+def _occ_weights():
+    """tests/test_visibility_grads.py's weights: the occluder's
+    silhouette rows and the floor's shadow rows of a ramped image."""
+    side = OCC_SIDE
+    rng = np.random.default_rng(5)
+    ramp = (0.25 + np.arange(side) / side)[None, :, None]
+    base = (ramp * rng.uniform(0.7, 1.3, (side, side, 3))).astype(np.float32)
+    sil = np.zeros_like(base)
+    sil[7:18] = base[7:18]
+    sha = np.zeros_like(base)
+    sha[25:32] = base[25:32]
+    return sil, sha
+
+
+def _shifted(scene, dx):
+    """The scene with the occluder moved by dx along x."""
+    bump = torch.zeros_like(scene.primitives.data1)
+    bump[OCC_ROW, 0] = 1.0
+    return dataclasses.replace(scene, primitives=dataclasses.replace(
+        scene.primitives, data1=scene.primitives.data1 + bump * dx))
+
+
+def _occ_batched(scene, static, samples, vis, eager):
+    """Mean image (S, S, 3) of samples 1..samples, OCC_CHUNK samples to a
+    call of render_pixels (one sample index per ray, whole films one
+    after another): the eager tracer with the vis domains, or the kernel
+    path with the screen warp (vis = VIS_SCREEN) or unstratified."""
+    side = OCC_SIDE
+    px, py = kt.tile_coords(side, side, 0, scene.device)
+    acc = torch.zeros((side * side, 3), device=scene.device)
+    for a in range(1, samples + 1, OCC_CHUNK):
+        n = min(OCC_CHUNK, samples + 1 - a)
+        smp = torch.arange(a, a + n, device=scene.device).repeat_interleave(
+            side * side)
+        if eager:
+            xyz = xla_tracer.render_pixels(
+                scene, side, side, px.repeat(n), py.repeat(n), smp, 1,
+                RR_START, use_remat=False, vis_grads=vis)
+        else:
+            xyz = kt.render_pixels(scene, side, side, px.repeat(n),
+                                   py.repeat(n), smp, 1, RR_START, static,
+                                   vis_grads=vis, stratified=False)
+        acc = acc + xyz.reshape(n, side * side, 3).sum(dim=0)
+    return acc.reshape(side, side, 3) / float(samples)
+
+
+def _d_dx(scene, weight, render):
+    """d/d(dx) of sum(render(shifted scene) * weight) at dx = 0."""
+    dx = torch.zeros((), device=scene.device, requires_grad=True)
+    (render(_shifted(scene, dx)) * weight).sum().backward()
+    return float(dx.grad)
+
+
+def _boundary_terms(dev):
+    """Phase 25: the JAX package's boundary-term checks
+    (tests/test_visibility_grads.py) at its own sizes, on the card."""
+    t0 = time.perf_counter()
+    scene, _ = scene_from_dict(presets.occluder_scene(OCC_SIDE, OCC_SIDE),
+                               device=dev)
+    static = mk.SceneStatic.from_scene(scene)
+    sil, sha = (torch.from_numpy(w).to(dev) for w in _occ_weights())
+    with torch.no_grad():
+        plus, minus = (_occ_batched(_shifted(scene, e), static, OCC_FD_SPP,
+                                    (), False)
+                       for e in (OCC_EPS, -OCC_EPS))
+    fd_sil, fd_sha = (float(((plus - minus) * w).sum()) / (2 * OCC_EPS)
+                      for w in (sil, sha))
+    ad_screen = _d_dx(scene, sil, lambda s: _occ_batched(
+        s, static, OCC_AD_SPP, VIS_SCREEN, False))
+    ad_sil_interior = _d_dx(scene, sil, lambda s: _occ_batched(
+        s, static, OCC_INTERIOR_SPP, ("light",), True))
+    print(f"boundary terms (occluder_scene {OCC_SIDE}x{OCC_SIDE}, depth 1, "
+          f"eps {OCC_EPS}): silhouette FD {fd_sil:.5g} (spp {OCC_FD_SPP}), "
+          f"screen-warp AD on the kernel path {ad_screen:.5g} (spp "
+          f"{OCC_AD_SPP}, ratio {ad_screen / fd_sil:.4f}), interior AD "
+          f"(light domain only) {ad_sil_interior:.5g} (spp "
+          f"{OCC_INTERIOR_SPP}, {abs(ad_sil_interior / fd_sil):.4f} of FD)")
+    if not (abs(fd_sil) > 1.0 and abs(ad_sil_interior) <= 0.10 * abs(fd_sil)
+            and abs(ad_screen - fd_sil) <= 0.25 * abs(fd_sil)):
+        raise RuntimeError(f"screen silhouette: AD {ad_screen}, interior "
+                           f"{ad_sil_interior}, FD {fd_sil}")
+    ad_shadow = _d_dx(scene, sha, lambda s: _occ_batched(
+        s, static, OCC_AD_SPP, ("light", "hemi"), True))
+    ad_sha_interior = _d_dx(scene, sha, lambda s: _occ_batched(
+        s, static, OCC_INTERIOR_SPP, VIS_SCREEN, False))
+    ratio = ad_shadow / fd_sha
+    print(f"shadow: FD {fd_sha:.5g}, light+hemi AD on the eager path "
+          f"{ad_shadow:.5g} (spp {OCC_AD_SPP}, ratio {ratio:.4f}), interior "
+          f"AD (screen warp only, kernel path) {ad_sha_interior:.5g} (spp "
+          f"{OCC_INTERIOR_SPP}, {abs(ad_sha_interior / fd_sha):.4f} of FD)")
+    if not (abs(fd_sha) > 2.0 and abs(ad_sha_interior) <= 0.05 * abs(fd_sha)
+            and 0.40 <= ratio <= 1.10):
+        raise RuntimeError(f"shadow: AD {ad_shadow}, interior "
+                           f"{ad_sha_interior}, FD {fd_sha}")
+    steps, lr, spp, dx0 = OCC_RECOVERY
+    with torch.no_grad():
+        target = _occ_batched(scene, static, spp, VIS_SCREEN, False)
+    dx = torch.tensor(dx0, device=dev, requires_grad=True)
+    adam = torch.optim.Adam([dx], lr=lr)
+    rec_s = time.perf_counter()
+    for _ in range(steps):
+        adam.zero_grad()
+        loss = torch.mean((_occ_batched(_shifted(scene, dx), static, spp,
+                                        VIS_SCREEN, False) - target) ** 2
+                          ) * 1e3
+        loss.backward()
+        adam.step()
+    rec_s = time.perf_counter() - rec_s
+    print(f"silhouette recovery on the kernel path: {steps} Adam steps (lr "
+          f"{lr}, spp {spp}) in {rec_s:.2f} s, dx {dx0} -> {dx.item():.5f}")
+    if not abs(dx.item()) < dx0 / 3:
+        raise RuntimeError(f"the occluder did not recover: dx {dx.item()}")
+    print(f"phase 25 (boundary terms): {time.perf_counter() - t0:.1f} s")
+
+
+def _light_hemi_full(scene):
+    """Phase 25's last check: the light and hemisphere warps on the eager
+    tracer at Cornell's full width, one sample, in row bands."""
+    sp, d1, s = _train_leaves(scene)
+    rows = HEIGHT // LIGHT_HEMI_BANDS
+
+    def run():
+        bands = []
+        for y0 in range(0, HEIGHT, rows):
+            px, py = kt.tile_coords(WIDTH, rows, y0, scene.device)
+            xyz = xla_tracer.render_pixels(s, WIDTH, HEIGHT, px, py, 1,
+                                           LIGHT_HEMI_DEPTH, RR_START,
+                                           vis_grads=("light", "hemi"))
+            (xyz ** 2).sum().backward()
+            bands.append(xyz.detach())
+        return torch.cat(bands)
+
+    _reset_counters()
+    secs, peak, img = _peak_gb(run)
+    if _counters() != _only():
+        raise RuntimeError(f"the eager light/hemi render launched "
+                           f"{_counters()}")
+    with torch.no_grad():
+        px, py = kt.tile_coords(WIDTH, HEIGHT, 0, scene.device)
+        want = xla_tracer.render_pixels(scene, WIDTH, HEIGHT, px, py, 1,
+                                        LIGHT_HEMI_DEPTH, RR_START,
+                                        stratified=False)
+    if not torch.equal(img, want):
+        raise RuntimeError("the light/hemi warps changed the image")
+    for nm, g in (("spectra", sp.grad), ("data1", d1.grad)):
+        if g is None or not torch.isfinite(g).all():
+            raise RuntimeError(f"light/hemi {nm} gradient missing or not "
+                               f"finite")
+    print(f"light+hemi warps (eager, Cornell {WIDTH}x{HEIGHT}, sample 1, "
+          f"depth {LIGHT_HEMI_DEPTH}, {LIGHT_HEMI_BANDS} row bands): "
+          f"render and backward {secs:.3f} s, peak {peak:.3f} GB; image "
+          f"bit-equal to the stratified=False render, gradients finite "
+          f"(|d data1| {float(d1.grad.abs().sum()):.6g})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -2210,6 +2618,16 @@ def main() -> int:
     _bvh_mesh(mscene, mstatic)
     print(f"chip_smoke phases 1-22: {time.perf_counter() - t_start:.1f} s")
 
+    # 23-25. observability, the screen warp around the kernels, the
+    # boundary terms
+    t0 = time.perf_counter()
+    _observability(scene, render_s)
+    vis_launches = _screen_warp_kernels(scene, static)
+    _boundary_terms(dev)
+    _light_hemi_full(scene)
+    print(f"chip_smoke phases 23-25: {time.perf_counter() - t0:.1f} s; "
+          f"phases 1-25: {time.perf_counter() - t_start:.1f} s")
+
     # bounds at the shapes timed above
     b_fwd, b_taped = bounds["forward"], bounds["taped"]
     b_bwd, b_tape_bwd = bounds["backward"], bounds["tape_bwd"]
@@ -2226,6 +2644,7 @@ def main() -> int:
         "replaces": "computeraytracer_tpu/kernels/megakernel.py:897",
         "launches": launches,
         "launches_train": launches_fwd,
+        "launches_vis_grads": vis_launches["pallas"]["forward"],
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -2247,6 +2666,7 @@ def main() -> int:
         "replaces": "computeraytracer_tpu/kernels/megakernel.py:897 "
                     "(taped=\"full\")",
         "launches": launches_taped,
+        "launches_vis_grads": vis_launches["pallas_taped"]["forward_taped"],
         "max_abs_err": taped_abs_err,
         "ms": taped_ms,
         "plain_ms": t_plain_t * 1e3,
@@ -2262,6 +2682,7 @@ def main() -> int:
         "source": src + "megakernel_bwd.cu",
         "replaces": "computeraytracer_tpu/kernels/megakernel.py:1314",
         "launches": launches_bwd,
+        "launches_vis_grads": vis_launches["pallas"]["backward"],
         "max_abs_err": bwd_abs_err,
         "ms": bwd_ms,
         "plain_ms": plain_bwd_ms,
@@ -2279,6 +2700,7 @@ def main() -> int:
         "source": src + "megakernel_bwd_tape.cu",
         "replaces": "computeraytracer_tpu/kernels/megakernel.py:1480",
         "launches": launches_tape_bwd,
+        "launches_vis_grads": vis_launches["pallas_taped"]["backward_tape"],
         "max_abs_err": tape_abs_err,
         "ms": tape_bwd_ms,
         "plain_ms": plain_tape_bwd_ms,

@@ -15,8 +15,9 @@ computeraytracer_tpu/cli.py).
 
 The flags are the JAX CLI's. ``--kernel xla`` renders and trains through
 the eager tracer; ``--bvh auto|on|off`` builds a BVH for it (auto: above
-64 primitives with ``--kernel xla``). ``--sharded`` and ``--profile`` are
-not ported yet and raise when given.
+64 primitives with ``--kernel xla``). ``--profile DIR`` writes a
+``torch.profiler`` trace of the render (utils/profiling.py) under DIR.
+``--sharded`` is not ported yet and raises when given.
 ``--device`` (default ``cuda``) picks where the scene of ``render`` and
 ``train`` lives: there is no silent move to the CPU. ``info`` traces
 nothing and reads the scene on the CPU.
@@ -25,12 +26,13 @@ nothing and reads the scene on the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
 import time
 
-_NOT_PORTED = ("sharded", "profile")
+_NOT_PORTED = ("sharded",)
 
 # --bvh auto builds a BVH for the eager tracer above this many primitives.
 BVH_AUTO_MIN = 64
@@ -77,13 +79,48 @@ def _scene_bvh(args, scene):
     return builder.to_device(bvh, scene.device)
 
 
-def cmd_render(args) -> int:
-    import torch
-
+def _render_accum(args, scene, w, h, bvh):
+    """The summed XYZ of --spp samples, by --kernel; with --progressive N,
+    rendered in N-sample chunks, --out rewritten after each."""
     from computeraytracer_tpu_torch.ops import color
     from computeraytracer_tpu_torch.tracer import kernel as kernel_tracer
     from computeraytracer_tpu_torch.tracer import xla as xla_tracer
     from computeraytracer_tpu_torch.tracer.api import render
+    from computeraytracer_tpu_torch.utils.image import write_png
+
+    if not args.progressive:
+        if args.kernel == "xla":
+            return xla_tracer.render_accumulate(
+                scene, w, h, spp=args.spp, max_depth=args.depth, bvh=bvh)
+        return render(scene, width=w, height=h, spp=args.spp,
+                      max_depth=args.depth, kernel=args.kernel)["accum_xyz"]
+    # counter-based seeding makes the chunked sum equal to one --spp shot
+    accum = None
+    done = 0
+    while done < args.spp:
+        n = min(args.progressive, args.spp - done)
+        if args.kernel == "xla":
+            part = xla_tracer.render_accumulate(
+                scene, w, h, spp=n, max_depth=args.depth,
+                first_sample=done + 1, bvh=bvh)
+        else:
+            part = kernel_tracer.render_accumulate(
+                scene, w, h, spp=n, max_depth=args.depth,
+                first_sample=done + 1)
+        accum = part if accum is None else accum + part
+        done += n
+        write_png(args.out, color.xyz_to_srgb(accum / float(done),
+                                              args.exposure))
+        print(f"progressive: {done}/{args.spp} spp -> {args.out}",
+              file=sys.stderr)
+    return accum
+
+
+def cmd_render(args) -> int:
+    import torch
+
+    from computeraytracer_tpu_torch.ops import color
+    from computeraytracer_tpu_torch.utils import profiling
     from computeraytracer_tpu_torch.utils.image import write_png
     from computeraytracer_tpu_torch.utils.metrics import RenderMeter
 
@@ -95,41 +132,17 @@ def cmd_render(args) -> int:
     scene, w, h = _load(args)
     bvh = _scene_bvh(args, scene)
 
-    def sync():
+    tracing = contextlib.nullcontext()
+    if args.profile:
+        tracing = profiling.trace(args.profile, scene.device)
+        print(f"tracing to {args.profile} (a Chrome trace JSON file)",
+              file=sys.stderr)
+    meter = RenderMeter(jsonl_path=args.metrics)
+    with tracing:
+        meter.start()
+        accum = _render_accum(args, scene, w, h, bvh)
         if scene.device.type == "cuda":
             torch.cuda.synchronize(scene.device)
-
-    meter = RenderMeter(jsonl_path=args.metrics)
-    meter.start()
-    if args.progressive:
-        # render in --progressive N sample chunks, rewriting --out from the
-        # running accumulator after each; counter-based seeding makes the
-        # chunked sum equal to one --spp shot
-        accum = None
-        done = 0
-        while done < args.spp:
-            n = min(args.progressive, args.spp - done)
-            if args.kernel == "xla":
-                part = xla_tracer.render_accumulate(
-                    scene, w, h, spp=n, max_depth=args.depth,
-                    first_sample=done + 1, bvh=bvh)
-            else:
-                part = kernel_tracer.render_accumulate(
-                    scene, w, h, spp=n, max_depth=args.depth,
-                    first_sample=done + 1)
-            accum = part if accum is None else accum + part
-            done += n
-            write_png(args.out, color.xyz_to_srgb(accum / float(done),
-                                                  args.exposure))
-            print(f"progressive: {done}/{args.spp} spp -> {args.out}",
-                  file=sys.stderr)
-    elif args.kernel == "xla":
-        accum = xla_tracer.render_accumulate(scene, w, h, spp=args.spp,
-                                             max_depth=args.depth, bvh=bvh)
-    else:
-        accum = render(scene, width=w, height=h, spp=args.spp,
-                       max_depth=args.depth, kernel=args.kernel)["accum_xyz"]
-    sync()
     rec = meter.stop(paths=w * h * args.spp, width=w, height=h,
                      spp=args.spp, kernel=args.kernel,
                      device=str(scene.device))
@@ -215,7 +228,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rewrite --out every N samples from the running "
                    "accumulator")
     r.add_argument("--metrics", help="append metrics JSONL here")
-    r.add_argument("--profile", help="not ported yet: raises when given")
+    r.add_argument("--profile", metavar="DIR",
+                   help="write a torch.profiler trace of the render under "
+                   "DIR")
     r.set_defaults(fn=cmd_render)
 
     t = sub.add_parser("train", help="gradient-based scene optimization")

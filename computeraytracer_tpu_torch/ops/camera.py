@@ -95,6 +95,30 @@ def film_ray(eye, lower_left, horizontal, vertical, s, t):
     return eye.expand(d.shape), d
 
 
+def world_to_film(eye, lookat, up, fov, width, height, x):
+    """Project world points x (..., 3) back to film coordinates (s, t).
+
+    The inverse of film_ray up to normalization: the warped-area
+    reparameterization (ops/warp.py) expresses the screen-space velocity
+    of a surface point with it. Points at or behind the eye give finite
+    values (their depth is floored at 1e-6); callers mask those lanes."""
+    u, v, w = camera_basis(eye, lookat, up)
+    aspect = torch.tensor(width, dtype=torch.float32) / float(height)
+    viewport_h = 2.0 * torch.tan(fov / 2.0)
+    viewport_w = aspect.to(fov.device) * viewport_h
+    dirv = x - eye
+    nw = -w
+    denom = (dirv[..., 0] * nw[0] + dirv[..., 1] * nw[1]
+             + dirv[..., 2] * nw[2])
+    denom = torch.where(denom.abs() < 1e-6, 1e-6, denom)
+    dn = dirv / denom[..., None]
+    s = ((dn[..., 0] * u[0] + dn[..., 1] * u[1] + dn[..., 2] * u[2])
+         + viewport_w / 2.0) / viewport_w
+    t = ((dn[..., 0] * v[0] + dn[..., 1] * v[1] + dn[..., 2] * v[2])
+         + viewport_h / 2.0) / viewport_h
+    return s, t
+
+
 def camera_rays(eye, lookat, up, fov, width, height, px, py, sample, seed):
     """Jittered primary rays for pixels px, py (...,) on (..., 4) state.
     Returns (origins (..., 3), directions (..., 3), new_seed)."""

@@ -8,7 +8,11 @@ plain torch versions for a scene on the CPU).
 One layout is ported: the planar (k, R) path the kernel consumes, with
 pixels in ``tile_coords`` row-major order. ``render_sample`` is its
 (H, W, 3) transpose; the JAX package documents the two layouts as
-bit-identical. Mesh scenes keep row-major order too: the JAX package's
+bit-identical. ``render_pixels`` (R, 3) is the entry of the visibility
+gradients' screen warp (``vis_grads=("screen",)``, ops/warp.py) and of
+``stratified=False``: unstratified film coordinates, the warp, the same
+trace, then the warp's detJ and zero-primal splat. Mesh scenes keep
+row-major order too: the JAX package's
 block order (``_block_order``) is a culling order for its per-tile BVH
 walk and changes no pixel's value.
 
@@ -70,6 +74,7 @@ from computeraytracer_tpu_torch.kernels import meshpack
 from computeraytracer_tpu_torch.ops import camera as cam_ops
 from computeraytracer_tpu_torch.ops import rng
 from computeraytracer_tpu_torch.ops import spectrum as spec
+from computeraytracer_tpu_torch.ops import warp
 from computeraytracer_tpu_torch.tracer import xla as xla_tracer
 
 SceneStatic = mk.SceneStatic
@@ -424,12 +429,85 @@ def render_sample_planar(scene, width: int, height: int, sample,
     return xyz.reshape(3, height, width)
 
 
+def render_pixels(scene, width: int, height: int, px, py, sample,
+                  max_depth: int = 8, rr_start: int = 1,
+                  static: SceneStatic | None = None,
+                  backward: str = "pallas", mesh_packs=None,
+                  wavefront: bool | None = None, mesh_plans=None,
+                  vis_grads=False, stratified: bool = True):
+    """Pixels px, py (R,) at a 1-based sample index -> XYZ (R, 3): the
+    analogue of ``tracer.xla.render_pixels`` on the kernel path.
+
+    vis_grads=("screen",) (or "screen") wraps the screen domain's warp
+    (ops/warp.py) around the kernel trace: unstratified film coordinates,
+    ``warp.screen_warp`` and the camera rays before it; the detJ and the
+    zero-primal splat after the CIE conversion. The trace's autograd
+    Function hands the ray cotangent d_rays of its backward kernel to the
+    warp, which carries the boundary term into the gradient. The warp is
+    the identity, so the image is the stratified=False render's bit for
+    bit. The "light" and "hemi" domains hook inside the bounce loop:
+    they are on the eager tracer (``tracer.xla.render_pixels``) only.
+    stratified=False alone renders the same image without the warp.
+    Where the jitter is unstratified, sample may also be an (R,) tensor,
+    one sample index per ray, so that one call renders several samples;
+    with the screen warp the rays are then whole films, film after film,
+    each in row-major order."""
+    domains = xla_tracer._vis_domains(vis_grads)
+    if set(domains) - {"screen"}:
+        raise ValueError(
+            f"the kernel path supports vis_grads=('screen',); domains "
+            f"{sorted(set(domains) - {'screen'})} hook inside the bounce "
+            "loop: use tracer.xla.render_pixels(vis_grads=...) for them")
+    if domains and px.shape[0] % (width * height):
+        raise ValueError(
+            "vis_grads 'screen' requires full-film row-major rays (the "
+            "splat scatters by py*width + px)")
+    if not domains and stratified:
+        return render_pixels_planar(scene, width, height, px, py, sample,
+                                    max_depth, rr_start, static, backward,
+                                    mesh_packs, wavefront, mesh_plans).T
+    if backward == "xla":
+        raise ValueError(
+            "backward='xla' recomputes the eager tracer's stratified render, "
+            "so with the screen warp its gradient would drop the boundary "
+            "term: use tracer.xla.render_pixels(vis_grads=..., "
+            "stratified=...) for the eager gradient")
+    seed = rng.seed_pixel_p(px, py, sample)
+    cam = scene.camera
+    frame = cam_ops.film_frame(cam.eye, cam.lookat, cam.up, cam.fov, width,
+                               height)
+    us, seed = rng.rand_p(seed)
+    ut, seed = rng.rand_p(seed)
+    s, t = cam_ops._film_st(width, height, px, py, us, ut)
+    if domains:
+        s, t, detj = warp.screen_warp(scene, width, height, s, t)
+    o, d = cam_ops.film_ray(cam.eye, *frame, s, t)
+    hero, seed = spec.sample_wavelengths_p(seed)
+    radiance = trace_radiance(scene, o.T, d.T, hero, seed, max_depth,
+                              rr_start, static, backward, mesh_packs,
+                              wavefront, mesh_plans)
+    cie_p = spec.gather_hero(spec.cie_window_exp(scene.cie), hero)
+    xyz = spec.spectral_to_xyz_p(cie_p, radiance).T
+    if domains:
+        xyz = xyz * detj[..., None]
+        xyz = xyz + xla_tracer._splat_correction(xyz, s, t, width, height)
+    return xyz
+
+
 def render_sample(scene, width: int, height: int, sample,
                   max_depth: int = 8, rr_start: int = 1,
                   static: SceneStatic | None = None,
                   backward: str = "pallas", mesh_packs=None,
-                  wavefront: bool | None = None, mesh_plans=None):
-    """One sample of the whole film -> XYZ (height, width, 3)."""
+                  wavefront: bool | None = None, mesh_plans=None,
+                  vis_grads=False, stratified: bool = True):
+    """One sample of the whole film -> XYZ (height, width, 3); vis_grads
+    and stratified as ``render_pixels``'."""
+    if xla_tracer._vis_domains(vis_grads) or not stratified:
+        px, py = tile_coords(width, height, 0, scene.device)
+        return render_pixels(scene, width, height, px, py, sample,
+                             max_depth, rr_start, static, backward,
+                             mesh_packs, wavefront, mesh_plans, vis_grads,
+                             stratified).reshape(height, width, 3)
     return render_sample_planar(scene, width, height, sample, max_depth,
                                 rr_start, static, backward, mesh_packs,
                                 wavefront, mesh_plans).permute(1, 2, 0)

@@ -29,8 +29,15 @@ among equal channels. ``abs`` at exactly 0 has gradient 0 here and 1 in
 JAX (the diffuse bounce's |cos|); the tests' tolerance absorbs it.
 ``use_remat=True`` (the default) recomputes each bounce in the backward
 (``torch.utils.checkpoint``), so autograd keeps only the carries between
-bounces. Visibility gradients (``vis_grads``, the warped-area domains of
-the JAX package's ``ops/warp.py``) are not ported yet.
+bounces.
+
+Visibility gradients (``vis_grads``): the warped-area reparameterization
+of ``ops/warp.py`` on the screen domain (around the camera rays, with a
+zero-primal splat across pixels), the light-area domain (inside NEE) and
+the cosine-hemisphere domain (the diffuse bounce). Every warp is exactly
+the identity, so the image of any ``vis_grads`` mode is the
+``stratified=False`` render bit for bit; only the gradients gain the
+boundary terms of moving silhouettes and shadows.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from computeraytracer_tpu_torch.ops import intersect as isect
 from computeraytracer_tpu_torch.ops import rng
 from computeraytracer_tpu_torch.ops import sampling
 from computeraytracer_tpu_torch.ops import spectrum as spec
+from computeraytracer_tpu_torch.ops import warp
 from computeraytracer_tpu_torch.ops.intersect import dot, maximum, take
 
 ETA1, ETA2 = 1.0, 1.5  # glass interface
@@ -106,9 +114,10 @@ def init_state(o, d, seed) -> PathState:
 
 
 def _nee(scene, hit, brdf, lambdas, beta, is_diffuse, u_l, u_p, v_p,
-         isect_fn):
+         isect_fn, vis_grads=False):
     """Next-event estimation: the MIS-weighted radiance contribution
-    (R, 4) of diffuse lanes."""
+    (R, 4) of diffuse lanes; with the "light" domain, its light-area
+    sample warped and the contribution scaled by the warp's detJ."""
     prims = scene.primitives
     n_lights = scene.lights.count
     li = sampling.pick_light(u_l, n_lights)
@@ -116,6 +125,11 @@ def _nee(scene, hit, brdf, lambdas, beta, is_diffuse, u_l, u_p, v_p,
     l_origin = take(prims.data1, l_prim)
     l_edge1 = take(prims.data2, l_prim)
     l_edge2 = take(prims.data3, l_prim)
+    warped = "light" in _vis_domains(vis_grads)
+    if warped:
+        u_p, v_p, detj = warp.light_warp(
+            scene, hit.position, hit.index, l_origin, l_edge1, l_edge2,
+            l_prim, u_p, v_p, is_diffuse)
     p_on_light = sampling.point_on_light(l_origin, l_edge1, l_edge2, u_p,
                                          v_p)
     ldir = isect.safe_normalize(p_on_light - hit.position)
@@ -133,7 +147,46 @@ def _nee(scene, hit, brdf, lambdas, beta, is_diffuse, u_l, u_p, v_p,
     weight_l = sampling.power_heuristic(1.0, pdf_l, 1.0, pdf_b)
     contrib = le * (weight_l / maximum(pdf_l, 1e-12))[..., None]
     lit = (is_diffuse & unoccluded)[..., None]
-    return torch.where(lit, brdf * contrib * beta, 0.0)
+    out = torch.where(lit, brdf * contrib * beta, 0.0)
+    if warped:
+        out = out * detj[..., None]
+    return out
+
+
+def _splat_correction(xyz, s, t, width, height):
+    """Zero-primal tent-filter splat of screen-warped samples.
+
+    The screen warp moves a sample's film coordinate with the geometry,
+    but the sample stays binned to its pixel, so the flux of radiance
+    BETWEEN pixels never reaches autograd. Each sample therefore also
+    adds (k - k.detach()) * f to the 2x2 pixels of a unit tent filter at
+    the WARPED coordinate: exactly zero in value, while the derivative
+    tent-distributes d(film coordinate)/d(theta) to the pixels it
+    crosses. Needs whole films' rays, film after film, each in row-major
+    order (ray k*W*H + py*W + px is pixel (px, py) of film k)."""
+    # pixel px covers s*W in [px, px+1) (center px+.5); row py covers
+    # H - t*H in (py-1, py] (center py-.5): the reference's t flip
+    gx = s * float(width) - 0.5
+    gy = (float(height) - t * float(height)) + 0.5
+    x0 = torch.floor(gx.detach())
+    y0 = torch.floor(gy.detach())
+    f = xyz.detach()
+    film = width * height
+    base = torch.div(torch.arange(xyz.shape[0], device=xyz.device), film,
+                     rounding_mode="floor") * film
+    corr = torch.zeros_like(xyz)
+    for dx in (0.0, 1.0):
+        for dy in (0.0, 1.0):
+            qx = x0 + dx
+            qy = y0 + dy
+            kk = (maximum(1.0 - (gx - qx).abs(), 0.0)
+                  * maximum(1.0 - (gy - qy).abs(), 0.0))
+            w_corr = kk - kk.detach()
+            qxi = qx.to(torch.int64).clamp(0, width - 1)
+            qyi = qy.to(torch.int64).clamp(0, height - 1)
+            lin = base + qyi * width + qxi
+            corr = corr.index_add(0, lin, w_corr[..., None] * f)
+    return corr
 
 
 def make_intersector(scene, bvh=None):
@@ -148,7 +201,7 @@ def make_intersector(scene, bvh=None):
 
 def trace_step(scene, lambdas, state: PathState, depth: int,
                max_depth: int, rr_start: int,
-               isect_fn=None) -> PathState:
+               isect_fn=None, vis_grads=False) -> PathState:
     """One bounce of the path-trace loop over all lanes."""
     prims = scene.primitives
     if isect_fn is None:
@@ -203,11 +256,20 @@ def trace_step(scene, lambdas, state: PathState, depth: int,
     brdf = spec.sample_spectrum(scene.spectra, hit.reflectance,
                                 lambdas) / math.pi
     radiance = radiance + _nee(scene, hit, brdf, lambdas, beta, is_diffuse,
-                               u_l, u_p, v_p, isect_fn)
+                               u_l, u_p, v_p, isect_fn, vis_grads)
+    warped = "hemi" in _vis_domains(vis_grads)
+    if warped:
+        u_h, v_h, detj_h = warp.hemisphere_warp(
+            scene, hit.position, hit.normal, hit.index, u_h, v_h,
+            is_diffuse)
     bounce_dir, bounce_pdf = sampling.cosine_hemisphere(hit.normal, u_h, v_h)
     cos_b = dot(hit.normal, bounce_dir).abs()
     beta_diffuse = beta * brdf * (
         cos_b / maximum(bounce_pdf, 1e-12))[..., None]
+    if warped:
+        # the hemisphere warp's detJ scales all that the path gathers
+        # after this bounce (beta carries it forward)
+        beta_diffuse = beta_diffuse * detj_h[..., None]
 
     # GLASS: 1 draw
     u_g, seed = rng.rand_masked(seed, is_glass)
@@ -265,7 +327,8 @@ def trace_step(scene, lambdas, state: PathState, depth: int,
 
 
 def path_trace(scene, o, d, lambdas, seed, max_depth: int,
-               rr_start: int = 1, use_remat: bool = True, bvh=None):
+               rr_start: int = 1, use_remat: bool = True, bvh=None,
+               vis_grads=False):
     """Trace rays to completion. Returns (radiance (R, 4), final seed).
 
     Runs max_depth + 1 iterations: iteration i scatters only while
@@ -277,7 +340,7 @@ def path_trace(scene, o, d, lambdas, seed, max_depth: int,
 
     def body(depth, *fields):
         return tuple(trace_step(scene, lambdas, PathState(*fields), depth,
-                                max_depth, rr_start, isect_fn))
+                                max_depth, rr_start, isect_fn, vis_grads))
 
     remat = use_remat and torch.is_grad_enabled()
     for depth in range(int(max_depth) + 1):
@@ -300,23 +363,38 @@ def render_pixels(scene, width: int, height: int, px, py, sample,
 
     Seeds derive from the GLOBAL pixel coordinates and the 1-based sample
     counter, so any tiling of the film gives the same values as one
-    render. stratified=False draws the sub-pixel jitter unstratified (the
-    JAX package's evaluation path for finite differences against
-    visibility gradients)."""
-    if _vis_domains(vis_grads):
-        raise NotImplementedError(
-            "vis_grads (the warped-area visibility gradients, ops/warp.py "
-            "in the JAX package) are not ported yet: ROADMAP item 11")
+    render. stratified=False draws the sub-pixel jitter unstratified.
+
+    vis_grads (False, True for all three domains, or a subset of
+    "screen", "light" and "hemi") turns on the warped-area
+    reparameterization of ops/warp.py, so that autograd also captures the
+    boundary terms of moving silhouettes and shadows. Every vis_grads
+    mode renders unstratified (the shared-stratum jitter is correlated
+    along the pixel's diagonal, which biases the warp's 2D boundary
+    integral) and its image is the stratified=False render's bit for
+    bit. The "screen" domain needs whole films, each in row-major order
+    (its splat scatters by py*width + px within each film); "light" and
+    "hemi" take any tiling. Where the jitter is unstratified, sample may
+    also be an (R,) tensor, one sample index per ray, so that one call
+    renders several samples: n films of rays for the screen domain."""
+    domains = _vis_domains(vis_grads)
+    if "screen" in domains and px.shape[0] % (width * height):
+        raise ValueError(
+            "vis_grads 'screen' requires full-film rays "
+            f"(got {px.shape[0]} rays for {width}x{height}); use the "
+            "'light'/'hemi' domains for tiled renders")
     if bvh is not None:
         from computeraytracer_tpu_torch.bvh import builder
         bvh = builder.to_device(bvh, scene.device)
     seed = rng.seed_pixel(px, py, sample)
     cam = scene.camera
-    if not stratified:
+    if domains or not stratified:
         frame = cam_ops.film_frame(cam.eye, cam.lookat, cam.up, cam.fov,
                                    width, height)
         s, t, seed = cam_ops.film_coords(width, height, px, py, sample, seed,
                                          stratified=False)
+        if "screen" in domains:
+            s, t, detj = warp.screen_warp(scene, width, height, s, t)
         o, d = cam_ops.film_ray(cam.eye, *frame, s, t)
     else:
         o, d, seed = cam_ops.camera_rays(cam.eye, cam.lookat, cam.up,
@@ -324,8 +402,13 @@ def render_pixels(scene, width: int, height: int, px, py, sample,
                                          sample, seed)
     lambdas, seed = spec.sample_wavelengths(seed)
     radiance, _ = path_trace(scene, o, d, lambdas, seed, max_depth,
-                             rr_start, use_remat, bvh=bvh)
-    return spec.spectral_to_xyz(scene.cie, radiance, lambdas)
+                             rr_start, use_remat, bvh=bvh,
+                             vis_grads=vis_grads)
+    xyz = spec.spectral_to_xyz(scene.cie, radiance, lambdas)
+    if "screen" in domains:
+        xyz = xyz * detj[..., None]
+        xyz = xyz + _splat_correction(xyz, s, t, width, height)
+    return xyz
 
 
 def tile_coords(width: int, tile_h: int, y0: int, device=None):

@@ -16,9 +16,10 @@ A mesh part's chunk BVH is planned once on the initial geometry
 (``make_loss_fn``), and its boxes follow the trained vertices.
 
 A scene is split into (params, static scene); the loss renders the scene
-from merged params and compares it to a target in XYZ. Sharded training
-(``mesh``) and visibility gradients (``vis_grads``) are not ported yet
-and raise NotImplementedError naming the slice that brings them.
+from merged params and compares it to a target in XYZ. Visibility
+gradients (``vis_grads``, ops/warp.py) render through the eager tracer
+(``kernel="xla"``). Sharded training (``mesh``) is not ported yet and
+raises NotImplementedError naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -38,15 +39,12 @@ GEOMETRY_LEAVES = ("data1", "data2", "data3")
 TRAINABLE = ("spectra",) + GEOMETRY_LEAVES
 
 
-def _require_ported(kernel: str, mesh=None, vis_grads: bool = False) -> None:
+def _require_ported(kernel: str, mesh=None) -> None:
     if kernel not in ("pallas", "xla"):
         raise ValueError(f"unknown kernel {kernel!r}")
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (sharded training) arrives with the multi-GPU slice")
-    if vis_grads:
-        raise NotImplementedError(
-            "vis_grads arrives with the visibility-gradient slice")
 
 
 def split_scene(scene, trainable: Iterable[str] = ("spectra",)):
@@ -89,15 +87,25 @@ def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
     backward is the backward knob's (tracer/kernel.py). kernel_plans: one
     meshpack.MeshPlan per mesh part of kernel_static, fixed on the
     initial geometry; the packs are built under them from the live
-    vertices (planned from this scene when None)."""
-    _require_ported(kernel, mesh, vis_grads)
+    vertices (planned from this scene when None). vis_grads (kernel="xla"
+    only) turns on the warped-area visibility gradients of
+    ``tracer.xla.render_pixels``; its image is the unstratified render's.
+    With kernel="pallas" it raises: the kernel path's screen warp is
+    ``tracer.kernel.render_sample(vis_grads=("screen",))``."""
+    _require_ported(kernel, mesh)
+    if vis_grads and kernel != "xla":
+        raise ValueError(
+            "vis_grads renders through the eager tracer: pass kernel='xla' "
+            "(the screen warp around the kernels is "
+            "tracer.kernel.render_sample(vis_grads=('screen',)))")
     accum = torch.zeros((height, width, 3), dtype=torch.float32,
                         device=scene.device)
     samples = range(int(first_sample), int(first_sample) + spp)
     if kernel == "xla":
         for s in samples:
             accum = accum + xla_tracer.render_sample(
-                scene, width, height, s, max_depth, rr_start, use_remat)
+                scene, width, height, s, max_depth, rr_start, use_remat,
+                vis_grads=vis_grads)
         return accum / float(spp)
     if kernel_static is None:
         kernel_static = kernel_tracer.SceneStatic.from_scene(scene)

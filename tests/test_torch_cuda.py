@@ -25,7 +25,9 @@ and boxes with equal entry distances, its counted chunk-loop trips equal
 to its plain model's, and the pair kernels on unsorted pairs of tie
 chunks with dead pairs among them; the eager tracer on the card (no
 kernel) against the CPU and the kernel path, its gradient oracle against
-the retrace kernel, and the BVH traversal against the brute-force scan.
+the retrace kernel, and the BVH traversal against the brute-force scan;
+the screen warp of the visibility gradients around kernels 1, 3 and 4
+against the plain versions.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -1237,3 +1239,40 @@ def test_card_bvh_matches_brute(cuda):
     assert torch.equal(fast.hit, hit)
     assert torch.equal(fast.index[hit], brute.index[hit])
     assert torch.allclose(fast.t[hit], brute.t[hit], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("backward,counter", [
+    ("pallas", "launches_bwd"), ("pallas_taped", "launches_bwd_tape")])
+def test_card_screen_warp_gradient(cuda, backward, counter):
+    """The screen warp (ops/warp.py) around kernel 1 and kernel 3 (the
+    retrace backward) or the taped forward and kernel 4, at 64^2 depth 4:
+    the image is the kernel path's stratified=False render bit for bit,
+    one backward launch per sample, and the gradients by spectra and data1
+    within 2e-3 (relative L2) of the same computation on the CPU (the
+    plain versions); an ulp in a root can flip a rare path or auxiliary
+    ray between the devices."""
+    w = h = 64
+    cpu_scene, _ = scene_from_dict(presets.cornell_box(w, h), device="cpu")
+
+    def grads(scene):
+        sp = scene.spectra.clone().requires_grad_(True)
+        d1 = scene.primitives.data1.clone().requires_grad_(True)
+        s = dataclasses.replace(
+            scene, spectra=sp,
+            primitives=dataclasses.replace(scene.primitives, data1=d1))
+        img = kt.render_sample(s, w, h, 1, 4, backward=backward,
+                               vis_grads=("screen",))
+        (img ** 2).sum().backward()
+        return img.detach(), sp.grad, d1.grad
+
+    card_scene = cpu_scene.to(cuda)
+    before = getattr(mk, counter)
+    img, *card = grads(card_scene)
+    assert getattr(mk, counter) == before + 1
+    assert torch.equal(img, kt.render_sample(card_scene, w, h, 1, 4,
+                                             stratified=False))
+    _, *host = grads(cpu_scene)
+    for c, h_ in zip(card, host):
+        assert c.is_cuda and torch.isfinite(c).all()
+        rel = ((c.cpu() - h_).norm() / h_.norm()).item()
+        assert rel <= 2e-3, rel

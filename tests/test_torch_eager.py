@@ -294,8 +294,9 @@ def test_unknown_vis_grads_and_depth_skip():
     s = scene_from_jax(_cornell(), device="cpu")
     with pytest.raises(ValueError, match="unknown vis_grads"):
         xla.render_sample(s, 4, 4, 1, vis_grads=("sky",))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        xla.render_sample(s, 4, 4, 1, vis_grads="light")
+    # a domain name alone is one domain; its image is the unstratified one
+    assert torch.equal(xla.render_sample(s, 4, 4, 1, vis_grads="light"),
+                       xla.render_sample(s, 4, 4, 1, stratified=False))
     # rays that all left the scene end the bounce loop early: depth 50
     # gives what depth 50 gives without the skip, i.e. depth 50 of JAX
     px, py = xla.tile_coords(4, 4, 0)

@@ -86,9 +86,12 @@ def test_default_config_runs_the_megakernel(scene):
 
 
 def test_xla_kernel_not_ported(scene):
-    # the eager kernel renders; its visibility gradients are not ported
-    with pytest.raises(NotImplementedError, match="not ported"):
-        xla.render_sample(scene, 8, 8, 1, vis_grads=True)
+    # the eager kernel renders, with its visibility gradients too (their
+    # image is the unstratified render's); an unknown kernel raises
+    img = xla.render_sample(scene, 8, 8, 1, vis_grads=True)
+    assert torch.isfinite(img).all()
+    assert torch.equal(img, xla.render_sample(scene, 8, 8, 1,
+                                              stratified=False))
     with pytest.raises(ValueError, match="unknown kernel"):
         api.render(scene, width=8, height=8, kernel="triton")
 
@@ -149,10 +152,16 @@ def test_cli_progressive_matches_one_shot(tmp_path):
                                   ["--bvh", "on", "--sharded"],
                                   ["--profile", "trace_dir"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
+    """--sharded raises; --profile DIR (ported) writes a trace under DIR."""
+    argv = ["render", "--width", "4", "--height", "4", "--spp", "1",
+            "--device", "cpu", "--out", str(tmp_path / "x.png")]
+    if flag[0] == "--profile":
+        assert cli.main(argv + ["--profile", str(tmp_path / flag[1])]) == 0
+        traces = list((tmp_path / flag[1]).glob("trace.*.json"))
+        assert len(traces) == 1 and traces[0].stat().st_size > 0
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(["render", "--width", "4", "--height", "4", "--spp", "1",
-                  "--device", "cpu", "--out", str(tmp_path / "x.png")]
-                 + flag)
+        cli.main(argv + flag)
 
 
 def test_cli_info(capsys):
