@@ -223,11 +223,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    light and hemisphere warps on the eager tracer at Cornell 1024^2,
    depth 3, one sample, in 4 row bands: the image bit-equal to the
    stratified=False render, gradients finite, seconds and peak memory.
+26. a world of one on NCCL (a file store in a temporary directory):
+   parallel.render_sharded.render_accumulate_sharded on mesh (1, 1) at
+   phase 4's workload, bit-equal to phase 4's image, exactly SPP forward
+   launches; the host ms of each in turns.
+27. two ranks on the one card, spawned with torch.multiprocessing, gloo
+   over CUDA tensors (NCCL refuses two ranks on one device; this tests
+   the path, not its speed); a child that fails fails the phase. Each
+   rank builds the kernels, then renders Cornell 1024^2 (spp 4, depth 8)
+   with meshes (2, 1) and (1, 2), bit-equal to phase 4's image and to
+   the per-sample images summed as (s1+s2)+(s3+s4); the mesh scene (spp
+   4, depth 3) with (2, 1), bit-equal to phase 11's; and the sharded
+   value_and_grad of train.optimize.make_loss_fn(mesh=...) by spectra and
+   data1 with backward "pallas" and "pallas_taped" on both layouts, (2,
+   1) twice: loss within rel 1e-6 of the single-process loss, gradients
+   within relative L2 1e-4 of the single-process ones and of the other
+   layout's, bit-equal across the two runs. Per rank: launches, step
+   ms, peak GB, every all-reduce's bytes and ms.
+28. the scalar oracle (tracer/reference_cpu.py) at Cornell 16^2, depth
+   5, sample 1, against the kernel path's render on the card: at least
+   0.995 of pixels within rel 1e-3, divergent energy at most 1e-3.
 Then one JSON line of kernels, each with its bound (the larger of the
 bytes it must move over 3.35 TB/s and a lower count of its float
 operations over 67 TFLOP/s, both at 700 W) and, for the four kernels of
-phase 24, its launches there ("launches_vis_grads"). The last line is
-{"ok": true, "device": {...}}. It needs no JAX.
+phase 24, its launches there ("launches_vis_grads"); the kernels of
+phase 27 carry their launches on each rank there ("launches_sharded").
+The last line is {"ok": true, "device": {...}}. It needs no JAX.
 """
 
 from __future__ import annotations
@@ -243,6 +264,8 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from computeraytracer_tpu_torch import cli
 from computeraytracer_tpu_torch import config as C
@@ -258,8 +281,12 @@ from computeraytracer_tpu_torch.ops import camera as cam_ops
 from computeraytracer_tpu_torch.ops import intersect as isect
 from computeraytracer_tpu_torch.ops import spectrum as spec
 from computeraytracer_tpu_torch.ops import warp
+from computeraytracer_tpu_torch.parallel import distributed
+from computeraytracer_tpu_torch.parallel import mesh as mesh_mod
+from computeraytracer_tpu_torch.parallel import render_sharded as rsh
 from computeraytracer_tpu_torch.scene import presets, scene_from_dict
 from computeraytracer_tpu_torch.tracer import kernel as kt
+from computeraytracer_tpu_torch.tracer import reference_cpu as oracle
 from computeraytracer_tpu_torch.tracer import replay
 from computeraytracer_tpu_torch.tracer import xla as xla_tracer
 from computeraytracer_tpu_torch.tracer.api import render
@@ -301,6 +328,14 @@ OCC_RECOVERY = (25, 5e-2, 32, 0.22)
 OCC_CHUNK = 256
 LIGHT_HEMI_DEPTH = 3
 LIGHT_HEMI_BANDS = 4
+# Phase 27: two ranks share the card; the (dp, sp) layouts they run, the
+# leaves of their value_and_grad and its limit (relative L2 against the
+# single-process gradients: the tiles change the order of the sums).
+SHARD_WORLD = 2
+SHARD_LAYOUTS = ((2, 1), (1, 2))
+SHARD_TRAINABLE = ("spectra", "data1")
+SHARD_GRAD_L2 = 1e-4
+ORACLE_SCENE = (16, 5, 1)  # phase 28: Cornell side, depth, sample
 
 # The bound of a kernel: the larger of its bytes (each input read once,
 # each output written once) over the H100's memory rate and its float
@@ -2147,6 +2182,235 @@ def _light_hemi_full(scene):
           f"(|d data1| {float(d1.grad.abs().sum()):.6g})")
 
 
+def _world_of_one(scene, single_accum):
+    """Phase 26: render_accumulate_sharded in a world of one on NCCL at
+    phase 4's workload, bit-equal to phase 4's image; the host ms of each,
+    in turns."""
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(f"file://{tmp}/store", 1, 0)
+        try:
+            mesh = mesh_mod.make_mesh()
+            if tuple(mesh.shape) != (1, 1) or dist.get_backend() != "nccl":
+                raise RuntimeError(f"world of one: mesh {mesh}, backend "
+                                   f"{dist.get_backend()}")
+
+            def sharded():
+                return rsh.render_accumulate_sharded(
+                    scene, WIDTH, HEIGHT, SPP, mesh, MAX_DEPTH,
+                    kernel="pallas")
+
+            def single():
+                return kt.render_accumulate(scene, WIDTH, HEIGHT, SPP,
+                                            MAX_DEPTH)
+
+            _reset_counters()
+            first_s, got = _host_s(sharded)
+            counts = _counters()
+            if counts != _only(forward=SPP):
+                raise RuntimeError(f"world of one launched {counts}, "
+                                   f"expected {SPP} forwards")
+            if not torch.equal(got, single_accum):
+                raise RuntimeError("the world-of-one render differs from "
+                                   "phase 4's")
+            turns = [(nm, _host_s(fn)[0] * 1e3) for nm, fn in (
+                ("single", single), ("sharded", sharded),
+                ("sharded", sharded), ("single", single))]
+        finally:
+            distributed.shutdown()
+    print(f"phase 26 (world of one, nccl, mesh (1, 1)): Cornell {WIDTH}x"
+          f"{HEIGHT} spp {SPP} depth {MAX_DEPTH} bit-equal to phase 4's "
+          f"render; launches {_launched(counts)}; first call "
+          f"{first_s * 1e3:.1f} ms; "
+          f"host ms in turns {[(nm, round(t, 3)) for nm, t in turns]}")
+
+
+def _delta(before):
+    after = _counters()
+    return {k: after[k] - before[k] for k in after}
+
+
+def _launched(counts):
+    """The counts that are not 0, for printing."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def _sharded_rank(rank, store, out):
+    """Phase 27, one of SHARD_WORLD ranks on the one card (gloo over CUDA
+    tensors): builds the kernels, renders and steps every layout of
+    SHARD_LAYOUTS and saves its results to out/rank<rank>.pt."""
+    distributed.initialize(f"file://{store}", SHARD_WORLD, rank, "gloo",
+                           local_rank=0)
+    try:
+        dev = torch.device("cuda", 0)
+        build_s, _ = _host_s(_build.build_all)
+        scene, _ = scene_from_dict(presets.cornell_box(WIDTH, HEIGHT),
+                                   device=dev)
+        mscene, _ = scene_from_dict(
+            presets.mesh_scene(WIDTH, HEIGHT, MESH_SUBDIVISIONS), device=dev)
+        meshes = {shape: mesh_mod.make_mesh(shape) for shape in SHARD_LAYOUTS}
+        rsh.allreduce_log = []
+        res = {"build_s": build_s, "steps": []}
+        _reset_counters()
+        for shape, mesh in meshes.items():
+            before = _counters()
+            secs, img = _host_s(lambda: rsh.render_accumulate_sharded(
+                scene, WIDTH, HEIGHT, SPP, mesh, MAX_DEPTH))
+            res[("render", shape)] = (img.cpu(), secs, _delta(before))
+        before = _counters()
+        secs, img = _host_s(lambda: rsh.render_accumulate_sharded(
+            mscene, WIDTH, HEIGHT, SPP, meshes[SHARD_LAYOUTS[0]],
+            MESH_DEPTH))
+        res["mesh"] = (img.cpu(), secs, _delta(before))
+        target = torch.zeros((HEIGHT, WIDTH, 3), device=dev)
+        for backward in ("pallas", "pallas_taped"):
+            for shape, runs in zip(SHARD_LAYOUTS, (2, 1)):
+                loss_fn = opt.make_loss_fn(scene, WIDTH, HEIGHT, SPP,
+                                           MAX_DEPTH, mesh=meshes[shape],
+                                           backward=backward)
+                for run in range(runs):
+                    logged = len(rsh.allreduce_log)
+                    before = _counters()
+                    torch.cuda.reset_peak_memory_stats()
+                    secs, (loss, grads) = _host_s(
+                        lambda: _loss_and_grads(loss_fn, scene, target))
+                    res["steps"].append({
+                        "backward": backward, "shape": shape, "run": run,
+                        "loss": loss, "grads": [g.cpu() for g in grads],
+                        "ms": secs * 1e3,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "launches": _delta(before),
+                        "allreduce": rsh.allreduce_log[logged:]})
+        res["launches"] = _counters()
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        rsh.allreduce_log = None
+        distributed.shutdown()
+
+
+def _loss_and_grads(loss_fn, scene, target):
+    """value_and_grad of loss_fn by (spectra, data1) at sample 1."""
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in
+              opt.split_scene(scene, SHARD_TRAINABLE)[0].items()}
+    loss = loss_fn(params, target, 1)
+    loss.backward()
+    return loss.item(), [params[k].grad for k in SHARD_TRAINABLE]
+
+
+def _rel_l2(g, w):
+    return ((g - w).norm() / w.norm()).item()
+
+
+def _two_ranks(scene, static, single_accum, mesh_accum):
+    """Phase 27: SHARD_WORLD spawned ranks share the card (gloo over CUDA
+    tensors; NCCL refuses two ranks on one device): their renders
+    bit-equal to the single-process ones, their gradients within
+    SHARD_GRAD_L2 of the single-process value_and_grad. Returns each
+    kernel's launches per rank."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_sharded_rank, args=(os.path.join(tmp, "store"),
+                                                tmp),
+                           nprocs=SHARD_WORLD, join=True,
+                           start_method="spawn")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(SHARD_WORLD)]
+    spawn_s = time.perf_counter() - t0
+    s = [kt.render_sample_planar(scene, WIDTH, HEIGHT, smp, MAX_DEPTH,
+                                 RR_START, static).cpu()
+         for smp in range(1, SPP + 1)]
+    # (1, 2): each rank sums its two samples, the all-reduce the halves
+    want = {(2, 1): single_accum.cpu(),
+            (1, 2): ((s[0] + s[1]) + (s[2] + s[3])).permute(1, 2, 0)}
+    for r, res in enumerate(ranks):
+        print(f"rank {r}: kernels built in {res['build_s']:.1f} s")
+        for shape in SHARD_LAYOUTS:
+            img, secs, counts = res[("render", shape)]
+            local = SPP // shape[1]
+            if counts != _only(forward=local):
+                raise RuntimeError(f"rank {r} render {shape} launched "
+                                   f"{counts}, expected {local} forwards")
+            if not torch.equal(img, want[shape]):
+                raise RuntimeError(f"rank {r}: the {shape} render differs "
+                                   f"from the single-process one")
+            print(f"rank {r} render {shape}: bit-equal, {secs * 1e3:.1f} "
+                  f"ms, launches {_launched(counts)}")
+        img, secs, counts = res["mesh"]
+        if counts != _only(forward_mesh=SPP):
+            raise RuntimeError(f"rank {r} mesh render launched {counts}")
+        if not torch.equal(img, mesh_accum.cpu()):
+            raise RuntimeError(f"rank {r}: the mesh render differs from "
+                               f"phase 11's")
+        print(f"rank {r} mesh render {SHARD_LAYOUTS[0]}: bit-equal to phase "
+              f"11's, {secs * 1e3:.1f} ms, launches {_launched(counts)}")
+    target = torch.zeros((HEIGHT, WIDTH, 3), device=scene.device)
+    for backward in ("pallas", "pallas_taped"):
+        loss_fn = opt.make_loss_fn(scene, WIDTH, HEIGHT, SPP, MAX_DEPTH,
+                                   backward=backward)
+        loss1, grads1 = _loss_and_grads(loss_fn, scene, target)
+        fwd, bwd = (("forward", "backward") if backward == "pallas"
+                    else ("forward_taped", "backward_tape"))
+        for r, res in enumerate(ranks):
+            steps = {(st["shape"], st["run"]): st for st in res["steps"]
+                     if st["backward"] == backward}
+            for (shape, run), st in steps.items():
+                local = SPP // shape[1]
+                if st["launches"] != _only(**{fwd: local, bwd: local}):
+                    raise RuntimeError(f"rank {r} {backward} step {shape} "
+                                       f"launched {st['launches']}")
+                rel_loss = abs(st["loss"] - loss1) / abs(loss1)
+                errs = [_rel_l2(g, w.cpu()) for g, w in zip(st["grads"],
+                                                            grads1)]
+                if (rel_loss > 1e-6 or max(errs) > SHARD_GRAD_L2
+                        or not all(torch.isfinite(g).all()
+                                   for g in st["grads"])):
+                    raise RuntimeError(f"rank {r} {backward} {shape}: loss "
+                                       f"rel {rel_loss}, gradients rel L2 "
+                                       f"{errs}")
+                ar = st["allreduce"]
+                print(f"rank {r} {backward} step {shape} run {run}: "
+                      f"{st['ms']:.1f} ms, peak {st['peak_gb']:.3f} GB, "
+                      f"launches {_launched(st['launches'])}, loss rel "
+                      f"{rel_loss:.3g}, "
+                      f"gradients rel L2 {[f'{e:.3g}' for e in errs]}; "
+                      f"all-reduces "
+                      f"{[(a['what'], a['bytes'], round(a['ms'], 3)) for a in ar]}")
+            cross = [_rel_l2(g, w) for g, w in zip(
+                steps[(SHARD_LAYOUTS[0], 0)]["grads"],
+                steps[(SHARD_LAYOUTS[1], 0)]["grads"])]
+            again = all(torch.equal(g, w) for g, w in zip(
+                steps[(SHARD_LAYOUTS[0], 0)]["grads"],
+                steps[(SHARD_LAYOUTS[0], 1)]["grads"]))
+            if max(cross) > SHARD_GRAD_L2 or not again:
+                raise RuntimeError(f"rank {r} {backward}: layouts rel L2 "
+                                   f"{cross}, bit-equal across runs {again}")
+            print(f"rank {r} {backward}: {SHARD_LAYOUTS[0]} vs "
+                  f"{SHARD_LAYOUTS[1]} rel L2 {[f'{e:.3g}' for e in cross]}, "
+                  f"bit-equal across two runs")
+    print(f"phase 27 ({SHARD_WORLD} ranks on one card, gloo): "
+          f"{spawn_s:.1f} s, kernel builds included")
+    return [res["launches"] for res in ranks]
+
+
+def _oracle_pixels(dev):
+    """Phase 28: the scalar oracle (tracer/reference_cpu.py) against the
+    kernel path's render of the same pixels on the card."""
+    side, depth, sample = ORACLE_SCENE
+    scene, _ = scene_from_dict(presets.cornell_box(side, side), device=dev)
+    secs, want = _host_s(lambda: oracle.render_sample(scene, side, side,
+                                                      sample, depth))
+    got = kt.render_sample(scene, side, side, sample, depth).cpu().numpy()
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise RuntimeError("the kernel path's oracle pixels are not finite")
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-2)
+    close = (rel < 1e-3).all(axis=-1)
+    energy = np.abs(got - want)[~close].sum() / (np.abs(want).sum() + 1e-12)
+    print(f"phase 28 (scalar oracle, Cornell {side}x{side}, depth {depth}, "
+          f"sample {sample}): {close.mean():.4f} of pixels within rel 1e-3, "
+          f"divergent energy {energy:.3g}; oracle {secs:.1f} s on the host")
+    if close.mean() < 0.995 or energy > 1e-3:
+        raise RuntimeError("the kernel path disagrees with the oracle")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -2628,6 +2892,14 @@ def main() -> int:
     print(f"chip_smoke phases 23-25: {time.perf_counter() - t0:.1f} s; "
           f"phases 1-25: {time.perf_counter() - t_start:.1f} s")
 
+    # 26-28. the world of one, two ranks on the card, the scalar oracle
+    t0 = time.perf_counter()
+    _world_of_one(scene, out["accum_xyz"])
+    shard = _two_ranks(scene, static, out["accum_xyz"], macc)
+    _oracle_pixels(dev)
+    print(f"chip_smoke phases 26-28: {time.perf_counter() - t0:.1f} s; "
+          f"phases 1-28: {time.perf_counter() - t_start:.1f} s")
+
     # bounds at the shapes timed above
     b_fwd, b_taped = bounds["forward"], bounds["taped"]
     b_bwd, b_tape_bwd = bounds["backward"], bounds["tape_bwd"]
@@ -2645,6 +2917,7 @@ def main() -> int:
         "launches": launches,
         "launches_train": launches_fwd,
         "launches_vis_grads": vis_launches["pallas"]["forward"],
+        "launches_sharded": [c["forward"] for c in shard],
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -2667,6 +2940,7 @@ def main() -> int:
                     "(taped=\"full\")",
         "launches": launches_taped,
         "launches_vis_grads": vis_launches["pallas_taped"]["forward_taped"],
+        "launches_sharded": [c["forward_taped"] for c in shard],
         "max_abs_err": taped_abs_err,
         "ms": taped_ms,
         "plain_ms": t_plain_t * 1e3,
@@ -2683,6 +2957,7 @@ def main() -> int:
         "replaces": "computeraytracer_tpu/kernels/megakernel.py:1314",
         "launches": launches_bwd,
         "launches_vis_grads": vis_launches["pallas"]["backward"],
+        "launches_sharded": [c["backward"] for c in shard],
         "max_abs_err": bwd_abs_err,
         "ms": bwd_ms,
         "plain_ms": plain_bwd_ms,
@@ -2701,6 +2976,7 @@ def main() -> int:
         "replaces": "computeraytracer_tpu/kernels/megakernel.py:1480",
         "launches": launches_tape_bwd,
         "launches_vis_grads": vis_launches["pallas_taped"]["backward_tape"],
+        "launches_sharded": [c["backward_tape"] for c in shard],
         "max_abs_err": tape_abs_err,
         "ms": tape_bwd_ms,
         "plain_ms": plain_tape_bwd_ms,
@@ -2721,6 +2997,7 @@ def main() -> int:
         "replaces": "computeraytracer_tpu/kernels/megakernel.py:897 "
                     "(mesh mode, _scan_mesh_part :337)",
         "launches": launches_mesh,
+        "launches_sharded": [c["forward_mesh"] for c in shard],
         "max_abs_err": mesh_abs_err,
         "ms": mesh_ms,
         "plain_ms": plain_mesh_ms,

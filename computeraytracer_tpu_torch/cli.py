@@ -17,7 +17,14 @@ The flags are the JAX CLI's. ``--kernel xla`` renders and trains through
 the eager tracer; ``--bvh auto|on|off`` builds a BVH for it (auto: above
 64 primitives with ``--kernel xla``). ``--profile DIR`` writes a
 ``torch.profiler`` trace of the render (utils/profiling.py) under DIR.
-``--sharded`` is not ported yet and raises when given.
+``--sharded`` renders over a (dp, sp) mesh of the running world
+(parallel/): under torchrun, one rank per device,
+
+    torchrun --nproc-per-node 4 -m computeraytracer_tpu_torch render \
+        --sharded --preset cornell_box --spp 16 --out cornell.png
+
+and without a launcher, a world of one. Only rank 0 writes ``--out``,
+``--metrics`` and the summary line.
 ``--device`` (default ``cuda``) picks where the scene of ``render`` and
 ``train`` lives: there is no silent move to the CPU. ``info`` traces
 nothing and reads the scene on the CPU.
@@ -29,10 +36,10 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import sys
+import tempfile
 import time
-
-_NOT_PORTED = ("sharded",)
 
 # --bvh auto builds a BVH for the eager tracer above this many primitives.
 BVH_AUTO_MIN = 64
@@ -79,21 +86,49 @@ def _scene_bvh(args, scene):
     return builder.to_device(bvh, scene.device)
 
 
+@contextlib.contextmanager
+def _world(device: str):
+    """The process group of --sharded: torchrun's (from its environment),
+    else a world of one over a file store; destroyed on exit."""
+    from computeraytracer_tpu_torch.parallel import distributed
+
+    device_type = "cpu" if device == "cpu" else "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            if not distributed.initialize(device_type=device_type):
+                distributed.initialize(
+                    "file://" + os.path.join(tmp, "store"), 1, 0,
+                    device_type=device_type)
+            yield
+        finally:
+            distributed.shutdown()
+
+
 def _render_accum(args, scene, w, h, bvh):
-    """The summed XYZ of --spp samples, by --kernel; with --progressive N,
-    rendered in N-sample chunks, --out rewritten after each."""
+    """The summed XYZ of --spp samples, by --kernel; with --sharded, over
+    make_mesh() of the running world; with --progressive N, rendered in
+    N-sample chunks, --out rewritten after each (and --sharded ignored)."""
     from computeraytracer_tpu_torch.ops import color
     from computeraytracer_tpu_torch.tracer import kernel as kernel_tracer
     from computeraytracer_tpu_torch.tracer import xla as xla_tracer
     from computeraytracer_tpu_torch.tracer.api import render
     from computeraytracer_tpu_torch.utils.image import write_png
 
+    if args.sharded and not args.progressive:
+        from computeraytracer_tpu_torch.parallel import mesh as mesh_mod
+        from computeraytracer_tpu_torch.parallel import render_sharded
+        return render_sharded.render_accumulate_sharded(
+            scene, w, h, args.spp, mesh_mod.make_mesh(), max_depth=args.depth,
+            bvh=bvh, kernel=args.kernel)
     if not args.progressive:
         if args.kernel == "xla":
             return xla_tracer.render_accumulate(
                 scene, w, h, spp=args.spp, max_depth=args.depth, bvh=bvh)
         return render(scene, width=w, height=h, spp=args.spp,
                       max_depth=args.depth, kernel=args.kernel)["accum_xyz"]
+    if args.sharded:
+        print("--progressive ignores --sharded (single-host loop)",
+              file=sys.stderr)
     # counter-based seeding makes the chunked sum equal to one --spp shot
     accum = None
     done = 0
@@ -117,18 +152,24 @@ def _render_accum(args, scene, w, h, bvh):
 
 
 def cmd_render(args) -> int:
+    _require_device(args.device)
+    if args.sharded and not args.progressive:
+        # the group sets each rank's card before the scene is loaded on it
+        with _world(args.device):
+            return _render(args)
+    return _render(args)
+
+
+def _render(args) -> int:
     import torch
+    import torch.distributed as dist
 
     from computeraytracer_tpu_torch.ops import color
     from computeraytracer_tpu_torch.utils import profiling
     from computeraytracer_tpu_torch.utils.image import write_png
     from computeraytracer_tpu_torch.utils.metrics import RenderMeter
 
-    for flag in _NOT_PORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported to computeraytracer_tpu_torch yet")
-    _require_device(args.device)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     scene, w, h = _load(args)
     bvh = _scene_bvh(args, scene)
 
@@ -137,7 +178,7 @@ def cmd_render(args) -> int:
         tracing = profiling.trace(args.profile, scene.device)
         print(f"tracing to {args.profile} (a Chrome trace JSON file)",
               file=sys.stderr)
-    meter = RenderMeter(jsonl_path=args.metrics)
+    meter = RenderMeter(jsonl_path=args.metrics if lead else None)
     with tracing:
         meter.start()
         accum = _render_accum(args, scene, w, h, bvh)
@@ -146,6 +187,8 @@ def cmd_render(args) -> int:
     rec = meter.stop(paths=w * h * args.spp, width=w, height=h,
                      spp=args.spp, kernel=args.kernel,
                      device=str(scene.device))
+    if not lead:
+        return 0
     print(json.dumps(rec), file=sys.stderr)
 
     srgb = color.xyz_to_srgb(accum / float(args.spp), args.exposure)
@@ -222,7 +265,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="BVH for --kernel xla (auto: above "
                    f"{BVH_AUTO_MIN} primitives)")
     r.add_argument("--sharded", action="store_true",
-                   help="not ported yet: raises when given")
+                   help="render over a (dp, sp) mesh of the running world "
+                   "(torchrun's ranks, else a world of one)")
     r.add_argument("--exposure", type=float, default=2.2)
     r.add_argument("--progressive", type=int, default=0, metavar="N",
                    help="rewrite --out every N samples from the running "

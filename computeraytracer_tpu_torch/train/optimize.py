@@ -18,8 +18,12 @@ A mesh part's chunk BVH is planned once on the initial geometry
 A scene is split into (params, static scene); the loss renders the scene
 from merged params and compares it to a target in XYZ. Visibility
 gradients (``vis_grads``, ops/warp.py) render through the eager tracer
-(``kernel="xla"``). Sharded training (``mesh``) is not ported yet and
-raises NotImplementedError naming the slice that brings it.
+(``kernel="xla"``). With ``mesh`` (a (dp, sp) DeviceMesh over the whole
+world, parallel/mesh.py) the render is sharded
+(``parallel.render_sharded``): every rank computes the same loss over the
+whole film, and the trainable leaves pass through
+``render_sharded.replicated``, so that their gradient sums every rank's
+rays, as JAX transposes shard_map's psum.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Iterable, Optional
 import torch
 
 from computeraytracer_tpu_torch.kernels import meshpack
+from computeraytracer_tpu_torch.parallel import render_sharded
 from computeraytracer_tpu_torch.tracer import kernel as kernel_tracer
 from computeraytracer_tpu_torch.tracer import xla as xla_tracer
 
@@ -39,12 +44,9 @@ GEOMETRY_LEAVES = ("data1", "data2", "data3")
 TRAINABLE = ("spectra",) + GEOMETRY_LEAVES
 
 
-def _require_ported(kernel: str, mesh=None) -> None:
+def _require_kernel(kernel: str) -> None:
     if kernel not in ("pallas", "xla"):
         raise ValueError(f"unknown kernel {kernel!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharded training) arrives with the multi-GPU slice")
 
 
 def split_scene(scene, trainable: Iterable[str] = ("spectra",)):
@@ -91,13 +93,26 @@ def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
     only) turns on the warped-area visibility gradients of
     ``tracer.xla.render_pixels``; its image is the unstratified render's.
     With kernel="pallas" it raises: the kernel path's screen warp is
-    ``tracer.kernel.render_sample(vis_grads=("screen",))``."""
-    _require_ported(kernel, mesh)
+    ``tracer.kernel.render_sample(vis_grads=("screen",))``. mesh (a
+    DeviceMesh, parallel/mesh.py) renders through
+    ``parallel.render_sharded.render_accumulate_sharded``; every rank
+    returns the whole image. The JAX package's sharded path drops
+    vis_grads, so here it raises with a mesh."""
+    _require_kernel(kernel)
     if vis_grads and kernel != "xla":
         raise ValueError(
             "vis_grads renders through the eager tracer: pass kernel='xla' "
             "(the screen warp around the kernels is "
             "tracer.kernel.render_sample(vis_grads=('screen',)))")
+    if mesh is not None:
+        if vis_grads:
+            raise ValueError("vis_grads has no sharded path: pass mesh=None")
+        accum = render_sharded.render_accumulate_sharded(
+            scene, width, height, spp, mesh, max_depth, rr_start,
+            int(first_sample), use_remat, kernel=kernel,
+            static=kernel_static, backward=backward,
+            mesh_plans=kernel_plans)
+        return accum / float(spp)
     accum = torch.zeros((height, width, 3), dtype=torch.float32,
                         device=scene.device)
     samples = range(int(first_sample), int(first_sample) + spp)
@@ -121,8 +136,11 @@ def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
 def make_loss_fn(static_scene, width, height, spp, max_depth,
                  rr_start: int = 1, mesh=None, use_remat=True,
                  kernel: str = "pallas", backward: str = "pallas"):
-    """L2 loss in XYZ between the rendered mean and a target image."""
-    _require_ported(kernel, mesh)
+    """L2 loss in XYZ between the rendered mean and a target image. With
+    mesh the render is sharded and every rank returns the same loss, the
+    mean over the whole film; its gradient by params is the whole one on
+    every rank (render_sharded.replicated sums the ranks' parts)."""
+    _require_kernel(kernel)
     kernel_static = kernel_plans = None
     if kernel == "pallas":
         kernel_static = kernel_tracer.SceneStatic.from_scene(static_scene)
@@ -132,9 +150,11 @@ def make_loss_fn(static_scene, width, height, spp, max_depth,
                              for part in kernel_static.mesh_parts)
 
     def loss_fn(params, target, first_sample):
+        if mesh is not None:
+            params = render_sharded.replicated(params)
         scene = merge_scene(static_scene, params)
         img = render_mean_xyz(scene, width, height, spp, max_depth,
-                              rr_start, first_sample, use_remat=use_remat,
+                              rr_start, first_sample, mesh, use_remat,
                               kernel=kernel,
                               kernel_static=kernel_static,
                               kernel_plans=kernel_plans,
@@ -225,7 +245,7 @@ def optimize(scene, target, width, height, *, trainable=("spectra",),
     trace's backward: "pallas" (the retrace kernel) or "pallas_taped"
     (the tape-fed pair); a scene with mesh parts takes the guided replay
     either way. Returns (scene, losses)."""
-    _require_ported(kernel, mesh)
+    _require_kernel(kernel)
     if lr_schedule not in (None, "cosine"):
         raise ValueError(f"unknown lr_schedule: {lr_schedule!r}")
     params0, static_scene = split_scene(scene, trainable)

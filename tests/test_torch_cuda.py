@@ -27,7 +27,8 @@ chunks with dead pairs among them; the eager tracer on the card (no
 kernel) against the CPU and the kernel path, its gradient oracle against
 the retrace kernel, and the BVH traversal against the brute-force scan;
 the screen warp of the visibility gradients around kernels 1, 3 and 4
-against the plain versions.
+against the plain versions; a world of one on NCCL (parallel/) against the
+single-process render and gradient.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -1276,3 +1277,42 @@ def test_card_screen_warp_gradient(cuda, backward, counter):
         assert c.is_cuda and torch.isfinite(c).all()
         rel = ((c.cpu() - h_).norm() / h_.norm()).item()
         assert rel <= 2e-3, rel
+
+
+def test_card_sharded_world_of_one(cuda, tmp_path):
+    """parallel/: a world of one on NCCL renders Cornell 64^2, spp 2,
+    through kernel 1 bit-equal to kt.render_accumulate, and its sharded
+    value_and_grad (make_loss_fn(mesh=...), kernels 1 and 3) by spectra
+    and data1 equals the single-process one."""
+    from computeraytracer_tpu_torch.parallel import distributed
+    from computeraytracer_tpu_torch.parallel import mesh as mesh_mod
+    from computeraytracer_tpu_torch.parallel import render_sharded as rsh
+    from computeraytracer_tpu_torch.train import optimize as opt
+
+    w = h = 64
+    scene, _ = scene_from_dict(presets.cornell_box(w, h), device=cuda)
+    target = torch.zeros((h, w, 3), device=cuda)
+
+    def value_and_grad(mesh):
+        params = {k: v.detach().clone().requires_grad_(True) for k, v in
+                  opt.split_scene(scene, ("spectra", "data1"))[0].items()}
+        loss = opt.make_loss_fn(scene, w, h, 2, 8, mesh=mesh)(params,
+                                                              target, 1)
+        loss.backward()
+        return loss.detach(), [p.grad for p in params.values()]
+
+    assert distributed.initialize(f"file://{tmp_path}/store", 1, 0)
+    try:
+        mesh = mesh_mod.make_mesh()
+        before = mk.launches
+        got = rsh.render_accumulate_sharded(scene, w, h, 2, mesh)
+        assert mk.launches == before + 2
+        assert torch.equal(got, kt.render_accumulate(scene, w, h, 2))
+        loss, grads = value_and_grad(mesh)
+    finally:
+        distributed.shutdown()
+    want_loss, want = value_and_grad(None)
+    assert torch.equal(loss, want_loss)
+    for g, w_ in zip(grads, want):
+        assert torch.isfinite(g).all() and torch.count_nonzero(w_) > 0
+        assert torch.equal(g, w_)

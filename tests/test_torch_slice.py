@@ -152,7 +152,9 @@ def test_cli_progressive_matches_one_shot(tmp_path):
                                   ["--bvh", "on", "--sharded"],
                                   ["--profile", "trace_dir"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
-    """--sharded raises; --profile DIR (ported) writes a trace under DIR."""
+    """--sharded (ported) renders over a world of one the image of the
+    unsharded render and leaves no process group; --profile DIR (ported)
+    writes a trace under DIR."""
     argv = ["render", "--width", "4", "--height", "4", "--spp", "1",
             "--device", "cpu", "--out", str(tmp_path / "x.png")]
     if flag[0] == "--profile":
@@ -160,8 +162,11 @@ def test_cli_unported_flags_raise(tmp_path, flag):
         traces = list((tmp_path / flag[1]).glob("trace.*.json"))
         assert len(traces) == 1 and traces[0].stat().st_size > 0
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(argv + flag)
+    assert cli.main(argv + flag) == 0
+    assert not torch.distributed.is_initialized()
+    sharded = read_png(str(tmp_path / "x.png"))
+    assert cli.main(argv) == 0
+    np.testing.assert_array_equal(sharded, read_png(str(tmp_path / "x.png")))
 
 
 def test_cli_info(capsys):

@@ -30,6 +30,8 @@ from computeraytracer_tpu.train import optimize as jopt
 from computeraytracer_tpu_torch import cli
 from computeraytracer_tpu_torch import config as C
 from computeraytracer_tpu_torch.kernels import megakernel as mk
+from computeraytracer_tpu_torch.parallel import distributed
+from computeraytracer_tpu_torch.parallel import mesh as mesh_mod
 from computeraytracer_tpu_torch.scene import scene_from_jax
 from computeraytracer_tpu_torch.tracer import kernel as kt
 from computeraytracer_tpu_torch.train import checkpoint as ckpt
@@ -263,18 +265,32 @@ def test_split_merge_roundtrip(recovery):
         opt.split_scene(scene, ("camera",))
 
 
-@pytest.mark.parametrize("kw", [dict(kernel="xla", mesh=object()),
-                                dict(mesh=object()),
+@pytest.mark.parametrize("kw", [dict(kernel="xla", mesh=True),
+                                dict(mesh=True),
                                 dict(kernel="xla", use_remat=True,
                                      vis_grads=True),
                                 dict(vis_grads=True)])
-def test_unported_options_raise(recovery, kw):
-    """mesh= (sharded training) raises; vis_grads renders on the eager
-    tracer and raises ValueError on the kernel path."""
+def test_unported_options_raise(recovery, kw, tmp_path):
+    """mesh= (sharded training, ported) renders in a world of one the
+    image of mesh=None, and raises ValueError with vis_grads; vis_grads
+    renders on the eager tracer and raises ValueError on the kernel
+    path."""
     scene = recovery["dimmed"]
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="slice"):
-            opt.render_mean_xyz(scene, W, H, 1, DEPTH, **kw)
+        kernel = kw.get("kernel", "pallas")
+        want = opt.render_mean_xyz(scene, W, H, 1, DEPTH, kernel=kernel)
+        distributed.initialize(f"file://{tmp_path}/store", 1, 0,
+                               device_type="cpu")
+        try:
+            mesh = mesh_mod.make_mesh()
+            got = opt.render_mean_xyz(scene, W, H, 1, DEPTH, kernel=kernel,
+                                      mesh=mesh)
+            with pytest.raises(ValueError, match="no sharded path"):
+                opt.render_mean_xyz(scene, W, H, 1, DEPTH, kernel="xla",
+                                    mesh=mesh, vis_grads=True)
+        finally:
+            distributed.shutdown()
+        assert torch.equal(got, want)
     elif kw.get("kernel") == "xla":
         img = opt.render_mean_xyz(scene, W, H, 1, DEPTH, **kw)
         assert img.shape == (H, W, 3) and torch.isfinite(img).all()
