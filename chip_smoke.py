@@ -16,9 +16,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels), and a second launch bit-equal to the first (the refill
    schedule hands rays to lanes in an order that varies).
 4. served path: tracer.api.render at 1024^2, spp 4, depth 8 with the
-   launch counter reset just before; exactly 4 kernel launches, a finite
+   launch counters reset just before; exactly 4 kernel launches, 4
+   ray-setup and 8 hero-gather launches (spectra and CIE), a finite
    non-zero image whose mean XYZ is within 1e-3 relative of the same
-   render through the plain version; the PNG is written to a temp dir.
+   render through the plain versions; the PNG is written to a temp dir.
 5. timing: forward kernel and plain version at the phase-3 shape (CUDA
    events, after a warm-up). The bounce loop's schedule: the one-thread
    schedule's SIMT efficiency from the taped forward's tape (lane trips
@@ -69,7 +70,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel (CUDA events), the step on the host clock (3 runs) and split
    into its forward pass, backward pass and Adam step, the peak device
    memory of one step, taped and retrace, and a torch.profiler pass over
-   one step of each (device time, idle share, top kernels).
+   one step of each (device time, idle share, host-issued ops, kernel
+   launches, top kernels; indexing_backward_kernel, the scatter of an
+   indexing backward, must not be among the top five). The setup's
+   launches in the taped step: 4 ray setups, 8 gathers, 4 column sums.
 11. meshes: mesh_scene(1024, 1024, subdivisions=6), 81,920 triangles in
    one mesh part, depth 3. The mesh-mode forward kernel against its plain
    version on a band of 16,384 rays across the blob: at least 99.9% of
@@ -243,11 +247,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 28. the scalar oracle (tracer/reference_cpu.py) at Cornell 16^2, depth
    5, sample 1, against the kernel path's render on the card: at least
    0.995 of pixels within rel 1e-3, divergent energy at most 1e-3.
+29. the per-sample setup's kernels at phase 4's shape (Cornell 1024^2,
+   1,048,576 rays): the ray-setup kernel bit-equal to its plain version
+   (o, d, hero, seeds) at samples 1 and 2^32 - 3; the hero gather bit-
+   equal to table[:, hero] on the spectra (24 rows) and CIE (12 rows)
+   tables; the column-sum kernel on phase 6's d_spect within relative
+   L2 1e-6 of a float64 column sum, within rel 1e-5 of its plain version
+   where an entry exceeds 1e-6 of the largest, and bit-equal across two
+   launches. Each timed (CUDA events) against its plain version, its
+   library call (table[:, hero]; index_put_ with accumulate, the gather's
+   autograd backward; index_add_) and its bound.
 Then one JSON line of kernels, each with its bound (the larger of the
 bytes it must move over 3.35 TB/s and a lower count of its float
-operations over 67 TFLOP/s, both at 700 W) and, for the four kernels of
-phase 24, its launches there ("launches_vis_grads"); the kernels of
-phase 27 carry their launches on each rank there ("launches_sharded").
+operations over 67 TFLOP/s, and of the ray setup's u32 operations over
+16.7 TOP/s, all at 700 W) and, for the four kernels of phase 24, its
+launches there ("launches_vis_grads"); the kernels of phase 27 carry
+their launches on each rank there ("launches_sharded"); the setup's
+kernels their launches in phase 4's render and phase 10's step.
 The last line is {"ok": true, "device": {...}}. It needs no JAX.
 """
 
@@ -277,6 +293,7 @@ from computeraytracer_tpu_torch.kernels import _build
 from computeraytracer_tpu_torch.kernels import binned as bn
 from computeraytracer_tpu_torch.kernels import megakernel as mk
 from computeraytracer_tpu_torch.kernels import meshpack
+from computeraytracer_tpu_torch.kernels import setup as setup_k
 from computeraytracer_tpu_torch.ops import camera as cam_ops
 from computeraytracer_tpu_torch.ops import intersect as isect
 from computeraytracer_tpu_torch.ops import spectrum as spec
@@ -362,6 +379,16 @@ ORACLE_SCENE = (16, 5, 1)  # phase 28: Cornell side, depth, sample
 # writes all its outputs.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# u32 operations outside the tensor cores: 64 a clock on each of the 132
+# SMs at the 1.98 GHz boost clock (Hopper white paper; the guide's table
+# gives no integer rate outside the tensor cores). The ray setup's count
+# per ray: 16 TEA rounds of 17, three pcg4d advances of 32, the seed
+# words' two products and the three draws' mask and conversion.
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+SETUP_INT_OPS = 16 * 17 + 3 * 32 + 2 + 3 * 2
+# its float operations per ray: the jitter (4), s and t (5), the
+# direction (12), its norm (6) and the normalization (3), the hero (1)
+SETUP_F32_OPS = 31
 PRIM_TEST_OPS = 35
 BOX_TEST_OPS = 24
 TRI_PLANE_OPS = 14
@@ -384,18 +411,24 @@ def _events_ms(fn, reps: int) -> float:
 
 def _plain_render_accum(scene, static, spp, width=None, height=None,
                         max_depth=None, mesh_arrays=()):
-    """The served render's accumulation, traced by forward_reference
-    (the main path's film and depth unless given)."""
+    """The served render's accumulation through the plain versions of
+    the setup's kernels and the trace (forward_reference), at the main
+    path's film and depth unless given."""
     width, height = width or WIDTH, height or HEIGHT
     max_depth = MAX_DEPTH if max_depth is None else max_depth
     px, py = kt.tile_coords(width, height, 0, scene.device)
     accum = torch.zeros((3, width * height), device=scene.device)
     for s in range(1, spp + 1):
-        o, d, hero, seed = kt.camera_planes(scene, width, height, px, py, s)
+        o, d, hero, seed = setup_k.ray_setup_reference(
+            scene.camera, width, height, px, py, s)
         radiance = mk.forward_reference(
-            static, max_depth, RR_START,
-            *kt.kernel_inputs(scene, o, d, hero, seed, static), *mesh_arrays)
-        cie_p = spec.gather_hero(spec.cie_window_exp(scene.cie), hero)
+            static, max_depth, RR_START, mk.pack_prims(scene, static),
+            torch.cat([o, d]), seed,
+            setup_k.hero_gather_reference(
+                spec.expand_hero_table(scene.spectra), hero),
+            *mesh_arrays)
+        cie_p = setup_k.hero_gather_reference(spec.cie_window_exp(scene.cie),
+                                              hero)
         accum = accum + spec.spectral_to_xyz_p(cie_p, radiance)
     return accum.T.reshape(height, width, 3)
 
@@ -480,17 +513,20 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bound(nbytes, ops):
-    """(bound_ms, bound_by) of a kernel that moves nbytes and does ops."""
+def _bound(nbytes, ops, int_ops=0):
+    """(bound_ms, bound_by) of a kernel that moves nbytes and does ops
+    float and int_ops u32 operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = (ops / F32_OPS_PER_S + int_ops / INT32_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def _profile(fn, top=5):
+def _profile(fn, top=5, host_ops=False):
     """One run of fn() under torch.profiler: (wall ms, device ms, device
-    idle share, kernel launches, the top kernels by device time)."""
+    idle share, kernel launches, the top kernels by device time), and with
+    host_ops the count of host-issued torch ops (aten ops not called
+    from inside another aten op)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -507,8 +543,16 @@ def _profile(fn, top=5):
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / 1e3)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return (wall, dev_ms, 1.0 - dev_ms / wall, len(kernels),
-            [(n[:48], round(t, 3)) for n, t in ranked])
+    out = (wall, dev_ms, 1.0 - dev_ms / wall, len(kernels),
+           [(n[:48], round(t, 3)) for n, t in ranked])
+    if not host_ops:
+        return out
+    ops = sum(1 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CPU
+              and e.name.startswith("aten::")
+              and not (e.cpu_parent is not None
+                       and e.cpu_parent.name.startswith("aten::")))
+    return out + (ops,)
 
 
 def _reset_counters():
@@ -516,6 +560,16 @@ def _reset_counters():
     mk.launches_bwd = mk.launches_bwd_tape = mk.launches_winners = 0
     mk.launches_shade = bn.launches_walk = bn.launches_candidates = 0
     bn.launches_pair = bn.launches_pair_occl = 0
+    setup_k.launches_ray_setup = setup_k.launches_gather = 0
+    setup_k.launches_gather_bwd = 0
+
+
+def _setup_counters():
+    """The per-sample setup's launch counts (kept out of _counters, whose
+    trace-kernel counts the phases hold exactly)."""
+    return {"ray_setup": setup_k.launches_ray_setup,
+            "hero_gather_fwd": setup_k.launches_gather,
+            "hero_gather_bwd": setup_k.launches_gather_bwd}
 
 
 def _counters():
@@ -2411,6 +2465,147 @@ def _oracle_pixels(dev):
         raise RuntimeError("the kernel path disagrees with the oracle")
 
 
+def _setup_kernels(scene, d_spect, setup_render, setup_step):
+    """Phase 29: the setup's kernels at phase 4's shape; returns their
+    kernels-line entries."""
+    t0 = time.perf_counter()
+    px, py = kt.tile_coords(WIDTH, HEIGHT, 0, scene.device)
+    rays = px.shape[0]
+    cam = scene.camera
+    for sample in (1, 2**32 - 3):
+        got = setup_k.ray_setup(cam, WIDTH, HEIGHT, px, py, sample)
+        want = setup_k.ray_setup_reference(cam, WIDTH, HEIGHT, px, py, sample)
+        torch.cuda.synchronize()
+        for nm, g, w in zip(("o", "d", "hero", "seed"), got, want):
+            if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(
+                    g, w):
+                raise RuntimeError(f"ray-setup kernel's {nm} differs from "
+                                   f"its plain version at sample {sample}")
+    o, d, hero, seed = setup_k.ray_setup(cam, WIDTH, HEIGHT, px, py, 1)
+    frame = setup_k.camera_frame(cam, WIDTH, HEIGHT)
+    a_ms = _events_ms(lambda: setup_k.ray_setup_launch(
+        frame, WIDTH, HEIGHT, px, py, 1), 20)
+    a_wrapper = _events_ms(lambda: setup_k.ray_setup(cam, WIDTH, HEIGHT, px,
+                                                     py, 1), 20)
+    a_plain = _events_ms(lambda: setup_k.ray_setup_reference(
+        cam, WIDTH, HEIGHT, px, py, 1), 5)
+    a_bound = _bound(_nbytes(px, py, o, d, hero, seed, frame),
+                     rays * SETUP_F32_OPS, rays * SETUP_INT_OPS)
+    print(f"ray setup ({rays} rays): bit-equal to its plain version (o, d, "
+          f"hero, seed) at samples 1 and 2^32 - 3; kernel {a_ms:.4f} ms "
+          f"({a_wrapper:.4f} with the camera frame's torch ops), plain "
+          f"{a_plain:.3f} ms, bound {a_bound[0]:.4f} ms ({a_bound[1]})")
+    for line in _ptxas("setup"):
+        print(f"ptxas[setup]: {line}")
+
+    spect_t = spec.expand_hero_table(scene.spectra).contiguous()
+    cie_t = spec.cie_window_exp(scene.cie).contiguous()
+    for nm, table in (("spectra", spect_t), ("CIE", cie_t)):
+        if not torch.equal(setup_k.hero_gather(table, hero), table[:, hero]):
+            raise RuntimeError(f"hero gather of the {nm} table differs from "
+                               f"table[:, hero]")
+    fwd = setup_k.hero_gather(spect_t, hero)
+    f_ms = _events_ms(lambda: setup_k.hero_gather(spect_t, hero), 20)
+    f_cie_ms = _events_ms(lambda: setup_k.hero_gather(cie_t, hero), 20)
+    f_plain = _events_ms(lambda: setup_k.hero_gather_reference(spect_t,
+                                                               hero), 20)
+    f_select = _events_ms(lambda: torch.index_select(spect_t, 1, hero), 20)
+    f_bound = _bound(_nbytes(spect_t, hero, fwd), 0)
+    print(f"hero gather ({spect_t.shape[0]} x {rays}): bit-equal to table[:, "
+          f"hero] (spectra and CIE); kernel {f_ms:.4f} ms (CIE rows "
+          f"{f_cie_ms:.4f}), table[:, hero] {f_plain:.4f} ms, index_select "
+          f"{f_select:.4f} ms, bound {f_bound[0]:.4f} ms ({f_bound[1]})")
+
+    g = d_spect.contiguous()
+    n_cols = spect_t.shape[1]
+    first = setup_k.hero_column_sums(g, hero, n_cols)
+    second = setup_k.hero_column_sums(g, hero, n_cols)
+    plain = setup_k.hero_column_sums_reference(g, hero, n_cols)
+    exact = torch.zeros(first.shape, dtype=torch.float64, device=g.device)
+    exact.index_add_(1, hero, g.double())
+    torch.cuda.synchronize()
+    rel_l2 = ((first.double() - exact).norm() / exact.norm()).item()
+    big = plain.abs() > 1e-6 * plain.abs().max()
+    rel_plain = ((first - plain).abs()[big] / plain.abs()[big]).max().item()
+    same_plain = torch.equal(first, plain)
+    b_abs_err = (first - plain).abs().max().item()
+    print(f"column sums ({g.shape[0]} x {rays} -> {tuple(first.shape)}): "
+          f"relative L2 {rel_l2:.3g} from a float64 column sum, worst rel "
+          f"{rel_plain:.3g} from the plain version (bit-equal "
+          f"{same_plain}), two launches bit-equal "
+          f"{torch.equal(first, second)}")
+    if rel_l2 > 1e-6 or rel_plain > 1e-5 or not torch.equal(first, second):
+        raise RuntimeError("column-sum kernel disagrees with the float64 "
+                           "sum, its plain version or itself")
+    b_ms = _events_ms(lambda: setup_k.hero_column_sums(g, hero, n_cols), 20)
+    b_plain = _events_ms(lambda: setup_k.hero_column_sums_reference(
+        g, hero, n_cols), 5)
+    zeros = torch.zeros(first.shape, device=g.device)
+    b_put = _events_ms(lambda: torch.ops.aten.index_put_(
+        zeros.clone(), [None, hero], g, True), 5)
+    b_add = _events_ms(lambda: zeros.clone().index_add_(1, hero, g), 5)
+    b_bound = _bound(_nbytes(g, hero, first), g.numel())
+    print(f"column sums: kernel {b_ms:.4f} ms, plain {b_plain:.3f} ms, "
+          f"index_put_(accumulate=True) (the gather's autograd backward) "
+          f"{b_put:.4f} ms, index_add_ {b_add:.4f} ms, bound "
+          f"{b_bound[0]:.4f} ms ({b_bound[1]})")
+    print(f"phase 29 (the setup's kernels): {time.perf_counter() - t0:.1f} s")
+    src = "computeraytracer_tpu_torch/kernels/csrc/setup.cu"
+    launches = {nm: {"launches_render": setup_render[nm],
+                     "launches_train": setup_step[nm]}
+                for nm in setup_render}
+    return [dict({
+        "name": "ray_setup",
+        "route": "cuda",
+        "source": src,
+        "replaces": "computeraytracer_tpu/tracer/pallas.py:708-712 (XLA)",
+        "launches": setup_render["ray_setup"],
+        "max_abs_err": 0.0,
+        "ms": a_ms,
+        "wrapper_ms": a_wrapper,
+        "plain_ms": a_plain,
+        "bound_ms": a_bound[0],
+        "bound_by": a_bound[1],
+        "library_ms": None,
+        "rays": rays,
+    }, **launches["ray_setup"]), dict({
+        "name": "hero_gather_fwd",
+        "route": "cuda",
+        "source": src,
+        "replaces": "computeraytracer_tpu/ops/spectrum.py:121 "
+                    "gather_hero_planar (XLA)",
+        "launches": setup_render["hero_gather_fwd"],
+        "max_abs_err": 0.0,
+        "ms": f_ms,
+        "ms_cie": f_cie_ms,
+        "plain_ms": f_plain,
+        "bound_ms": f_bound[0],
+        "bound_by": f_bound[1],
+        "library_ms": f_plain,
+        "index_select_ms": f_select,
+        "rows": spect_t.shape[0],
+        "rays": rays,
+    }, **launches["hero_gather_fwd"]), dict({
+        "name": "hero_gather_bwd",
+        "route": "cuda",
+        "source": src,
+        "replaces": "computeraytracer_tpu/ops/spectrum.py:246 take_cols "
+                    "VJP (XLA)",
+        "launches": setup_step["hero_gather_bwd"],
+        "max_abs_err": b_abs_err,
+        "rel_l2_float64": rel_l2,
+        "bit_equal_plain": same_plain,
+        "ms": b_ms,
+        "plain_ms": b_plain,
+        "bound_ms": b_bound[0],
+        "bound_by": b_bound[1],
+        "library_ms": b_put,
+        "index_add_ms": b_add,
+        "rows": g.shape[0],
+        "rays": rays,
+    }, **launches["hero_gather_bwd"])]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -2465,15 +2660,21 @@ def main() -> int:
     # 4. the served path
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=SPP,
                        max_depth=MAX_DEPTH, kernel="pallas")
-    mk.launches = 0
+    _reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = render(scene, cfg)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     launches = mk.launches
+    setup_render = _setup_counters()
     if launches != SPP:
         raise RuntimeError(f"{launches} kernel launches, expected {SPP}")
+    want_setup = {"ray_setup": SPP, "hero_gather_fwd": 2 * SPP,
+                  "hero_gather_bwd": 0}
+    if setup_render != want_setup:
+        raise RuntimeError(f"the render's setup launched {setup_render}, "
+                           f"expected {want_setup}")
     accum = out["accum_xyz"]
     if not torch.isfinite(accum).all() or not (accum != 0).any():
         raise RuntimeError("render is not finite and non-zero")
@@ -2483,7 +2684,8 @@ def main() -> int:
     rel_mean = ((mean_xyz - plain_mean).abs() / plain_mean.abs()).max().item()
     print(f"render: {WIDTH}x{HEIGHT} spp {SPP} depth {MAX_DEPTH} in "
           f"{render_s:.3f} s ({WIDTH * HEIGHT * SPP / render_s / 1e6:.3f} "
-          f"Mpaths/s end to end), {launches} launches, mean XYZ "
+          f"Mpaths/s end to end), {launches} launches, setup launches "
+          f"{setup_render}, mean XYZ "
           f"{mean_xyz.tolist()} vs plain {plain_mean.tolist()} "
           f"(rel {rel_mean:.3g})")
     if rel_mean > 1e-3:
@@ -2679,10 +2881,16 @@ def main() -> int:
     step_t_s, loss_t = _host_s(lambda: _vg(train_scene, static,
                                            "pallas_taped"))
     counts = _counters()
+    setup_step = _setup_counters()
     want_counts = _only(forward_taped=SPP, backward_tape=SPP)
     if counts != want_counts:
         raise RuntimeError(f"pallas_taped value_and_grad launched {counts}, "
                            f"expected {want_counts}")
+    want_setup = {"ray_setup": SPP, "hero_gather_fwd": 2 * SPP,
+                  "hero_gather_bwd": SPP}
+    if setup_step != want_setup:
+        raise RuntimeError(f"the step's setup launched {setup_step}, "
+                           f"expected {want_setup}")
     launches_taped = counts["forward_taped"]
     launches_tape_bwd = counts["backward_tape"]
     errs, same = [], []
@@ -2693,7 +2901,8 @@ def main() -> int:
         errs.append(((g - w).abs().max() / w.abs().max()).item())
         same.append(bool(torch.equal(g, w)))
     print(f"pallas_taped value_and_grad: loss {loss_t:.6e} (retrace "
-          f"{loss_retrace:.6e}), launches {counts}, {step_t_s * 1e3:.1f} ms (first "
+          f"{loss_retrace:.6e}), launches {counts}, setup {setup_step}, "
+          f"{step_t_s * 1e3:.1f} ms (first "
           f"call); gradients vs phase 7: worst err {errs} of the largest "
           f"entry, bit-equal {same}")
     if max(errs) > 1e-5:
@@ -2739,11 +2948,15 @@ def main() -> int:
           f"tape-fed kernels of ~{tape_bwd_ms:.3f} ms, the rest autograd of "
           f"the setup ops), Adam {adam_s * 1e3:.3f} ms")
     for bw in ("pallas", "pallas_taped"):
-        wall, dev_ms, idle, n_k, top = _profile(
-            lambda: _vg(_train_leaves(scene)[2], static, bw))
+        wall, dev_ms, idle, n_k, top, n_ops = _profile(
+            lambda: _vg(_train_leaves(scene)[2], static, bw), top=8,
+            host_ops=True)
         print(f"profile of one value_and_grad ({bw}): wall {wall:.1f} ms, "
-              f"device {dev_ms:.1f} ms, idle share {idle:.3f}, {n_k} kernel "
-              f"launches; top {top}")
+              f"device {dev_ms:.1f} ms, idle share {idle:.3f}, {n_ops} "
+              f"host-issued ops, {n_k} kernel launches; top {top}")
+        if any("indexing_backward" in n for n, _ in top[:5]):
+            raise RuntimeError(f"indexing_backward_kernel is among the "
+                               f"{bw} step's top device operations")
     del tape_f, tape_i
 
     # 11. meshes
@@ -2900,6 +3113,10 @@ def main() -> int:
     print(f"chip_smoke phases 26-28: {time.perf_counter() - t0:.1f} s; "
           f"phases 1-28: {time.perf_counter() - t_start:.1f} s")
 
+    # 29. the per-sample setup's kernels
+    setup_entries = _setup_kernels(scene, got_b[2], setup_render, setup_step)
+    print(f"chip_smoke phases 1-29: {time.perf_counter() - t_start:.1f} s")
+
     # bounds at the shapes timed above
     b_fwd, b_taped = bounds["forward"], bounds["taped"]
     b_bwd, b_tape_bwd = bounds["backward"], bounds["tape_bwd"]
@@ -3045,7 +3262,8 @@ def main() -> int:
             ("walk", "walk.cu", "binned.py:640", "walk"),
             ("candidates", "candidates.cu", "binned.py:215", "candidates"),
             ("pair_closest", "pair.cu", "binned.py:392", "pair_closest"),
-            ("pair_any", "pair.cu", "binned.py:898", "pair_any"))]}))
+            ("pair_any", "pair.cu", "binned.py:898", "pair_any"))]
+        + setup_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

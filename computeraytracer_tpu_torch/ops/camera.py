@@ -49,13 +49,20 @@ def camera_basis(eye, lookat, up):
     return u, v, w
 
 
+def _aspect(width, height, device):
+    """width / height as an f32 0-dim tensor on device, divided there: a
+    host tensor copied to the card would make the host wait for it."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return torch.full((), float(width), **f32) / torch.full((), float(height),
+                                                            **f32)
+
+
 def film_frame(eye, lookat, up, fov, width, height):
     """(lower_left, horizontal, vertical) film-plane frame: a film point
     (s, t) maps to direction lower_left + s*horizontal + t*vertical - eye."""
     u, v, w = camera_basis(eye, lookat, up)
-    aspect = torch.tensor(width, dtype=torch.float32) / float(height)
     viewport_h = 2.0 * torch.tan(fov / 2.0)
-    viewport_w = aspect.to(fov.device) * viewport_h
+    viewport_w = _aspect(width, height, fov.device) * viewport_h
     horizontal = viewport_w * u
     vertical = viewport_h * v
     lower_left = eye - horizontal / 2.0 - vertical / 2.0 - w
@@ -71,8 +78,14 @@ def _jitter(sample, us, ut, stratified):
 
 
 def _film_st(width, height, px, py, js, jt):
-    s = (px.to(torch.float32) + js) / float(width)
-    t = (float(height) - py.to(torch.float32) + jt) / float(height)
+    # divided by 0-dim tensors on the pixels' device: on the card, torch
+    # divides by a Python number as a product with its rounded reciprocal,
+    # which is not the JAX package's (or the CPU's) correctly rounded
+    # division
+    f32 = dict(dtype=torch.float32, device=px.device)
+    s = (px.to(torch.float32) + js) / torch.full((), float(width), **f32)
+    t = ((float(height) - py.to(torch.float32) + jt)
+         / torch.full((), float(height), **f32))
     return s, t
 
 
@@ -103,9 +116,8 @@ def world_to_film(eye, lookat, up, fov, width, height, x):
     of a surface point with it. Points at or behind the eye give finite
     values (their depth is floored at 1e-6); callers mask those lanes."""
     u, v, w = camera_basis(eye, lookat, up)
-    aspect = torch.tensor(width, dtype=torch.float32) / float(height)
     viewport_h = 2.0 * torch.tan(fov / 2.0)
-    viewport_w = aspect.to(fov.device) * viewport_h
+    viewport_w = _aspect(width, height, fov.device) * viewport_h
     dirv = x - eye
     nw = -w
     denom = (dirv[..., 0] * nw[0] + dirv[..., 1] * nw[1]

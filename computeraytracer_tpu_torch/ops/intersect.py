@@ -73,6 +73,29 @@ def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, flat).reshape(idx.shape + table.shape[1:])
 
 
+def row_sums(idx, g, n_rows: int, block: int):
+    """(n_rows, k) sums of the rows of g (R, k) that share an index of idx
+    (R,), in a fixed order: within each block of ``block`` consecutive
+    rays in ray order, then over the blocks in order. A sort groups the
+    (index, block) keys and two segment sums add them up, so a row that
+    most rays hit (a wall, the light, the row that misses gather) is
+    summed in parallel over its blocks; a per-duplicate scatter
+    (``index_put_`` with accumulate) walks such a row serially, and
+    ``index_add_`` on the card uses atomics, whose order changes from run
+    to run."""
+    n_blocks = -(-idx.shape[0] // block)
+    blk = torch.arange(idx.shape[0], device=idx.device) // block
+    key = idx * n_blocks + blk
+    order = torch.argsort(key, stable=True)
+    keys, lengths = torch.unique_consecutive(key[order], return_counts=True)
+    partial = torch.segment_reduce(g[order], "sum", lengths=lengths, axis=0)
+    rows, lengths = torch.unique_consecutive(keys // n_blocks,
+                                             return_counts=True)
+    out = g.new_zeros((n_rows, g.shape[1]))
+    out[rows] = torch.segment_reduce(partial, "sum", lengths=lengths, axis=0)
+    return out
+
+
 def maximum(x: torch.Tensor, c: float) -> torch.Tensor:
     """jnp.maximum(x, c) for a constant c: at a tie the gradient is split
     in half, as in JAX."""

@@ -7,15 +7,20 @@ loaded tables are equal bit for bit): ``resample_spectrum`` and
 Device part (torch): hero-wavelength sampling, the hero-expanded
 spectra and CIE tables, the per-ray spectra lookup of the eager tracer
 (``sample_spectrum``) and the Riemann spectral -> XYZ sum. The hero
-gather is a plain column index ``table[:, hero]``.
+gather ``gather_hero`` (``HeroGatherFn``) is the column index
+``table[:, hero]`` with the JAX package's scatter-free backward: fixed-
+order column sums of the cotangent, not the scatter-add of an indexing
+backward (kernels/setup.py; its kernels on the card).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from computeraytracer_tpu_torch import config as C
+from computeraytracer_tpu_torch.kernels import setup as setup_k
 from computeraytracer_tpu_torch.ops import rng
 from computeraytracer_tpu_torch.ops.intersect import take
 
@@ -74,17 +79,13 @@ def cie_1931_tables(n: int = C.CIE_N, start_nm: float = 360.0) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _hero(u: torch.Tensor) -> torch.Tensor:
-    return (u * float(C.N_LAMBDA)).to(torch.int64)
-
-
 def sample_wavelengths(seed):
     """Hero-wavelength draw on (..., 4) state.
 
     One uniform picks the hero index in [0, 301); companions at +4/+8/+12
     wrap mod 301. Returns (lambdas (..., 4) int64, new_seed)."""
     u, seed = rng.rand(seed)
-    hero = _hero(u)
+    hero = setup_k.hero_index(u)
     n = C.N_LAMBDA
     lam = torch.stack([hero, (hero + 4) % n, (hero + 8) % n,
                        (hero + 12) % n], dim=-1)
@@ -95,7 +96,7 @@ def sample_wavelengths_p(seed_p):
     """Hero draw on planar (4, R) state -> (hero (R,) int64, new_seed).
     The companions are folded into expand_hero_table's rolled rows."""
     u, seed_p = rng.rand_p(seed_p)
-    return _hero(u), seed_p
+    return setup_k.hero_index(u), seed_p
 
 
 def expand_hero_table(table: torch.Tensor) -> torch.Tensor:
@@ -111,9 +112,41 @@ def cie_window_exp(cie: torch.Tensor) -> torch.Tensor:
     return expand_hero_table(cie[:, C.CIE_OFFSET:C.CIE_OFFSET + C.N_LAMBDA])
 
 
+class HeroGatherFn(torch.autograd.Function):
+    """table_exp[:, hero] (the JAX ``gather_hero_planar`` with
+    ``take_cols``' scatter-free VJP): forward ``setup.hero_gather``,
+    backward ``setup.hero_column_sums``, the cotangent's column sums by
+    hero in a fixed order, so two runs give bit-equal gradients. hero gets
+    no gradient. With no gradient wanted (grad mode off, or a table that
+    needs none) it records nothing.
+
+        planes = HeroGatherFn.apply(table_exp, hero)
+    """
+
+    @classmethod
+    def apply(cls, table_exp, hero):
+        # needs_input_grad ignores no_grad: decide here
+        if not (torch.is_grad_enabled() and table_exp.requires_grad):
+            return setup_k.hero_gather(table_exp, hero)
+        return super().apply(table_exp, hero)
+
+    @staticmethod
+    def forward(ctx, table_exp, hero):
+        ctx.save_for_backward(hero)
+        ctx.n_cols = table_exp.shape[1]
+        return setup_k.hero_gather(table_exp, hero)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (hero,) = ctx.saved_tensors
+        return setup_k.hero_column_sums(g.contiguous(), hero,
+                                        ctx.n_cols), None
+
+
 def gather_hero(table_exp: torch.Tensor, hero: torch.Tensor) -> torch.Tensor:
-    """(K, 301) hero-expanded table, hero (R,) -> (K, R)."""
-    return table_exp[:, hero]
+    """(K, 301) hero-expanded table, hero (R,) -> (K, R): HeroGatherFn."""
+    return HeroGatherFn.apply(table_exp, hero)
 
 
 _XYZ_SCALE = (C.LAMBDA_MAX - C.LAMBDA_MIN) / (C.CIE_Y_INTEG * C.N_HERO)

@@ -1,9 +1,11 @@
 """Megakernel tracer: the port of computeraytracer_tpu/tracer/pallas.py.
 
-Camera ray generation, hero-wavelength sampling, the per-ray spectra
-planes and the CIE conversion run as torch ops; the trace itself is one
-kernel call per sample (the CUDA kernels for a scene on the card, their
-plain torch versions for a scene on the CPU).
+Per sample: the ray setup (seeds, camera rays, the hero draw; one kernel,
+``kernels.setup.ray_setup``), the hero gathers of the spectra and CIE
+planes (``ops.spectrum.HeroGatherFn``, whose backward sums in a fixed
+order), one trace kernel call, and the CIE conversion in torch. Every
+kernel runs on the card for a scene there; a scene on the CPU runs their
+plain torch versions.
 
 One layout is ported: the planar (k, R) path the kernel consumes, with
 pixels in ``tile_coords`` row-major order. ``render_sample`` is its
@@ -71,6 +73,7 @@ from torch.autograd.function import once_differentiable
 from computeraytracer_tpu_torch.kernels import binned as bn
 from computeraytracer_tpu_torch.kernels import megakernel as mk
 from computeraytracer_tpu_torch.kernels import meshpack
+from computeraytracer_tpu_torch.kernels import setup as setup_k
 from computeraytracer_tpu_torch.ops import camera as cam_ops
 from computeraytracer_tpu_torch.ops import rng
 from computeraytracer_tpu_torch.ops import spectrum as spec
@@ -101,15 +104,13 @@ tile_coords = xla_tracer.tile_coords
 
 def camera_planes(scene, width: int, height: int, px, py, sample):
     """Per-ray setup for pixels px, py (R,) at a 1-based sample index:
-    seeds, jittered camera rays and the hero-wavelength draw.
+    seeds, jittered camera rays and the hero-wavelength draw
+    (``kernels.setup.ray_setup``: the ray-setup kernel on the card, which
+    raises where a camera tensor needs a gradient; its plain version on
+    the CPU).
 
     Returns (o (3, R), d (3, R), hero (R,), seed (4, R))."""
-    seed = rng.seed_pixel_p(px, py, sample)
-    cam = scene.camera
-    o, d, seed = cam_ops.camera_rays_p(cam.eye, cam.lookat, cam.up, cam.fov,
-                                       width, height, px, py, sample, seed)
-    hero, seed = spec.sample_wavelengths_p(seed)
-    return o, d, hero, seed
+    return setup_k.ray_setup(scene.camera, width, height, px, py, sample)
 
 
 def kernel_inputs(scene, o, d, hero, seed, static: SceneStatic | None = None):

@@ -27,6 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from computeraytracer_tpu_torch.kernels import megakernel as mk
+from computeraytracer_tpu_torch.ops import intersect as isect
 from computeraytracer_tpu_torch.ops.camera import sqrt
 
 
@@ -35,26 +36,9 @@ SUM_BLOCK = 4096
 
 
 def _row_sums(idx, g, n_rows):
-    """(n_rows, k) sums of the rows of g (R, k) that share an index of idx
-    (R,), in a fixed order: within each block of SUM_BLOCK consecutive
-    rays in ray order, then over the blocks in order. A sort groups the
-    (index, block) keys and two segment sums add them up, so a row that
-    most rays hit (a wall, the light, the row that misses gather) is
-    summed in parallel over its blocks; a per-duplicate scatter
-    (``index_put_`` with accumulate) walks such a row serially, and
-    ``index_add_`` on the card uses atomics, whose order changes from run
-    to run."""
-    n_blocks = -(-idx.shape[0] // SUM_BLOCK)
-    block = torch.arange(idx.shape[0], device=idx.device) // SUM_BLOCK
-    key = idx * n_blocks + block
-    order = torch.argsort(key, stable=True)
-    keys, lengths = torch.unique_consecutive(key[order], return_counts=True)
-    partial = torch.segment_reduce(g[order], "sum", lengths=lengths, axis=0)
-    rows, lengths = torch.unique_consecutive(keys // n_blocks,
-                                             return_counts=True)
-    out = g.new_zeros((n_rows, g.shape[1]))
-    out[rows] = torch.segment_reduce(partial, "sum", lengths=lengths, axis=0)
-    return out
+    """``ops.intersect.row_sums`` in blocks of SUM_BLOCK rays: a fixed
+    order, so two runs give bit-equal sums."""
+    return isect.row_sums(idx, g, n_rows, SUM_BLOCK)
 
 
 class _GatherRows(torch.autograd.Function):

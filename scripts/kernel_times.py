@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the kernels of one checkout of the port on a CUDA card.
 
-    python3 scripts/kernel_times.py [ROOT] [--parts cornell,tri_rows,mesh,e2e]
+    python3 scripts/kernel_times.py [ROOT] \
+        [--parts cornell,tri_rows,mesh,e2e,binned,setup]
 
 ROOT (default: the checkout holding this script) is the root of a
 checkout of the repository; its package is imported and its kernels are
@@ -48,9 +49,18 @@ JSON line of times in ms:
   (``cuobjdump -sass``, written to ``sass/`` in ROOT's kernel build
   directory, ``kernels/build/``, with each
   kernel's instruction count printed).
+- ``setup``: the per-sample setup's kernels at Cornell 1024^2 (phase
+  29's shape: the ray setup, the hero gather of the spectra and CIE
+  tables, the column sums of a (24, R) cotangent) beside the PyTorch calls
+  that compute the same (``table[:, hero]``, ``index_put_`` with
+  accumulate, ``index_add_``), and the retrace and tape-fed training
+  steps (phase 10): host ms, and under torch.profiler device ms, idle
+  share, kernel launches, host-issued ops and top kernels. ROOT's package
+  needs ``kernels/setup.py``; an older checkout's own copy of this script
+  times its ``e2e`` part.
 Compare two checkouts in turns within one call (parent, change, change,
 parent): times taken on different cards or calls differ by a few percent.
-``--parts`` runs only the named parts (all five by default).
+``--parts`` runs only the named parts (all six by default).
 """
 
 from __future__ import annotations
@@ -63,7 +73,8 @@ import subprocess
 import sys
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
-REPS = {"cornell": 10, "tri_rows": 10, "mesh": 3, "e2e": 3, "binned": 5}
+REPS = {"cornell": 10, "tri_rows": 10, "mesh": 3, "e2e": 3, "binned": 5,
+        "setup": 20}
 
 
 def _chip_smoke():
@@ -190,6 +201,50 @@ def _binned(cs, static, args, arrays, reps):
     return out
 
 
+def _setup(cs, dev):
+    """The setup part: its kernels and the PyTorch calls beside them, and
+    the two training steps."""
+    torch, kt, spec, setup_k = cs.torch, cs.kt, cs.spec, cs.setup_k
+    scene, _ = cs.scene_from_dict(cs.presets.cornell_box(cs.WIDTH, cs.HEIGHT),
+                                  device=dev)
+    static = cs.mk.SceneStatic.from_scene(scene)
+    px, py = kt.tile_coords(cs.WIDTH, cs.HEIGHT, 0, dev)
+    cam = scene.camera
+    hero = setup_k.ray_setup(cam, cs.WIDTH, cs.HEIGHT, px, py, 1)[2]
+    spect_t = spec.expand_hero_table(scene.spectra)
+    cie_t = spec.cie_window_exp(scene.cie)
+    g = torch.randn((spect_t.shape[0], px.shape[0]), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    zeros = torch.zeros(spect_t.shape, device=dev)
+    n_cols = spect_t.shape[1]
+    frame = setup_k.camera_frame(cam, cs.WIDTH, cs.HEIGHT)
+    out = {k: cs._events_ms(fn, REPS["setup"]) for k, fn in {
+        "ray_setup": lambda: setup_k.ray_setup_launch(frame, cs.WIDTH,
+                                                      cs.HEIGHT, px, py, 1),
+        "ray_setup_wrapper": lambda: setup_k.ray_setup(cam, cs.WIDTH,
+                                                       cs.HEIGHT, px, py, 1),
+        "gather": lambda: setup_k.hero_gather(spect_t, hero),
+        "gather_cie": lambda: setup_k.hero_gather(cie_t, hero),
+        "index": lambda: spect_t[:, hero],
+        "column_sums": lambda: setup_k.hero_column_sums(g, hero, n_cols),
+        "index_put_accumulate": lambda: torch.ops.aten.index_put_(
+            zeros.clone(), [None, hero], g, True),
+        "index_add": lambda: zeros.clone().index_add_(1, hero, g),
+    }.items()}
+    for bw in ("pallas", "pallas_taped"):
+        def step():
+            return cs._vg(cs._train_leaves(scene)[2], static, bw)
+        step()
+        out[bw + "_step_ms"] = [cs._host_s(step)[0] * 1e3
+                                for _ in range(REPS["e2e"])]
+        wall, dev_ms, idle, n_k, top, n_ops = cs._profile(step, top=8,
+                                                          host_ops=True)
+        out[bw + "_step_profile"] = {
+            "wall_ms": wall, "device_ms": dev_ms, "idle": idle,
+            "launches": n_k, "host_ops": n_ops, "top": top}
+    return out
+
+
 def _film(cs, scene, static, dev):
     kt = cs.kt
     px, py = kt.tile_coords(cs.WIDTH, cs.HEIGHT, 0, dev)
@@ -258,6 +313,8 @@ def main() -> int:
                                 for _ in range(REPS["e2e"])]
             e2e[key + "_device_ms"] = cs._profile(fn)[1]
         ms["e2e"] = e2e
+    if "setup" in parts:
+        ms["setup"] = _setup(cs, dev)
     if "binned" in parts:
         print(f"sass instructions: {_sass(cs, root)}")
     if not parts & {"mesh", "binned"}:

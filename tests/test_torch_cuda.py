@@ -28,7 +28,10 @@ kernel) against the CPU and the kernel path, its gradient oracle against
 the retrace kernel, and the BVH traversal against the brute-force scan;
 the screen warp of the visibility gradients around kernels 1, 3 and 4
 against the plain versions; a world of one on NCCL (parallel/) against the
-single-process render and gradient.
+single-process render and gradient; the per-sample setup's kernels (the
+ray setup, the hero gather and its fixed-order column sums) against their
+plain versions, their launches on the training path and the gradient's
+bit-equality across runs.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -1316,3 +1319,129 @@ def test_card_sharded_world_of_one(cuda, tmp_path):
     for g, w_ in zip(grads, want):
         assert torch.isfinite(g).all() and torch.count_nonzero(w_) > 0
         assert torch.equal(g, w_)
+
+
+@pytest.mark.parametrize("n_rays", [1, 31, 37, 1 << 20])
+def test_card_ray_setup_kernel(cuda, n_rays):
+    """The ray-setup kernel bit-equal to its plain version on the card (o,
+    d, hero, seeds) at three samples, the last near 2^32, on the last rays
+    of a film or one row of it; one launch each, and camera_planes goes
+    through it."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+
+    w, h = (1024, 1024) if n_rays == 1 << 20 else (37, 29)
+    scene, _ = scene_from_dict(presets.cornell_box(w, h), device=cuda)
+    if n_rays == w:  # one film row: py is a stride-0 view
+        px, py = kt.tile_coords(w, 1, h // 2, cuda)
+        assert not py.is_contiguous()
+    else:
+        px, py = kt.tile_coords(w, h, 0, cuda)
+        px, py = px[-n_rays:], py[-n_rays:]
+    for sample in (1, 17, 2**32 - 3):
+        before = setup_k.launches_ray_setup
+        got = kt.camera_planes(scene, w, h, px, py, sample)
+        assert setup_k.launches_ray_setup == before + 1
+        want = setup_k.ray_setup_reference(scene.camera, w, h, px, py,
+                                           sample)
+        for name, g, w_ in zip(("o", "d", "hero", "seed"), got, want):
+            assert g.shape == w_.shape and g.dtype == w_.dtype, name
+            assert torch.equal(g, w_), name
+
+
+def test_card_ray_setup_refuses_camera_grad(cuda):
+    """The kernel has no backward: a camera that needs a gradient raises
+    under grad mode and runs under no_grad."""
+    scene, _ = scene_from_dict(presets.cornell_box(16, 16), device=cuda)
+    eye = scene.camera.eye.clone().requires_grad_(True)
+    scene = dataclasses.replace(
+        scene, camera=dataclasses.replace(scene.camera, eye=eye))
+    px, py = kt.tile_coords(16, 16, 0, cuda)
+    with pytest.raises(ValueError, match="no backward"):
+        kt.camera_planes(scene, 16, 16, px, py, 1)
+    with torch.no_grad():
+        assert kt.camera_planes(scene, 16, 16, px, py, 1)[1].shape == (3, 256)
+
+
+@pytest.mark.parametrize("n_rays", [1, 2049, 1 << 20])
+def test_card_hero_gather_kernels(cuda, n_rays, monkeypatch):
+    """The gather kernel bit-equal to table[:, hero]; the column-sum
+    kernel within rtol 1e-5 of its plain version where an entry exceeds
+    1e-6 of the largest, within relative L2 1e-6 of a float64 column sum,
+    and bit-equal across launches, also through HeroGatherFn; a block
+    size other than the kernel's is refused."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+    from computeraytracer_tpu_torch.ops import spectrum as spec
+
+    g = np.random.default_rng(n_rays)
+    table = torch.from_numpy(
+        g.standard_normal((24, 301)).astype(np.float32)).to(cuda)
+    hero_np = g.integers(0, 301, n_rays)
+    hero_np[: min(n_rays, 2)] = (0, 300)[: min(n_rays, 2)]
+    hero = torch.from_numpy(hero_np).to(cuda)
+    cot = torch.from_numpy(
+        g.standard_normal((24, n_rays)).astype(np.float32)).to(cuda)
+    before = (setup_k.launches_gather, setup_k.launches_gather_bwd)
+    fwd = setup_k.hero_gather(table, hero)
+    assert torch.equal(fwd, table[:, hero])
+    first = setup_k.hero_column_sums(cot, hero, 301)
+    second = setup_k.hero_column_sums(cot, hero, 301)
+    assert (setup_k.launches_gather, setup_k.launches_gather_bwd) == (
+        before[0] + 1, before[1] + 2)
+    assert torch.equal(first, second)
+    plain = setup_k.hero_column_sums_reference(cot, hero, 301)
+    big = plain.abs() > 1e-6 * plain.abs().max()
+    rel = ((first - plain).abs() / plain.abs().clamp(min=1e-30))[big]
+    assert rel.max().item() <= 1e-5
+    exact = torch.zeros((24, 301), dtype=torch.float64, device=cuda)
+    exact.index_add_(1, hero, cot.double())
+    assert ((first.double() - exact).norm() / exact.norm()).item() <= 1e-6
+    leaf = table.clone().requires_grad_(True)
+    spec.gather_hero(leaf, hero).backward(cot)
+    assert torch.equal(leaf.grad, first)
+    monkeypatch.setattr(setup_k, "HERO_BLOCK", setup_k.HERO_BLOCK // 2)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        setup_k.hero_column_sums(cot, hero, 301)
+
+
+def test_card_setup_launches_on_the_training_path(cuda):
+    """A value_and_grad by spectra through render_pixels_planar, 2
+    samples: one ray-setup launch, two gathers (spectra, CIE) and one
+    column-sum launch (the CIE table needs no gradient) per sample; no
+    plain version runs, and the gradient is bit-equal across runs."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+
+    w = h = 64
+    scene, _ = scene_from_dict(presets.cornell_box(w, h), device=cuda)
+    px, py = kt.tile_coords(w, h, 0, cuda)
+
+    def grad():
+        sp = scene.spectra.clone().requires_grad_(True)
+        s = dataclasses.replace(scene, spectra=sp)
+        xyz = sum(kt.render_pixels_planar(s, w, h, px, py, k, 4)
+                  for k in (1, 2))
+        (xyz ** 2).mean().backward()
+        return sp.grad
+
+    before = (setup_k.launches_ray_setup, setup_k.launches_gather,
+              setup_k.launches_gather_bwd)
+    first = grad()
+    assert (setup_k.launches_ray_setup, setup_k.launches_gather,
+            setup_k.launches_gather_bwd) == (before[0] + 2, before[1] + 4,
+                                             before[2] + 2)
+    assert torch.isfinite(first).all() and (first != 0).any()
+    assert torch.equal(first, grad())
+
+
+def test_card_film_coordinates_match_the_cpu(cuda):
+    """ops/camera.py _film_st on the card: the film coordinates of a
+    37 x 29 film, divided by 0-dim tensors, equal the CPU's (and so the
+    JAX package's) bit for bit."""
+    from computeraytracer_tpu_torch.ops import camera as cam_ops
+
+    px, py = kt.tile_coords(37, 29, 0)
+    gen = torch.Generator().manual_seed(0)
+    js, jt = (torch.rand(px.shape, generator=gen) for _ in range(2))
+    want = cam_ops._film_st(37, 29, px, py, js, jt)
+    got = cam_ops._film_st(37, 29, *(x.to(cuda) for x in (px, py, js, jt)))
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
