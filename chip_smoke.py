@@ -17,7 +17,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    schedule hands rays to lanes in an order that varies).
 4. served path: tracer.api.render at 1024^2, spp 4, depth 8 with the
    launch counters reset just before; exactly 4 kernel launches, 4
-   ray-setup and 8 hero-gather launches (spectra and CIE), a finite
+   ray-setup and 4 hero-gather launches (spectra and CIE in one), a finite
    non-zero image whose mean XYZ is within 1e-3 relative of the same
    render through the plain versions; the PNG is written to a temp dir.
 5. timing: forward kernel and plain version at the phase-3 shape (CUDA
@@ -73,7 +73,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    one step of each (device time, idle share, host-issued ops, kernel
    launches, top kernels; indexing_backward_kernel, the scatter of an
    indexing backward, must not be among the top five). The setup's
-   launches in the taped step: 4 ray setups, 8 gathers, 4 column sums.
+   launches in the taped step: 4 ray setups, 4 gathers, 4 column sums.
 11. meshes: mesh_scene(1024, 1024, subdivisions=6), 81,920 triangles in
    one mesh part, depth 3. The mesh-mode forward kernel against its plain
    version on a band of 16,384 rays across the blob: at least 99.9% of
@@ -248,15 +248,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    5, sample 1, against the kernel path's render on the card: at least
    0.995 of pixels within rel 1e-3, divergent energy at most 1e-3.
 29. the per-sample setup's kernels at phase 4's shape (Cornell 1024^2,
-   1,048,576 rays): the ray-setup kernel bit-equal to its plain version
-   (o, d, hero, seeds) at samples 1 and 2^32 - 3; the hero gather bit-
-   equal to table[:, hero] on the spectra (24 rows) and CIE (12 rows)
-   tables; the column-sum kernel on phase 6's d_spect within relative
-   L2 1e-6 of a float64 column sum, within rel 1e-5 of its plain version
-   where an entry exceeds 1e-6 of the largest, and bit-equal across two
-   launches. Each timed (CUDA events) against its plain version, its
-   library call (table[:, hero]; index_put_ with accumulate, the gather's
-   autograd backward; index_add_) and its bound.
+   1,048,576 rays): the ray-setup kernel, which computes the camera
+   frame itself, bit-equal to its plain version (o, d, hero, seeds) at
+   three cameras (Cornell's, SETUP_CAMERAS' tilted up and fov near pi/2)
+   and samples 1 and 2^32 - 3; the hero gather of the spectra (24 rows)
+   and CIE (12 rows) tables in one launch, each bit-equal to table[:,
+   hero]; the column-sum kernel on phase 6's d_spect within relative L2
+   1e-6 of a float64 column sum, bit-equal to its plain version and
+   across two launches. Each timed (CUDA events; the ray setup alone and
+   through its wrapper; each kernel's device time under torch.profiler,
+   the mean of the launches it records) against its plain version, its
+   library call
+   (index_select of the concatenated table; index_put_ with accumulate,
+   the gather's autograd backward; index_add_) and its bound, the column
+   sums with their share of it.
 Then one JSON line of kernels, each with its bound (the larger of the
 bytes it must move over 3.35 TB/s and a lower count of its float
 operations over 67 TFLOP/s, and of the ray setup's u32 operations over
@@ -389,6 +394,17 @@ SETUP_INT_OPS = 16 * 17 + 3 * 32 + 2 + 3 * 2
 # its float operations per ray: the jitter (4), s and t (5), the
 # direction (12), its norm (6) and the normalization (3), the hero (1)
 SETUP_F32_OPS = 31
+# phase 10's step with the setup built each sample (PERF.md §5, on an
+# NVIDIA H100 80GB HBM3 at 700 W), printed beside its profile
+PER_SAMPLE_SETUP_STEP = {
+    "pallas": "788 host-issued ops, 540 launches, idle 0.34-0.39",
+    "pallas_taped": "768 host-issued ops, 516 launches, idle 0.36-0.37"}
+# phase 29's cameras besides Cornell's (eye, lookat, up, fov): a tilted up,
+# a fov near pi/2
+SETUP_CAMERAS = {
+    "tilted": ((1.3, 2.1, -3.7), (0.2, 0.9, 0.4), (0.3, 1.0, 0.2), 0.9),
+    "wide": ((0.0, 0.5, 5.0), (0.1, -0.2, 0.0), (0.0, 1.0, 0.0), 1.5707),
+}
 PRIM_TEST_OPS = 35
 BOX_TEST_OPS = 24
 TRI_PLANE_OPS = 14
@@ -635,11 +651,15 @@ def _train_leaves(scene):
 
 def _headline_loss(scene, static, backward="pallas"):
     """mean((accum / spp) ** 2) of the planar accumulation over samples
-    1..SPP (bench.py's fwd+bwd workload)."""
+    1..SPP (bench.py's fwd+bwd workload), its setup operands built once
+    as render_accumulate builds them."""
+    setup = kt.setup_operands(scene, static, backward,
+                              *kt.tile_coords(WIDTH, HEIGHT, 0, scene.device))
     accum = torch.zeros((3, HEIGHT, WIDTH), device=scene.device)
     for s in range(1, SPP + 1):
         accum = accum + kt.render_sample_planar(
-            scene, WIDTH, HEIGHT, s, MAX_DEPTH, RR_START, static, backward)
+            scene, WIDTH, HEIGHT, s, MAX_DEPTH, RR_START, static, backward,
+            setup=setup)
     return torch.mean((accum / float(SPP)) ** 2)
 
 
@@ -2465,56 +2485,108 @@ def _oracle_pixels(dev):
         raise RuntimeError("the kernel path disagrees with the oracle")
 
 
+def _camera(scene, eye, lookat, up, fov):
+    """The scene with another camera, its tensors on the scene's device."""
+    f32 = dict(dtype=torch.float32, device=scene.device)
+    return dataclasses.replace(scene, camera=dataclasses.replace(
+        scene.camera, eye=torch.tensor(eye, **f32),
+        lookat=torch.tensor(lookat, **f32), up=torch.tensor(up, **f32),
+        fov=torch.tensor(fov, **f32)))
+
+
+def _kernel_device_ms(fn, reps, *keys):
+    """Mean device time a call of fn() of the CUDA kernels whose names hold
+    the keys (each launched once a call): reps calls under torch.profiler
+    after one warm-up, each key's kernel timed as the mean over the
+    launches the profiler recorded (it may drop some) -> (total ms, {key:
+    ms}, {key: launches recorded})."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_key, seen = {}, {}
+    for key in keys:
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and key in e.name]
+        if not us:
+            raise RuntimeError(f"the profiler recorded no launch of {key}")
+        by_key[key], seen[key] = sum(us) / len(us) / 1e3, len(us)
+    return sum(by_key.values()), by_key, seen
+
+
 def _setup_kernels(scene, d_spect, setup_render, setup_step):
     """Phase 29: the setup's kernels at phase 4's shape; returns their
     kernels-line entries."""
     t0 = time.perf_counter()
     px, py = kt.tile_coords(WIDTH, HEIGHT, 0, scene.device)
     rays = px.shape[0]
+    cameras = {"cornell": scene.camera, **{
+        k: _camera(scene, *v).camera for k, v in SETUP_CAMERAS.items()}}
+    for cam_name, cam in cameras.items():
+        for sample in (1, 2**32 - 3):
+            got = setup_k.ray_setup(cam, WIDTH, HEIGHT, px, py, sample)
+            want = setup_k.ray_setup_reference(cam, WIDTH, HEIGHT, px, py,
+                                               sample)
+            torch.cuda.synchronize()
+            for nm, g, w in zip(("o", "d", "hero", "seed"), got, want):
+                if g.shape != w.shape or g.dtype != w.dtype or not (
+                        torch.equal(g, w)):
+                    raise RuntimeError(
+                        f"ray-setup kernel's {nm} differs from its plain "
+                        f"version at the {cam_name} camera, sample {sample}")
     cam = scene.camera
-    for sample in (1, 2**32 - 3):
-        got = setup_k.ray_setup(cam, WIDTH, HEIGHT, px, py, sample)
-        want = setup_k.ray_setup_reference(cam, WIDTH, HEIGHT, px, py, sample)
-        torch.cuda.synchronize()
-        for nm, g, w in zip(("o", "d", "hero", "seed"), got, want):
-            if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(
-                    g, w):
-                raise RuntimeError(f"ray-setup kernel's {nm} differs from "
-                                   f"its plain version at sample {sample}")
+    operands = (cam.eye, cam.lookat, cam.up, cam.fov)
     o, d, hero, seed = setup_k.ray_setup(cam, WIDTH, HEIGHT, px, py, 1)
-    frame = setup_k.camera_frame(cam, WIDTH, HEIGHT)
     a_ms = _events_ms(lambda: setup_k.ray_setup_launch(
-        frame, WIDTH, HEIGHT, px, py, 1), 20)
+        *operands, WIDTH, HEIGHT, px, py, 1), 20)
     a_wrapper = _events_ms(lambda: setup_k.ray_setup(cam, WIDTH, HEIGHT, px,
                                                      py, 1), 20)
+    a_device, _, a_seen = _kernel_device_ms(lambda: setup_k.ray_setup(
+        cam, WIDTH, HEIGHT, px, py, 1), 20, "ray_setup")
     a_plain = _events_ms(lambda: setup_k.ray_setup_reference(
         cam, WIDTH, HEIGHT, px, py, 1), 5)
-    a_bound = _bound(_nbytes(px, py, o, d, hero, seed, frame),
+    a_bound = _bound(_nbytes(px, py, o, d, hero, seed, *operands),
                      rays * SETUP_F32_OPS, rays * SETUP_INT_OPS)
     print(f"ray setup ({rays} rays): bit-equal to its plain version (o, d, "
-          f"hero, seed) at samples 1 and 2^32 - 3; kernel {a_ms:.4f} ms "
-          f"({a_wrapper:.4f} with the camera frame's torch ops), plain "
-          f"{a_plain:.3f} ms, bound {a_bound[0]:.4f} ms ({a_bound[1]})")
+          f"hero, seed) at the {', '.join(cameras)} cameras, samples 1 and "
+          f"2^32 - 3; kernel {a_ms:.4f} ms ({a_wrapper:.4f} through its "
+          f"wrapper, which issues no torch op for the camera frame; device "
+          f"time under the profiler {a_device:.4f}, the mean of "
+          f"{a_seen['ray_setup']} launches), plain {a_plain:.3f} "
+          f"ms, bound {a_bound[0]:.4f} ms ({a_bound[1]})")
     for line in _ptxas("setup"):
         print(f"ptxas[setup]: {line}")
 
     spect_t = spec.expand_hero_table(scene.spectra).contiguous()
     cie_t = spec.cie_window_exp(scene.cie).contiguous()
-    for nm, table in (("spectra", spect_t), ("CIE", cie_t)):
-        if not torch.equal(setup_k.hero_gather(table, hero), table[:, hero]):
+    both_t = torch.cat([spect_t, cie_t])
+    got_s, got_c = setup_k.hero_gather_tables((spect_t, cie_t), hero)
+    for nm, g, table in (("spectra", got_s, spect_t), ("CIE", got_c, cie_t)):
+        if not torch.equal(g, table[:, hero]):
             raise RuntimeError(f"hero gather of the {nm} table differs from "
                                f"table[:, hero]")
-    fwd = setup_k.hero_gather(spect_t, hero)
-    f_ms = _events_ms(lambda: setup_k.hero_gather(spect_t, hero), 20)
-    f_cie_ms = _events_ms(lambda: setup_k.hero_gather(cie_t, hero), 20)
-    f_plain = _events_ms(lambda: setup_k.hero_gather_reference(spect_t,
-                                                               hero), 20)
-    f_select = _events_ms(lambda: torch.index_select(spect_t, 1, hero), 20)
-    f_bound = _bound(_nbytes(spect_t, hero, fwd), 0)
-    print(f"hero gather ({spect_t.shape[0]} x {rays}): bit-equal to table[:, "
-          f"hero] (spectra and CIE); kernel {f_ms:.4f} ms (CIE rows "
-          f"{f_cie_ms:.4f}), table[:, hero] {f_plain:.4f} ms, index_select "
-          f"{f_select:.4f} ms, bound {f_bound[0]:.4f} ms ({f_bound[1]})")
+    f_ms = _events_ms(lambda: setup_k.hero_gather_tables((spect_t, cie_t),
+                                                         hero), 20)
+    f_spect_ms = _events_ms(lambda: setup_k.hero_gather(spect_t, hero), 20)
+    f_plain = _events_ms(lambda: (
+        setup_k.hero_gather_reference(spect_t, hero),
+        setup_k.hero_gather_reference(cie_t, hero)), 20)
+    f_select = _events_ms(lambda: torch.index_select(both_t, 1, hero), 20)
+    f_device = _kernel_device_ms(lambda: setup_k.hero_gather_tables(
+        (spect_t, cie_t), hero), 20, "hero_gather")[0]
+    f_bound = _bound(_nbytes(spect_t, cie_t, hero, got_s, got_c), 0)
+    print(f"hero gather ({spect_t.shape[0]} + {cie_t.shape[0]} x {rays}, one "
+          f"launch): bit-equal to table[:, hero] (spectra and CIE); kernel "
+          f"{f_ms:.4f} ms (device time under the profiler {f_device:.4f}; "
+          f"the spectra alone {f_spect_ms:.4f}), table[:, "
+          f"hero] of both {f_plain:.4f} ms, index_select of the "
+          f"concatenated table {f_select:.4f} ms, bound {f_bound[0]:.4f} ms "
+          f"({f_bound[1]})")
 
     g = d_spect.contiguous()
     n_cols = spect_t.shape[1]
@@ -2525,19 +2597,19 @@ def _setup_kernels(scene, d_spect, setup_render, setup_step):
     exact.index_add_(1, hero, g.double())
     torch.cuda.synchronize()
     rel_l2 = ((first.double() - exact).norm() / exact.norm()).item()
-    big = plain.abs() > 1e-6 * plain.abs().max()
-    rel_plain = ((first - plain).abs()[big] / plain.abs()[big]).max().item()
     same_plain = torch.equal(first, plain)
     b_abs_err = (first - plain).abs().max().item()
     print(f"column sums ({g.shape[0]} x {rays} -> {tuple(first.shape)}): "
-          f"relative L2 {rel_l2:.3g} from a float64 column sum, worst rel "
-          f"{rel_plain:.3g} from the plain version (bit-equal "
-          f"{same_plain}), two launches bit-equal "
-          f"{torch.equal(first, second)}")
-    if rel_l2 > 1e-6 or rel_plain > 1e-5 or not torch.equal(first, second):
+          f"relative L2 {rel_l2:.3g} from a float64 column sum, bit-equal "
+          f"to the plain version {same_plain} (worst abs {b_abs_err:.3g}), "
+          f"two launches bit-equal {torch.equal(first, second)}")
+    if rel_l2 > 1e-6 or not same_plain or not torch.equal(first, second):
         raise RuntimeError("column-sum kernel disagrees with the float64 "
                            "sum, its plain version or itself")
     b_ms = _events_ms(lambda: setup_k.hero_column_sums(g, hero, n_cols), 20)
+    b_device, b_passes, _ = _kernel_device_ms(
+        lambda: setup_k.hero_column_sums(g, hero, n_cols), 20, "hero_sort",
+        "hero_sums", "hero_reduce")
     b_plain = _events_ms(lambda: setup_k.hero_column_sums_reference(
         g, hero, n_cols), 5)
     zeros = torch.zeros(first.shape, device=g.device)
@@ -2545,10 +2617,14 @@ def _setup_kernels(scene, d_spect, setup_render, setup_step):
         zeros.clone(), [None, hero], g, True), 5)
     b_add = _events_ms(lambda: zeros.clone().index_add_(1, hero, g), 5)
     b_bound = _bound(_nbytes(g, hero, first), g.numel())
-    print(f"column sums: kernel {b_ms:.4f} ms, plain {b_plain:.3f} ms, "
-          f"index_put_(accumulate=True) (the gather's autograd backward) "
-          f"{b_put:.4f} ms, index_add_ {b_add:.4f} ms, bound "
-          f"{b_bound[0]:.4f} ms ({b_bound[1]})")
+    print(f"column sums: kernel {b_ms:.4f} ms (device time under the "
+          f"profiler {b_device:.4f}: sort, sums, reduce "
+          f"{[round(v, 4) for v in b_passes.values()]}), bound "
+          f"{b_bound[0]:.4f} ms ({b_bound[1]}): the device time is "
+          f"{b_bound[0] / b_device:.3f} of the bound; plain {b_plain:.3f} "
+          f"ms, index_put_(accumulate=True) "
+          f"(the gather's autograd backward) {b_put:.4f} ms, index_add_ "
+          f"{b_add:.4f} ms")
     print(f"phase 29 (the setup's kernels): {time.perf_counter() - t0:.1f} s")
     src = "computeraytracer_tpu_torch/kernels/csrc/setup.cu"
     launches = {nm: {"launches_render": setup_render[nm],
@@ -2563,27 +2639,29 @@ def _setup_kernels(scene, d_spect, setup_render, setup_step):
         "max_abs_err": 0.0,
         "ms": a_ms,
         "wrapper_ms": a_wrapper,
+        "device_ms": a_device,
         "plain_ms": a_plain,
         "bound_ms": a_bound[0],
         "bound_by": a_bound[1],
         "library_ms": None,
         "rays": rays,
+        "cameras": list(cameras),
     }, **launches["ray_setup"]), dict({
         "name": "hero_gather_fwd",
         "route": "cuda",
         "source": src,
-        "replaces": "computeraytracer_tpu/ops/spectrum.py:121 "
+        "replaces": "computeraytracer_tpu/tracer/pallas.py:726-731 "
                     "gather_hero_planar (XLA)",
         "launches": setup_render["hero_gather_fwd"],
         "max_abs_err": 0.0,
         "ms": f_ms,
-        "ms_cie": f_cie_ms,
+        "device_ms": f_device,
+        "ms_spectra_only": f_spect_ms,
         "plain_ms": f_plain,
         "bound_ms": f_bound[0],
         "bound_by": f_bound[1],
-        "library_ms": f_plain,
-        "index_select_ms": f_select,
-        "rows": spect_t.shape[0],
+        "library_ms": f_select,
+        "rows": spect_t.shape[0] + cie_t.shape[0],
         "rays": rays,
     }, **launches["hero_gather_fwd"]), dict({
         "name": "hero_gather_bwd",
@@ -2596,6 +2674,9 @@ def _setup_kernels(scene, d_spect, setup_render, setup_step):
         "rel_l2_float64": rel_l2,
         "bit_equal_plain": same_plain,
         "ms": b_ms,
+        "device_ms": b_device,
+        "device_ms_passes": b_passes,
+        "device_share_of_bound": b_bound[0] / b_device,
         "plain_ms": b_plain,
         "bound_ms": b_bound[0],
         "bound_by": b_bound[1],
@@ -2670,7 +2751,7 @@ def main() -> int:
     setup_render = _setup_counters()
     if launches != SPP:
         raise RuntimeError(f"{launches} kernel launches, expected {SPP}")
-    want_setup = {"ray_setup": SPP, "hero_gather_fwd": 2 * SPP,
+    want_setup = {"ray_setup": SPP, "hero_gather_fwd": SPP,
                   "hero_gather_bwd": 0}
     if setup_render != want_setup:
         raise RuntimeError(f"the render's setup launched {setup_render}, "
@@ -2886,7 +2967,7 @@ def main() -> int:
     if counts != want_counts:
         raise RuntimeError(f"pallas_taped value_and_grad launched {counts}, "
                            f"expected {want_counts}")
-    want_setup = {"ray_setup": SPP, "hero_gather_fwd": 2 * SPP,
+    want_setup = {"ray_setup": SPP, "hero_gather_fwd": SPP,
                   "hero_gather_bwd": SPP}
     if setup_step != want_setup:
         raise RuntimeError(f"the step's setup launched {setup_step}, "
@@ -2953,7 +3034,9 @@ def main() -> int:
             host_ops=True)
         print(f"profile of one value_and_grad ({bw}): wall {wall:.1f} ms, "
               f"device {dev_ms:.1f} ms, idle share {idle:.3f}, {n_ops} "
-              f"host-issued ops, {n_k} kernel launches; top {top}")
+              f"host-issued ops, {n_k} kernel launches (with the setup "
+              f"built each sample, PERF.md §5: "
+              f"{PER_SAMPLE_SETUP_STEP[bw]}); top {top}")
         if any("indexing_backward" in n for n, _ in top[:5]):
             raise RuntimeError(f"indexing_backward_kernel is among the "
                                f"{bw} step's top device operations")

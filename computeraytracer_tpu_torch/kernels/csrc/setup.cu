@@ -7,33 +7,55 @@
 // around its Pallas kernels:
 // - ray_setup: computeraytracer_tpu/tracer/pallas.py:708-712, rng.seed_pixel_p
 //   -> camera_ops.camera_rays_p -> spectrum.sample_wavelengths_p;
-// - hero_gather: computeraytracer_tpu/ops/spectrum.py:121 gather_hero_planar;
+// - hero_gather: computeraytracer_tpu/tracer/pallas.py:726-731, one
+//   gather_hero_planar (ops/spectrum.py:121) of the spectra and CIE tables;
 // - hero_column_sums: its scatter-free backward, spectrum.py:246 take_cols'
 //   VJP (a one-hot contraction summed over blocks of rays, _chunked).
 //
 // ray_setup: one thread per ray. It reads 16 bytes a ray (px, py) and writes
 // 64 (o, d, hero, seed), and its 16 TEA rounds and three pcg4d draws are u32
-// arithmetic: the bytes bound it, the card's integer rate close behind.
-// Every float operation is the plain version's (kernels/setup.py
-// ray_setup_reference) in its order, each rounded once (--fmad=false,
-// __f*_rn): the outputs are the plain version's bit for bit.
+// arithmetic: the bytes bound it, the card's integer rate close behind. The
+// camera frame (ops/camera.py film_frame: the basis, tan of the half fov, the
+// aspect ratio, lower_left) is computed from the camera's own tensors by one
+// thread of each block into shared memory while the block's other warps draw
+// their seeds, so the wrapper issues no torch op for it. Every float
+// operation is the plain version's (kernels/setup.py ray_setup_reference) in
+// its order, each rounded once (--fmad=false, __f*_rn; the camera basis's
+// fused multiply-adds as __fmaf_rn; tanf is the CUDA math library's, as
+// torch.tan's on the card): the outputs are the plain version's bit for
+// bit.
 //
 // hero_gather: one thread per ray reads its hero and writes its column of
-// every row; the table (K x 301 floats, ~29 KB for K = 24) stays in L1/L2.
-// It moves the (K, R) output and the hero indices: bytes bound it.
+// every row of one or two tables (the spectra and CIE planes of a sample in
+// one launch); the tables (36 x 301 floats, ~43 KB) stay in L1/L2. It moves
+// the outputs and the hero indices: bytes bound it.
 //
 // hero_column_sums: d_table[k, l] = the sum of g[k, r] over the rays r with
-// hero[r] == l, without float atomics, in a fixed order: within each block of
-// HERO_BLOCK consecutive rays in ray order, then over the blocks in block
-// order. Pass 1 (one CUDA block per ray block) sorts the block's rays by hero
-// in shared memory, stably (integer counts, then one warp ranks the rays in
-// order with __match_any_sync), stages g a tile of KT rows at a time, and one
-// thread per (row, column) sums its column's rays in ray order into the
-// block's (K, L) partial. Pass 2 adds the partials of each (row, column) in
-// block order. g (K x R floats) is read once: bytes bound it. Two launches
-// give bit-equal sums, and the plain version (setup.py
-// hero_column_sums_reference: a stable sort and two sequential segment sums)
-// adds in the same order.
+// hero[r] == l, without float atomics, in a fixed order:
+// 1. within each block of HERO_BLOCK consecutive rays, in ray order (from
+//    0.0f); rays whose hero lies outside [0, L) are skipped;
+// 2. the n_blocks block partials in GROUPS groups of ceil(n_blocks / GROUPS)
+//    consecutive blocks (the last groups short or empty), within each group
+//    in block order (from 0.0f);
+// 3. the GROUPS group sums in group order (from 0.0f).
+// Pass 1a (one CUDA block per ray block) sorts the block's rays by hero in
+// shared memory, stably: every warp ranks its own contiguous segment of 256
+// rays into per-warp column counts (the lanes sharing a hero from one ballot
+// per bit of the hero), an exclusive scan over the warps per column gives
+// each warp its base, and a block scan of the column totals (warp scans,
+// then one scan of the warp totals) gives each column its first slot; it
+// writes the starts and each ray's slot (~6 KB a block). Pass 1b runs one
+// CUDA block per (ray block, SUM_ROWS rows): it reads the rows' values with
+// 16-byte loads, scatters them into their sorted slots in shared memory, and
+// one thread per column adds the column's slots, which hold its rays in ray
+// order. Its blocks are small (~18 KB of shared memory, eight an SM) and
+// many (6,144 for 24 rows and 2^20 rays), so one block's loads and serial
+// sums overlap the others'. Pass 2 runs one warp per (group, 32 columns): 8
+// warps a CUDA block, ~226 blocks for 24 x 301 columns. g (K x R floats) is
+// read once: bytes bound it; the partials (n_blocks x K x L floats) are
+// written and read once more. Two launches give bit-equal sums, and the
+// plain version (setup.py hero_column_sums_reference: a stable sort, segment
+// sums per block, then the groups' sums) adds in the same order.
 //
 // Numerics: --fmad=false, as every kernel of the port.
 
@@ -44,11 +66,26 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int HERO_BLOCK = 2048;  // rays per block of the backward's pass 1
-constexpr int KT = 4;             // rows of g staged at a time
-constexpr int MAX_COLS = 512;     // table columns (301 wavelengths)
-constexpr int GRID_SIZE = 16;     // strata of the stratified jitter
+constexpr int WARPS = THREADS / 32;
+constexpr int HERO_BLOCK = 2048;           // rays per block of pass 1
+constexpr int SEG_STEPS = HERO_BLOCK / THREADS;  // 32-ray steps a warp ranks
+// pass 1a's scratch a ray block: the column starts (MAX_COLS + 1 ints,
+// padded to 16 bytes), then each ray's sorted slot as u16 words
+constexpr int SLOTS_AT = 516;
+constexpr int SORT_WORDS = SLOTS_AT + HERO_BLOCK / 2;
+constexpr int GROUPS = WARPS;              // pass 2's groups of ray blocks
+constexpr int MAX_COLS = 512;              // table columns (301 wavelengths)
+constexpr int HERO_BITS = 9;               // bits of a column index
+constexpr int SUM_ROWS = 2;                // rows of g a pass-1b block sums
+constexpr int GRID_SIZE = 16;              // strata of the stratified jitter
 constexpr float N_LAMBDA = 301.0f;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr unsigned short NO_SLOT = 0xFFFFu;
+
+static_assert(2 * THREADS >= MAX_COLS, "two columns a thread in the scan");
+static_assert(MAX_COLS <= (1 << HERO_BITS), "a column index in HERO_BITS");
+static_assert(SLOTS_AT >= MAX_COLS + 1 && SLOTS_AT % 4 == 0, "aligned");
+static_assert(HERO_BLOCK == 8 * THREADS, "8 rays a thread in pass 1b");
 
 constexpr uint32_t TEA_DELTA = 0x9E3779B9u;
 constexpr uint32_t TEA_K0 = 0xA341316Cu, TEA_K1 = 0xC8013EA4u;
@@ -92,17 +129,73 @@ __device__ __forceinline__ float unit(uint32_t bits) {
   return __fmul_rn((float)(bits & 0x00FFFFFFu), 1.0f / 16777216.0f);
 }
 
-// cam: lower_left, horizontal, vertical, eye (3 floats each).
+// ops/camera.py _normalize: v / sqrt(fma(v2, v2, fma(v1, v1, v0*v0))), the
+// JAX package's jnp.linalg.norm as XLA contracts it.
+__device__ __forceinline__ void normalize3(float* v) {
+  const float n = __fsqrt_rn(
+      __fmaf_rn(v[2], v[2], __fmaf_rn(v[1], v[1], __fmul_rn(v[0], v[0]))));
+#pragma unroll
+  for (int c = 0; c < 3; ++c) v[c] = __fdiv_rn(v[c], n);
+}
+
+// ops/camera.py _cross: a1*b2 - a2*b1 as fma(a1, b2, -(a2*b1)), jnp.cross
+// as XLA contracts it.
+__device__ __forceinline__ void cross3(const float* a, const float* b,
+                                       float* out) {
+  out[0] = __fmaf_rn(a[1], b[2], -__fmul_rn(a[2], b[1]));
+  out[1] = __fmaf_rn(a[2], b[0], -__fmul_rn(a[0], b[2]));
+  out[2] = __fmaf_rn(a[0], b[1], -__fmul_rn(a[1], b[0]));
+}
+
+// ops/camera.py film_frame in its op order -> cam: lower_left, horizontal,
+// vertical, eye (3 floats each). Halving is exact, so x / 2.0 (the plain
+// version's, a product with 0.5 on the card) is x * 0.5 here.
+__device__ void film_frame(const float* __restrict__ eye,
+                           const float* __restrict__ lookat,
+                           const float* __restrict__ up, float fov,
+                           float width, float height, float* cam) {
+  float e[3], w[3], u[3], v[3], upv[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    e[c] = eye[c];
+    upv[c] = up[c];
+    w[c] = __fsub_rn(e[c], lookat[c]);
+  }
+  normalize3(w);
+  cross3(upv, w, u);
+  normalize3(u);
+  cross3(w, u, v);
+  const float viewport_h = __fmul_rn(2.0f, tanf(__fmul_rn(fov, 0.5f)));
+  const float viewport_w = __fmul_rn(__fdiv_rn(width, height), viewport_h);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float hor = __fmul_rn(viewport_w, u[c]);
+    const float ver = __fmul_rn(viewport_h, v[c]);
+    cam[c] = __fsub_rn(__fsub_rn(__fsub_rn(e[c], __fmul_rn(hor, 0.5f)),
+                                 __fmul_rn(ver, 0.5f)),
+                       w[c]);
+    cam[3 + c] = hor;
+    cam[6 + c] = ver;
+    cam[9 + c] = e[c];
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
     ray_setup_kernel(const long long* __restrict__ px,
                      const long long* __restrict__ py,
-                     const float* __restrict__ cam, uint32_t sample,
+                     const float* __restrict__ eye,
+                     const float* __restrict__ lookat,
+                     const float* __restrict__ up,
+                     const float* __restrict__ fov, uint32_t sample,
                      float width, float height, float* __restrict__ o,
                      float* __restrict__ d, long long* __restrict__ hero,
                      long long* __restrict__ seed, long long R) {
+  __shared__ float cam[12];
+  if (threadIdx.x == 0)
+    film_frame(eye, lookat, up, *fov, width, height, cam);
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const long long pxr = px[r], pyr = py[r];
+  const bool live = r < R;
+  const long long pxr = live ? px[r] : 0, pyr = live ? py[r] : 0;
   const uint32_t x = (uint32_t)pxr, y = (uint32_t)pyr;
   // seed_pixel: (y, x*100, sample, tea(x, y*100))
   uint32_t s0 = y, s1 = x * 100u, s2 = sample, s3 = tea(x, y * 100u);
@@ -119,6 +212,8 @@ __global__ void __launch_bounds__(THREADS)
   const float s = __fdiv_rn(__fadd_rn(__ll2float_rn(pxr), js), width);
   const float t = __fdiv_rn(
       __fadd_rn(__fsub_rn(height, __ll2float_rn(pyr)), jt), height);
+  __syncthreads();  // the frame
+  if (!live) return;
   // d = lower_left + s*horizontal + t*vertical - eye, then normalized
   float dv[3];
 #pragma unroll
@@ -143,98 +238,220 @@ __global__ void __launch_bounds__(THREADS)
   seed[3 * R + r] = s3;
 }
 
-// out[k, r] = table[k, hero[r]]; a hero outside [0, L) gives NaN.
+// out0[k, r] = t0[k, hero[r]] for k < K0, out1[k, r] = t1[k, hero[r]] for
+// k < K1; a hero outside [0, L) gives NaN.
 __global__ void __launch_bounds__(THREADS)
-    hero_gather_kernel(const float* __restrict__ table,
+    hero_gather_kernel(const float* __restrict__ t0,
+                       const float* __restrict__ t1,
                        const long long* __restrict__ hero,
-                       float* __restrict__ out, int K, int L, long long R) {
+                       float* __restrict__ out0, float* __restrict__ out1,
+                       int K0, int K1, int L, long long R) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   const long long h = hero[r];
   const bool valid = h >= 0 && h < L;
-  for (int k = 0; k < K; ++k)
-    out[k * R + r] = valid ? __ldg(table + (long long)k * L + h) : NAN;
+  for (int k = 0; k < K0; ++k)
+    out0[k * R + r] = valid ? __ldg(t0 + (long long)k * L + h) : NAN;
+  for (int k = 0; k < K1; ++k)
+    out1[k * R + r] = valid ? __ldg(t1 + (long long)k * L + h) : NAN;
 }
 
-// Pass 1: partial[b, k, l], the sum of g[k, r] over the rays r of ray block
-// b with hero[r] == l, in ray order. A hero outside [0, L) is skipped.
+// Pass 1a: sort each ray block's rays by hero in shared memory, stably, and
+// write the block's column starts (sort[0 .. L], start[l] the first sorted
+// slot of column l, start[L] the valid rays) and each ray's sorted slot
+// (the u16 words from SLOTS_AT, NO_SLOT for a hero outside [0, L) and for
+// the rays past R in the last block).
 __global__ void __launch_bounds__(THREADS)
-    hero_partials_kernel(const float* __restrict__ g,
-                         const long long* __restrict__ hero,
-                         float* __restrict__ partial, int K, int L,
-                         long long R) {
-  __shared__ short hs[HERO_BLOCK];               // each ray's hero, or -1
-  __shared__ unsigned short order[HERO_BLOCK];   // rays sorted by hero
-  __shared__ int start[MAX_COLS + 1];            // each column's first slot
-  __shared__ int cursor[MAX_COLS];
-  __shared__ float gs[KT][HERO_BLOCK];
-  const int tid = threadIdx.x;
+    hero_sort_kernel(const long long* __restrict__ hero,
+                     int* __restrict__ sort, int L, long long R) {
+  // per warp and column: the warp's count, then its base in the column
+  __shared__ __align__(16) unsigned short cnt[WARPS][MAX_COLS];
+  __shared__ int col_start[MAX_COLS + 1];
+  __shared__ int warp_total[WARPS];
+  // each ray's hero (NO_SLOT if outside [0, L)), then its sorted slot
+  __shared__ __align__(16) unsigned short slot[HERO_BLOCK];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long base = (long long)blockIdx.x * HERO_BLOCK;
   const int n = (int)min((long long)HERO_BLOCK, R - base);
+  int* start = sort + (long long)blockIdx.x * SORT_WORDS;
 
-  for (int l = tid; l <= L; l += THREADS) start[l] = 0;
+  long long hv[SEG_STEPS];
+#pragma unroll
+  for (int j = 0; j < SEG_STEPS; ++j) {
+    const int i = tid + j * THREADS;
+    hv[j] = i < n ? hero[base + i] : -1;
+  }
+#pragma unroll
+  for (int j = 0; j < SEG_STEPS; ++j)
+    slot[tid + j * THREADS] = hv[j] >= 0 && hv[j] < L ? (unsigned short)hv[j]
+                                                      : NO_SLOT;
+  for (int i = tid; i < WARPS * MAX_COLS / 2; i += THREADS)
+    reinterpret_cast<unsigned*>(&cnt[0][0])[i] = 0u;
   __syncthreads();
-  for (int i = tid; i < n; i += THREADS) {
-    const long long h = hero[base + i];
-    const bool valid = h >= 0 && h < L;
-    hs[i] = valid ? (short)h : (short)-1;
-    if (valid) atomicAdd(&start[h + 1], 1);  // integer counts
+  // each warp ranks its segment of 256 rays, 32 a step in ray order: a
+  // lane's rank is its hero's count so far plus the lower lanes sharing it
+  const unsigned lower = (1u << lane) - 1u;
+  int rank[SEG_STEPS];
+#pragma unroll
+  for (int st = 0; st < SEG_STEPS; ++st) {
+    const int h = slot[warp * (SEG_STEPS * 32) + st * 32 + lane];
+    // the lanes sharing this lane's hero, from one ballot per bit of the
+    // hero (cheaper than __match_any_sync); a lane with no ray or an
+    // invalid hero matches no other lane
+    unsigned peers = __ballot_sync(FULL, h != NO_SLOT);
+#pragma unroll
+    for (int bit = 0; bit < HERO_BITS; ++bit) {
+      const unsigned ones = __ballot_sync(FULL, (h >> bit) & 1);
+      peers &= (h >> bit) & 1 ? ones : ~ones;
+    }
+    if (h == NO_SLOT) peers = 1u << lane;
+    rank[st] = h != NO_SLOT ? cnt[warp][h] + __popc(peers & lower) : 0;
+    __syncwarp();
+    if (h != NO_SLOT && lane == __ffs(peers) - 1)
+      cnt[warp][h] += (unsigned short)__popc(peers);
+    __syncwarp();
   }
   __syncthreads();
-  if (tid == 0)
-    for (int l = 0; l < L; ++l) start[l + 1] += start[l];
+  // per column (two a thread): each warp's base in the column, an exclusive
+  // scan over the warps, and the column's total
+  int tot[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int l = 2 * tid + c;
+    int run = 0;
+    if (l < L)
+      for (int w = 0; w < WARPS; ++w) {
+        const int x = cnt[w][l];
+        cnt[w][l] = (unsigned short)run;
+        run += x;
+      }
+    tot[c] = run;
+  }
+  // the columns' first slots: an exclusive block scan of the totals
+  const int mine = tot[0] + tot[1];
+  int incl = mine;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) warp_total[warp] = incl;
   __syncthreads();
-  for (int l = tid; l < L; l += THREADS) cursor[l] = start[l];
+  int before = 0;
+  for (int w = 0; w < warp; ++w) before += warp_total[w];
+  const int excl = before + incl - mine;
+  if (2 * tid < L) col_start[2 * tid] = start[2 * tid] = excl;
+  if (2 * tid + 1 < L) col_start[2 * tid + 1] = start[2 * tid + 1] =
+      excl + tot[0];
+  if (tid == THREADS - 1) start[L] = excl + mine;
   __syncthreads();
-  // one warp places the rays in ray order: 32 at a time, each lane after
-  // the lower lanes of its hero and the earlier steps' rays
-  if (tid < 32) {
-    const unsigned lower = (1u << tid) - 1u;
-    for (int i0 = 0; i0 < n; i0 += 32) {
-      const int i = i0 + tid;
-      const int h = i < n ? hs[i] : -1;
-      // lanes with no ray or an invalid hero match no lane with a ray
-      const int key = h >= 0 ? h : -2 - tid;
-      const unsigned peers = __match_any_sync(0xFFFFFFFFu, key);
-      const int leader = __ffs(peers) - 1;
-      int pos = h >= 0 && tid == leader ? cursor[h] : 0;
-      pos = __shfl_sync(0xFFFFFFFFu, pos, leader);
-      if (h >= 0) order[pos + __popc(peers & lower)] = (unsigned short)i;
-      __syncwarp();
-      if (h >= 0 && tid == leader) cursor[h] += __popc(peers);
-      __syncwarp();
-    }
+#pragma unroll
+  for (int st = 0; st < SEG_STEPS; ++st) {
+    const int i = warp * (SEG_STEPS * 32) + st * 32 + lane;
+    const int h = slot[i];
+    if (h != NO_SLOT)
+      slot[i] = (unsigned short)(col_start[h] + cnt[warp][h] + rank[st]);
   }
   __syncthreads();
+  uint4* out = reinterpret_cast<uint4*>(sort + (long long)blockIdx.x *
+                                        SORT_WORDS + SLOTS_AT);
+  const uint4* in = reinterpret_cast<const uint4*>(slot);
+  for (int q = tid; q < HERO_BLOCK / 8; q += THREADS) out[q] = in[q];
+}
 
-  for (int k0 = 0; k0 < K; k0 += KT) {
-    const int kt = min(KT, K - k0);
-    for (int kk = 0; kk < kt; ++kk)
-      for (int i = tid; i < n; i += THREADS)
-        gs[kk][i] = g[(long long)(k0 + kk) * R + base + i];
-    __syncthreads();
-    for (int item = tid; item < kt * L; item += THREADS) {
-      const int kk = item / L, l = item - kk * L;
-      float acc = 0.0f;
-      for (int j = start[l]; j < start[l + 1]; ++j)
-        acc = __fadd_rn(acc, gs[kk][order[j]]);
-      partial[((long long)blockIdx.x * K + k0 + kk) * L + l] = acc;
+// Pass 1b: partial[b, k, l], the sum of g[k, r] over the rays r of ray
+// block b with hero[r] == l, in ray order: one CUDA block per (ray block b,
+// SUM_ROWS rows), 8 rays a thread. Each row's 2,048 values are scattered
+// into their sorted slots in shared memory, then one thread per column adds
+// its slots in order, one chain per row. ~18 KB of shared memory: eight
+// CUDA blocks an SM, whose loads and serial sums overlap. vec: 16-byte loads
+// of g (R % 4 == 0 and g aligned, so n % 4 == 0 too); else one float at a
+// time.
+__global__ void __launch_bounds__(THREADS)
+    hero_sums_kernel(const float* __restrict__ g,
+                     const int* __restrict__ sort,
+                     float* __restrict__ partial, int K, int L, long long R,
+                     bool vec) {
+  __shared__ float gs[SUM_ROWS][HERO_BLOCK];  // the rows in sorted order
+  __shared__ int start[MAX_COLS + 1];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x, k0 = blockIdx.y * SUM_ROWS;
+  const int rows = min(SUM_ROWS, K - k0);
+  const long long base = (long long)b * HERO_BLOCK;
+  const int n = (int)min((long long)HERO_BLOCK, R - base);
+  const int* block_sort = sort + (long long)b * SORT_WORDS;
+  const int i = 8 * tid;
+  const uint4 sl = __ldg(reinterpret_cast<const uint4*>(block_sort +
+                                                        SLOTS_AT) + tid);
+  float v[SUM_ROWS][8];
+#pragma unroll
+  for (int r = 0; r < SUM_ROWS; ++r) {
+    if (r >= rows) break;
+    const float* row = g + (long long)(k0 + r) * R + base;
+    if (vec) {
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 a =
+          i < n ? __ldg(reinterpret_cast<const float4*>(row + i)) : zero;
+      const float4 c =
+          i + 4 < n ? __ldg(reinterpret_cast<const float4*>(row + i + 4))
+                    : zero;
+      v[r][0] = a.x, v[r][1] = a.y, v[r][2] = a.z, v[r][3] = a.w;
+      v[r][4] = c.x, v[r][5] = c.y, v[r][6] = c.z, v[r][7] = c.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) v[r][c] = i + c < n ? row[i + c] : 0.0f;
     }
-    __syncthreads();
+  }
+  for (int l = tid; l <= L; l += THREADS) start[l] = __ldg(block_sort + l);
+  const unsigned words[4] = {sl.x, sl.y, sl.z, sl.w};
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const unsigned s = (words[c / 2] >> (16 * (c % 2))) & 0xFFFFu;
+    if (s == NO_SLOT) continue;
+#pragma unroll
+    for (int r = 0; r < SUM_ROWS; ++r)
+      if (r < rows) gs[r][s] = v[r][c];
+  }
+  __syncthreads();
+  for (int l = tid; l < L; l += THREADS) {
+    float acc[SUM_ROWS];
+#pragma unroll
+    for (int r = 0; r < SUM_ROWS; ++r) acc[r] = 0.0f;
+    for (int j = start[l]; j < start[l + 1]; ++j)
+#pragma unroll
+      for (int r = 0; r < SUM_ROWS; ++r) acc[r] = __fadd_rn(acc[r], gs[r][j]);
+#pragma unroll
+    for (int r = 0; r < SUM_ROWS; ++r)
+      if (r < rows) partial[((long long)b * K + k0 + r) * L + l] = acc[r];
   }
 }
 
-// Pass 2: out[k, l] = the sum over ray blocks, in block order.
+// Pass 2: out[k, l] = the GROUPS group sums in group order, each the sum of
+// its ray blocks' partials in block order. One CUDA block per 32 columns,
+// warp w sums group w.
 __global__ void __launch_bounds__(THREADS)
     hero_reduce_kernel(const float* __restrict__ partial,
                        float* __restrict__ out, int KL, int n_blocks) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= KL) return;
+  __shared__ float group_sum[GROUPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int idx = blockIdx.x * 32 + lane;
+  const int per = (n_blocks + GROUPS - 1) / GROUPS;
+  const int b0 = warp * per, b1 = min(n_blocks, b0 + per);
   float acc = 0.0f;
-#pragma unroll 8
-  for (int b = 0; b < n_blocks; ++b)
-    acc = __fadd_rn(acc, partial[(long long)b * KL + idx]);
-  out[idx] = acc;
+  if (idx < KL) {
+#pragma unroll 32
+    for (int b = b0; b < b1; ++b)
+      acc = __fadd_rn(acc, partial[(long long)b * KL + idx]);
+  }
+  group_sum[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && idx < KL) {
+    float total = 0.0f;
+#pragma unroll
+    for (int w = 0; w < GROUPS; ++w)
+      total = __fadd_rn(total, group_sum[w][lane]);
+    out[idx] = total;
+  }
 }
 
 bool grid_ok(long long n, long long per_block) {
@@ -243,58 +460,72 @@ bool grid_ok(long long n, long long per_block) {
 
 }  // namespace
 
-// px, py (n_rays,) int64 pixel coordinates; cam (12,) f32 [lower_left,
-// horizontal, vertical, eye] of ops/camera.py film_frame; sample the 1-based
-// sample index (its low 32 bits are the seed's word) -> o, d (3, n_rays) f32,
-// hero (n_rays,) int64, seed (4, n_rays) int64 u32 words. Returns the CUDA
-// error code of the launch.
+// px, py (n_rays,) int64 pixel coordinates; eye, lookat, up (3,) and fov ()
+// f32, the camera's own tensors; sample the 1-based sample index (its low 32
+// bits are the seed's word) -> o, d (3, n_rays) f32, hero (n_rays,) int64,
+// seed (4, n_rays) int64 u32 words. Returns the CUDA error code of the
+// launch.
 extern "C" int ray_setup(const long long* px, const long long* py,
-                         const float* cam, long long sample, int width,
-                         int height, float* o, float* d, long long* hero,
-                         long long* seed, long long n_rays, void* stream) {
+                         const float* eye, const float* lookat,
+                         const float* up, const float* fov, long long sample,
+                         int width, int height, float* o, float* d,
+                         long long* hero, long long* seed, long long n_rays,
+                         void* stream) {
   if (n_rays < 0 || width < 1 || height < 1 || !grid_ok(n_rays, THREADS))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
   ray_setup_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      px, py, cam, (uint32_t)sample, (float)width, (float)height, o, d, hero,
-      seed, n_rays);
+      px, py, eye, lookat, up, fov, (uint32_t)sample, (float)width,
+      (float)height, o, d, hero, seed, n_rays);
   return (int)cudaGetLastError();
 }
 
-// table (n_rows, n_cols) f32, hero (n_rays,) int64 -> out (n_rows, n_rays).
-extern "C" int hero_gather(const float* table, const long long* hero,
-                           float* out, int n_rows, int n_cols,
+// t0 (n_rows0, n_cols), t1 (n_rows1, n_cols) f32 (t1 unread when n_rows1 is
+// 0), hero (n_rays,) int64 -> out0 (n_rows0, n_rays), out1 (n_rows1, n_rays):
+// one launch for both tables.
+extern "C" int hero_gather(const float* t0, const float* t1,
+                           const long long* hero, float* out0, float* out1,
+                           int n_rows0, int n_rows1, int n_cols,
                            long long n_rays, void* stream) {
-  if (n_rays < 0 || n_rows < 0 || n_cols < 1 || !grid_ok(n_rays, THREADS))
+  if (n_rays < 0 || n_rows0 < 0 || n_rows1 < 0 || n_cols < 1 ||
+      !grid_ok(n_rays, THREADS))
     return (int)cudaErrorInvalidValue;
-  if (n_rays == 0 || n_rows == 0) return 0;
+  if (n_rays == 0 || n_rows0 + n_rows1 == 0) return 0;
   const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
   hero_gather_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      table, hero, out, n_rows, n_cols, n_rays);
+      t0, t1, hero, out0, out1, n_rows0, n_rows1, n_cols, n_rays);
   return (int)cudaGetLastError();
 }
 
 // g (n_rows, n_rays) f32, hero (n_rays,) int64 -> out (n_rows, n_cols), the
-// column sums in the fixed order; partial, scratch of (ceil(n_rays /
-// block), n_rows, n_cols) f32, where block, the caller's rays per block, must
-// be HERO_BLOCK. Returns the CUDA error code of the launches.
+// column sums in the fixed order; sort, scratch of ceil(n_rays / block) x
+// SORT_WORDS ints, and partial, of (ceil(n_rays / block), n_rows, n_cols)
+// f32, where block, the caller's rays per block, must be HERO_BLOCK.
+// Returns the CUDA error code of the launches.
 extern "C" int hero_column_sums(const float* g, const long long* hero,
-                                float* partial, float* out, int n_rows,
-                                int n_cols, long long n_rays, int block,
-                                void* stream) {
+                                int* sort, float* partial, float* out,
+                                int n_rows, int n_cols, long long n_rays,
+                                int block, void* stream) {
   if (block != HERO_BLOCK || n_rays < 1 || n_rows < 1 || n_cols < 1 ||
-      n_cols > MAX_COLS || !grid_ok(n_rays, HERO_BLOCK) ||
-      (long long)n_rows * n_cols > 0x7fffffffLL - THREADS)
+      n_cols > MAX_COLS || n_rows > 65535 || !grid_ok(n_rays, HERO_BLOCK) ||
+      (long long)n_rows * n_cols > 0x7fffffffLL - 32)
     return (int)cudaErrorInvalidValue;
   const long long n_blocks = (n_rays + HERO_BLOCK - 1) / HERO_BLOCK;
+  const bool vec = n_rays % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  hero_partials_kernel<<<(unsigned)n_blocks, THREADS, 0, st>>>(
-      g, hero, partial, n_rows, n_cols, n_rays);
+  hero_sort_kernel<<<(unsigned)n_blocks, THREADS, 0, st>>>(hero, sort,
+                                                           n_cols, n_rays);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
+  hero_sums_kernel<<<dim3((unsigned)n_blocks,
+                          (unsigned)((n_rows + SUM_ROWS - 1) / SUM_ROWS)),
+                     THREADS, 0, st>>>(g, sort, partial, n_rows, n_cols,
+                                       n_rays, vec);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
   const int kl = n_rows * n_cols;
-  hero_reduce_kernel<<<(kl + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-      partial, out, kl, (int)n_blocks);
+  hero_reduce_kernel<<<(kl + 31) / 32, THREADS, 0, st>>>(partial, out, kl,
+                                                         (int)n_blocks);
   return (int)cudaGetLastError();
 }

@@ -1043,9 +1043,9 @@ SIGNATURES = {
     "pair_closest": "pppppqipp",
     "pair_any": "ppppqipp",
     "pair_timed": "pppppqiipp",
-    "ray_setup": "pppqiippppqp",
-    "hero_gather": "pppiiqp",
-    "hero_column_sums": "ppppiiqip",
+    "ray_setup": "ppppppqiippppqp",
+    "hero_gather": "pppppiiiqp",
+    "hero_column_sums": "pppppiiqip",
 }
 
 

@@ -10,7 +10,13 @@ Keeps the reference camera model and its quirks:
 
 Square roots go through ``sqrt`` below: torch's CPU ``sqrt`` is not
 correctly rounded, and ray directions must match the JAX package's to
-the last bit where they can.
+the last bit where they can. For the same reason the camera basis
+rounds as the JAX package's does: ``jnp.cross`` and ``jnp.linalg.norm``
+are jitted, and XLA contracts their products into fused multiply-adds
+(a1*b2 - a2*b1 as fma(a1, b2, -(a2*b1)); the squared norm as
+fma(v2, v2, fma(v1, v1, v0*v0))), which ``_fma`` rounds once as they
+do. (The tangent of the half fov is each framework's own: torch's CPU
+``tan`` and XLA's differ in the last bit at a few percent of arguments.)
 """
 
 from __future__ import annotations
@@ -31,14 +37,32 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
+def _fma(a, b, c):
+    """a * b + c of f32 tensors, rounded once to f32 (a fused
+    multiply-add). The product is exact in float64; the sum is rounded to
+    float64 by round-to-odd (TwoSum's error picks the odd neighbour),
+    after which rounding to f32 is the single rounding of the exact
+    value. Differentiable in a, b and c."""
+    p = a.double() * b.double()
+    s = p + c.double()
+    with torch.no_grad():
+        back = s - p
+        err = (p - (s - back)) + (c.double() - back)
+        even = (s.view(torch.int64) & 1) == 0
+        toward = torch.where(err > 0, torch.inf, -torch.inf).to(s)
+        bump = torch.where((err != 0) & even, torch.nextafter(s, toward) - s,
+                           torch.zeros_like(s))
+    return (s + bump).float()
+
+
 def _cross(a, b):
-    return torch.stack([a[1] * b[2] - a[2] * b[1],
-                        a[2] * b[0] - a[0] * b[2],
-                        a[0] * b[1] - a[1] * b[0]])
+    return torch.stack([_fma(a[1], b[2], -(a[2] * b[1])),
+                        _fma(a[2], b[0], -(a[0] * b[2])),
+                        _fma(a[0], b[1], -(a[1] * b[0]))])
 
 
 def _normalize(v):
-    return v / sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+    return v / sqrt(_fma(v[2], v[2], _fma(v[1], v[1], v[0] * v[0])))
 
 
 def camera_basis(eye, lookat, up):

@@ -7,7 +7,8 @@ loaded tables are equal bit for bit): ``resample_spectrum`` and
 Device part (torch): hero-wavelength sampling, the hero-expanded
 spectra and CIE tables, the per-ray spectra lookup of the eager tracer
 (``sample_spectrum``) and the Riemann spectral -> XYZ sum. The hero
-gather ``gather_hero`` (``HeroGatherFn``) is the column index
+gather ``gather_hero`` (``gather_hero_tables`` for the spectra and CIE
+tables in one launch; ``HeroGatherFn``) is the column index
 ``table[:, hero]`` with the JAX package's scatter-free backward: fixed-
 order column sums of the cotangent, not the scatter-add of an indexing
 backward (kernels/setup.py; its kernels on the card).
@@ -113,40 +114,57 @@ def cie_window_exp(cie: torch.Tensor) -> torch.Tensor:
 
 
 class HeroGatherFn(torch.autograd.Function):
-    """table_exp[:, hero] (the JAX ``gather_hero_planar`` with
-    ``take_cols``' scatter-free VJP): forward ``setup.hero_gather``,
-    backward ``setup.hero_column_sums``, the cotangent's column sums by
-    hero in a fixed order, so two runs give bit-equal gradients. hero gets
-    no gradient. With no gradient wanted (grad mode off, or a table that
-    needs none) it records nothing.
+    """table_exp[:, hero] of one or two hero-expanded tables in one launch
+    (the JAX package gathers the spectra and CIE tables together with
+    ``gather_hero_planar``, tracer/pallas.py:726-731, and ``take_cols``'
+    scatter-free VJP): forward ``setup.hero_gather_tables``, backward
+    ``setup.hero_column_sums`` of each table that needs a gradient, the
+    cotangent's column sums by hero in a fixed order, so two runs give
+    bit-equal gradients. The plane of a table that needs none is marked
+    non-differentiable, so autograd computes no cotangent for it. hero
+    gets no gradient. With no gradient wanted (grad mode off, or no table
+    that needs one) it records nothing.
 
-        planes = HeroGatherFn.apply(table_exp, hero)
+        planes = HeroGatherFn.apply(hero, *tables)  # one plane a table
     """
 
     @classmethod
-    def apply(cls, table_exp, hero):
+    def apply(cls, hero, *tables):
         # needs_input_grad ignores no_grad: decide here
-        if not (torch.is_grad_enabled() and table_exp.requires_grad):
-            return setup_k.hero_gather(table_exp, hero)
-        return super().apply(table_exp, hero)
+        if not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in tables)):
+            return setup_k.hero_gather_tables(tables, hero)
+        return super().apply(hero, *tables)
 
     @staticmethod
-    def forward(ctx, table_exp, hero):
+    def forward(ctx, hero, *tables):
         ctx.save_for_backward(hero)
-        ctx.n_cols = table_exp.shape[1]
-        return setup_k.hero_gather(table_exp, hero)
+        ctx.n_cols = tables[0].shape[1]
+        planes = setup_k.hero_gather_tables(tables, hero)
+        ctx.mark_non_differentiable(*(
+            p for p, need in zip(planes, ctx.needs_input_grad[1:])
+            if not need))
+        return planes
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, g):
+    def backward(ctx, *grads):
         (hero,) = ctx.saved_tensors
-        return setup_k.hero_column_sums(g.contiguous(), hero,
-                                        ctx.n_cols), None
+        return (None, *(
+            setup_k.hero_column_sums(g.contiguous(), hero, ctx.n_cols)
+            if need else None
+            for g, need in zip(grads, ctx.needs_input_grad[1:])))
 
 
 def gather_hero(table_exp: torch.Tensor, hero: torch.Tensor) -> torch.Tensor:
     """(K, 301) hero-expanded table, hero (R,) -> (K, R): HeroGatherFn."""
-    return HeroGatherFn.apply(table_exp, hero)
+    return HeroGatherFn.apply(hero, table_exp)[0]
+
+
+def gather_hero_tables(tables, hero: torch.Tensor) -> tuple:
+    """One or two hero-expanded (K_i, 301) tables, hero (R,) -> their
+    (K_i, R) planes, gathered in one launch: HeroGatherFn."""
+    return HeroGatherFn.apply(hero, *tables)
 
 
 _XYZ_SCALE = (C.LAMBDA_MAX - C.LAMBDA_MIN) / (C.CIE_Y_INTEG * C.N_HERO)

@@ -112,7 +112,8 @@ def render_accumulate_sharded(scene, width: int, height: int, spp: int,
     [dpi*tile_h, (dpi+1)*tile_h) for samples first_sample + spi*local_spp
     + k, k < local_spp, in order. kernel="pallas" traces through the
     kernel path (``tracer.kernel.render_pixels_planar``, its backward by
-    the backward knob, mesh packs built once under mesh_plans);
+    the backward knob, mesh packs and the setup operands built once, the
+    packs under mesh_plans);
     kernel="xla" through the eager tracer, with bvh when given."""
     if kernel not in ("pallas", "xla"):
         raise ValueError(f"unknown kernel {kernel!r}")
@@ -141,12 +142,13 @@ def render_accumulate_sharded(scene, width: int, height: int, spp: int,
             static = kernel_tracer.SceneStatic.from_scene(scene)
         packs = (kernel_tracer.mesh_packs_for(scene, static, mesh_plans)
                  if static.mesh_parts else None)
+        setup = kernel_tracer.setup_operands(scene, static, backward, px, py)
         accum = torch.zeros((3, tile_h * width), dtype=torch.float32,
                             device=scene.device)
         for s in range(s0, s0 + local_spp):
             accum = accum + kernel_tracer.render_pixels_planar(
-                scene, width, height, px, py, s, max_depth, rr_start,
-                static, backward, packs)
+                scene, width, height, setup.px, setup.py, s, max_depth,
+                rr_start, static, backward, packs, setup=setup)
         tile = accum.T
     else:
         if bvh is not None:

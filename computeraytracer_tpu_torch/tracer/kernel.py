@@ -1,11 +1,16 @@
 """Megakernel tracer: the port of computeraytracer_tpu/tracer/pallas.py.
 
-Per sample: the ray setup (seeds, camera rays, the hero draw; one kernel,
-``kernels.setup.ray_setup``), the hero gathers of the spectra and CIE
-planes (``ops.spectrum.HeroGatherFn``, whose backward sums in a fixed
-order), one trace kernel call, and the CIE conversion in torch. Every
-kernel runs on the card for a scene there; a scene on the CPU runs their
-plain torch versions.
+Per render or loss, once: the sample-invariant operands
+(``setup_operands``: the pixel coordinates, the primitive table, the
+hero-expanded spectra table and CIE window), as the JAX package's jitted
+scan over the samples hoists them (tracer/pallas.py:842-855). Per sample:
+the ray setup (seeds, camera rays, the hero draw; one kernel,
+``kernels.setup.ray_setup``, which computes the camera frame itself), the
+hero gather of the spectra and CIE planes in one launch
+(``ops.spectrum.HeroGatherFn``, whose backward sums in a fixed order), one
+trace kernel call, and the CIE conversion in torch. Every kernel runs on
+the card for a scene there; a scene on the CPU runs their plain torch
+versions.
 
 One layout is ported: the planar (k, R) path the kernel consumes, with
 pixels in ``tile_coords`` row-major order. ``render_sample`` is its
@@ -41,7 +46,10 @@ Differentiation, by the ``backward`` knob (the JAX package's values):
   entry points take it and ``trace_radiance`` refuses it.
 Autograd carries the cotangents of the primitive table, the spectra
 planes and the rays on through ``pack_prims``, the hero gather and the
-camera to every scene leaf (geometry, spectra, camera).
+camera to every scene leaf (geometry, spectra, camera). With the operands
+built once per render, the primitive table and the expanded spectra table
+feed every sample, and autograd sums their cotangents over the samples
+before ``pack_prims``' and the table's backward.
 
 Mesh scenes (mesh parts or triangle rows) render through the forward
 kernel's mesh mode, the in-kernel chunk-BVH walk. Triangle rows without a
@@ -113,13 +121,73 @@ def camera_planes(scene, width: int, height: int, px, py, sample):
     return setup_k.ray_setup(scene.camera, width, height, px, py, sample)
 
 
-def kernel_inputs(scene, o, d, hero, seed, static: SceneStatic | None = None):
+@dataclasses.dataclass(frozen=True)
+class SetupOperands:
+    """The sample-invariant operands of the kernel path (``setup_operands``):
+    the pixel coordinates px, py (R,) int64, contiguous, or None where the
+    caller gives its own; the kernel's primitive table prims
+    (``kernels.megakernel.pack_prims``); the hero-expanded spectra table
+    spect_table (S*4, 301) and CIE window cie_table (12, 301)
+    (``ops.spectrum.cie_window_exp``). Under autograd, prims and
+    spect_table carry the scene leaves' graph into every sample."""
+    px: torch.Tensor | None
+    py: torch.Tensor | None
+    prims: torch.Tensor
+    spect_table: torch.Tensor
+    cie_table: torch.Tensor
+
+
+def setup_operands(scene, static: SceneStatic | None = None,
+                   backward: str = "pallas", px=None, py=None):
+    """The SetupOperands of one render or loss: build them once and pass
+    them to every sample's ``render_pixels_planar``,
+    ``render_sample_planar``, ``trace_radiance`` or ``kernel_inputs``
+    with the same static and backward. prims is the whole table without a
+    static (``kernel_inputs``' convention) and for the guided replay
+    (backward "replay", which "pallas" and "pallas_taped" take for scenes
+    with mesh parts), else the static's unrolled rows. px, py: the pixels
+    the samples render (``render_sample_planar`` reads them: the whole
+    film there)."""
+    whole = static is None or backward == "replay" or bool(
+        static.mesh_parts and backward in ("pallas", "pallas_taped"))
+    return SetupOperands(
+        None if px is None else px.contiguous(),
+        None if py is None else py.contiguous(),
+        mk.pack_prims(scene, None if whole else static),
+        spec.expand_hero_table(scene.spectra).contiguous(),
+        spec.cie_window_exp(scene.cie).contiguous())
+
+
+def _check_setup(setup: SetupOperands, scene, static: SceneStatic | None):
+    """Raise unless setup's prims has the rows the trace takes: the whole
+    table without a static, else the static's unrolled rows."""
+    rows = (scene.primitives.data1.shape[0] if static is None
+            else len(static.rows))
+    if setup.prims.shape[0] != rows:
+        raise ValueError(
+            f"setup operands of {setup.prims.shape[0]} primitive rows for a "
+            f"trace of {rows}: pass setup_operands(scene, static, backward) "
+            "with the call's own static and backward")
+
+
+def kernel_inputs(scene, o, d, hero, seed, static: SceneStatic | None = None,
+                  setup: SetupOperands | None = None):
     """The forward kernel's operands: (prims (P, 12), rays (6, R),
     seeds (4, R), spect (S*4, R)), every spectrum at each ray's hero
-    wavelengths; prims holds the static's unrolled rows."""
-    spect = spec.gather_hero(spec.expand_hero_table(scene.spectra), hero)
-    return (mk.pack_prims(scene, static),
-            torch.cat([o, d], dim=0).contiguous(), seed.contiguous(),
+    wavelengths; prims holds the static's unrolled rows. setup (built
+    with this static) supplies prims and the spectra table; without it
+    they are built here."""
+    if setup is None:
+        prims = mk.pack_prims(scene, static)
+        table = spec.expand_hero_table(scene.spectra)
+    else:
+        _check_setup(setup, scene, static)
+        prims, table = setup.prims, setup.spect_table
+    return _operands(prims, o, d, seed, spec.gather_hero(table, hero))
+
+
+def _operands(prims, o, d, seed, spect):
+    return (prims, torch.cat([o, d], dim=0).contiguous(), seed.contiguous(),
             spect.contiguous())
 
 
@@ -302,10 +370,12 @@ def _dispatch(static, max_depth, rr_start, backward, wavefront, prims, rays,
 def trace_radiance(scene, o, d, hero, seed, max_depth: int,
                    rr_start: int = 1, static: SceneStatic | None = None,
                    backward: str = "pallas", mesh_packs=None,
-                   wavefront: bool | None = None, mesh_plans=None):
+                   wavefront: bool | None = None, mesh_plans=None,
+                   setup: SetupOperands | None = None):
     """Planar path trace: o, d (3, R), hero (R,), seed (4, R) ->
     spectral radiance (4, R) at the hero wavelengths; differentiable with
-    respect to the scene's geometry and spectra and to o, d."""
+    respect to the scene's geometry and spectra and to o, d. setup:
+    ``setup_operands(scene, static, backward)``, built here when None."""
     if backward == "xla":
         raise ValueError(
             "backward='xla' recomputes the eager tracer from pixel "
@@ -314,7 +384,7 @@ def trace_radiance(scene, o, d, hero, seed, max_depth: int,
     static, backward, wavefront, mesh_arrays = _resolve(
         scene, static, backward, wavefront, mesh_packs, mesh_plans)
     inputs = kernel_inputs(scene, o, d, hero, seed,
-                           None if backward == "replay" else static)
+                           None if backward == "replay" else static, setup)
     return _dispatch(static, max_depth, rr_start, backward, wavefront,
                      *inputs, mesh_arrays, scene.primitives.category)
 
@@ -395,13 +465,16 @@ def render_pixels_planar(scene, width: int, height: int, px, py, sample,
                          max_depth: int = 8, rr_start: int = 1,
                          static: SceneStatic | None = None,
                          backward: str = "pallas", mesh_packs=None,
-                         wavefront: bool | None = None, mesh_plans=None):
-    """Pixels px, py (R,) at a 1-based sample index -> XYZ (3, R)."""
+                         wavefront: bool | None = None, mesh_plans=None,
+                         setup: SetupOperands | None = None):
+    """Pixels px, py (R,) at a 1-based sample index -> XYZ (3, R). setup:
+    ``setup_operands(scene, static, backward)``, built here when None;
+    the spectra and CIE planes are gathered in one launch."""
     if backward == "xla":
         def fwd():
             return render_pixels_planar(
                 scene, width, height, px, py, sample, max_depth, rr_start,
-                static, "none", mesh_packs, wavefront, mesh_plans)
+                static, "none", mesh_packs, wavefront, mesh_plans, setup)
 
         def recompute(leaves):
             return xla_tracer.render_pixels(
@@ -409,11 +482,17 @@ def render_pixels_planar(scene, width: int, height: int, px, py, sample,
                 max_depth, rr_start).T
 
         return EagerVjpFn.apply(fwd, recompute, *scene_leaves(scene))
+    static, backward, wavefront, mesh_arrays = _resolve(
+        scene, static, backward, wavefront, mesh_packs, mesh_plans)
+    if setup is None:
+        setup = setup_operands(scene, static, backward)
+    _check_setup(setup, scene, None if backward == "replay" else static)
     o, d, hero, seed = camera_planes(scene, width, height, px, py, sample)
-    radiance = trace_radiance(scene, o, d, hero, seed, max_depth, rr_start,
-                              static, backward, mesh_packs, wavefront,
-                              mesh_plans)
-    cie_p = spec.gather_hero(spec.cie_window_exp(scene.cie), hero)
+    spect, cie_p = spec.gather_hero_tables(
+        (setup.spect_table, setup.cie_table), hero)
+    radiance = _dispatch(static, max_depth, rr_start, backward, wavefront,
+                         *_operands(setup.prims, o, d, seed, spect),
+                         mesh_arrays, scene.primitives.category)
     return spec.spectral_to_xyz_p(cie_p, radiance)
 
 
@@ -421,12 +500,18 @@ def render_sample_planar(scene, width: int, height: int, sample,
                          max_depth: int = 8, rr_start: int = 1,
                          static: SceneStatic | None = None,
                          backward: str = "pallas", mesh_packs=None,
-                         wavefront: bool | None = None, mesh_plans=None):
-    """One sample of the whole film -> XYZ (3, height, width)."""
-    px, py = tile_coords(width, height, 0, scene.device)
+                         wavefront: bool | None = None, mesh_plans=None,
+                         setup: SetupOperands | None = None):
+    """One sample of the whole film -> XYZ (3, height, width). setup, as
+    ``render_pixels_planar``'s, holds the film's pixel coordinates when
+    built with them."""
+    if setup is not None and setup.px is not None:
+        px, py = setup.px, setup.py
+    else:
+        px, py = tile_coords(width, height, 0, scene.device)
     xyz = render_pixels_planar(scene, width, height, px, py, sample,
                                max_depth, rr_start, static, backward,
-                               mesh_packs, wavefront, mesh_plans)
+                               mesh_packs, wavefront, mesh_plans, setup)
     return xyz.reshape(3, height, width)
 
 
@@ -518,13 +603,16 @@ def render_accumulate(scene, width: int, height: int, spp: int,
                       max_depth: int = 8, rr_start: int = 1,
                       first_sample: int = 1, backward: str = "pallas"):
     """Sum of samples first_sample .. first_sample+spp-1 -> XYZ (H, W, 3),
-    accumulated in sample order. Mesh packs are built once."""
+    accumulated in sample order. Mesh packs and the setup operands
+    (``setup_operands``) are built once."""
     static = SceneStatic.from_scene(scene)
     packs = mesh_packs_for(scene, static) if static.mesh_parts else None
+    setup = setup_operands(scene, static, backward,
+                           *tile_coords(width, height, 0, scene.device))
     accum = torch.zeros((3, height, width), dtype=torch.float32,
                         device=scene.device)
     for s in range(first_sample, first_sample + spp):
         accum = accum + render_sample_planar(scene, width, height, s,
                                              max_depth, rr_start, static,
-                                             backward, packs)
+                                             backward, packs, setup=setup)
     return accum.permute(1, 2, 0).contiguous()

@@ -89,7 +89,9 @@ def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
     backward is the backward knob's (tracer/kernel.py). kernel_plans: one
     meshpack.MeshPlan per mesh part of kernel_static, fixed on the
     initial geometry; the packs are built under them from the live
-    vertices (planned from this scene when None). vis_grads (kernel="xla"
+    vertices (planned from this scene when None). The kernel path's
+    sample-invariant operands (``tracer.kernel.setup_operands``) are built
+    once a call. vis_grads (kernel="xla"
     only) turns on the warped-area visibility gradients of
     ``tracer.xla.render_pixels``; its image is the unstratified render's.
     With kernel="pallas" it raises: the kernel path's screen warp is
@@ -126,10 +128,13 @@ def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
         kernel_static = kernel_tracer.SceneStatic.from_scene(scene)
     packs = (kernel_tracer.mesh_packs_for(scene, kernel_static, kernel_plans)
              if kernel_static.mesh_parts else None)
+    setup = kernel_tracer.setup_operands(
+        scene, kernel_static, backward,
+        *kernel_tracer.tile_coords(width, height, 0, scene.device))
     for s in samples:
-        accum = accum + kernel_tracer.render_sample(
+        accum = accum + kernel_tracer.render_sample_planar(
             scene, width, height, s, max_depth, rr_start, kernel_static,
-            backward, packs)
+            backward, packs, setup=setup).permute(1, 2, 0)
     return accum / float(spp)
 
 

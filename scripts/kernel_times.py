@@ -50,14 +50,18 @@ JSON line of times in ms:
   directory, ``kernels/build/``, with each
   kernel's instruction count printed).
 - ``setup``: the per-sample setup's kernels at Cornell 1024^2 (phase
-  29's shape: the ray setup, the hero gather of the spectra and CIE
-  tables, the column sums of a (24, R) cotangent) beside the PyTorch calls
+  29's shape: the ray setup alone and through its wrapper, the hero
+  gather of the spectra and CIE tables in one launch and of the spectra
+  alone, the column sums of a (24, R) cotangent; the ray setup's, the
+  gather's and the column sums' device time under torch.profiler, the
+  mean of the launches it records) beside the PyTorch calls
   that compute the same (``table[:, hero]``, ``index_put_`` with
   accumulate, ``index_add_``), and the retrace and tape-fed training
   steps (phase 10): host ms, and under torch.profiler device ms, idle
   share, kernel launches, host-issued ops and top kernels. ROOT's package
-  needs ``kernels/setup.py``; an older checkout's own copy of this script
-  times its ``e2e`` part.
+  needs ``kernels/setup.py`` with ``hero_gather_tables`` and the
+  ray-setup kernel that reads the camera's tensors; an older checkout's
+  own copy of this script times its own.
 Compare two checkouts in turns within one call (parent, change, change,
 parent): times taken on different cards or calls differ by a few percent.
 ``--parts`` runs only the named parts (all six by default).
@@ -217,20 +221,31 @@ def _setup(cs, dev):
                     generator=torch.Generator(device=dev).manual_seed(0))
     zeros = torch.zeros(spect_t.shape, device=dev)
     n_cols = spect_t.shape[1]
-    frame = setup_k.camera_frame(cam, cs.WIDTH, cs.HEIGHT)
+    operands = (cam.eye, cam.lookat, cam.up, cam.fov)
+    ray_setup = lambda: setup_k.ray_setup(cam, cs.WIDTH, cs.HEIGHT, px, py,
+                                          1)
+    column_sums = lambda: setup_k.hero_column_sums(g, hero, n_cols)
     out = {k: cs._events_ms(fn, REPS["setup"]) for k, fn in {
-        "ray_setup": lambda: setup_k.ray_setup_launch(frame, cs.WIDTH,
-                                                      cs.HEIGHT, px, py, 1),
-        "ray_setup_wrapper": lambda: setup_k.ray_setup(cam, cs.WIDTH,
-                                                       cs.HEIGHT, px, py, 1),
-        "gather": lambda: setup_k.hero_gather(spect_t, hero),
-        "gather_cie": lambda: setup_k.hero_gather(cie_t, hero),
+        "ray_setup": lambda: setup_k.ray_setup_launch(
+            *operands, cs.WIDTH, cs.HEIGHT, px, py, 1),
+        "ray_setup_wrapper": ray_setup,
+        "gather": lambda: setup_k.hero_gather_tables((spect_t, cie_t), hero),
+        "gather_spectra": lambda: setup_k.hero_gather(spect_t, hero),
         "index": lambda: spect_t[:, hero],
-        "column_sums": lambda: setup_k.hero_column_sums(g, hero, n_cols),
+        "column_sums": column_sums,
         "index_put_accumulate": lambda: torch.ops.aten.index_put_(
             zeros.clone(), [None, hero], g, True),
         "index_add": lambda: zeros.clone().index_add_(1, hero, g),
     }.items()}
+    (out["ray_setup_device_ms"], _,
+     out["ray_setup_profiled_launches"]) = cs._kernel_device_ms(
+        ray_setup, REPS["setup"], "ray_setup")
+    out["gather_device_ms"] = cs._kernel_device_ms(
+        lambda: setup_k.hero_gather_tables((spect_t, cie_t), hero),
+        REPS["setup"], "hero_gather")[0]
+    (out["column_sums_device_ms"], out["column_sums_device_ms_passes"],
+     out["column_sums_profiled_launches"]) = cs._kernel_device_ms(
+        column_sums, REPS["setup"], "hero_sort", "hero_sums", "hero_reduce")
     for bw in ("pallas", "pallas_taped"):
         def step():
             return cs._vg(cs._train_leaves(scene)[2], static, bw)

@@ -29,9 +29,11 @@ the retrace kernel, and the BVH traversal against the brute-force scan;
 the screen warp of the visibility gradients around kernels 1, 3 and 4
 against the plain versions; a world of one on NCCL (parallel/) against the
 single-process render and gradient; the per-sample setup's kernels (the
-ray setup, the hero gather and its fixed-order column sums) against their
-plain versions, their launches on the training path and the gradient's
-bit-equality across runs.
+ray setup at three cameras, its camera operands' checks, the hero gather
+of one or two tables in one launch and its fixed-order column sums)
+against their plain versions, their launches on the training path and
+the gradient's bit-equality across runs; the setup operands built once
+per render and per loss.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -1405,9 +1407,10 @@ def test_card_hero_gather_kernels(cuda, n_rays, monkeypatch):
 
 def test_card_setup_launches_on_the_training_path(cuda):
     """A value_and_grad by spectra through render_pixels_planar, 2
-    samples: one ray-setup launch, two gathers (spectra, CIE) and one
-    column-sum launch (the CIE table needs no gradient) per sample; no
-    plain version runs, and the gradient is bit-equal across runs."""
+    samples: one ray-setup launch, one gather (spectra and CIE in one
+    launch) and one column-sum launch (the CIE table needs no gradient)
+    per sample; no plain version runs, and the gradient is bit-equal
+    across runs."""
     from computeraytracer_tpu_torch.kernels import setup as setup_k
 
     w = h = 64
@@ -1426,10 +1429,182 @@ def test_card_setup_launches_on_the_training_path(cuda):
               setup_k.launches_gather_bwd)
     first = grad()
     assert (setup_k.launches_ray_setup, setup_k.launches_gather,
-            setup_k.launches_gather_bwd) == (before[0] + 2, before[1] + 4,
+            setup_k.launches_gather_bwd) == (before[0] + 2, before[1] + 2,
                                              before[2] + 2)
     assert torch.isfinite(first).all() and (first != 0).any()
     assert torch.equal(first, grad())
+
+
+# (eye, lookat, up, fov) besides Cornell's: a tilted up, a fov near pi/2
+CAMERAS = {
+    "tilted": ((1.3, 2.1, -3.7), (0.2, 0.9, 0.4), (0.3, 1.0, 0.2), 0.9),
+    "wide": ((0.0, 0.5, 5.0), (0.1, -0.2, 0.0), (0.0, 1.0, 0.0), 1.5707),
+}
+
+
+def _camera_scene(name, w, h, device):
+    """Cornell at w x h with its camera, or one of CAMERAS."""
+    scene, _ = scene_from_dict(presets.cornell_box(w, h), device=device)
+    if name == "cornell":
+        return scene
+    f32 = dict(dtype=torch.float32, device=device)
+    cam = dataclasses.replace(scene.camera, **{
+        k: torch.tensor(v, **f32) for k, v in zip(
+            ("eye", "lookat", "up", "fov"), CAMERAS[name])})
+    return dataclasses.replace(scene, camera=cam)
+
+
+@pytest.mark.parametrize("n_rays", [1, 255, 1 << 20])
+@pytest.mark.parametrize("camera", ["cornell", "tilted", "wide"])
+def test_card_ray_setup_kernel_cameras(cuda, camera, n_rays):
+    """The ray-setup kernel, which computes the camera frame itself from
+    the camera's tensors, bit-equal to its plain version on the card (its
+    frame in torch) at three cameras and samples 1 and 2^32 - 3; one
+    launch each."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+
+    w, h = (1024, 1024) if n_rays == 1 << 20 else (37, 29)
+    scene = _camera_scene(camera, w, h, cuda)
+    px, py = kt.tile_coords(w, h, 0, cuda)
+    px, py = px[-n_rays:], py[-n_rays:]
+    for sample in (1, 2**32 - 3):
+        before = setup_k.launches_ray_setup
+        got = setup_k.ray_setup(scene.camera, w, h, px, py, sample)
+        assert setup_k.launches_ray_setup == before + 1
+        want = setup_k.ray_setup_reference(scene.camera, w, h, px, py,
+                                           sample)
+        for name, g, w_ in zip(("o", "d", "hero", "seed"), got, want):
+            assert g.shape == w_.shape and g.dtype == w_.dtype, name
+            assert torch.equal(g, w_), (name, sample)
+
+
+def test_card_ray_setup_checks_camera_operands(cuda):
+    """ray_setup_launch reads the camera's tensors as they are: a
+    non-contiguous, float64, misshapen or host camera tensor raises, and
+    nothing launches."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+
+    cam = _camera_scene("tilted", 16, 16, cuda).camera
+    px, py = kt.tile_coords(16, 16, 0, cuda)
+    args = [cam.eye, cam.lookat, cam.up, cam.fov]
+    bad = [
+        (0, torch.zeros(6, device=cuda)[::2], "contiguous"),
+        (1, cam.lookat.double(), "float"),
+        (2, cam.up.reshape(1, 3), "expected"),
+        (3, cam.fov.reshape(1), "expected"),
+        (0, cam.eye.cpu(), "is on"),
+    ]
+    before = setup_k.launches_ray_setup
+    for k, t, match in bad:
+        wrong = list(args)
+        wrong[k] = t
+        with pytest.raises(ValueError, match=match):
+            setup_k.ray_setup_launch(*wrong, 16, 16, px, py, 1)
+    assert setup_k.launches_ray_setup == before
+    setup_k.ray_setup_launch(*args, 16, 16, px, py, 1)
+    assert setup_k.launches_ray_setup == before + 1
+
+
+@pytest.mark.parametrize("n_rays", [1, 2047, 2049, 1 << 20])
+@pytest.mark.parametrize("rows", [1, 24])
+def test_card_column_sums_bit_equal(cuda, rows, n_rays):
+    """The column-sum kernel bit-equal to its plain version and across two
+    launches, heroes outside the table skipped, within relative L2 1e-6
+    of a float64 column sum; R not a multiple of 4 takes the kernel's
+    scalar loads."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+
+    g = np.random.default_rng(rows * 7 + n_rays)
+    hero_np = g.integers(0, 301, n_rays)
+    hero_np[: min(n_rays, 2)] = (0, 300)[: min(n_rays, 2)]
+    if n_rays > 40:
+        hero_np[3:40:9] = (-1, 301, 10**6, -(10**6), 512)
+    hero = torch.from_numpy(hero_np).to(cuda)
+    cot = torch.from_numpy((g.standard_normal((rows, n_rays))
+                            * 10.0 ** g.uniform(-3, 3, (rows, n_rays)))
+                           .astype(np.float32)).to(cuda)
+    before = setup_k.launches_gather_bwd
+    first = setup_k.hero_column_sums(cot, hero, 301)
+    second = setup_k.hero_column_sums(cot, hero, 301)
+    assert setup_k.launches_gather_bwd == before + 2
+    assert torch.equal(first, second)
+    assert torch.equal(first, setup_k.hero_column_sums_reference(cot, hero,
+                                                                 301))
+    keep = (hero >= 0) & (hero < 301)
+    exact = torch.zeros((rows, 301), dtype=torch.float64, device=cuda)
+    exact.index_add_(1, hero[keep], cot[:, keep].double())
+    assert ((first.double() - exact).norm()
+            / exact.norm()).item() <= 1e-6
+
+
+def test_card_gather_tables_one_launch(cuda):
+    """The spectra and CIE planes in one gather launch, each bit-equal to
+    table[:, hero]; through HeroGatherFn under grad the CIE plane needs no
+    gradient and the backward launches one column sum, the one-table
+    gather's bit for bit."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+    from computeraytracer_tpu_torch.ops import spectrum as spec
+
+    scene, _ = scene_from_dict(presets.cornell_box(64, 64), device=cuda)
+    spect_t = spec.expand_hero_table(scene.spectra).contiguous()
+    cie_t = spec.cie_window_exp(scene.cie).contiguous()
+    hero = torch.randint(0, 301, (4097,), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(0))
+    before = setup_k.launches_gather
+    a, b = setup_k.hero_gather_tables((spect_t, cie_t), hero)
+    assert setup_k.launches_gather == before + 1
+    assert torch.equal(a, spect_t[:, hero]) and torch.equal(b, cie_t[:, hero])
+    leaf = spect_t.clone().requires_grad_(True)
+    cot = torch.randn(a.shape, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(1))
+    before = (setup_k.launches_gather, setup_k.launches_gather_bwd)
+    pa, pb = spec.gather_hero_tables((leaf, cie_t), hero)
+    assert not pb.requires_grad
+    (pa * cot).sum().backward()
+    assert (setup_k.launches_gather, setup_k.launches_gather_bwd) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(leaf.grad, setup_k.hero_column_sums(cot, hero, 301))
+
+
+def test_card_render_builds_setup_once(cuda):
+    """render_accumulate and render_mean_xyz with the setup operands built
+    once: one ray setup and one gather a sample; the image bit-equal to
+    the per-sample path's; the gradients by spectra and data1 bit-equal
+    across runs and within relative L2 1e-6 of the per-sample path's."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+    from computeraytracer_tpu_torch.train import optimize as opt
+
+    w = h = 64
+    spp = 3
+    scene, _ = scene_from_dict(presets.cornell_box(w, h), device=cuda)
+    before = (setup_k.launches_ray_setup, setup_k.launches_gather,
+              setup_k.launches_gather_bwd)
+    img = kt.render_accumulate(scene, w, h, spp, 4)
+    assert (setup_k.launches_ray_setup, setup_k.launches_gather,
+            setup_k.launches_gather_bwd) == (before[0] + spp,
+                                             before[1] + spp, before[2])
+    per_sample = sum(kt.render_sample(scene, w, h, s, 4)
+                     for s in range(1, spp + 1))
+    assert torch.equal(img, per_sample)
+
+    def grads(bundled):
+        sp = scene.spectra.clone().requires_grad_(True)
+        d1 = scene.primitives.data1.clone().requires_grad_(True)
+        s = dataclasses.replace(scene, spectra=sp, primitives=(
+            dataclasses.replace(scene.primitives, data1=d1)))
+        if bundled:
+            out = opt.render_mean_xyz(s, w, h, spp, 4)
+        else:
+            out = sum(kt.render_sample(s, w, h, k, 4)
+                      for k in range(1, spp + 1)) / float(spp)
+        (out ** 2).mean().backward()
+        return sp.grad, d1.grad
+
+    first, again, want = grads(True), grads(True), grads(False)
+    for g, g2, w_ in zip(first, again, want):
+        assert torch.isfinite(g).all() and (g != 0).any()
+        assert torch.equal(g, g2)
+        assert ((g - w_).norm() / w_.norm()).item() <= 1e-6
 
 
 def test_card_film_coordinates_match_the_cpu(cuda):
