@@ -26,7 +26,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    over warp trips, a warp of 32 consecutive rays running as many trips
    as its longest ray), and the refill schedule's lane and warp trips
    from its counting build (radiance bit-equal; its lane trips equal to
-   the tape's exactly); the registers and spills of every forward build.
+   the tape's exactly); the taped forward's group schedule (lanes in
+   groups of mk.GROUP that take and retire rays together) from its
+   counting build (radiance and tape bit-equal to an uncounted launch,
+   lane trips equal to the tape's), its SIMT efficiency beside the
+   model's, schedule_efficiency(trips, GROUP) from the tape; the
+   registers and spills of every forward build.
 6. backward kernel vs plain: the CUDA backward megakernel and
    backward_reference (in bands of at most 131072 rays) at the phase-3
    shape, for a radiance cotangent dL from a fixed seed: d_prims within
@@ -53,8 +58,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    share of the clock64() cycles summed over warps, mk.SWEEP_SECTIONS, and
    the timed build's ms; its replay is the taped forward's launch, timed
    in phase 10) and the registers and spills of its builds.
-9. tape-fed backward at the phase-3 shape: the taped forward kernel's
-   radiance bit-equal to phase 3's forward kernel; its tape against
+9. tape-fed backward at the phase-3 shape: the taped forward kernel (the
+   group schedule) with radiance bit-equal to phase 3's forward kernel
+   and a second launch bit-equal to the first; its tape against
    forward_taped_reference (int planes equal, float planes within rel 1e-4
    of a denominator floored at 1e-2 of the plane's scale, on at least
    99.9% of rays; the bit-equal share printed); the tape-fed kernel on
@@ -71,7 +77,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    into its forward pass, backward pass and Adam step, the peak device
    memory of one step, taped and retrace, and a torch.profiler pass over
    one step of each (device time, idle share, host-issued ops, kernel
-   launches, top kernels; indexing_backward_kernel, the scatter of an
+   launches, top kernels, the taped forward's kernel, which is the
+   retrace step's replay; indexing_backward_kernel, the scatter of an
    indexing backward, must not be among the top five). The setup's
    launches in the taped step: 4 ray setups, 4 gathers, 4 column sums.
 11. meshes: mesh_scene(1024, 1024, subdivisions=6), 81,920 triangles in
@@ -405,6 +412,8 @@ SETUP_CAMERAS = {
     "tilted": ((1.3, 2.1, -3.7), (0.2, 0.9, 0.4), (0.3, 1.0, 0.2), 0.9),
     "wide": ((0.0, 0.5, 5.0), (0.1, -0.2, 0.0), (0.0, 1.0, 0.0), 1.5707),
 }
+# the taped forward's kernel (the group schedule), as the profiler names it
+TAPED_KERNEL = "group_taped_kernel"
 PRIM_TEST_OPS = 35
 BOX_TEST_OPS = 24
 TRI_PLANE_OPS = 14
@@ -484,11 +493,15 @@ def _schedule(static, max_depth, args, radiance):
     """The bounce loop's schedule at kernel operands args: the one-thread
     schedule's SIMT efficiency from the taped forward's tape, and the
     refill schedule's lane and warp trips from its counting build, whose
-    radiance must be `radiance` and whose lane trips must be the tape's."""
-    _, _, tape_i = mk.forward_taped(static, max_depth, RR_START, *args)
-    tape_trips = mk.trips_from_tape(tape_i)
+    radiance must be `radiance` and whose lane trips must be the tape's.
+    Without triangle rows, also the taped forward's group schedule
+    (``taped``): its counting build's lane and warp trips, whose radiance
+    and tape must be an uncounted launch's and whose lane trips must be
+    the tape's, beside the model's efficiency for groups of mk.GROUP."""
+    taped = mk.forward_taped(static, max_depth, RR_START, *args)
+    tape_trips = mk.trips_from_tape(taped[2])
     trips = torch.zeros(len(mk.TRIP_COUNTS), dtype=torch.int64,
-                        device=tape_i.device)
+                        device=radiance.device)
     counted = mk.forward(static, max_depth, RR_START, *args, trips=trips)
     if not torch.equal(counted, radiance):
         raise RuntimeError("the refill schedule's counting build changed "
@@ -509,6 +522,30 @@ def _schedule(static, max_depth, args, radiance):
     if lane_trips != int(tape_trips.sum()):
         raise RuntimeError(f"counted lane trips {lane_trips} are not the "
                            f"tape's {int(tape_trips.sum())}")
+    if static.mesh_mode or not hasattr(mk, "GROUP"):
+        return out
+    trips.zero_()
+    counted = mk.forward_taped(static, max_depth, RR_START, *args,
+                               trips=trips)
+    if not all(torch.equal(a, b) for a, b in zip(counted, taped)):
+        raise RuntimeError("the group schedule's counting build changed "
+                           "its radiance or tape")
+    lane_trips, warp_trips = trips.tolist()
+    out["taped"] = {
+        "group": mk.GROUP, "lane_trips": lane_trips,
+        "warp_trips": warp_trips,
+        "simt_efficiency": lane_trips / warp_trips,
+        "simt_efficiency_model": mk.schedule_efficiency(tape_trips,
+                                                        mk.GROUP)}
+    print(f"taped forward, group schedule (groups of {mk.GROUP}): "
+          f"{lane_trips} lane trips, {warp_trips} warp trips, SIMT "
+          f"efficiency {out['taped']['simt_efficiency']:.4f} (counting "
+          f"build, radiance and tape bit-equal) against the model's "
+          f"{out['taped']['simt_efficiency_model']:.4f} for groups of "
+          f"{mk.GROUP} from the tape")
+    if lane_trips != int(tape_trips.sum()):
+        raise RuntimeError(f"the group schedule counted {lane_trips} lane "
+                           f"trips, the tape {int(tape_trips.sum())}")
     return out
 
 
@@ -538,11 +575,12 @@ def _bound(nbytes, ops, int_ops=0):
                                  else "operations")
 
 
-def _profile(fn, top=5, host_ops=False):
+def _profile(fn, top=5, host_ops=False, named=()):
     """One run of fn() under torch.profiler: (wall ms, device ms, device
-    idle share, kernel launches, the top kernels by device time), and with
+    idle share, kernel launches, the top kernels by device time), with
     host_ops the count of host-issued torch ops (aten ops not called
-    from inside another aten op)."""
+    from inside another aten op), and with named {key: device ms of the
+    kernels whose names hold key}."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -561,14 +599,16 @@ def _profile(fn, top=5, host_ops=False):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     out = (wall, dev_ms, 1.0 - dev_ms / wall, len(kernels),
            [(n[:48], round(t, 3)) for n, t in ranked])
-    if not host_ops:
-        return out
-    ops = sum(1 for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CPU
-              and e.name.startswith("aten::")
-              and not (e.cpu_parent is not None
-                       and e.cpu_parent.name.startswith("aten::")))
-    return out + (ops,)
+    if host_ops:
+        out += (sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CPU
+                    and e.name.startswith("aten::")
+                    and not (e.cpu_parent is not None
+                             and e.cpu_parent.name.startswith("aten::"))),)
+    if named:
+        out += ({key: sum(t for n, t in by_name.items() if key in n)
+                 for key in named},)
+    return out
 
 
 def _reset_counters():
@@ -2931,6 +2971,12 @@ def main() -> int:
         raise RuntimeError("taped forward's tape disagrees with the plain "
                            "version")
     del want_t
+    again = mk.forward_taped(static, MAX_DEPTH, RR_START, *args)
+    if not all(torch.equal(a, b) for a, b in zip(again,
+                                                  (rad_t, tape_f, tape_i))):
+        raise RuntimeError("two launches of the taped forward differ")
+    print("taped forward: a second launch bit-equal (radiance and tape)")
+    del again
     got_tb = mk.backward_from_tape(static, MAX_DEPTH, RR_START, args[0],
                                    args[3], tape_f, tape_i, dL)
     torch.cuda.synchronize()
@@ -3029,14 +3075,18 @@ def main() -> int:
           f"tape-fed kernels of ~{tape_bwd_ms:.3f} ms, the rest autograd of "
           f"the setup ops), Adam {adam_s * 1e3:.3f} ms")
     for bw in ("pallas", "pallas_taped"):
-        wall, dev_ms, idle, n_k, top, n_ops = _profile(
+        wall, dev_ms, idle, n_k, top, n_ops, named = _profile(
             lambda: _vg(_train_leaves(scene)[2], static, bw), top=8,
-            host_ops=True)
+            host_ops=True, named=(TAPED_KERNEL,))
         print(f"profile of one value_and_grad ({bw}): wall {wall:.1f} ms, "
               f"device {dev_ms:.1f} ms, idle share {idle:.3f}, {n_ops} "
               f"host-issued ops, {n_k} kernel launches (with the setup "
               f"built each sample, PERF.md §5: "
-              f"{PER_SAMPLE_SETUP_STEP[bw]}); top {top}")
+              f"{PER_SAMPLE_SETUP_STEP[bw]}); the taped forward's kernel "
+              f"({'the replay' if bw == 'pallas' else 'the taped forward'})"
+              f" {named[TAPED_KERNEL]:.3f} ms "
+              f"({named[TAPED_KERNEL] / dev_ms:.3f} of the device time); "
+              f"top {top}")
         if any("indexing_backward" in n for n, _ in top[:5]):
             raise RuntimeError(f"indexing_backward_kernel is among the "
                                f"{bw} step's top device operations")
@@ -3250,6 +3300,12 @@ def main() -> int:
         "rays": rays,
         "max_depth": MAX_DEPTH,
         "tape_bytes": tape_bytes,
+        "redesigned": f"persistent warps whose lanes take and retire rays "
+                      f"in groups of {mk.GROUP} ({mk.GROUP} "
+                      f"consecutive, aligned rays at one depth), so that "
+                      f"every tape store writes whole 32-byte sectors; "
+                      f"groups of 8 and 16 timed, 16 kept",
+        "schedule": schedule["taped"],
     }, {
         "name": "megakernel_backward",
         "route": "cuda",

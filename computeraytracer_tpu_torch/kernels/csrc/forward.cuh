@@ -5,16 +5,20 @@
 // that includes it compiles its own instantiations, with the same flags
 // (kernels/_build.py).
 //
-// Two schedules:
+// Three schedules:
 // - megakernel_fwd_kernel: one thread per ray, a grid that covers the
 //   rays; a lane leaves the bounce loop when its ray dies, and its warp
 //   runs on until its longest ray ends. The mesh parts' traversal (whose
 //   chunk scans gather the lanes that reach them together), the counting
-//   mesh build, the winner tape and the taped="full" forward of scenes
-//   without triangle rows run it;
-// - refill_fwd_kernel: persistent warps that refill dead lanes, for the
-//   untaped forward of scenes without mesh parts (plain renders and
-//   triangle rows) and the taped="full" forward of triangle rows.
+//   mesh build and the winner tape run it;
+// - refill_fwd_kernel: persistent warps that refill dead lanes one by
+//   one, for the untaped forward of scenes without mesh parts (plain
+//   renders and triangle rows) and the taped="full" forward of triangle
+//   rows;
+// - group_taped_kernel: persistent warps whose lanes take rays and retire
+//   them in groups of GROUP, for the taped="full" forward of scenes
+//   without mesh parts or triangle rows, so that every tape store of a
+//   group writes whole 32-byte sectors, two of them side by side.
 
 #pragma once
 
@@ -49,11 +53,13 @@ __global__ void __launch_bounds__(THREADS)
                           const float* __restrict__ rays,
                           const int* __restrict__ seeds,
                           const float* __restrict__ spect, int S,
-                          float* __restrict__ out, float* __restrict__ tape_f,
-                          int* __restrict__ tape_i, int* __restrict__ tape_sh,
-                          long long R, int max_depth, int rr_start,
+                          float* __restrict__ out, int* __restrict__ tape_i,
+                          int* __restrict__ tape_sh, long long R,
+                          int max_depth, int rr_start,
                           const __grid_constant__ MeshParts mp,
                           unsigned long long* __restrict__ work) {
+  static_assert(TAPE != TAPE_FULL, "the full tape runs on the persistent "
+                                   "schedules");
   __shared__ Scene s;
   load_scene(s, prims, meta, P, lights, n_lights, &mp);
 
@@ -64,7 +70,6 @@ __global__ void __launch_bounds__(THREADS)
     Carry c = init_carry(rays, seeds, R, r);
     bool alive = true;
     for (int depth = 0; depth <= max_depth; ++depth) {
-      if (TAPE == TAPE_FULL) tape_write(tape_f, tape_i, R, r, depth, c, alive);
       if (TAPE == TAPE_WINNERS) {
         int hit_w = -1, li = -1, sh_w = -1;
         if (alive) {
@@ -102,7 +107,7 @@ constexpr unsigned ALL_LANES = 0xffffffffu;
 enum { TRIP_LANES = 0, TRIP_WARPS = 1, TRIP_KINDS = 2 };
 
 // The forward of a scene without mesh parts on persistent warps: the grid
-// holds only the blocks that stay resident (refill_launch), each loads the
+// holds only the blocks that stay resident (resident_grid), each loads the
 // scene table once, and each lane keeps its own ray, depth and carry. At
 // the top of each trip, a warp with REFILL_AT dead lanes (or all) takes
 // that many ray ids from *next_ray with one atomicAdd, handed out by rank
@@ -115,11 +120,12 @@ enum { TRIP_LANES = 0, TRIP_WARPS = 1, TRIP_KINDS = 2 };
 // bit for bit. With TAPE_FULL, a lane writes its ray's input carry before
 // each bounce, and the rows after its death (final carry, active = 0) when
 // it dies; a warp's lanes hold rays of scattered ids at mixed depths, so
-// these stores (96 B per bounce row) do not coalesce. That pays on
-// triangle rows (MESH_ROWS), where a bounce scans 80 triangles twice,
-// and not at Cornell depth 8, whose taped build keeps the one-thread
-// schedule (a refill build of it ran 3-4x slower; PERF.md). With
-// COUNT, the warp's lane and warp trips are added to trips[TRIP_KINDS].
+// each 4-byte store fills part of a sector. That pays on triangle rows
+// (MESH_ROWS), where a bounce scans 80 triangles twice; at Cornell depth 8
+// (864 B of tape per ray) a refill build of the taped forward ran 3-4x
+// slower than the one-thread schedule, and group_taped_kernel runs it.
+// With COUNT, the warp's lane and warp trips are added to
+// trips[TRIP_KINDS].
 template <int MESH, int TAPE, bool COUNT>
 __global__ void __launch_bounds__(THREADS)
     refill_fwd_kernel(const float* __restrict__ prims,
@@ -189,13 +195,147 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Launch refill_fwd_kernel on as many blocks as stay resident (the SM
+// Lanes of a group of group_taped_kernel: 16 consecutive 4-byte words of
+// one tape row, 64 bytes, two whole 32-byte sectors. Chosen by timing 8
+// and 16 at Cornell 1024^2, depth 8 (PERF.md): groups of 8 fill one sector
+// a store and keep more lanes busy (SIMT efficiency 0.69 against 0.60),
+// but ran 0.95-0.96 ms a launch against 0.86-0.87 for groups of 16 and
+// 0.90 for one thread per ray, whose warp stores whole 128-byte lines.
+constexpr int GROUP = 16;
+static_assert(GROUP > 1 && GROUP < 32 && 32 % GROUP == 0,
+              "a warp holds whole groups");
+
+// The taped="full" forward of a scene without mesh parts or triangle rows
+// on persistent warps whose lanes go in groups of GROUP. A group holds the
+// GROUP consecutive ray ids g*GROUP .. g*GROUP+GROUP-1 and one depth, and
+// advances in lockstep until all its rays have died. At the top of each
+// trip, a warp counts its free groups (every lane retired, or never
+// started) and takes GROUP ids for each from *next_ray with one atomicAdd,
+// handed out by rank among them; the counter moves in multiples of GROUP,
+// so a group's first id is GROUP-aligned. An id >= R leaves its lane idle:
+// it writes nothing. In each trip every lane of a started group writes
+// its tape row at the group's depth: a live lane its input carry (active
+// = 1), a lane whose ray has died its final carry (active = 0), the row
+// the one-thread schedule writes there. Then the live lanes run the bounce
+// and the group's depth goes up by one. When a group's last ray dies, its
+// lanes write the rows after that depth (final carry, active = 0) and
+// their radiance, and the group is free. With R a multiple of GROUP and
+// every tape row's base 64-byte aligned, each of a group's tape_f, tape_i
+// and out stores is whole sectors: the layout stays row by row (bounce.cuh
+// tape_write), as the sweep and the JAX tape read it. Which warp traces a
+// group, and when, varies from launch to launch; what it writes does not:
+// bounce() reads only the ray's own inputs and its own depth. With COUNT,
+// the warp's lane trips (bounce calls) and warp trips (32 per trip) are
+// added to trips[TRIP_KINDS].
+template <bool COUNT>
+__global__ void __launch_bounds__(THREADS)
+    group_taped_kernel(const float* __restrict__ prims,
+                       const int* __restrict__ meta, int P,
+                       const int* __restrict__ lights, int n_lights,
+                       const float* __restrict__ rays,
+                       const int* __restrict__ seeds,
+                       const float* __restrict__ spect, int S,
+                       float* __restrict__ out, float* __restrict__ tape_f,
+                       int* __restrict__ tape_i, long long R, int max_depth,
+                       int rr_start,
+                       unsigned long long* __restrict__ next_ray,
+                       unsigned long long* __restrict__ trips) {
+  constexpr unsigned GROUP_BITS = (1u << GROUP) - 1u;
+  __shared__ Scene s;
+  load_scene(s, prims, meta, P, lights, n_lights);
+
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned group = lane / GROUP;
+  const unsigned group_lanes = GROUP_BITS << (group * GROUP);
+  const Trace tr = {P, n_lights, S, spect, R, max_depth, rr_start};
+  long long r = -1;    // this lane's ray; -1 while its group is free
+  bool alive = false;  // this lane's ray has not died
+  int depth = 0;       // its group's depth, the same in all its lanes
+  Carry c;
+  bool spent = false;  // this warp saw the counter pass R
+  unsigned lane_trips = 0, warp_trips = 0;
+  for (;;) {
+    const unsigned held = __ballot_sync(ALL_LANES, r >= 0);
+    unsigned free_groups = 0;  // bit g: group g holds no ray
+    for (int g = 0; g < 32 / GROUP; ++g)
+      if (((held >> (g * GROUP)) & GROUP_BITS) == 0) free_groups |= 1u << g;
+    if (!spent && free_groups) {
+      const unsigned long long n =
+          (unsigned long long)GROUP * __popc(free_groups);
+      unsigned long long base = 0;
+      if (lane == 0) base = atomicAdd(next_ray, n);
+      base = __shfl_sync(ALL_LANES, base, 0);
+      spent = base + n >= (unsigned long long)R;
+      if (free_groups >> group & 1u) {
+        const unsigned long long id =
+            base + GROUP * __popc(free_groups & ((1u << group) - 1u)) +
+            lane % GROUP;
+        if (id < (unsigned long long)R) {
+          r = (long long)id;
+          alive = true;
+          depth = 0;
+          c = init_carry(rays, seeds, R, r);
+        }
+      }
+    }
+    // no live lane after a refill: the counter is spent
+    if (__ballot_sync(ALL_LANES, alive) == 0) break;
+    if (COUNT) {
+      lane_trips += alive;
+      warp_trips += 32;
+    }
+    if (r >= 0) {
+      tape_write(tape_f, tape_i, R, r, depth, c, alive);
+      if (alive) alive = bounce<false, MESH_NONE>(s, tr, r, depth, c, nullptr);
+      ++depth;
+    }
+    // a group whose last ray died writes its remaining rows and radiance
+    const unsigned live = __ballot_sync(ALL_LANES, alive);
+    if (r >= 0 && (live & group_lanes) == 0) {
+      for (int k = depth; k <= max_depth; ++k)
+        tape_write(tape_f, tape_i, R, r, k, c, false);
+      for (int j = 0; j < 4; ++j) out[j * R + r] = c.L[j];
+      r = -1;
+    }
+  }
+  if (COUNT) {
+    const unsigned lanes = __reduce_add_sync(ALL_LANES, lane_trips);
+    if (lane == 0) {
+      atomicAdd(trips + TRIP_LANES, (unsigned long long)lanes);
+      atomicAdd(trips + TRIP_WARPS, (unsigned long long)warp_trips);
+    }
+  }
+}
+
+// The grid of a persistent kernel: as many blocks as stay resident (the SM
 // count times the kernel's occupancy), or fewer when the rays fill fewer.
-// *next_ray must be 0. The resident count is kept per device ordinal, taken
-// at the first launch on each device: cards of one host may differ in SM
-// count, and a grid sized for another card would leave SMs idle or queue
-// blocks behind persistent ones.
+// The resident count is kept per device ordinal in the caller's table,
+// taken at the first launch on each device: cards of one host may differ
+// in SM count, and a grid sized for another card would leave SMs idle or
+// queue blocks behind persistent ones.
 constexpr int MAX_DEVICES = 64;
+template <typename Kernel>
+cudaError_t resident_grid(Kernel kernel, long long (&resident)[MAX_DEVICES],
+                          long long R, unsigned* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          THREADS, 0);
+    if (err != cudaSuccess) return err;
+    resident[dev] = (long long)sms * per_sm;
+  }
+  const long long need = (R + THREADS - 1) / THREADS;
+  *blocks = (unsigned)(need < resident[dev] ? need : resident[dev]);
+  return cudaSuccess;
+}
+
+// Launch refill_fwd_kernel on its resident grid. *next_ray must be 0.
 template <int MESH, int TAPE, bool COUNT>
 cudaError_t refill_launch(const float* prims, const int* meta, int P,
                           const int* lights, int n_lights, const float* rays,
@@ -205,48 +345,51 @@ cudaError_t refill_launch(const float* prims, const int* meta, int P,
                           unsigned long long* next_ray,
                           unsigned long long* trips, cudaStream_t st) {
   static long long resident[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  unsigned blocks = 0;
+  const cudaError_t err = resident_grid(refill_fwd_kernel<MESH, TAPE, COUNT>,
+                                        resident, R, &blocks);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, refill_fwd_kernel<MESH, TAPE, COUNT>, THREADS, 0);
-    if (err != cudaSuccess) return err;
-    resident[dev] = (long long)sms * per_sm;
-  }
-  const long long need = (R + THREADS - 1) / THREADS;
-  const unsigned blocks =
-      (unsigned)(need < resident[dev] ? need : resident[dev]);
   refill_fwd_kernel<MESH, TAPE, COUNT><<<blocks, THREADS, 0, st>>>(
       prims, meta, P, lights, n_lights, rays, seeds, spect, S, out, tape_f,
       tape_i, R, max_depth, rr_start, next_ray, trips);
   return cudaGetLastError();
 }
 
-// Launch the taped="full" forward of a scene without mesh parts: the
-// refill schedule on triangle rows (mesh_mode; *next_ray zeroed), the
-// one-thread schedule otherwise. The taped forward's entry point and the
-// retrace backward's replay both launch it.
+// Launch group_taped_kernel on its resident grid. *next_ray must be 0.
+template <bool COUNT>
+cudaError_t group_launch(const float* prims, const int* meta, int P,
+                         const int* lights, int n_lights, const float* rays,
+                         const int* seeds, const float* spect, int S,
+                         float* out, float* tape_f, int* tape_i, long long R,
+                         int max_depth, int rr_start,
+                         unsigned long long* next_ray,
+                         unsigned long long* trips, cudaStream_t st) {
+  static long long resident[MAX_DEVICES] = {};
+  unsigned blocks = 0;
+  const cudaError_t err =
+      resident_grid(group_taped_kernel<COUNT>, resident, R, &blocks);
+  if (err != cudaSuccess) return err;
+  group_taped_kernel<COUNT><<<blocks, THREADS, 0, st>>>(
+      prims, meta, P, lights, n_lights, rays, seeds, spect, S, out, tape_f,
+      tape_i, R, max_depth, rr_start, next_ray, trips);
+  return cudaGetLastError();
+}
+
+// Launch the taped="full" forward of a scene without mesh parts, with the
+// ray counter *next_ray (one zeroed u64): the refill schedule on triangle
+// rows (mesh_mode), the group schedule otherwise. The taped forward's
+// entry point and the retrace backward's replay both launch it.
 cudaError_t taped_launch(const float* prims, const int* meta, int P,
                          const int* lights, int n_lights, const float* rays,
                          const int* seeds, const float* spect, int S,
                          float* out, float* tape_f, int* tape_i, long long R,
                          int max_depth, int rr_start, int mesh_mode,
                          unsigned long long* next_ray, cudaStream_t st) {
-  if (mesh_mode)
-    return refill_launch<MESH_ROWS, TAPE_FULL, false>(
-        prims, meta, P, lights, n_lights, rays, seeds, spect, S, out, tape_f,
-        tape_i, R, max_depth, rr_start, next_ray, nullptr, st);
-  const MeshParts mp = {};
-  const unsigned blocks = (unsigned)((R + THREADS - 1) / THREADS);
-  megakernel_fwd_kernel<MESH_NONE, TAPE_FULL><<<blocks, THREADS, 0, st>>>(
-      prims, meta, P, lights, n_lights, rays, seeds, spect, S, out, tape_f,
-      tape_i, nullptr, R, max_depth, rr_start, mp, nullptr);
-  return cudaGetLastError();
+  const auto launch = mesh_mode ? &refill_launch<MESH_ROWS, TAPE_FULL, false>
+                                : &group_launch<false>;
+  return launch(prims, meta, P, lights, n_lights, rays, seeds, spect, S, out,
+                tape_f, tape_i, R, max_depth, rr_start, next_ray, nullptr,
+                st);
 }
 
 }  // namespace

@@ -10,7 +10,7 @@
 // between them:
 // - the replay: the taped="full" forward's own launch (forward.cuh
 //   taped_launch, which megakernel_fwd_taped calls: the refill schedule on
-//   triangle rows, the one-thread schedule otherwise) writes each bounce's
+//   triangle rows, the group schedule otherwise) writes each bounce's
 //   INPUT carry to the tape, (max_depth+1, 16, R) f32 (o3 d3 L4 beta4
 //   last_pdf eta_scale) and (max_depth+1, 8, R) i32 (seed words, exclude,
 //   specular, in_trans, active); rows after the ray died hold its final
@@ -34,8 +34,7 @@
 // resident blocks, and would keep nothing on chip between them: the tape
 // goes through device memory either way. The tape is backward()'s
 // scratch, or the caller's tape= buffers, so the two launches allocate
-// nothing more than one would (but, on triangle rows, the replay's ray
-// counter: 8 bytes).
+// nothing more than one would (but the replay's ray counter: 8 bytes).
 //
 // Triangle rows: a scene whose unrolled rows include triangles (category
 // 2; a mesh part never reaches this kernel, its gradient is the guided
@@ -65,7 +64,7 @@ int bwd(const float* prims, const int* meta, int n_prims, const int* lights,
   const int err =
       check_bwd_args(n_prims, n_lights, n_spectra, n_rays, max_depth);
   if (err) return err;
-  if (mesh_mode && !next_ray) return (int)cudaErrorInvalidValue;
+  if (!next_ray) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t replay = taped_launch(
       prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
@@ -82,10 +81,9 @@ int bwd(const float* prims, const int* meta, int n_prims, const int* lights,
 
 // partial: (ceil(n_rays / 128), n_prims * 12) scratch; tape_f
 // ((max_depth+1) * 16, n_rays) and tape_i ((max_depth+1) * 8, n_rays)
-// scratch; mesh_mode: the scene has triangle rows, whose replay runs on
-// the refill schedule with the ray counter next_ray (one zeroed u64;
-// null allowed otherwise). Returns the CUDA error code of the launches (0
-// on success).
+// scratch; mesh_mode: the scene has triangle rows; next_ray: the replay's
+// ray counter, one zeroed u64. Returns the CUDA error code of the launches
+// (0 on success).
 extern "C" int megakernel_bwd(const float* prims, const int* meta, int n_prims,
                               const int* lights, int n_lights,
                               const float* rays, const int* seeds,

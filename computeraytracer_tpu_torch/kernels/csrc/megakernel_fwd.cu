@@ -37,12 +37,14 @@
 // scattering with Beer-Lambert, Russian roulette, and masked pcg4d draws.
 // The bounce itself lives in bounce.cuh, which the backward kernels share,
 // and the kernels in forward.cuh, whose taped="full" build the retrace
-// backward launches as its replay (megakernel_bwd.cu). Two schedules
+// backward launches as its replay (megakernel_bwd.cu). Three schedules
 // (forward.cuh): the plain mode, triangle rows and the triangle rows'
 // taped="full" forward run on persistent warps that refill their dead
-// lanes (refill_fwd_kernel); the mesh parts, the counting mesh build, the
-// winner tape and the plain mode's taped="full" forward run one thread per
-// ray on a grid that covers the rays (megakernel_fwd_kernel).
+// lanes one by one (refill_fwd_kernel); the plain mode's taped="full"
+// forward on persistent warps whose lanes take and retire rays in groups
+// of sixteen (group_taped_kernel); the mesh parts, the counting mesh build
+// and the winner tape one thread per ray on a grid that covers the rays
+// (megakernel_fwd_kernel).
 //
 // What bounds it on this card: per-thread control flow that diverges
 // (rays of one warp hit different materials and die at different depths:
@@ -71,11 +73,25 @@
 //   PERF.md). In the one-thread builds a thread leaves the loop as soon as
 //   its ray is dead (the SIMT form of the TPU kernel's all-dead-tile skip;
 //   exact, because every update of a dead lane is a masked identity
-//   there). The mesh traversal needs the lanes that reach it together, and
-//   the full tape's stores coalesce only while a warp holds consecutive
-//   rays at one depth: at Cornell depth 8 (864 B of tape per ray) a refill
-//   build of the taped forward ran 3-4x slower, on triangle rows (depth
-//   3, 80 triangles scanned twice per bounce) faster.
+//   there). The mesh traversal needs the lanes that reach it together.
+// - The full tape is laid out row by row, (max_depth+1) * 24 rows of R
+//   words (the JAX tape's layout, which the sweep reads coalesced), so a
+//   32-byte sector holds one word of one row for 8 consecutive rays. Lanes
+//   that hold scattered rays at mixed depths store partial sectors: at
+//   Cornell depth 8 (864 B of tape per ray, 85% of the kernel's bytes) a
+//   refill build of the taped forward ran 3-4x slower than one thread per
+//   ray, which writes whole sectors but keeps only 0.52 of the lane slots
+//   busy. The group schedule keeps both in part: 16 lanes hold 16
+//   consecutive, 16-aligned rays at one depth and refill together once
+//   all 16 have died, a dead lane writing its final-carry row (which the
+//   tape needs anyway) beside its group's live ones, so every store is two
+//   whole sectors side by side, and the lane slots are as busy as in
+//   groups of 16 (0.60 at Cornell 1024^2, counting build; 0.52 for one
+//   thread per ray). Groups of 8, one sector a store, kept 0.69 busy but
+//   ran slower than one thread per ray (PERF.md): not the sector alone,
+//   the width of what a group writes at once sets the tape's cost. On
+//   triangle rows (depth 3, 80 triangles scanned twice per bounce) the
+//   bounce outweighs the tape and the refill schedule runs it.
 // - Material branches are real branches: a lane computes only its own
 //   material's work, where the TPU kernel computes all and selects. NEE
 //   scans for the one light the ray picked; the TPU kernel scans for every
@@ -160,21 +176,21 @@ extern "C" int megakernel_fwd(const float* prims, const int* meta, int n_prims,
   if (work)
     megakernel_fwd_kernel<MESH_COUNT, TAPE_NONE><<<blocks, THREADS, 0, st>>>(
         prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-        out, nullptr, nullptr, nullptr, n_rays, max_depth, rr_start, mp, work);
+        out, nullptr, nullptr, n_rays, max_depth, rr_start, mp, work);
   else
     megakernel_fwd_kernel<MESH_WALK, TAPE_NONE><<<blocks, THREADS, 0, st>>>(
         prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-        out, nullptr, nullptr, nullptr, n_rays, max_depth, rr_start, mp,
-        nullptr);
+        out, nullptr, nullptr, n_rays, max_depth, rr_start, mp, nullptr);
   return (int)cudaGetLastError();
 }
 
 // The taped="full" forward of a scene without mesh parts: out as
 // megakernel_fwd, and tape_f ((max_depth+1) * 16, n_rays), tape_i
-// ((max_depth+1) * 8, n_rays). mesh_mode: the scene has triangle rows,
-// traced on the refill schedule with the ray counter next_ray (one zeroed
-// u64); without them the one-thread schedule runs and next_ray may be
-// null.
+// ((max_depth+1) * 8, n_rays); next_ray, one zeroed u64, is the ray
+// counter of its persistent warps. mesh_mode: the scene has triangle
+// rows, traced on the refill schedule; without them the group schedule
+// runs, and trips, null or TRIP_KINDS zeroed counters, selects its
+// counting build, which adds its lane and warp trips.
 extern "C" int megakernel_fwd_taped(const float* prims, const int* meta,
                                     int n_prims, const int* lights,
                                     int n_lights, const float* rays,
@@ -184,15 +200,22 @@ extern "C" int megakernel_fwd_taped(const float* prims, const int* meta,
                                     int max_depth, int rr_start,
                                     int mesh_mode,
                                     unsigned long long* next_ray,
+                                    unsigned long long* trips,
                                     void* stream) {
   int err = check_args(n_prims, n_lights, n_spectra, n_rays, max_depth);
   if (err) return err;
-  if (mesh_mode && !next_ray) return (int)cudaErrorInvalidValue;
+  if (!next_ray || (trips && mesh_mode)) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (trips)
+    return (int)group_launch<true>(prims, meta, n_prims, lights, n_lights,
+                                   rays, seeds, spect, n_spectra, out, tape_f,
+                                   tape_i, n_rays, max_depth, rr_start,
+                                   next_ray, trips, st);
   return (int)taped_launch(prims, meta, n_prims, lights, n_lights, rays,
                            seeds, spect, n_spectra, out, tape_f, tape_i,
                            n_rays, max_depth, rr_start, mesh_mode, next_ray,
-                           (cudaStream_t)stream);
+                           st);
 }
 
 // The taped=True forward: out as megakernel_fwd, and the winner tape,
@@ -219,12 +242,10 @@ extern "C" int megakernel_fwd_winners(const float* prims, const int* meta,
   if (mesh_mode)
     megakernel_fwd_kernel<MESH_WALK, TAPE_WINNERS><<<blocks, THREADS, 0, st>>>(
         prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-        out, nullptr, tape_idx, tape_sh, n_rays, max_depth, rr_start, mp,
-        nullptr);
+        out, tape_idx, tape_sh, n_rays, max_depth, rr_start, mp, nullptr);
   else
     megakernel_fwd_kernel<MESH_NONE, TAPE_WINNERS><<<blocks, THREADS, 0, st>>>(
         prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
-        out, nullptr, tape_idx, tape_sh, n_rays, max_depth, rr_start, mp,
-        nullptr);
+        out, tape_idx, tape_sh, n_rays, max_depth, rr_start, mp, nullptr);
   return (int)cudaGetLastError();
 }

@@ -22,12 +22,15 @@ Port of computeraytracer_tpu/kernels/megakernel.py ``build_forward``
   hand-written kernel in ``csrc/megakernel_fwd.cu``. There is no other
   route.
 - ``forward_refill_reference``, ``trips_from_tape`` and
-  ``schedule_efficiency``: the plain model of the schedule on which the
-  CUDA forward traces a scene without mesh parts (persistent warps that
-  refill their dead lanes, ``csrc/forward.cuh``), and the bounce loop's
-  SIMT efficiency of the one-thread schedule from a tape; the tests hold
-  the model bit-equal to ``forward_reference``, and the card's counting
-  build (``forward(..., trips=)``) against the tape.
+  ``schedule_efficiency``: the plain model of the schedules on which the
+  CUDA forward traces a scene without mesh parts (``csrc/forward.cuh``:
+  persistent warps that refill their dead lanes one by one, or, for the
+  taped forward without triangle rows, in groups of ``GROUP`` lanes), and
+  the bounce loop's SIMT efficiency of rays in lockstep groups from a
+  tape; the tests hold the model bit-equal to ``forward_reference`` and
+  ``forward_taped_reference``, and the card's counting builds
+  (``forward(..., trips=)``, ``forward_taped(..., trips=)``) against the
+  tape.
 - ``forward_taped_reference`` / ``forward_taped``: the forward that also
   returns the ``taped="full"`` tape, every bounce's input carry (the
   kernel ``megakernel_fwd_taped``); ``tape_to_jax`` turns it into the JAX
@@ -825,7 +828,10 @@ WARP = 32
 # Dead lanes at which a warp of the refill schedule takes new rays
 # (csrc/forward.cuh REFILL_AT).
 REFILL_AT = 8
-# Counters of the refill schedule's counting build (csrc/forward.cuh
+# Lanes of a group of the taped forward's group schedule (csrc/forward.cuh
+# GROUP): 16 consecutive rays' words of one tape row, two 32-byte sectors.
+GROUP = 16
+# Counters of the persistent schedules' counting builds (csrc/forward.cuh
 # TRIP_*): bounce calls, and 32 per trip of a warp.
 TRIP_COUNTS = ("lane_trips", "warp_trips")
 
@@ -839,10 +845,12 @@ def trips_from_tape(tape_i: torch.Tensor) -> torch.Tensor:
 
 
 def schedule_efficiency(trips: torch.Tensor, width: int = WARP) -> float:
-    """SIMT efficiency of the one-thread schedule: rays in order, `width`
-    consecutive rays per warp (the last warp padded with idle lanes), each
-    warp running as many trips as its longest ray. Lane trips over warp
-    trips times width."""
+    """SIMT efficiency of rays in lockstep groups: rays in order, `width`
+    consecutive rays per group (the last group padded with idle lanes),
+    each group running as many trips as its longest ray. Lane trips over
+    group trips times width. width = WARP is the one-thread schedule's
+    warp, width = GROUP the group schedule's group, whose warps then
+    refill each group on its own."""
     n = trips.numel()
     padded = torch.zeros(-(-n // width) * width, dtype=torch.int64)
     padded[:n] = trips.detach().cpu().to(torch.int64)
@@ -855,27 +863,35 @@ def forward_refill_reference(static: SceneStatic, max_depth: int,
                              rays: torch.Tensor, seeds: torch.Tensor,
                              spect: torch.Tensor, *mesh_arrays,
                              lanes: int = 4 * WARP,
-                             threshold: int = REFILL_AT,
+                             threshold: int = REFILL_AT, group: int = 1,
                              taped: bool = False):
-    """Plain model of the refill schedule (csrc/forward.cuh
-    refill_fwd_kernel), for the tests: a pool of `lanes` lanes in warps
-    of 32 and one ray counter. At the top of each trip, warp by warp, a
-    warp with `threshold` dead lanes (or all of them) takes that many ray
-    ids from the counter, by rank among its dead lanes; an id >= R leaves
-    the lane dead. Then every live lane runs one bounce at its own depth
-    (the lanes grouped by depth, one ``_bounce`` per group); a ray that
-    dies writes its radiance and, with `taped`, its remaining tape rows
-    (final carry, active = 0), and frees its lane. The loop ends when no
-    lane is live after a refill. Returns what ``forward_reference``
+    """Plain model of the persistent-warp schedules (csrc/forward.cuh),
+    for the tests: a pool of `lanes` lanes in warps of 32, cut into groups
+    of `group` lanes, and one ray counter. A group is free when none of
+    its lanes holds a ray. At the top of each trip, warp by warp, a warp
+    whose free groups hold `threshold` lanes (or that is all free) takes
+    `group` consecutive ray ids from the counter for each free group, by
+    rank among them; an id >= R leaves its lane idle. Then every lane of
+    a started group writes, with `taped`, its tape row at the group's
+    depth (a live ray its input carry, a dead one its final carry with
+    active = 0), every live lane runs one bounce (the lanes grouped by
+    depth, one ``_bounce`` per depth), and each started group's depth goes
+    up by one. A group whose last ray died writes its radiance and, with
+    `taped`, its rows after that depth (final carry, active = 0), and is
+    free. The loop ends when no lane is live after a refill.
+
+    ``group=1`` is the refill schedule (refill_fwd_kernel, a lane retiring
+    as soon as its ray dies), ``group=GROUP`` with the default threshold
+    the taped forward's group schedule (group_taped_kernel, which takes
+    rays for every free group). Returns what ``forward_reference``
     returns, or with `taped` what ``forward_taped_reference`` returns
     (mesh parts not taped), and (lane trips, warp trips) as the counting
-    build counts them. On the card the taped forward runs this schedule
-    on triangle rows only: at Cornell depth 8 its tape stores, which do
-    not coalesce here, cost more than the idle lanes."""
-    if lanes <= 0 or lanes % WARP or not 1 <= threshold <= WARP:
-        raise ValueError(f"lanes must be a positive multiple of {WARP} and "
-                         f"threshold in 1..{WARP} (got {lanes}, "
-                         f"{threshold})")
+    builds count them."""
+    if lanes <= 0 or lanes % WARP or not 1 <= threshold <= WARP \
+            or group <= 0 or WARP % group:
+        raise ValueError(f"lanes must be a positive multiple of {WARP}, "
+                         f"threshold in 1..{WARP} and group a divisor of "
+                         f"{WARP} (got {lanes}, {threshold}, {group})")
     mesh = _mesh(static, mesh_arrays)
     R = rays.shape[1]
     D = int(max_depth) + 1
@@ -885,51 +901,69 @@ def forward_refill_reference(static: SceneStatic, max_depth: int,
         tape_f = torch.empty((D * TAPE_F, R), dtype=torch.float32,
                              device=dev)
         tape_i = torch.empty((D * TAPE_I, R), dtype=torch.int32, device=dev)
-    # each lane's carry, as tape planes; its ray (-1: dead) and depth
+    per_warp = WARP // group
+    offsets = torch.arange(group, device=dev)
+    # each lane's carry, as tape planes; its ray (-1: none) and whether the
+    # ray is alive; each group's depth
     pool_f = torch.zeros((TAPE_F, lanes), dtype=torch.float32, device=dev)
     pool_i = torch.zeros((TAPE_I, lanes), dtype=torch.int32, device=dev)
     ray = torch.full((lanes,), -1, dtype=torch.int64, device=dev)
-    depth = torch.zeros((lanes,), dtype=torch.int64, device=dev)
+    alive = torch.zeros((lanes,), dtype=torch.bool, device=dev)
+    depth = torch.zeros((lanes // group,), dtype=torch.int64, device=dev)
     issued = lane_trips = warp_trips = 0
+
+    def write_rows(idx, d):
+        r = ray[idx]
+        tape_f[d * TAPE_F:(d + 1) * TAPE_F, r] = pool_f[:, idx]
+        tape_i[d * TAPE_I:(d + 1) * TAPE_I, r] = pool_i[:, idx]
+
     while True:
-        dead = (ray < 0).reshape(-1, WARP)
-        for w, n in enumerate(dead.sum(dim=1).tolist()):
-            if issued >= R or not (n >= threshold or n == WARP):
+        free = ~(ray >= 0).reshape(-1, group).any(dim=1)
+        for w, n in enumerate(free.reshape(-1, per_warp).sum(dim=1).tolist()):
+            if issued >= R or not (n * group >= threshold or n == per_warp):
                 continue
-            idx = w * WARP + torch.nonzero(dead[w]).flatten()
-            ids = issued + torch.arange(n, device=dev)
-            issued += n
+            g = w * per_warp + torch.nonzero(
+                free[w * per_warp:(w + 1) * per_warp]).flatten()
+            idx = (g[:, None] * group + offsets).flatten()
+            ids = issued + torch.arange(n * group, device=dev)
+            issued += n * group
             idx, ids = idx[ids < R], ids[ids < R]
             ray[idx] = ids
-            depth[idx] = 0
+            alive[idx] = True
+            depth[g] = 0
             pool_f[:, idx], pool_i[:, idx] = _tape_row(
                 _init_state(rays[:, ids], seeds[:, ids]))
-        live = ray >= 0
-        if not bool(live.any()):
+        if not bool(alive.any()):
             break
-        lane_trips += int(live.sum())
-        warp_trips += WARP * int(live.reshape(-1, WARP).any(dim=1).sum())
-        groups = [(d, torch.nonzero(live & (depth == d)).flatten())
-                  for d in torch.unique(depth[live]).tolist()]
-        for d, idx in groups:
-            r = ray[idx]
+        lane_trips += int(alive.sum())
+        warp_trips += WARP * int(alive.reshape(-1, WARP).any(dim=1).sum())
+        held = ray >= 0
+        lane_depth = depth.repeat_interleave(group)
+        for d in torch.unique(lane_depth[held]).tolist():
             if taped:
-                tape_f[d * TAPE_F:(d + 1) * TAPE_F, r] = pool_f[:, idx]
-                tape_i[d * TAPE_I:(d + 1) * TAPE_I, r] = pool_i[:, idx]
+                write_rows(torch.nonzero(held & (lane_depth == d)).flatten(),
+                           d)
+            idx = torch.nonzero(alive & (lane_depth == d)).flatten()
+            if not idx.numel():
+                continue
+            r = ray[idx]
             state = _bounce(static, prims, spect[:, r],
                             _state_from_tape(pool_f[:, idx], pool_i[:, idx]),
                             d, max_depth, rr_start, mesh)
-            f, i = _tape_row(state)
-            pool_f[:, idx], pool_i[:, idx] = f, i
-            died = i[7] == 0
-            rd = r[died]
-            out[:, rd] = f[6:10, died]
-            if taped:
-                for k in range(d + 1, D):
-                    tape_f[k * TAPE_F:(k + 1) * TAPE_F, rd] = f[:, died]
-                    tape_i[k * TAPE_I:(k + 1) * TAPE_I, rd] = i[:, died]
-            ray[idx[died]] = -1
-            depth[idx[~died]] += 1
+            pool_f[:, idx], pool_i[:, idx] = _tape_row(state)
+            alive[idx] = pool_i[7, idx] != 0
+        started = held.reshape(-1, group).any(dim=1)
+        depth[started] += 1
+        done = started & ~alive.reshape(-1, group).any(dim=1)
+        retire = done.repeat_interleave(group) & held
+        idx = torch.nonzero(retire).flatten()
+        out[:, ray[idx]] = pool_f[6:10, idx]
+        if taped:
+            lane_depth = depth.repeat_interleave(group)
+            for k in range(D):
+                write_rows(idx[lane_depth[idx] <= k], k)
+        ray[idx] = -1
+        alive[idx] = False
     trips = (lane_trips, warp_trips)
     if taped:
         return out, tape_f, tape_i, trips
@@ -1031,7 +1065,7 @@ def _tables(static: SceneStatic, device: torch.device):
 # stream, "i" an int, "q" a long long.
 SIGNATURES = {
     "megakernel_fwd": "ppipipppipqiiiipppppp",
-    "megakernel_fwd_taped": "ppipipppipppqiiipp",
+    "megakernel_fwd_taped": "ppipipppipppqiiippp",
     "megakernel_fwd_winners": "ppipipppipppqiiiippp",
     "megakernel_bwd": "ppipipppipppppppqiiipp",
     "megakernel_bwd_timed": "ppipipppipppppppqiiippp",
@@ -1200,20 +1234,33 @@ def forward_winners(static: SceneStatic, max_depth: int, rr_start: int,
 
 def forward_taped(static: SceneStatic, max_depth: int, rr_start: int,
                   prims: torch.Tensor, rays: torch.Tensor,
-                  seeds: torch.Tensor, spect: torch.Tensor):
+                  seeds: torch.Tensor, spect: torch.Tensor,
+                  trips: torch.Tensor | None = None):
     """Taped forward megakernel (build_forward(taped="full")) ->
     (radiance (4, R), tape_f ((max_depth+1) * 16, R) f32, tape_i
     ((max_depth+1) * 8, R) i32).
 
     CPU tensors run ``forward_taped_reference``; CUDA tensors launch
-    ``megakernel_fwd_taped`` of csrc/megakernel_fwd.cu, in its mesh mode
-    (on the refill schedule) when the scene has triangle rows. Scenes
-    without mesh parts: the tape feeds the tape-fed backward."""
+    ``megakernel_fwd_taped`` of csrc/megakernel_fwd.cu: in its mesh mode
+    on the refill schedule when the scene has triangle rows, otherwise on
+    the group schedule (``forward_refill_reference(group=GROUP)`` models
+    it). ``trips``, a (len(TRIP_COUNTS),) int64 CUDA tensor, makes the
+    group schedule of a scene without triangle rows add its lane and warp
+    trips to it (its counting build). Scenes without mesh parts: the tape
+    feeds the tape-fed backward."""
     global launches_taped
     _require_no_parts(static)
     _check(static, prims, rays, seeds, spect, ())
     dev = rays.device
+    if trips is not None:
+        if static.mesh_mode:
+            raise ValueError("taped trip counts are taken on scenes without "
+                             "triangle rows (the group schedule)")
+        _check_tensor("trips", trips, (len(TRIP_COUNTS),), torch.int64, dev)
     if dev.type == "cpu":
+        if trips is not None:
+            raise ValueError("trip counts are taken on the card: the plain "
+                             "version counts nothing")
         return forward_taped_reference(static, max_depth, rr_start, prims,
                                        rays, seeds, spect)
     _require_cuda(dev)
@@ -1225,14 +1272,14 @@ def forward_taped(static: SceneStatic, max_depth: int, rr_start: int,
     tape_f = torch.empty((D * TAPE_F, R), dtype=torch.float32, device=dev)
     tape_i = torch.empty((D * TAPE_I, R), dtype=torch.int32, device=dev)
     seeds32 = _u32_bits(seeds)
-    counter = _ray_counter(dev) if static.mesh_mode else None
     _launch("megakernel_fwd_taped", fn, dev, prims.data_ptr(),
             meta.data_ptr(), len(static.rows), lights.data_ptr(),
             lights.shape[0], rays.data_ptr(), seeds32.data_ptr(),
             spect.data_ptr(), static.n_spectra, out.data_ptr(),
             tape_f.data_ptr(), tape_i.data_ptr(), R, int(max_depth),
             int(rr_start), int(static.mesh_mode),
-            None if counter is None else counter.data_ptr())
+            _ray_counter(dev).data_ptr(),
+            None if trips is None else trips.data_ptr())
     launches_taped += 1
     return out, tape_f, tape_i
 
@@ -1527,7 +1574,6 @@ def backward(static: SceneStatic, max_depth: int, rr_start: int,
     _check_tensor("tape_f", tape_f, (D * TAPE_F, R), torch.float32, dev)
     _check_tensor("tape_i", tape_i, (D * TAPE_I, R), torch.int32, dev)
     seeds32 = _u32_bits(seeds)
-    counter = _ray_counter(dev) if static.mesh_mode else None
     _launch(name, fn, dev, prims.data_ptr(), meta.data_ptr(),
             len(static.rows), lights.data_ptr(), lights.shape[0],
             rays.data_ptr(), seeds32.data_ptr(), spect.data_ptr(),
@@ -1535,7 +1581,7 @@ def backward(static: SceneStatic, max_depth: int, rr_start: int,
             partial.data_ptr(), d_rays.data_ptr(), d_spect.data_ptr(),
             tape_f.data_ptr(), tape_i.data_ptr(), R, int(max_depth),
             int(rr_start), int(static.mesh_mode),
-            None if counter is None else counter.data_ptr(),
+            _ray_counter(dev).data_ptr(),
             *(() if times is None else (times.data_ptr(),)))
     launches_bwd += 1
     return d_prims, d_rays, d_spect

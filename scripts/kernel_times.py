@@ -18,11 +18,15 @@ JSON line of times in ms:
   build (``sections``: each section's share of the clock64() cycles
   summed over warps, and the timed build's own ms; the retrace kernel's
   replay is the taped forward's launch; absent where ROOT's package has
-  no timed build), and the bounce loop's schedule (``schedule``:
+  no timed build), the bounce loop's schedule (``schedule``:
   ``chip_smoke.py`` ``_schedule``, the one-thread schedule's SIMT
-  efficiency from the taped forward's tape and the refill schedule's
-  counted lane and warp trips; where ROOT's package has no refill
-  schedule, the efficiency from the tape alone);
+  efficiency from the taped forward's tape, the refill schedule's
+  counted lane and warp trips and, where ROOT's package has the taped
+  forward's group schedule, its counted SIMT efficiency beside the
+  model's; where ROOT's package has no refill schedule, the efficiency
+  from the tape alone), and the SHA-256 of the taped forward's radiance,
+  tape_f and tape_i bytes in that order (``taped_sha256``: equal in two
+  checkouts when their taped forwards write the same tape);
 - ``tri_rows``: the same at ``mesh_scene(1024, 1024, 1)``, 80 triangle
   rows, depth 3 (phase 12);
 - ``mesh``: at ``mesh_scene(1024, 1024, 6)``, 81,920 triangles in one
@@ -33,11 +37,14 @@ JSON line of times in ms:
   ``pair_any``, ``walk``, with the walks' active rays), and each of its
   casts walked whole as phase 19 seeds it (``walk_casts``).
 - ``e2e``: the served render (``tracer.api.render``, Cornell 1024^2,
-  spp 4, depth 8; phase 4) and one retrace training step (phase 7's
-  ``value_and_grad``), each on the host clock around work that ends in a
-  synchronize (``render_ms``, ``step_ms``: a few runs after a warm-up)
-  and as device time under torch.profiler (``render_device_ms``,
-  ``step_device_ms``: one run each).
+  spp 4, depth 8; phase 4), one retrace training step (phase 7's
+  ``value_and_grad``) and one tape-fed step (phase 10's, ``step_taped``),
+  each on the host clock around work that ends in a synchronize
+  (``render_ms``, ``step_ms``, ``step_taped_ms``: a few runs after a
+  warm-up) and under torch.profiler (one run each): device time
+  (``*_device_ms``), idle share (``*_idle``) and the device time of the
+  taped forward's kernel (``*_taped_kernel_ms``: the retrace step's
+  replay, the tape-fed step's taped forward; either tree's kernel).
 - ``binned``: at the same workload, the binned casts' kernels alone:
   each candidate, ``pair_closest`` and ``pair_any`` launch of one
   wavefront sample timed, the candidate kernel's counting build per
@@ -69,6 +76,7 @@ parent): times taken on different cards or calls differ by a few percent.
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import math
@@ -79,6 +87,10 @@ import sys
 HERE = pathlib.Path(__file__).resolve().parents[1]
 REPS = {"cornell": 10, "tri_rows": 10, "mesh": 3, "e2e": 3, "binned": 5,
         "setup": 20}
+# The taped forward's kernel in either tree: the group schedule, or the
+# one-thread kernel that ran it before (not launched by a Cornell step of
+# a tree with the group schedule).
+TAPED_KERNELS = ("group_taped_kernel", "megakernel_fwd_kernel")
 
 
 def _chip_smoke():
@@ -143,6 +155,14 @@ def _schedule(cs, static, depth, args):
     return {"mean_trips": trips.double().mean().item(),
             "simt_efficiency_one_thread":
                 trips.sum().item() / (32 * warps.amax(dim=1).sum().item())}
+
+
+def _taped_sha256(cs, static, depth, args):
+    """SHA-256 of one taped forward's radiance, tape_f and tape_i bytes."""
+    sha = hashlib.sha256()
+    for t in cs.mk.forward_taped(static, depth, cs.RR_START, *args):
+        sha.update(t.cpu().numpy().tobytes())
+    return sha.hexdigest()
 
 
 def _sass(cs, root):
@@ -313,20 +333,29 @@ def main() -> int:
         ms[part]["sections"] = _sections(cs, static, depth, args, seed,
                                          REPS[part])
         ms[part]["schedule"] = _schedule(cs, static, depth, args)
+        if part == "cornell":
+            ms[part]["taped_sha256"] = _taped_sha256(cs, static, depth, args)
+            print(f"taped forward sha256: {ms[part]['taped_sha256']}")
     if "e2e" in parts:
         scene, _ = scene_from_dict(presets.cornell_box(cs.WIDTH, cs.HEIGHT),
                                    device=dev)
         static = mk.SceneStatic.from_scene(scene)
         cfg = cs.RenderConfig(width=cs.WIDTH, height=cs.HEIGHT, spp=cs.SPP,
                               max_depth=cs.MAX_DEPTH, kernel="pallas")
-        step = lambda: cs._vg(cs._train_leaves(scene)[2], static)
         e2e = {}
-        for key, fn in (("render", lambda: cs.render(scene, cfg)),
-                        ("step", step)):
+        for key, fn in (
+                ("render", lambda: cs.render(scene, cfg)),
+                ("step", lambda: cs._vg(cs._train_leaves(scene)[2], static)),
+                ("step_taped", lambda: cs._vg(cs._train_leaves(scene)[2],
+                                              static, "pallas_taped"))):
             fn()
             e2e[key + "_ms"] = [cs._host_s(fn)[0] * 1e3
                                 for _ in range(REPS["e2e"])]
-            e2e[key + "_device_ms"] = cs._profile(fn)[1]
+            _, dev_ms, idle, _, _, named = cs._profile(fn,
+                                                       named=TAPED_KERNELS)
+            e2e[key + "_device_ms"] = dev_ms
+            e2e[key + "_idle"] = idle
+            e2e[key + "_taped_kernel_ms"] = sum(named.values())
         ms["e2e"] = e2e
     if "setup" in parts:
         ms["setup"] = _setup(cs, dev)

@@ -19,7 +19,11 @@ both kernels' d_prims across runs, and both kernels on a scene of 10
 spectra; the refill schedule of the forward (persistent warps that refill
 their dead lanes) against its plain version at ragged ray counts and edge
 cases, in the triangle rows' taped forward, across launches, and its
-counting build against the tape's trips; the warp-drained candidate
+counting build against the tape's trips; the taped forward's group
+schedule (lanes that take and retire rays in groups of sixteen) against
+its plain version at ragged ray counts and edge cases, across launches,
+its counting build against the tape's trips, and the tape-fed kernel on
+its tape against the retrace kernel, whose replay it is; the warp-drained candidate
 kernel over several groups of supernodes, coherent and incoherent warps
 and boxes with equal entry distances, its counted chunk-loop trips equal
 to its plain model's, and the pair kernels on unsorted pairs of tie
@@ -424,6 +428,76 @@ def test_refill_kernel_counting_build(cuda, kind):
     lane_trips, warp_trips = trips.tolist()
     assert lane_trips == int(mk.trips_from_tape(tape_i).sum())
     assert warp_trips % 32 == 0 and warp_trips >= lane_trips
+
+
+@pytest.mark.parametrize("kind,n_rays,max_depth,rr_start", [
+    ("cornell_box", 1, 8, 1), ("cornell_box", 7, 8, 1),
+    ("cornell_box", 8, 8, 1), ("cornell_box", 9, 8, 1),
+    ("cornell_box", 15, 8, 1), ("cornell_box", 16, 8, 1),
+    ("cornell_box", 17, 8, 1), ("cornell_box", 1000, 8, 1),
+    ("cornell_box", 1003, 8, 1),
+    ("cornell_box", None, 0, 1), ("cornell_box", None, 8, 8),
+    ("looking_away", None, 8, 1)])
+def test_group_taped_kernel_is_bit_equal(cuda, kind, n_rays, max_depth,
+                                         rr_start):
+    """The taped forward of a scene without triangle rows runs the group
+    schedule: its radiance and both tape planes are
+    forward_taped_reference's bit for bit at ray counts that leave a group,
+    a warp or a block part empty, at max_depth 0, without Russian roulette
+    and with rays that all die on their first trip. One launch counts one
+    taped forward."""
+    static, args = _refill_case(cuda, kind, n_rays=n_rays)
+    assert not static.mesh_mode
+    before = (mk.launches, mk.launches_taped)
+    got = mk.forward_taped(static, max_depth, rr_start, *args)
+    torch.cuda.synchronize()
+    assert (mk.launches, mk.launches_taped) == (before[0], before[1] + 1)
+    want = mk.forward_taped_reference(static, max_depth, rr_start, *args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if kind == "looking_away":
+        assert not got[0].any()
+
+
+def test_group_taped_kernel_counting_build(cuda):
+    """At 512^2, depth 8, two launches of the group schedule are bit-equal
+    (which warp traces a group, and when, varies); its counting build
+    writes the same radiance and tape, its lane trips are the tape's trips
+    exactly, and its warp trips are a multiple of 32 whose share of busy
+    lanes beats warps of 32 consecutive rays."""
+    static, args = _refill_case(cuda, side=512)
+    first = mk.forward_taped(static, 8, 1, *args)
+    second = mk.forward_taped(static, 8, 1, *args)
+    trips = torch.zeros(len(mk.TRIP_COUNTS), dtype=torch.int64,
+                        device=cuda)
+    counted = mk.forward_taped(static, 8, 1, *args, trips=trips)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, second, counted):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    lane_trips, warp_trips = trips.tolist()
+    tape_trips = mk.trips_from_tape(first[2])
+    assert lane_trips == int(tape_trips.sum())
+    assert warp_trips % 32 == 0 and warp_trips >= lane_trips
+    assert lane_trips / warp_trips > mk.schedule_efficiency(tape_trips)
+
+
+@pytest.mark.parametrize("n_rays", [1000, 1003])
+def test_group_tape_fed_is_the_retrace_kernel(cuda, n_rays):
+    """On the group schedule's tape, a ragged last group included, the
+    tape-fed kernel gives the retrace kernel's cotangents bit for bit, and
+    the retrace kernel's replay, the same build, writes the same tape."""
+    static, args = _refill_case(cuda, n_rays=n_rays)
+    _, tape_f, tape_i = mk.forward_taped(static, 8, 1, *args)
+    dL = _dL(n_rays, cuda, seed=3)
+    replay = (torch.full_like(tape_f, float("nan")),
+              torch.full_like(tape_i, -7))
+    want = mk.backward(static, 8, 1, *args, dL, tape=replay)
+    got = mk.backward_from_tape(static, 8, 1, args[0], args[3], tape_f,
+                                tape_i, dL)
+    torch.cuda.synchronize()
+    assert torch.equal(replay[0], tape_f) and torch.equal(replay[1], tape_i)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def _wide_cornell(w, h):
