@@ -17,9 +17,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    schedule hands rays to lanes in an order that varies).
 4. served path: tracer.api.render at 1024^2, spp 4, depth 8 with the
    launch counters reset just before; exactly 4 kernel launches, 4
-   ray-setup and 4 hero-gather launches (spectra and CIE in one), a finite
-   non-zero image whose mean XYZ is within 1e-3 relative of the same
-   render through the plain versions; the PNG is written to a temp dir.
+   ray-setup and 4 hero-gather launches (spectra and CIE in one), no
+   ray-setup backward, a finite non-zero image whose mean XYZ is within
+   1e-3 relative of the same render through the plain versions; the PNG
+   is written to a temp dir.
 5. timing: forward kernel and plain version at the phase-3 shape (CUDA
    events, after a warm-up). The bounce loop's schedule: the one-thread
    schedule's SIMT efficiency from the taped forward's tape (lane trips
@@ -44,7 +45,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. training path: value_and_grad of mean((accum / 4) ** 2) at 1024^2,
    spp 4, depth 8 with respect to spectra and primitives.data1, with both
    launch counters reset just before: exactly 4 forward and 4 backward
-   launches, finite gradients, non-zero in every spectra row the render
+   launches, no ray-setup backward, finite gradients, non-zero in every
+   spectra row the render
    reads. Then train.optimize (kernel="pallas") for 3 Adam steps (lr
    0.05) from the Cornell scene with spectra row 2 dimmed x0.3 against
    the undimmed target, training that row (spectra_rows: with every row
@@ -80,7 +82,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches, top kernels, the taped forward's kernel, which is the
    retrace step's replay; indexing_backward_kernel, the scatter of an
    indexing backward, must not be among the top five). The setup's
-   launches in the taped step: 4 ray setups, 4 gathers, 4 column sums.
+   launches in the taped step: 4 ray setups, 4 gathers, 4 column sums, no
+   ray-setup backward.
 11. meshes: mesh_scene(1024, 1024, subdivisions=6), 81,920 triangles in
    one mesh part, depth 3. The mesh-mode forward kernel against its plain
    version on a band of 16,384 rays across the blob: at least 99.9% of
@@ -269,13 +272,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    (index_select of the concatenated table; index_put_ with accumulate,
    the gather's autograd backward; index_add_) and its bound, the column
    sums with their share of it.
+30. camera gradients at phase 4's shape: the ray setup's backward kernel
+   (csrc/setup.cu ray_setup_bwd) on phase 6's d_rays at phase 29's three
+   cameras and samples 1 and 2^32 - 3: its twelve sums bit-equal to the
+   plain version's (ray_setup_bwd_sums_reference of ray_setup_bwd_terms)
+   and across two launches, within relative L2 1e-6 of a float64 sum; its
+   camera gradients within 1e-5 of each leaf's largest entry of torch
+   autograd of ray_setup_reference (the bit-equal share printed). Phase
+   7's value_and_grad also by eye, lookat, up and fov, for "pallas" and
+   "pallas_taped", counters reset just before: every count as in the same
+   step without camera leaves, and exactly SPP ray-setup backward
+   launches; the spectra and data1 gradients bit-equal to phase 7's and
+   phase 10's; the camera gradients finite, eye's and fov's non-zero.
+   Times: the kernel (CUDA events; device time under the profiler, each
+   pass), its plain version, torch autograd of ray_setup_reference, and
+   each step's device time with and without camera leaves in turns
+   (without, with, with, without), beside the card's name and power
+   limit. Phases 4, 7 and 10 launch the ray setup's backward 0 times.
 Then one JSON line of kernels, each with its bound (the larger of the
 bytes it must move over 3.35 TB/s and a lower count of its float
-operations over 67 TFLOP/s, and of the ray setup's u32 operations over
-16.7 TOP/s, all at 700 W) and, for the four kernels of phase 24, its
-launches there ("launches_vis_grads"); the kernels of phase 27 carry
-their launches on each rank there ("launches_sharded"); the setup's
-kernels their launches in phase 4's render and phase 10's step.
+operations over 67 TFLOP/s, and of the ray setup's and its backward's
+u32 operations over 16.7 TOP/s, all at 700 W) and, for the four kernels
+of phase 24, its launches there ("launches_vis_grads"); the kernels of
+phase 27 carry their launches on each rank there ("launches_sharded");
+the setup's kernels their launches in phase 4's render and phase 10's
+step, and the ray setup's backward its launches in phase 30's step.
 The last line is {"ok": true, "device": {...}}. It needs no JAX.
 """
 
@@ -401,6 +422,14 @@ SETUP_INT_OPS = 16 * 17 + 3 * 32 + 2 + 3 * 2
 # its float operations per ray: the jitter (4), s and t (5), the
 # direction (12), its norm (6) and the normalization (3), the hero (1)
 SETUP_F32_OPS = 31
+# the ray setup's backward per ray: the seeds without the hero draw (16
+# TEA rounds of 17, two pcg4d advances of 32, the seed words' two products,
+# two draws' mask and conversion); its float operations: the jitter (4), s
+# and t (5), the direction (15), its norm (6), d (3), d . g_d (5), g_u (9),
+# s g_u and t g_u (6), and one add a ray for each of the twelve sums
+SETUP_BWD_INT_OPS = 16 * 17 + 2 * 32 + 2 + 2 * 2
+SETUP_BWD_F32_OPS = 4 + 5 + 15 + 6 + 3 + 5 + 9 + 6 + 12
+CAMERA_LEAVES = ("eye", "lookat", "up", "fov")
 # phase 10's step with the setup built each sample (PERF.md §5, on an
 # NVIDIA H100 80GB HBM3 at 700 W), printed beside its profile
 PER_SAMPLE_SETUP_STEP = {
@@ -617,7 +646,7 @@ def _reset_counters():
     mk.launches_shade = bn.launches_walk = bn.launches_candidates = 0
     bn.launches_pair = bn.launches_pair_occl = 0
     setup_k.launches_ray_setup = setup_k.launches_gather = 0
-    setup_k.launches_gather_bwd = 0
+    setup_k.launches_gather_bwd = setup_k.launches_ray_setup_bwd = 0
 
 
 def _setup_counters():
@@ -625,7 +654,8 @@ def _setup_counters():
     trace-kernel counts the phases hold exactly)."""
     return {"ray_setup": setup_k.launches_ray_setup,
             "hero_gather_fwd": setup_k.launches_gather,
-            "hero_gather_bwd": setup_k.launches_gather_bwd}
+            "hero_gather_bwd": setup_k.launches_gather_bwd,
+            "ray_setup_bwd": setup_k.launches_ray_setup_bwd}
 
 
 def _counters():
@@ -2534,29 +2564,36 @@ def _camera(scene, eye, lookat, up, fov):
         fov=torch.tensor(fov, **f32)))
 
 
-def _kernel_device_ms(fn, reps, *keys):
+def _kernel_device_ms(fn, reps, *keys, passes=3):
     """Mean device time a call of fn() of the CUDA kernels whose names hold
     the keys (each launched once a call): reps calls under torch.profiler
     after one warm-up, each key's kernel timed as the mean over the
-    launches the profiler recorded (it may drop some) -> (total ms, {key:
-    ms}, {key: launches recorded})."""
+    launches the profiler recorded. It may drop some, or every launch of
+    a kernel in a pass: then the pass is repeated, at most passes in all
+    -> (total ms, {key: ms}, {key: launches recorded})."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_key, seen = {}, {}
-    for key in keys:
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and key in e.name]
-        if not us:
-            raise RuntimeError(f"the profiler recorded no launch of {key}")
-        by_key[key], seen[key] = sum(us) / len(us) / 1e3, len(us)
-    return sum(by_key.values()), by_key, seen
+    us = {key: [] for key in keys}
+    for _ in range(passes):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for key in keys:
+            us[key] += [e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and key in e.name]
+        if all(us.values()):
+            break
+    missing = [key for key in keys if not us[key]]
+    if missing:
+        raise RuntimeError(f"the profiler recorded no launch of {missing} "
+                           f"in {passes} passes")
+    by_key = {key: sum(v) / len(v) / 1e3 for key, v in us.items()}
+    return (sum(by_key.values()), by_key,
+            {key: len(v) for key, v in us.items()})
 
 
 def _setup_kernels(scene, d_spect, setup_render, setup_step):
@@ -2727,6 +2764,206 @@ def _setup_kernels(scene, d_spect, setup_render, setup_step):
     }, **launches["hero_gather_bwd"])]
 
 
+def _camera_leaves(scene):
+    """(spectra, data1, eye, lookat, up, fov) as fresh leaves that require
+    grad, and the scene that holds them."""
+    sp, d1, s = _train_leaves(scene)
+    cam = [getattr(scene.camera, n).detach().clone().requires_grad_(True)
+           for n in CAMERA_LEAVES]
+    return (sp, d1, *cam), dataclasses.replace(
+        s, camera=dataclasses.replace(scene.camera,
+                                      **dict(zip(CAMERA_LEAVES, cam))))
+
+
+def _camera_grads(scene, static, d_rays, step_grads, setup_render,
+                  setup_step, smi):
+    """Phase 30: the ray setup's backward kernel at phase 4's shape against
+    its plain version and autograd, phase 7's value_and_grad also by the
+    camera for both backwards, and the times; returns its kernels-line
+    entry."""
+    t0 = time.perf_counter()
+    px, py = kt.tile_coords(WIDTH, HEIGHT, 0, scene.device)
+    rays = px.shape[0]
+    g_o, g_d = d_rays[:3].contiguous(), d_rays[3:].contiguous()
+    cameras = {"cornell": scene.camera, **{
+        k: _camera(scene, *v).camera for k, v in SETUP_CAMERAS.items()}}
+    worst_sum = worst_leaf = worst_l2 = 0.0
+    same_leaves, same_plain = [], []
+    for cam_name, cam in cameras.items():
+        leaves = [getattr(cam, n) for n in CAMERA_LEAVES]
+        for sample in (1, 2**32 - 3):
+            grads, sums = setup_k.ray_setup_bwd_launch(
+                *leaves, WIDTH, HEIGHT, px, py, sample, g_o, g_d)
+            again_grads, again = setup_k.ray_setup_bwd_launch(
+                *leaves, WIDTH, HEIGHT, px, py, sample, g_o, g_d)
+            terms = setup_k.ray_setup_bwd_terms(cam, WIDTH, HEIGHT, px, py,
+                                                sample, g_o, g_d)
+            plain = setup_k.ray_setup_bwd_sums_reference(terms)
+            exact = terms.double().sum(dim=1)
+            plain_grads = setup_k.film_frame_vjp(*leaves, WIDTH, HEIGHT,
+                                                 plain)
+            auto_leaves = [x.detach().clone().requires_grad_(True)
+                           for x in leaves]
+            o, d, _, _ = setup_k.ray_setup_reference(
+                dataclasses.replace(cam, **dict(zip(CAMERA_LEAVES,
+                                                    auto_leaves))),
+                WIDTH, HEIGHT, px, py, sample)
+            auto = torch.autograd.grad((o * g_o).sum() + (d * g_d).sum(),
+                                       auto_leaves)
+            del o, d, terms
+            torch.cuda.synchronize()
+            rel_l2 = ((sums.double() - exact).norm() / exact.norm()).item()
+            errs = [((g - w).abs().max() / w.abs().max()).item()
+                    for g, w in zip(grads, auto)]
+            worst_sum = max(worst_sum, (sums - plain).abs().max().item())
+            worst_l2 = max(worst_l2, rel_l2)
+            worst_leaf = max(worst_leaf, *errs)
+            same_leaves += [bool(torch.equal(g, w))
+                            for g, w in zip(grads, auto)]
+            same_plain += [bool(torch.equal(g, w))
+                           for g, w in zip(grads, plain_grads)]
+            finite = all(torch.isfinite(g).all() for g in grads)
+            if not (torch.equal(sums, plain) and torch.equal(sums, again)
+                    and all(torch.equal(a, b)
+                            for a, b in zip(grads, again_grads))):
+                raise RuntimeError(
+                    f"the ray setup's backward sums differ from the plain "
+                    f"version's or across launches at the {cam_name} "
+                    f"camera, sample {sample}")
+            if rel_l2 > 1e-6 or max(errs) > 1e-5 or not finite:
+                raise RuntimeError(
+                    f"the ray setup's backward at the {cam_name} camera, "
+                    f"sample {sample}: relative L2 {rel_l2:.3g} from a "
+                    f"float64 sum, leaves {errs} of their largest entry "
+                    f"from autograd")
+    print(f"ray setup backward ({rays} rays, phase 6's d_rays, the "
+          f"{', '.join(cameras)} cameras, samples 1 and 2^32 - 3): the "
+          f"twelve sums bit-equal to the plain version's and across two "
+          f"launches, worst relative L2 {worst_l2:.3g} from a float64 sum; "
+          f"camera gradients within {worst_leaf:.3g} of each leaf's largest "
+          f"entry of autograd of ray_setup_reference, bit-equal on "
+          f"{sum(same_leaves)} of {len(same_leaves)} leaves (to the plain "
+          f"version's frame VJP: {sum(same_plain)} of {len(same_plain)})")
+
+    cam = scene.camera
+    leaves = [getattr(cam, n) for n in CAMERA_LEAVES]
+    k_ms = _events_ms(lambda: setup_k.ray_setup_bwd_launch(
+        *leaves, WIDTH, HEIGHT, px, py, 1, g_o, g_d), 20)
+    k_device, k_passes, k_seen = _kernel_device_ms(
+        lambda: setup_k.ray_setup_bwd_launch(*leaves, WIDTH, HEIGHT, px, py,
+                                             1, g_o, g_d), 20,
+        "ray_setup_bwd_kernel", "ray_setup_bwd_reduce")
+    k_plain = _events_ms(lambda: setup_k.ray_setup_bwd_reference(
+        cam, WIDTH, HEIGHT, px, py, 1, g_o, g_d), 5)
+    auto_leaves = [x.detach().clone().requires_grad_(True) for x in leaves]
+
+    def autograd_fwd_bwd():
+        o, d, _, _ = setup_k.ray_setup_reference(
+            dataclasses.replace(cam, **dict(zip(CAMERA_LEAVES, auto_leaves))),
+            WIDTH, HEIGHT, px, py, 1)
+        return torch.autograd.grad((o, d), auto_leaves, (g_o, g_d))
+
+    a_fwd_bwd = _events_ms(autograd_fwd_bwd, 5)
+    o, d, _, _ = setup_k.ray_setup_reference(
+        dataclasses.replace(cam, **dict(zip(CAMERA_LEAVES, auto_leaves))),
+        WIDTH, HEIGHT, px, py, 1)
+    a_bwd = _events_ms(lambda: torch.autograd.grad(
+        (o, d), auto_leaves, (g_o, g_d), retain_graph=True), 5)
+    del o, d
+    k_bound = _bound(_nbytes(px, py, g_o, g_d, *leaves) + 22 * 4,
+                     rays * SETUP_BWD_F32_OPS, rays * SETUP_BWD_INT_OPS)
+    print(f"ray setup backward: kernel {k_ms:.4f} ms (CUDA events; device "
+          f"time under the profiler {k_device:.4f}: pass 1, pass 2 "
+          f"{[round(v, 4) for v in k_passes.values()]}, the means of "
+          f"{list(k_seen.values())} launches), bound {k_bound[0]:.4f} ms "
+          f"({k_bound[1]}; the device time is {k_bound[0] / k_device:.3f} "
+          f"of it); plain {k_plain:.3f} ms; torch autograd of "
+          f"ray_setup_reference {a_bwd:.3f} ms (its forward and backward "
+          f"{a_fwd_bwd:.3f}); {smi}")
+    for line in _ptxas("setup"):
+        if "ray_setup_bwd" in line or "Used" in line:
+            print(f"ptxas[setup]: {line}")
+
+    cam_grads, step_launches = {}, None
+    for bw in ("pallas", "pallas_taped"):
+        _reset_counters()
+        _vg(_train_leaves(scene)[2], static, bw)
+        base = (_counters(), _setup_counters())
+        leaves6, cam_scene = _camera_leaves(scene)
+        _reset_counters()
+        loss = _vg(cam_scene, static, bw)
+        counts, setup = _counters(), _setup_counters()
+        want_setup = dict(base[1], ray_setup_bwd=SPP)
+        if counts != base[0] or setup != want_setup:
+            raise RuntimeError(f"{bw} value_and_grad with camera leaves "
+                               f"launched {counts}, {setup}; expected "
+                               f"{base[0]}, {want_setup}")
+        step_launches = setup["ray_setup_bwd"]
+        sp, d1, *cam_leaves = leaves6
+        same = [bool(torch.equal(g, w))
+                for g, w in zip((sp.grad, d1.grad), step_grads[bw])]
+        grads = {n: x.grad for n, x in zip(CAMERA_LEAVES, cam_leaves)}
+        if not all(same):
+            raise RuntimeError(f"{bw}: with camera leaves the spectra and "
+                               f"data1 gradients are not phase 7/10's bit "
+                               f"for bit ({same})")
+        if any(g is None or not torch.isfinite(g).all()
+               for g in grads.values()) or not (
+                   (grads["eye"] != 0).any() and (grads["fov"] != 0)):
+            raise RuntimeError(f"{bw}: camera gradients missing, not "
+                               f"finite or zero: {grads}")
+        cam_grads[bw] = {n: g.tolist() for n, g in grads.items()}
+        print(f"{bw} value_and_grad by spectra, data1 and the camera: loss "
+              f"{loss:.6e}, launches {counts}, setup {setup}; spectra and "
+              f"data1 gradients bit-equal to phase "
+              f"{7 if bw == 'pallas' else 10}'s; camera gradients "
+              f"{cam_grads[bw]}")
+    turns = {}
+    for bw in ("pallas", "pallas_taped"):
+        runs = []
+        for with_cam in (False, True, True, False):
+            fn = ((lambda: _vg(_camera_leaves(scene)[1], static, bw))
+                  if with_cam else
+                  (lambda: _vg(_train_leaves(scene)[2], static, bw)))
+            wall, dev_ms, idle, n_k, _ = _profile(fn)
+            runs.append((with_cam, dev_ms, wall, idle, n_k))
+        turns[bw] = {"without": [r[1] for r in runs if not r[0]],
+                     "with": [r[1] for r in runs if r[0]],
+                     "launches": [r[4] for r in runs]}
+        print(f"{bw} step under the profiler, in turns (without, with, "
+              f"with, without camera leaves): device ms "
+              f"{[round(r[1], 3) for r in runs]}, wall ms "
+              f"{[round(r[2], 1) for r in runs]}, idle "
+              f"{[round(r[3], 3) for r in runs]}, launches "
+              f"{[r[4] for r in runs]}; {smi}")
+    print(f"phase 30 (camera gradients): {time.perf_counter() - t0:.1f} s")
+    return {
+        "name": "ray_setup_bwd",
+        "route": "cuda",
+        "source": "computeraytracer_tpu_torch/kernels/csrc/setup.cu",
+        "replaces": "computeraytracer_tpu/tracer/pallas.py:709-711 "
+                    "camera_rays_p, its AD (XLA)",
+        "launches": step_launches,
+        "launches_render": setup_render["ray_setup_bwd"],
+        "launches_train": setup_step["ray_setup_bwd"],
+        "max_abs_err": worst_sum,
+        "max_leaf_err_autograd": worst_leaf,
+        "rel_l2_float64": worst_l2,
+        "ms": k_ms,
+        "device_ms": k_device,
+        "device_ms_passes": k_passes,
+        "plain_ms": k_plain,
+        "autograd_ms": a_bwd,
+        "autograd_fwd_bwd_ms": a_fwd_bwd,
+        "bound_ms": k_bound[0],
+        "bound_by": k_bound[1],
+        "library_ms": None,
+        "rays": rays,
+        "cameras": list(cameras),
+        "step_device_ms": turns,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -2792,7 +3029,7 @@ def main() -> int:
     if launches != SPP:
         raise RuntimeError(f"{launches} kernel launches, expected {SPP}")
     want_setup = {"ray_setup": SPP, "hero_gather_fwd": SPP,
-                  "hero_gather_bwd": 0}
+                  "hero_gather_bwd": 0, "ray_setup_bwd": 0}
     if setup_render != want_setup:
         raise RuntimeError(f"the render's setup launched {setup_render}, "
                            f"expected {want_setup}")
@@ -2869,12 +3106,16 @@ def main() -> int:
     sp, d1, train_scene = _train_leaves(scene)
     mk.launches = 0
     mk.launches_bwd = 0
+    setup_k.launches_ray_setup_bwd = 0
     step_s, loss = _host_s(lambda: _vg(train_scene, static))
     launches_fwd, launches_bwd = mk.launches, mk.launches_bwd
     if (launches_fwd, launches_bwd) != (SPP, SPP):
         raise RuntimeError(f"value_and_grad made {launches_fwd} forward and "
                            f"{launches_bwd} backward launches, expected "
                            f"{SPP} each")
+    if setup_k.launches_ray_setup_bwd:
+        raise RuntimeError("a step without camera leaves launched the ray "
+                           "setup's backward")
     for nm, g in (("spectra", sp.grad), ("data1", d1.grad)):
         if g is None or not torch.isfinite(g).all():
             raise RuntimeError(f"{nm} gradient missing or not finite")
@@ -3014,7 +3255,7 @@ def main() -> int:
         raise RuntimeError(f"pallas_taped value_and_grad launched {counts}, "
                            f"expected {want_counts}")
     want_setup = {"ray_setup": SPP, "hero_gather_fwd": SPP,
-                  "hero_gather_bwd": SPP}
+                  "hero_gather_bwd": SPP, "ray_setup_bwd": 0}
     if setup_step != want_setup:
         raise RuntimeError(f"the step's setup launched {setup_step}, "
                            f"expected {want_setup}")
@@ -3035,6 +3276,7 @@ def main() -> int:
     if max(errs) > 1e-5:
         raise RuntimeError("pallas_taped gradients differ from the retrace "
                            "path's")
+    grads_taped = (sp.grad.clone(), d1.grad.clone())
     taped_ms = _events_ms(lambda: mk.forward_taped(
         static, MAX_DEPTH, RR_START, *args), 5)
     tape_bwd_ms = _events_ms(lambda: mk.backward_from_tape(
@@ -3249,6 +3491,13 @@ def main() -> int:
     # 29. the per-sample setup's kernels
     setup_entries = _setup_kernels(scene, got_b[2], setup_render, setup_step)
     print(f"chip_smoke phases 1-29: {time.perf_counter() - t_start:.1f} s")
+
+    # 30. camera gradients: the ray setup's backward kernel
+    setup_entries.append(_camera_grads(
+        scene, static, got_b[1], {"pallas": grads_retrace,
+                                  "pallas_taped": grads_taped},
+        setup_render, setup_step, smi))
+    print(f"chip_smoke phases 1-30: {time.perf_counter() - t_start:.1f} s")
 
     # bounds at the shapes timed above
     b_fwd, b_taped = bounds["forward"], bounds["taped"]

@@ -1,12 +1,14 @@
 // The per-sample setup of the kernel path for Hopper (sm_90a): the camera
-// rays, seeds and hero draw of every ray (ray_setup), and the hero-indexed
-// column gather of the spectra and CIE tables with its backward
-// (hero_gather, hero_column_sums).
+// rays, seeds and hero draw of every ray (ray_setup) with its backward to
+// the camera (ray_setup_bwd), and the hero-indexed column gather of the
+// spectra and CIE tables with its backward (hero_gather, hero_column_sums).
 //
 // Replaces the setup that the JAX package runs as one jitted XLA computation
 // around its Pallas kernels:
 // - ray_setup: computeraytracer_tpu/tracer/pallas.py:708-712, rng.seed_pixel_p
 //   -> camera_ops.camera_rays_p -> spectrum.sample_wavelengths_p;
+// - ray_setup_bwd: XLA's AD of camera_rays_p (tracer/pallas.py:709-711),
+//   which carries the trace's ray cotangent to eye, lookat, up and fov;
 // - hero_gather: computeraytracer_tpu/tracer/pallas.py:726-731, one
 //   gather_hero_planar (ops/spectrum.py:121) of the spectra and CIE tables;
 // - hero_column_sums: its scatter-free backward, spectrum.py:246 take_cols'
@@ -24,6 +26,25 @@
 // fused multiply-adds as __fmaf_rn; tanf is the CUDA math library's, as
 // torch.tan's on the card): the outputs are the plain version's bit for
 // bit.
+//
+// ray_setup_bwd: with u = lower_left + s*horizontal + t*vertical - eye and
+// d = u / |u|, the camera's gradient needs twelve sums over the rays, of
+// g_o, g_u, s g_u and t g_u with g_u = (g_d - d (d . g_d)) / |u|, and the
+// VJP of the camera frame from them. Pass 1 (one thread per ray, a CUDA
+// block per 256 consecutive rays) recomputes s, t and u with
+// ray_setup_kernel's own device code rather than reading them: it reads 40
+// bytes a ray (px, py, g_o, g_d) and its seeds cost ~342 u32 operations a
+// ray, so the card's integer rate bounds it, the bytes close behind. Each
+// block sums its terms in a fixed order (a shuffle tree per warp, then the
+// warps in order) into one partial; pass 2 (one CUDA block) sums the
+// partials in BWD_GROUPS groups of consecutive blocks, then the groups in
+// order, and one thread applies the frame's VJP (film_frame_vjp). The sums
+// are f64 and each is rounded once to f32: the frame's VJP subtracts sums
+// of 10^4-10^5 that differ by a few percent (sum s g_u - sum g_u / 2 at a
+// wide fov), which f32 partial sums in this order carried to ~1e-5 of the
+// camera's gradient. No float atomics: two launches give bit-equal sums, and
+// the plain version (kernels/setup.py ray_setup_bwd_reference) adds in the
+// same order.
 //
 // hero_gather: one thread per ray reads its hero and writes its column of
 // every row of one or two tables (the spectra and CIE planes of a sample in
@@ -80,6 +101,11 @@ constexpr int SUM_ROWS = 2;                // rows of g a pass-1b block sums
 constexpr int GRID_SIZE = 16;              // strata of the stratified jitter
 constexpr float N_LAMBDA = 301.0f;
 constexpr unsigned FULL = 0xFFFFFFFFu;
+// the ray setup's backward: the twelve ray sums, its second pass's groups
+// of blocks and threads (one per group and sum)
+constexpr int BWD_SUMS = 12;
+constexpr int BWD_GROUPS = 64;
+constexpr int BWD_REDUCE_THREADS = BWD_GROUPS * BWD_SUMS;
 constexpr unsigned short NO_SLOT = 0xFFFFu;
 
 static_assert(2 * THREADS >= MAX_COLS, "two columns a thread in the scan");
@@ -130,12 +156,13 @@ __device__ __forceinline__ float unit(uint32_t bits) {
 }
 
 // ops/camera.py _normalize: v / sqrt(fma(v2, v2, fma(v1, v1, v0*v0))), the
-// JAX package's jnp.linalg.norm as XLA contracts it.
-__device__ __forceinline__ void normalize3(float* v) {
+// JAX package's jnp.linalg.norm as XLA contracts it; returns the norm.
+__device__ __forceinline__ float normalize3(float* v) {
   const float n = __fsqrt_rn(
       __fmaf_rn(v[2], v[2], __fmaf_rn(v[1], v[1], __fmul_rn(v[0], v[0]))));
 #pragma unroll
   for (int c = 0; c < 3; ++c) v[c] = __fdiv_rn(v[c], n);
+  return n;
 }
 
 // ops/camera.py _cross: a1*b2 - a2*b1 as fma(a1, b2, -(a2*b1)), jnp.cross
@@ -180,6 +207,44 @@ __device__ void film_frame(const float* __restrict__ eye,
   }
 }
 
+// A ray's film point (s, t) (ops/camera.py _film_st with the stratified
+// jitter) and its seed words after the jitter's two draws, s then t.
+__device__ __forceinline__ void film_point(long long pxr, long long pyr,
+                                           uint32_t sample, float width,
+                                           float height, float& s, float& t,
+                                           uint32_t* sd) {
+  const uint32_t x = (uint32_t)pxr, y = (uint32_t)pyr;
+  // seed_pixel: (y, x*100, sample, tea(x, y*100))
+  sd[0] = y, sd[1] = x * 100u, sd[2] = sample, sd[3] = tea(x, y * 100u);
+  // the jitter: two draws, s then t, in the same stratum on both axes
+  pcg4d(sd[0], sd[1], sd[2], sd[3]);
+  const float us = unit(sd[0]);
+  pcg4d(sd[0], sd[1], sd[2], sd[3]);
+  const float ut = unit(sd[0]);
+  const float stratum = (float)(sample % GRID_SIZE);
+  const float inv_grid = 1.0f / GRID_SIZE;
+  const float js = __fmul_rn(__fadd_rn(stratum, us), inv_grid);
+  const float jt = __fmul_rn(__fadd_rn(stratum, ut), inv_grid);
+  // film coordinates; t runs from the bottom
+  s = __fdiv_rn(__fadd_rn(__ll2float_rn(pxr), js), width);
+  t = __fdiv_rn(__fadd_rn(__fsub_rn(height, __ll2float_rn(pyr)), jt),
+                height);
+}
+
+// dv = lower_left + s*horizontal + t*vertical - eye of the frame cam
+// (film_frame's layout) -> |dv|.
+__device__ __forceinline__ float film_dir(const float* cam, float s, float t,
+                                          float* dv) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    dv[c] = __fsub_rn(__fadd_rn(__fadd_rn(cam[c], __fmul_rn(s, cam[3 + c])),
+                                __fmul_rn(t, cam[6 + c])),
+                      cam[9 + c]);
+  return __fsqrt_rn(__fadd_rn(
+      __fadd_rn(__fmul_rn(dv[0], dv[0]), __fmul_rn(dv[1], dv[1])),
+      __fmul_rn(dv[2], dv[2])));
+}
+
 __global__ void __launch_bounds__(THREADS)
     ray_setup_kernel(const long long* __restrict__ px,
                      const long long* __restrict__ py,
@@ -195,47 +260,235 @@ __global__ void __launch_bounds__(THREADS)
     film_frame(eye, lookat, up, *fov, width, height, cam);
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = r < R;
-  const long long pxr = live ? px[r] : 0, pyr = live ? py[r] : 0;
-  const uint32_t x = (uint32_t)pxr, y = (uint32_t)pyr;
-  // seed_pixel: (y, x*100, sample, tea(x, y*100))
-  uint32_t s0 = y, s1 = x * 100u, s2 = sample, s3 = tea(x, y * 100u);
-  // the jitter: two draws, s then t, in the same stratum on both axes
-  pcg4d(s0, s1, s2, s3);
-  const float us = unit(s0);
-  pcg4d(s0, s1, s2, s3);
-  const float ut = unit(s0);
-  const float stratum = (float)(sample % GRID_SIZE);
-  const float inv_grid = 1.0f / GRID_SIZE;
-  const float js = __fmul_rn(__fadd_rn(stratum, us), inv_grid);
-  const float jt = __fmul_rn(__fadd_rn(stratum, ut), inv_grid);
-  // film coordinates; t runs from the bottom
-  const float s = __fdiv_rn(__fadd_rn(__ll2float_rn(pxr), js), width);
-  const float t = __fdiv_rn(
-      __fadd_rn(__fsub_rn(height, __ll2float_rn(pyr)), jt), height);
+  float s, t;
+  uint32_t sd[4];
+  film_point(live ? px[r] : 0, live ? py[r] : 0, sample, width, height, s, t,
+             sd);
   __syncthreads();  // the frame
   if (!live) return;
   // d = lower_left + s*horizontal + t*vertical - eye, then normalized
   float dv[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-    dv[c] = __fsub_rn(__fadd_rn(__fadd_rn(cam[c], __fmul_rn(s, cam[3 + c])),
-                                __fmul_rn(t, cam[6 + c])),
-                      cam[9 + c]);
-  const float norm = __fsqrt_rn(__fadd_rn(
-      __fadd_rn(__fmul_rn(dv[0], dv[0]), __fmul_rn(dv[1], dv[1])),
-      __fmul_rn(dv[2], dv[2])));
+  const float norm = film_dir(cam, s, t, dv);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     o[c * R + r] = cam[9 + c];
     d[c * R + r] = __fdiv_rn(dv[c], norm);
   }
   // the hero draw
-  pcg4d(s0, s1, s2, s3);
-  hero[r] = (long long)__fmul_rn(unit(s0), N_LAMBDA);
-  seed[r] = s0;
-  seed[R + r] = s1;
-  seed[2 * R + r] = s2;
-  seed[3 * R + r] = s3;
+  pcg4d(sd[0], sd[1], sd[2], sd[3]);
+  hero[r] = (long long)__fmul_rn(unit(sd[0]), N_LAMBDA);
+  seed[r] = sd[0];
+  seed[R + r] = sd[1];
+  seed[2 * R + r] = sd[2];
+  seed[3 * R + r] = sd[3];
+}
+
+// a . b, summed in component order
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a[0], b[0]), __fmul_rn(a[1], b[1])),
+                   __fmul_rn(a[2], b[2]));
+}
+
+// The VJP of a normalization x = v / |v| at its output x and norm n:
+// (g - x (x . g)) / n.
+__device__ __forceinline__ void normalize3_vjp(const float* x, float n,
+                                               const float* g, float* out) {
+  const float xg = dot3(x, g);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    out[c] = __fdiv_rn(__fsub_rn(g[c], __fmul_rn(x[c], xg)), n);
+}
+
+// The VJP of film_frame from the twelve ray sums S (sum g_o, sum g_u, sum
+// s g_u, sum t g_u, 3 each) to the camera: out = d eye (3), d lookat (3),
+// d up (3), d fov (1). The rays give eye sum g_o - sum g_u, lower_left
+// sum g_u, horizontal sum s g_u, vertical sum t g_u; then lower_left =
+// eye - horizontal/2 - vertical/2 - w, horizontal = vw u, vertical = vh v,
+// vh = 2 tan(fov/2), vw = (width/height) vh, v = w x u, u = |up x w|^-1
+// (up x w), w = |eye - lookat|^-1 (eye - lookat). The basis is recomputed
+// as film_frame computes it, and the VJP's crosses fuse as its crosses do;
+// every other operation rounds once (kernels/setup.py film_frame_vjp is
+// the same code in torch).
+__device__ void film_frame_vjp(const float* __restrict__ eye,
+                               const float* __restrict__ lookat,
+                               const float* __restrict__ up, float fov,
+                               float width, float height, const float* S,
+                               float* out) {
+  float w[3], u[3], v[3], upv[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    upv[k] = up[k];
+    w[k] = __fsub_rn(eye[k], lookat[k]);
+  }
+  const float ne = normalize3(w);
+  cross3(upv, w, u);
+  const float nc = normalize3(u);
+  cross3(w, u, v);
+  const float th = tanf(__fmul_rn(fov, 0.5f));
+  const float vh = __fmul_rn(2.0f, th);
+  const float aspect = __fdiv_rn(width, height);
+  const float vw = __fmul_rn(aspect, vh);
+
+  float g_eye[3], g_hor[3], g_ver[3], g_w[3], g_u[3], g_v[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float g_ll = S[3 + k];
+    g_eye[k] = __fadd_rn(__fsub_rn(S[k], S[3 + k]), g_ll);
+    g_hor[k] = __fsub_rn(S[6 + k], __fmul_rn(g_ll, 0.5f));
+    g_ver[k] = __fsub_rn(S[9 + k], __fmul_rn(g_ll, 0.5f));
+    g_w[k] = -g_ll;
+    g_u[k] = __fmul_rn(vw, g_hor[k]);
+    g_v[k] = __fmul_rn(vh, g_ver[k]);
+  }
+  const float g_vw = dot3(g_hor, u);
+  const float g_vh = __fadd_rn(dot3(g_ver, v), __fmul_rn(aspect, g_vw));
+  const float g_th = __fmul_rn(2.0f, g_vh);
+  out[9] = __fmul_rn(__fmul_rn(g_th, __fadd_rn(1.0f, __fmul_rn(th, th))),
+                     0.5f);
+  // v = w x u
+  float t1[3], t2[3];
+  cross3(u, g_v, t1);
+  cross3(g_v, w, t2);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    g_w[k] = __fadd_rn(g_w[k], t1[k]);
+    g_u[k] = __fadd_rn(g_u[k], t2[k]);
+  }
+  // u = c / |c|, c = up x w
+  float g_c[3];
+  normalize3_vjp(u, nc, g_u, g_c);
+  cross3(w, g_c, out + 6);
+  cross3(g_c, upv, t1);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) g_w[k] = __fadd_rn(g_w[k], t1[k]);
+  // w = e / |e|, e = eye - lookat
+  float g_e[3];
+  normalize3_vjp(w, ne, g_w, g_e);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    out[k] = __fadd_rn(g_eye[k], g_e[k]);
+    out[3 + k] = -g_e[k];
+  }
+}
+
+// Ray r's twelve backward terms at its film point (s, t) of the frame cam:
+// g_o, g_u, s g_u, t g_u with g_u = (g_d - d (d . g_d)) / |u|.
+__device__ __forceinline__ void ray_terms(const float* cam, float s, float t,
+                                          const float* __restrict__ g_o,
+                                          const float* __restrict__ g_d,
+                                          long long r, long long R,
+                                          float* term) {
+  float dv[3], dd[3], gd[3];
+  const float norm = film_dir(cam, s, t, dv);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    dd[c] = __fdiv_rn(dv[c], norm);
+    gd[c] = g_d[c * R + r];
+    term[c] = g_o[c * R + r];
+  }
+  const float dg = dot3(dd, gd);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float gu = __fdiv_rn(__fsub_rn(gd[c], __fmul_rn(dd[c], dg)), norm);
+    term[3 + c] = gu;
+    term[6 + c] = __fmul_rn(s, gu);
+    term[9 + c] = __fmul_rn(t, gu);
+  }
+}
+
+// Pass 1 of the ray setup's backward: one thread per ray recomputes its
+// film point and direction as ray_setup_kernel does (the same device code,
+// so |u| and d are the forward's bit for bit), reads its cotangents g_o,
+// g_d and forms the twelve f32 terms g_o, g_u, s g_u, t g_u with g_u =
+// (g_d - d (d . g_d)) / |u|; a ray past R gives zeros. The block sums them
+// in f64 in a fixed order: a shuffle tree in each warp (lane i adds lane i
+// + h for h = 16, 8, 4, 2, 1), then the warps in order from 0.0, into one
+// partial of BWD_SUMS doubles a block.
+__global__ void __launch_bounds__(THREADS)
+    ray_setup_bwd_kernel(const long long* __restrict__ px,
+                         const long long* __restrict__ py,
+                         const float* __restrict__ eye,
+                         const float* __restrict__ lookat,
+                         const float* __restrict__ up,
+                         const float* __restrict__ fov, uint32_t sample,
+                         float width, float height,
+                         const float* __restrict__ g_o,
+                         const float* __restrict__ g_d,
+                         double* __restrict__ partial, long long R) {
+  __shared__ float cam[12];
+  __shared__ double warp_sum[WARPS][BWD_SUMS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0)
+    film_frame(eye, lookat, up, *fov, width, height, cam);
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = r < R;
+  float s, t;
+  uint32_t sd[4];
+  film_point(live ? px[r] : 0, live ? py[r] : 0, sample, width, height, s, t,
+             sd);
+  __syncthreads();  // the frame
+  float tf[BWD_SUMS];
+  if (live) {
+    ray_terms(cam, s, t, g_o, g_d, r, R, tf);
+  } else {
+#pragma unroll
+    for (int k = 0; k < BWD_SUMS; ++k) tf[k] = 0.0f;
+  }
+  double term[BWD_SUMS];
+#pragma unroll
+  for (int k = 0; k < BWD_SUMS; ++k) term[k] = (double)tf[k];
+#pragma unroll
+  for (int h = 16; h >= 1; h >>= 1)
+#pragma unroll
+    for (int k = 0; k < BWD_SUMS; ++k)
+      term[k] = __dadd_rn(term[k], __shfl_down_sync(FULL, term[k], h));
+  if (lane == 0)
+#pragma unroll
+    for (int k = 0; k < BWD_SUMS; ++k) warp_sum[warp][k] = term[k];
+  __syncthreads();
+  if (threadIdx.x < BWD_SUMS) {
+    double acc = 0.0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w)
+      acc = __dadd_rn(acc, warp_sum[w][threadIdx.x]);
+    partial[blockIdx.x * (long long)BWD_SUMS + threadIdx.x] = acc;
+  }
+}
+
+// Pass 2: the n_blocks partials in BWD_GROUPS groups of ceil(n_blocks /
+// BWD_GROUPS) consecutive blocks (the last groups short or empty), each in
+// block order from 0.0, one thread per (group, sum); then the groups in
+// order from 0.0, each sum rounded once to f32 -> out[0 .. BWD_SUMS); then
+// one thread applies film_frame_vjp -> out[BWD_SUMS ..].
+__global__ void __launch_bounds__(BWD_REDUCE_THREADS)
+    ray_setup_bwd_reduce_kernel(const double* __restrict__ partial,
+                                int n_blocks, const float* __restrict__ eye,
+                                const float* __restrict__ lookat,
+                                const float* __restrict__ up,
+                                const float* __restrict__ fov, float width,
+                                float height, float* __restrict__ out) {
+  __shared__ double group_sum[BWD_GROUPS][BWD_SUMS];
+  __shared__ float sums[BWD_SUMS];
+  const int tid = threadIdx.x, g = tid / BWD_SUMS, k = tid % BWD_SUMS;
+  const int per = (n_blocks + BWD_GROUPS - 1) / BWD_GROUPS;
+  const int b0 = min(n_blocks, g * per), b1 = min(n_blocks, b0 + per);
+  double acc = 0.0;
+#pragma unroll 16
+  for (int b = b0; b < b1; ++b)
+    acc = __dadd_rn(acc, partial[(long long)b * BWD_SUMS + k]);
+  group_sum[g][k] = acc;
+  __syncthreads();
+  if (tid < BWD_SUMS) {
+    double total = 0.0;
+    for (int q = 0; q < BWD_GROUPS; ++q)
+      total = __dadd_rn(total, group_sum[q][tid]);
+    sums[tid] = __double2float_rn(total);
+    out[tid] = sums[tid];
+  }
+  __syncthreads();
+  if (tid == 0)
+    film_frame_vjp(eye, lookat, up, *fov, width, height, sums,
+                   out + BWD_SUMS);
 }
 
 // out0[k, r] = t0[k, hero[r]] for k < K0, out1[k, r] = t1[k, hero[r]] for
@@ -478,6 +731,36 @@ extern "C" int ray_setup(const long long* px, const long long* py,
   ray_setup_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       px, py, eye, lookat, up, fov, (uint32_t)sample, (float)width,
       (float)height, o, d, hero, seed, n_rays);
+  return (int)cudaGetLastError();
+}
+
+// The ray setup's backward for the rays of ray_setup's arguments (px, py,
+// the camera's tensors, sample, width, height) and their cotangents g_o,
+// g_d (3, n_rays) f32 -> out (BWD_SUMS + 10) f32: the twelve ray sums in
+// the fixed order, then d eye (3), d lookat (3), d up (3), d fov (1).
+// partial: scratch of ceil(n_rays / THREADS) x BWD_SUMS f64. Two launches;
+// returns the CUDA error code.
+extern "C" int ray_setup_bwd(const long long* px, const long long* py,
+                             const float* eye, const float* lookat,
+                             const float* up, const float* fov,
+                             long long sample, int width, int height,
+                             const float* g_o, const float* g_d,
+                             double* partial, float* out, long long n_rays,
+                             void* stream) {
+  if (n_rays < 0 || width < 1 || height < 1 || !grid_ok(n_rays, THREADS))
+    return (int)cudaErrorInvalidValue;
+  const long long n_blocks = (n_rays + THREADS - 1) / THREADS;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n_blocks > 0) {
+    ray_setup_bwd_kernel<<<(unsigned)n_blocks, THREADS, 0, st>>>(
+        px, py, eye, lookat, up, fov, (uint32_t)sample, (float)width,
+        (float)height, g_o, g_d, partial, n_rays);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  ray_setup_bwd_reduce_kernel<<<1, BWD_REDUCE_THREADS, 0, st>>>(
+      partial, (int)n_blocks, eye, lookat, up, fov, (float)width,
+      (float)height, out);
   return (int)cudaGetLastError();
 }
 

@@ -61,8 +61,12 @@ def _cross(a, b):
                         _fma(a[0], b[1], -(a[1] * b[0]))])
 
 
+def _norm(v):
+    return sqrt(_fma(v[2], v[2], _fma(v[1], v[1], v[0] * v[0])))
+
+
 def _normalize(v):
-    return v / sqrt(_fma(v[2], v[2], _fma(v[1], v[1], v[0] * v[0])))
+    return v / _norm(v)
 
 
 def camera_basis(eye, lookat, up):

@@ -5,7 +5,8 @@ Per render or loss, once: the sample-invariant operands
 hero-expanded spectra table and CIE window), as the JAX package's jitted
 scan over the samples hoists them (tracer/pallas.py:842-855). Per sample:
 the ray setup (seeds, camera rays, the hero draw; one kernel,
-``kernels.setup.ray_setup``, which computes the camera frame itself), the
+``kernels.setup.ray_setup``, which computes the camera frame itself, and
+whose backward kernel carries the rays' cotangent to the camera), the
 hero gather of the spectra and CIE planes in one launch
 (``ops.spectrum.HeroGatherFn``, whose backward sums in a fixed order), one
 trace kernel call, and the CIE conversion in torch. Every kernel runs on
@@ -113,9 +114,10 @@ tile_coords = xla_tracer.tile_coords
 def camera_planes(scene, width: int, height: int, px, py, sample):
     """Per-ray setup for pixels px, py (R,) at a 1-based sample index:
     seeds, jittered camera rays and the hero-wavelength draw
-    (``kernels.setup.ray_setup``: the ray-setup kernel on the card, which
-    raises where a camera tensor needs a gradient; its plain version on
-    the CPU).
+    (``kernels.setup.ray_setup``: the ray-setup kernel on the card, its
+    plain version on the CPU), differentiable with respect to the
+    camera's tensors (``kernels.setup.RaySetupFn``: on the card its
+    backward is the ray setup's backward kernel).
 
     Returns (o (3, R), d (3, R), hero (R,), seed (4, R))."""
     return setup_k.ray_setup(scene.camera, width, height, px, py, sample)

@@ -33,11 +33,13 @@ the retrace kernel, and the BVH traversal against the brute-force scan;
 the screen warp of the visibility gradients around kernels 1, 3 and 4
 against the plain versions; a world of one on NCCL (parallel/) against the
 single-process render and gradient; the per-sample setup's kernels (the
-ray setup at three cameras, its camera operands' checks, the hero gather
-of one or two tables in one launch and its fixed-order column sums)
+ray setup at three cameras, its camera operands' checks, its backward to
+the camera, the hero gather of one or two tables in one launch and its
+fixed-order column sums)
 against their plain versions, their launches on the training path and
-the gradient's bit-equality across runs; the setup operands built once
-per render and per loss.
+the gradient's bit-equality across runs; the camera gradients of renders
+through the ray setup's backward kernel against the CPU's; the setup
+operands built once per render and per loss.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -1424,18 +1426,100 @@ def test_card_ray_setup_kernel(cuda, n_rays):
             assert torch.equal(g, w_), name
 
 
-def test_card_ray_setup_refuses_camera_grad(cuda):
-    """The kernel has no backward: a camera that needs a gradient raises
-    under grad mode and runs under no_grad."""
-    scene, _ = scene_from_dict(presets.cornell_box(16, 16), device=cuda)
-    eye = scene.camera.eye.clone().requires_grad_(True)
-    scene = dataclasses.replace(
-        scene, camera=dataclasses.replace(scene.camera, eye=eye))
-    px, py = kt.tile_coords(16, 16, 0, cuda)
-    with pytest.raises(ValueError, match="no backward"):
-        kt.camera_planes(scene, 16, 16, px, py, 1)
-    with torch.no_grad():
-        assert kt.camera_planes(scene, 16, 16, px, py, 1)[1].shape == (3, 256)
+@pytest.mark.parametrize("n_rays", [4099, 1 << 20])
+@pytest.mark.parametrize("camera", ["cornell", "tilted", "wide"])
+def test_card_ray_setup_camera_grad(cuda, camera, n_rays):
+    """The ray setup's backward kernel: its twelve sums bit-equal to the
+    plain version's on the card (ray_setup_bwd_sums_reference of
+    ray_setup_bwd_terms) and across two launches, one launch each; its
+    camera gradients within 1e-5 of each leaf's largest entry of torch
+    autograd of ray_setup_reference for the same cotangents; RaySetupFn
+    launches it once in a backward, and gives the kernel's gradients."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+    from computeraytracer_tpu_torch.scene.data import CameraSpec
+
+    w, h = (1024, 1024) if n_rays == 1 << 20 else (67, 62)
+    cam = _camera_scene(camera, w, h, cuda).camera
+    px, py = kt.tile_coords(w, h, 0, cuda)
+    px, py = px[:n_rays], py[:n_rays]
+    g = np.random.default_rng(n_rays).standard_normal((6, n_rays))
+    g = torch.from_numpy(g.astype(np.float32)).to(cuda)
+    g_o, g_d = g[:3], g[3:]
+    names = ("eye", "lookat", "up", "fov")
+    leaves = [getattr(cam, n) for n in names]
+    for sample in (1, 2**32 - 3):
+        before = setup_k.launches_ray_setup_bwd
+        grads, sums = setup_k.ray_setup_bwd_launch(*leaves, w, h, px, py,
+                                                   sample, g_o, g_d)
+        again = setup_k.ray_setup_bwd_launch(*leaves, w, h, px, py, sample,
+                                             g_o, g_d)
+        assert setup_k.launches_ray_setup_bwd == before + 2
+        plain = setup_k.ray_setup_bwd_sums_reference(
+            setup_k.ray_setup_bwd_terms(cam, w, h, px, py, sample, g_o, g_d))
+        assert torch.equal(sums, plain) and torch.equal(sums, again[1])
+        for a, b in zip(grads, again[0]):
+            assert torch.equal(a, b)
+        want_leaves = [x.clone().requires_grad_(True) for x in leaves]
+        o, d, _, _ = setup_k.ray_setup_reference(CameraSpec(*want_leaves),
+                                                 w, h, px, py, sample)
+        want = torch.autograd.grad((o * g_o).sum() + (d * g_d).sum(),
+                                   want_leaves)
+        for name, got, w_ in zip(names, grads, want):
+            assert got.shape == w_.shape and torch.isfinite(got).all()
+            err = ((got - w_).abs().max() / w_.abs().max()).item()
+            assert err <= 1e-5, (name, sample, err)
+        fn_leaves = [x.clone().requires_grad_(True) for x in leaves]
+        o, d, _, _ = setup_k.ray_setup(CameraSpec(*fn_leaves), w, h, px, py,
+                                       sample)
+        before = setup_k.launches_ray_setup_bwd
+        fn_grads = torch.autograd.grad((o * g_o).sum() + (d * g_d).sum(),
+                                       fn_leaves)
+        assert setup_k.launches_ray_setup_bwd == before + 1
+        for a, b in zip(fn_grads, grads):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name,backward", [("cornell_box", "pallas"),
+                                           ("cornell_box", "pallas_taped"),
+                                           ("tie_mesh_scene", "pallas")])
+def test_card_ray_setup_camera_grad_render(cuda, name, backward):
+    """The gradient of sum(render_sample ** 2) at 64^2, depth 3, by eye,
+    lookat, up, fov and data1 on the card (the ray setup's backward kernel
+    behind the retrace or tape-fed kernel, or behind the guided replay of
+    tie_mesh_scene's mesh part) against the same gradient on the CPU
+    (plain versions): within 1e-3 of each leaf's largest entry, one
+    ray-setup backward launch."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+    from computeraytracer_tpu_torch.scene.data import CameraSpec
+
+    w = h = 64
+    cpu_scene, _ = scene_from_dict(getattr(presets, name)(w, h),
+                                   device="cpu")
+    static = mk.SceneStatic.from_scene(cpu_scene)
+    assert bool(static.mesh_parts) == (name == "tie_mesh_scene")
+    names = ("eye", "lookat", "up", "fov")
+
+    def grads(scene):
+        leaves = [getattr(scene.camera, n).clone().requires_grad_(True)
+                  for n in names]
+        d1 = scene.primitives.data1.clone().requires_grad_(True)
+        s = dataclasses.replace(
+            scene, camera=CameraSpec(*leaves),
+            primitives=dataclasses.replace(scene.primitives, data1=d1))
+        img = kt.render_sample(s, w, h, 1, 3, static=static,
+                               backward=backward)
+        return torch.autograd.grad((img ** 2).sum(), (*leaves, d1))
+
+    before = setup_k.launches_ray_setup_bwd
+    card = grads(cpu_scene.to(cuda))
+    assert setup_k.launches_ray_setup_bwd == before + 1
+    host = grads(cpu_scene)
+    for n, c, h_ in zip(names + ("data1",), card, host):
+        c, h_ = c.cpu().numpy(), h_.numpy()
+        assert np.isfinite(c).all() and np.abs(h_).max() > 0, n
+        scale = np.abs(h_).max()
+        np.testing.assert_allclose(c / scale, h_ / scale, rtol=0,
+                                   atol=1e-3, err_msg=n)
 
 
 @pytest.mark.parametrize("n_rays", [1, 2049, 1 << 20])

@@ -446,9 +446,8 @@ def test_setup_once_gradients_match_jax():
 
 
 def test_cpu_render_differentiates_the_camera():
-    """On the CPU the wrappers run the plain versions; the ray-setup
-    kernel refuses a camera that needs a gradient only on the card, so a
-    CPU render still differentiates the camera."""
+    """On the CPU the wrappers run the plain versions, and a render
+    differentiates the camera through RaySetupFn's plain backward."""
     scene, _ = scene_from_dict(presets.cornell_box(8, 8), device="cpu")
     eye = scene.camera.eye.clone().requires_grad_(True)
     cam_scene = dataclasses.replace(
