@@ -1,0 +1,10 @@
+"""The kernels' share of their roofline in a render cell, in percent: the
+least time of the traced frames' trace work (``harness/roofline.py``,
+counted by the reference) over the device time of every kernel in them.
+Nothing to read without device time."""
+
+
+def read(rec):
+    if rec["entry"] != "render" or rec["device_s"] <= 0:
+        return None
+    return 100.0 * rec["least_s"] * rec["units"] / rec["device_s"]
