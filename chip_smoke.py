@@ -208,13 +208,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    least 99% of pixels within phase 20's tolerance of the mesh kernel's
    render of the same sample and the mean XYZ within 1e-3. Its seconds,
    the loop steps of each cast and peak device memory.
-23. observability (utils/profiling.py, utils/debug.py): detect_chip()
-   is "h100"; measure_mean_depth on Cornell 256^2, depth 8, within 1% of
-   the mean trips of the taped forward kernel's tape on the same pixels;
-   roofline(1024, 1024, 4, 8, 18) at that depth, and phase 4's render
-   as a fraction of it; the CLI's render --profile DIR at 256^2, spp 1:
-   one trace that names the forward kernel; debug.checked passes a clean
-   64^2 eager render and raises on a NaN in spectra.
+23. observability (utils/profiling.py, utils/debug.py):
+   measure_mean_depth on Cornell 256^2, depth 8, within 1% of the mean
+   trips of the taped forward kernel's tape on the same pixels; the
+   CLI's render --profile DIR at 256^2, spp 1: one trace that names the
+   forward kernel and holds the spans crt:render and
+   crt:kernel:megakernel_fwd; debug.checked passes a clean 64^2 eager
+   render and raises on a NaN in spectra.
 24. the screen warp of the visibility gradients (ops/warp.py) around the
    kernels at the headline workload: value_and_grad of phase 7's loss
    with vis_grads=("screen",), backward "pallas" (kernels 1 and 3) and
@@ -1969,13 +1969,10 @@ def _bvh_mesh(mscene, mstatic):
                            f"{rel_mean}")
 
 
-def _observability(scene, render_s):
-    """Phase 23: detect_chip, roofline with a measured mean depth, the
-    CLI's --profile and debug.checked."""
+def _observability(scene):
+    """Phase 23: measure_mean_depth, the CLI's --profile and
+    debug.checked."""
     dev = scene.device
-    chip = profiling.detect_chip()
-    if chip != "h100":
-        raise RuntimeError(f"detect_chip returned {chip!r}")
     side = PROFILE_SIDE
     cscene, _ = scene_from_dict(presets.cornell_box(side, side), device=dev)
     cstatic = mk.SceneStatic.from_scene(cscene)
@@ -1986,20 +1983,13 @@ def _observability(scene, render_s):
                                                        px, py, 1))
     tape_i = mk.forward_taped(cstatic, MAX_DEPTH, RR_START, *cargs)[2]
     tape_mean = mk.trips_from_tape(tape_i).double().mean().item()
-    print(f"observability: detect_chip {chip!r}; measure_mean_depth "
+    print(f"observability: measure_mean_depth "
           f"(Cornell {side}x{side}, depth {MAX_DEPTH}) {m:.6f} in "
           f"{mean_s:.3f} s; mean trips of the taped forward's tape "
           f"{tape_mean:.6f} (rel {abs(m - tape_mean) / tape_mean:.3g})")
     if abs(m - tape_mean) > 1e-2 * tape_mean:
         raise RuntimeError(f"measure_mean_depth {m} off the tape's "
                            f"{tape_mean}")
-    n_prims = int(scene.primitives.category.shape[0])
-    roof = profiling.roofline(WIDTH, HEIGHT, SPP, MAX_DEPTH, n_prims,
-                              mean_depth=m, chip=chip)
-    print(f"roofline({WIDTH}, {HEIGHT}, {SPP}, {MAX_DEPTH}, {n_prims}, "
-          f"mean_depth={m:.4f}): " + json.dumps(roof.to_dict())
-          + f"; phase 4's render ({render_s:.3f} s) at "
-          f"{roof.fraction(render_s):.4g} of it")
     with tempfile.TemporaryDirectory() as tmp:
         logdir = os.path.join(tmp, "trace")
         argv = ["render", "--preset", "cornell_box", "--width", str(side),
@@ -2014,8 +2004,12 @@ def _observability(scene, render_s):
         size = os.path.getsize(traces[0])
     if "fwd_kernel" not in text:
         raise RuntimeError("the --profile trace names no forward kernel")
+    for span in ("crt:render", "crt:kernel:megakernel_fwd"):
+        if f'"{span}"' not in text:
+            raise RuntimeError(f"the --profile trace holds no {span} span")
     print(f"render --profile ({side}x{side}, spp 1): {cli_s:.2f} s, one "
-          f"trace of {size} bytes that names the forward kernel")
+          f"trace of {size} bytes that names the forward kernel and holds "
+          f"the spans crt:render and crt:kernel:megakernel_fwd")
     small = presets.cornell_box(CHECKED_SIDE, CHECKED_SIDE)
     sscene, _ = scene_from_dict(small, device=dev)
 
@@ -3473,7 +3467,7 @@ def main() -> int:
     # 23-25. observability, the screen warp around the kernels, the
     # boundary terms
     t0 = time.perf_counter()
-    _observability(scene, render_s)
+    _observability(scene)
     vis_launches = _screen_warp_kernels(scene, static)
     _boundary_terms(dev)
     _light_hemi_full(scene)

@@ -84,6 +84,7 @@ from computeraytracer_tpu_torch.kernels import meshpack
 from computeraytracer_tpu_torch.ops import intersect as isect
 from computeraytracer_tpu_torch.ops import rng
 from computeraytracer_tpu_torch.ops.camera import sqrt
+from computeraytracer_tpu_torch.utils import profiling
 
 T_MIN = 0.001
 ETA1, ETA2 = 1.0, 1.5
@@ -1095,10 +1096,13 @@ def _fn(lib_name, fn_name):
 
 
 def _launch(name, fn, device, *args):
-    """Call a kernel entry point on the device's current stream; raise on
-    a CUDA error."""
+    """Call a kernel entry point on the device's current stream, inside
+    the span ``kernel:<name>`` (``utils.profiling.annotate``); raise on a
+    CUDA error."""
     with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        with profiling.annotate("kernel:" + name):
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
@@ -1660,9 +1664,10 @@ class TraceFn(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         prims, rays, seeds, spect = ctx.saved_tensors
-        d_prims, d_rays, d_spect = backward(
-            ctx.static, ctx.max_depth, ctx.rr_start, prims, rays, seeds,
-            spect, g.contiguous())
+        with profiling.annotate("trace.backward"):
+            d_prims, d_rays, d_spect = backward(
+                ctx.static, ctx.max_depth, ctx.rr_start, prims, rays, seeds,
+                spect, g.contiguous())
         return None, None, None, d_prims, d_rays, None, d_spect
 
 
@@ -1708,9 +1713,10 @@ class TraceTapedFn(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         prims, spect, tape_f, tape_i = ctx.saved_tensors
-        d_prims, d_rays, d_spect = backward_from_tape(
-            ctx.static, ctx.max_depth, ctx.rr_start, prims, spect, tape_f,
-            tape_i, g.contiguous())
+        with profiling.annotate("trace.backward"):
+            d_prims, d_rays, d_spect = backward_from_tape(
+                ctx.static, ctx.max_depth, ctx.rr_start, prims, spect,
+                tape_f, tape_i, g.contiguous())
         return None, None, None, d_prims, d_rays, None, d_spect
 
 
@@ -1740,14 +1746,15 @@ def _replay_forward(ctx, trace, static, max_depth, rr_start, prims_full,
 
 def _replay_backward(ctx, g):
     """The cotangents of (prims_full, rays, spect): torch autograd of
-    ``tracer.replay.trace_replay`` on the saved winner tape."""
+    ``tracer.replay.trace_replay`` on the saved winner tape, in the span
+    ``trace.backward``."""
     from computeraytracer_tpu_torch.tracer import replay
 
     prims_full, rays, seeds, spect, cats, tape_idx, tape_sh = \
         ctx.saved_tensors
     leaves = [x.detach().requires_grad_(True)
               for x in (prims_full, rays, spect)]
-    with torch.enable_grad():
+    with profiling.annotate("trace.backward"), torch.enable_grad():
         out = replay.trace_replay(ctx.static, cats, leaves[0], leaves[1],
                                   seeds, leaves[2], tape_idx, tape_sh,
                                   ctx.max_depth, ctx.rr_start)

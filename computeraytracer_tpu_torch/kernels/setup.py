@@ -48,6 +48,7 @@ from computeraytracer_tpu_torch.kernels import megakernel as mk
 from computeraytracer_tpu_torch.ops import camera as cam_ops
 from computeraytracer_tpu_torch.ops import rng
 from computeraytracer_tpu_torch.scene.data import CameraSpec
+from computeraytracer_tpu_torch.utils import profiling
 
 # Rays per block of the backward's first level (csrc/setup.cu HERO_BLOCK),
 # the groups of blocks of its second (GROUPS), the most table columns the
@@ -147,8 +148,9 @@ class RaySetupFn(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g_o, g_d, _hero, _seed):
         eye, lookat, up, fov, px, py = ctx.saved_tensors
-        grads = ray_setup_bwd(CameraSpec(eye, lookat, up, fov), *ctx.film,
-                              px, py, ctx.sample, g_o, g_d)
+        with profiling.annotate("ray_setup.backward"):
+            grads = ray_setup_bwd(CameraSpec(eye, lookat, up, fov),
+                                  *ctx.film, px, py, ctx.sample, g_o, g_d)
         return (*(g if need else None
                   for g, need in zip(grads, ctx.needs_input_grad[:4])),
                 None, None, None, None, None)

@@ -24,6 +24,7 @@ from computeraytracer_tpu_torch import config as C
 from computeraytracer_tpu_torch.kernels import setup as setup_k
 from computeraytracer_tpu_torch.ops import rng
 from computeraytracer_tpu_torch.ops.intersect import take
+from computeraytracer_tpu_torch.utils import profiling
 
 # ---------------------------------------------------------------------------
 # Host-side (NumPy) preparation
@@ -150,10 +151,11 @@ class HeroGatherFn(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, *grads):
         (hero,) = ctx.saved_tensors
-        return (None, *(
-            setup_k.hero_column_sums(g.contiguous(), hero, ctx.n_cols)
-            if need else None
-            for g, need in zip(grads, ctx.needs_input_grad[1:])))
+        with profiling.annotate("gather.backward"):
+            return (None, *(
+                setup_k.hero_column_sums(g.contiguous(), hero, ctx.n_cols)
+                if need else None
+                for g, need in zip(grads, ctx.needs_input_grad[1:])))
 
 
 def gather_hero(table_exp: torch.Tensor, hero: torch.Tensor) -> torch.Tensor:

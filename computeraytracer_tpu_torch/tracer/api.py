@@ -21,6 +21,7 @@ from computeraytracer_tpu_torch.config import RenderConfig
 from computeraytracer_tpu_torch.ops import color
 from computeraytracer_tpu_torch.tracer import kernel as kernel_tracer
 from computeraytracer_tpu_torch.tracer import xla as xla_tracer
+from computeraytracer_tpu_torch.utils import profiling
 
 KERNELS = ("pallas", "xla")
 
@@ -82,23 +83,26 @@ def render(scene, cfg: Optional[RenderConfig] = None, **overrides):
     samples (the 1-based sample counter after the render)."""
     cfg = (cfg or RenderConfig()).replace(**overrides)
     _require_kernel(cfg.kernel)
-    if cfg.ray_chunk and cfg.ray_chunk > 0:
-        accum = _render_accumulate_chunked(scene, cfg)
-    elif cfg.kernel == "xla":
-        accum = xla_tracer.render_accumulate(
-            scene, cfg.width, cfg.height, cfg.spp, cfg.max_depth,
-            cfg.rr_start, cfg.first_sample)
-    else:
-        accum = kernel_tracer.render_accumulate(
-            scene, cfg.width, cfg.height, cfg.spp, cfg.max_depth,
-            cfg.rr_start, cfg.first_sample)
-    # the reference divides the never-cleared accumulator by the sample
-    # counter
-    total = cfg.first_sample + cfg.spp - 1
-    mean = accum / float(total)
+    with profiling.annotate("render"):
+        if cfg.ray_chunk and cfg.ray_chunk > 0:
+            accum = _render_accumulate_chunked(scene, cfg)
+        elif cfg.kernel == "xla":
+            accum = xla_tracer.render_accumulate(
+                scene, cfg.width, cfg.height, cfg.spp, cfg.max_depth,
+                cfg.rr_start, cfg.first_sample)
+        else:
+            accum = kernel_tracer.render_accumulate(
+                scene, cfg.width, cfg.height, cfg.spp, cfg.max_depth,
+                cfg.rr_start, cfg.first_sample)
+        # the reference divides the never-cleared accumulator by the
+        # sample counter
+        total = cfg.first_sample + cfg.spp - 1
+        with profiling.annotate("finish"):
+            mean = accum / float(total)
+            srgb = color.xyz_to_srgb(mean)
     return {
         "accum_xyz": accum,
         "mean_xyz": mean,
-        "srgb": color.xyz_to_srgb(mean),
+        "srgb": srgb,
         "samples": total,
     }

@@ -88,6 +88,7 @@ from computeraytracer_tpu_torch.ops import rng
 from computeraytracer_tpu_torch.ops import spectrum as spec
 from computeraytracer_tpu_torch.ops import warp
 from computeraytracer_tpu_torch.tracer import xla as xla_tracer
+from computeraytracer_tpu_torch.utils import profiling
 
 SceneStatic = mk.SceneStatic
 
@@ -489,13 +490,19 @@ def render_pixels_planar(scene, width: int, height: int, px, py, sample,
     if setup is None:
         setup = setup_operands(scene, static, backward)
     _check_setup(setup, scene, None if backward == "replay" else static)
-    o, d, hero, seed = camera_planes(scene, width, height, px, py, sample)
-    spect, cie_p = spec.gather_hero_tables(
-        (setup.spect_table, setup.cie_table), hero)
-    radiance = _dispatch(static, max_depth, rr_start, backward, wavefront,
-                         *_operands(setup.prims, o, d, seed, spect),
-                         mesh_arrays, scene.primitives.category)
-    return spec.spectral_to_xyz_p(cie_p, radiance)
+    with profiling.annotate("ray_setup"):
+        o, d, hero, seed = camera_planes(scene, width, height, px, py,
+                                         sample)
+    with profiling.annotate("gather"):
+        spect, cie_p = spec.gather_hero_tables(
+            (setup.spect_table, setup.cie_table), hero)
+    with profiling.annotate("trace"):
+        radiance = _dispatch(static, max_depth, rr_start, backward,
+                             wavefront,
+                             *_operands(setup.prims, o, d, seed, spect),
+                             mesh_arrays, scene.primitives.category)
+    with profiling.annotate("xyz"):
+        return spec.spectral_to_xyz_p(cie_p, radiance)
 
 
 def render_sample_planar(scene, width: int, height: int, sample,
@@ -607,10 +614,11 @@ def render_accumulate(scene, width: int, height: int, spp: int,
     """Sum of samples first_sample .. first_sample+spp-1 -> XYZ (H, W, 3),
     accumulated in sample order. Mesh packs and the setup operands
     (``setup_operands``) are built once."""
-    static = SceneStatic.from_scene(scene)
-    packs = mesh_packs_for(scene, static) if static.mesh_parts else None
-    setup = setup_operands(scene, static, backward,
-                           *tile_coords(width, height, 0, scene.device))
+    with profiling.annotate("setup"):
+        static = SceneStatic.from_scene(scene)
+        packs = mesh_packs_for(scene, static) if static.mesh_parts else None
+        setup = setup_operands(scene, static, backward,
+                               *tile_coords(width, height, 0, scene.device))
     accum = torch.zeros((3, height, width), dtype=torch.float32,
                         device=scene.device)
     for s in range(first_sample, first_sample + spp):

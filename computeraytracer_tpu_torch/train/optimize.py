@@ -38,6 +38,7 @@ from computeraytracer_tpu_torch.kernels import meshpack
 from computeraytracer_tpu_torch.parallel import render_sharded
 from computeraytracer_tpu_torch.tracer import kernel as kernel_tracer
 from computeraytracer_tpu_torch.tracer import xla as xla_tracer
+from computeraytracer_tpu_torch.utils import profiling
 
 # Leaves of Scene that may be trained.
 GEOMETRY_LEAVES = ("data1", "data2", "data3")
@@ -124,13 +125,15 @@ def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
                 scene, width, height, s, max_depth, rr_start, use_remat,
                 vis_grads=vis_grads)
         return accum / float(spp)
-    if kernel_static is None:
-        kernel_static = kernel_tracer.SceneStatic.from_scene(scene)
-    packs = (kernel_tracer.mesh_packs_for(scene, kernel_static, kernel_plans)
-             if kernel_static.mesh_parts else None)
-    setup = kernel_tracer.setup_operands(
-        scene, kernel_static, backward,
-        *kernel_tracer.tile_coords(width, height, 0, scene.device))
+    with profiling.annotate("setup"):
+        if kernel_static is None:
+            kernel_static = kernel_tracer.SceneStatic.from_scene(scene)
+        packs = (kernel_tracer.mesh_packs_for(scene, kernel_static,
+                                              kernel_plans)
+                 if kernel_static.mesh_parts else None)
+        setup = kernel_tracer.setup_operands(
+            scene, kernel_static, backward,
+            *kernel_tracer.tile_coords(width, height, 0, scene.device))
     for s in samples:
         accum = accum + kernel_tracer.render_sample_planar(
             scene, width, height, s, max_depth, rr_start, kernel_static,
@@ -190,19 +193,22 @@ def make_train_step(static_scene, optimizer, width, height, spp, max_depth,
         frozen[[int(r) for r in spectra_rows]] = False
 
     def step(params, target, first_sample):
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, target, first_sample)
-        loss.backward()
-        with torch.no_grad():
-            keep = None
-            if frozen is not None and "spectra" in params:
-                keep = params["spectra"][frozen].clone()
-            optimizer.step()
-            if keep is not None:
-                params["spectra"][frozen] = keep
-            if "spectra" in params:
-                params["spectra"].clamp_(min=0.0)
-        return loss.detach()
+        with profiling.annotate("train.step"):
+            optimizer.zero_grad(set_to_none=True)
+            with profiling.annotate("train.loss"):
+                loss = loss_fn(params, target, first_sample)
+            with profiling.annotate("train.backward"):
+                loss.backward()
+            with profiling.annotate("train.optimizer"), torch.no_grad():
+                keep = None
+                if frozen is not None and "spectra" in params:
+                    keep = params["spectra"][frozen].clone()
+                optimizer.step()
+                if keep is not None:
+                    params["spectra"][frozen] = keep
+                if "spectra" in params:
+                    params["spectra"].clamp_(min=0.0)
+            return loss.detach()
 
     return step
 
