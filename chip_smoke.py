@@ -289,6 +289,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    each step's device time with and without camera leaves in turns
    (without, with, with, without), beside the card's name and power
    limit. Phases 4, 7 and 10 launch the ray setup's backward 0 times.
+31. the frame graph (tracer/kernel.py render_accumulate): 20 served
+   frames of phase 4's workload on a scene of their own, eagerly (the
+   frame graphs set aside, as a key's first call runs) and replayed, in
+   turns (eager, graph, graph, eager), each frame synchronised: host ms a
+   frame (median, mean) of each turn, the graph counters (no capture, 40
+   replays, 40 eager frames), SPP forwards, ray setups and gathers a
+   frame either way, and every graphed frame's accum, mean and sRGB
+   bit-equal to the eager frame of its samples.
 Then one JSON line of kernels, each with its bound (the larger of the
 bytes it must move over 3.35 TB/s and a lower count of its float
 operations over 67 TFLOP/s, and of the ray setup's and its backward's
@@ -2958,6 +2966,76 @@ def _camera_grads(scene, static, d_rays, step_grads, setup_render,
     }
 
 
+FRAME_TURN = 20  # served frames a turn of phase 31
+
+
+def _frame_graph_turns(dev):
+    """Phase 31: FRAME_TURN served frames (``render``, phase 4's workload,
+    a scene of its own) eagerly and through render_accumulate's frame
+    graph, in turns (eager, graph, graph, eager), each frame synchronised
+    as the benchmark's serve cell does: host ms a frame, the graph
+    counters, the forward and setup launches of each turn (SPP of each a
+    frame), and every graphed frame's accum, mean and sRGB bit-equal to
+    the eager frame of the same samples. An eager frame runs with the
+    frame graphs set aside, as a key's first call does."""
+    import collections
+
+    scene, _ = scene_from_dict(presets.cornell_box(WIDTH, HEIGHT), device=dev)
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=SPP,
+                       max_depth=MAX_DEPTH, kernel="pallas")
+
+    def frame(graphed, k):
+        if graphed:
+            return render(scene, cfg, first_sample=1 + SPP * k)
+        kept = kt._frame_graphs
+        kt._frame_graphs = collections.OrderedDict()
+        try:
+            return render(scene, cfg, first_sample=1 + SPP * k)
+        finally:
+            kt._frame_graphs = kept
+
+    for k in range(2):  # the key seen, then captured
+        frame(True, k)
+    torch.cuda.synchronize()
+    counters = (kt.graph_captures, kt.graph_replays, kt.graph_eager)
+    turns, images = [], {}
+    for graphed in (False, True, True, False):
+        _reset_counters()
+        ms, outs = [], []
+        for k in range(FRAME_TURN):
+            t0 = time.perf_counter()
+            out = frame(graphed, k)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
+        launches = (mk.launches, setup_k.launches_ray_setup,
+                    setup_k.launches_gather)
+        if launches != (FRAME_TURN * SPP,) * 3:
+            raise RuntimeError(f"a turn of {FRAME_TURN} frames (graphed "
+                               f"{graphed}) launched {launches}")
+        images.setdefault(graphed, outs)
+        turns.append(("graph" if graphed else "eager", float(np.median(ms)),
+                      float(np.mean(ms))))
+    counted = tuple(b - a for a, b in zip(counters, (
+        kt.graph_captures, kt.graph_replays, kt.graph_eager)))
+    if counted != (0, 2 * FRAME_TURN, 2 * FRAME_TURN):
+        raise RuntimeError(f"graph captures, replays and eager frames "
+                           f"{counted}, expected (0, {2 * FRAME_TURN}, "
+                           f"{2 * FRAME_TURN})")
+    for k, (e, g) in enumerate(zip(images[False], images[True])):
+        for name in ("accum_xyz", "mean_xyz", "srgb"):
+            if not torch.equal(e[name], g[name]):
+                raise RuntimeError(f"graphed frame {k} {name} differs from "
+                                   "the eager frame's")
+    print(f"phase 31 (frame graph): Cornell {WIDTH}x{HEIGHT} spp {SPP} "
+          f"depth {MAX_DEPTH}, {FRAME_TURN} served frames a turn; frame ms "
+          f"(median, mean) in turns "
+          f"{[(nm, round(a, 4), round(b, 4)) for nm, a, b in turns]}; "
+          f"captures, replays, eager frames {counted}; launches a frame "
+          f"{SPP} forwards, {SPP} ray setups, {SPP} gathers either way; "
+          f"accum, mean and sRGB bit-equal")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -3492,6 +3570,10 @@ def main() -> int:
                                   "pallas_taped": grads_taped},
         setup_render, setup_step, smi))
     print(f"chip_smoke phases 1-30: {time.perf_counter() - t_start:.1f} s")
+
+    # 31. served frames eager and through the frame graph, in turns
+    _frame_graph_turns(dev)
+    print(f"chip_smoke phases 1-31: {time.perf_counter() - t_start:.1f} s")
 
     # bounds at the shapes timed above
     b_fwd, b_taped = bounds["forward"], bounds["taped"]

@@ -251,7 +251,8 @@ __global__ void __launch_bounds__(THREADS)
                      const float* __restrict__ eye,
                      const float* __restrict__ lookat,
                      const float* __restrict__ up,
-                     const float* __restrict__ fov, uint32_t sample,
+                     const float* __restrict__ fov,
+                     const long long* __restrict__ base, long long sample,
                      float width, float height, float* __restrict__ o,
                      float* __restrict__ d, long long* __restrict__ hero,
                      long long* __restrict__ seed, long long R) {
@@ -260,9 +261,13 @@ __global__ void __launch_bounds__(THREADS)
     film_frame(eye, lookat, up, *fov, width, height, cam);
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = r < R;
+  // the sample's low 32 bits: base + sample, base read from the device
+  const uint32_t smp = (uint32_t)(
+      (unsigned long long)(base ? __ldg(base) : 0LL) +
+      (unsigned long long)sample);
   float s, t;
   uint32_t sd[4];
-  film_point(live ? px[r] : 0, live ? py[r] : 0, sample, width, height, s, t,
+  film_point(live ? px[r] : 0, live ? py[r] : 0, smp, width, height, s, t,
              sd);
   __syncthreads();  // the frame
   if (!live) return;
@@ -714,22 +719,24 @@ bool grid_ok(long long n, long long per_block) {
 }  // namespace
 
 // px, py (n_rays,) int64 pixel coordinates; eye, lookat, up (3,) and fov ()
-// f32, the camera's own tensors; sample the 1-based sample index (its low 32
-// bits are the seed's word) -> o, d (3, n_rays) f32, hero (n_rays,) int64,
-// seed (4, n_rays) int64 u32 words. Returns the CUDA error code of the
-// launch.
+// f32, the camera's own tensors; the 1-based sample index is *base + sample,
+// or sample where base is null (its low 32 bits are the seed's word; base,
+// one int64 on the device, is read by the kernel, so that a captured launch
+// renders whatever sample the host wrote there before the replay) -> o, d
+// (3, n_rays) f32, hero (n_rays,) int64, seed (4, n_rays) int64 u32 words.
+// Returns the CUDA error code of the launch.
 extern "C" int ray_setup(const long long* px, const long long* py,
                          const float* eye, const float* lookat,
-                         const float* up, const float* fov, long long sample,
-                         int width, int height, float* o, float* d,
-                         long long* hero, long long* seed, long long n_rays,
-                         void* stream) {
+                         const float* up, const float* fov,
+                         const long long* base, long long sample, int width,
+                         int height, float* o, float* d, long long* hero,
+                         long long* seed, long long n_rays, void* stream) {
   if (n_rays < 0 || width < 1 || height < 1 || !grid_ok(n_rays, THREADS))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
   ray_setup_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      px, py, eye, lookat, up, fov, (uint32_t)sample, (float)width,
+      px, py, eye, lookat, up, fov, base, sample, (float)width,
       (float)height, o, d, hero, seed, n_rays);
   return (int)cudaGetLastError();
 }

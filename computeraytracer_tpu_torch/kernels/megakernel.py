@@ -1078,7 +1078,7 @@ SIGNATURES = {
     "pair_closest": "pppppqipp",
     "pair_any": "ppppqipp",
     "pair_timed": "pppppqiipp",
-    "ray_setup": "ppppppqiippppqp",
+    "ray_setup": "pppppppqiippppqp",
     "ray_setup_bwd": "ppppppqiippppqp",
     "hero_gather": "pppppiiiqp",
     "hero_column_sums": "pppppiiqip",

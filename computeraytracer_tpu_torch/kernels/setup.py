@@ -7,6 +7,10 @@ torch version beside it.
   ``camera.camera_rays_p`` -> ``spectrum.sample_wavelengths_p``), bit for
   bit; ``ray_setup_reference`` is that composition in torch. The kernel
   reads the camera's own tensors and computes the camera frame itself.
+  Given ``base``, an int64 scalar on the device, it renders sample
+  ``base + sample``, reading base when it runs: a captured launch
+  (``tracer/kernel.py`` ``render_accumulate``'s frame graph) renders
+  whatever sample was written there before the replay.
   ``RaySetupFn`` differentiates it with respect to the camera.
 - ``ray_setup_bwd``: its backward to eye, lookat, up and fov (the JAX
   kernel path's XLA AD of ``camera_rays_p``, tracer/pallas.py:709-711):
@@ -79,10 +83,14 @@ def hero_index(u: torch.Tensor) -> torch.Tensor:
     return (u * float(C.N_LAMBDA)).to(torch.int64)
 
 
-def ray_setup_reference(camera, width: int, height: int, px, py, sample):
+def ray_setup_reference(camera, width: int, height: int, px, py, sample,
+                        base=None):
     """The plain per-ray setup: seeds, stratified camera rays and the hero
-    draw for pixels px, py (R,) at a 1-based sample index -> (o (3, R),
-    d (3, R), hero (R,) int64, seed (4, R) int64 u32 words)."""
+    draw for pixels px, py (R,) at a 1-based sample index (base + sample
+    where base, an int64 scalar tensor, is given) -> (o (3, R), d (3, R),
+    hero (R,) int64, seed (4, R) int64 u32 words)."""
+    if base is not None:
+        sample = int(base) + sample
     seed = rng.seed_pixel_p(px, py, sample)
     o, d, seed = cam_ops.camera_rays_p(camera.eye, camera.lookat, camera.up,
                                        camera.fov, width, height, px, py,
@@ -91,22 +99,23 @@ def ray_setup_reference(camera, width: int, height: int, px, py, sample):
     return o, d, hero_index(u), seed
 
 
-def ray_setup(camera, width: int, height: int, px, py, sample):
+def ray_setup(camera, width: int, height: int, px, py, sample, base=None):
     """``ray_setup_reference``'s outputs: its plain version for pixels on
     the CPU; on a CUDA device one launch of the ray-setup kernel
     (``ray_setup_launch``) on the camera's own tensors, whose outputs are
     the plain version's bit for bit (o contiguous, not an expanded view).
-    Differentiable with respect to the camera's tensors (``RaySetupFn``)."""
+    Differentiable with respect to the camera's tensors (``RaySetupFn``).
+    base: None, or the int64 scalar that the sample is added to."""
     return RaySetupFn.apply(camera.eye, camera.lookat, camera.up, camera.fov,
-                            width, height, px, py, sample)
+                            width, height, px, py, sample, base)
 
 
-def _ray_setup(eye, lookat, up, fov, width, height, px, py, sample):
+def _ray_setup(eye, lookat, up, fov, width, height, px, py, sample, base):
     if px.device.type == "cpu":
         return ray_setup_reference(CameraSpec(eye, lookat, up, fov), width,
-                                   height, px, py, sample)
+                                   height, px, py, sample, base)
     return ray_setup_launch(eye, lookat, up, fov, width, height, px, py,
-                            sample)
+                            sample, base)
 
 
 class RaySetupFn(torch.autograd.Function):
@@ -117,19 +126,24 @@ class RaySetupFn(torch.autograd.Function):
     gradient for each camera tensor that needs one. hero and seed are not
     differentiable; the pixels, sample and film size get no gradient. With
     no gradient wanted (grad mode off, or no camera tensor that needs one)
-    it records nothing and is one launch of the forward kernel.
+    it records nothing and is one launch of the forward kernel; only then
+    may a base be given (a gradient is taken at a host sample).
 
         o, d, hero, seed = RaySetupFn.apply(eye, lookat, up, fov, width,
-                                            height, px, py, sample)
+                                            height, px, py, sample, base)
     """
 
     @classmethod
-    def apply(cls, eye, lookat, up, fov, width, height, px, py, sample):
+    def apply(cls, eye, lookat, up, fov, width, height, px, py, sample,
+              base=None):
         # needs_input_grad ignores no_grad: decide here
         if not (torch.is_grad_enabled()
                 and any(x.requires_grad for x in (eye, lookat, up, fov))):
             return _ray_setup(eye, lookat, up, fov, width, height, px, py,
-                              sample)
+                              sample, base)
+        if base is not None:
+            raise ValueError("a camera gradient is taken at a host sample: "
+                             "pass the sample, not a base")
         return super().apply(eye, lookat, up, fov, width, height, px, py,
                              sample)
 
@@ -139,7 +153,7 @@ class RaySetupFn(torch.autograd.Function):
         ctx.sample = sample
         ctx.save_for_backward(eye, lookat, up, fov, px, py)
         o, d, hero, seed = _ray_setup(eye, lookat, up, fov, width, height,
-                                      px, py, sample)
+                                      px, py, sample, None)
         ctx.mark_non_differentiable(hero, seed)
         # the plain version's o is a view of eye
         return o.contiguous(), d, hero, seed
@@ -157,12 +171,13 @@ class RaySetupFn(torch.autograd.Function):
 
 
 def ray_setup_launch(eye, lookat, up, fov, width: int, height: int, px, py,
-                     sample):
+                     sample, base=None):
     """One launch of the ray-setup kernel for pixels px, py (R,) int64 on
     their CUDA device, with the camera's eye, lookat, up (3,) and fov ()
     f32 contiguous tensors there (checked, never copied) ->
     ``ray_setup``'s outputs. The kernel computes the camera frame
-    (``ops/camera.py`` ``film_frame``) itself."""
+    (``ops/camera.py`` ``film_frame``) itself. base: None, or an int64
+    scalar there (checked) that the kernel reads and adds to sample."""
     global launches_ray_setup
     dev = px.device
     mk._require_cuda(dev)
@@ -173,13 +188,17 @@ def ray_setup_launch(eye, lookat, up, fov, width: int, height: int, px, py,
     for name, t, shape in (("eye", eye, (3,)), ("lookat", lookat, (3,)),
                            ("up", up, (3,)), ("fov", fov, ())):
         mk._check_tensor(f"camera {name}", t, shape, torch.float32, dev)
+    if base is not None:
+        mk._check_tensor("sample base", base, (), torch.int64, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     i64 = dict(dtype=torch.int64, device=dev)
     o, d = torch.empty((3, R), **f32), torch.empty((3, R), **f32)
     hero, seed = torch.empty((R,), **i64), torch.empty((4, R), **i64)
     mk._launch("ray_setup", mk._fn("setup", "ray_setup"), dev, px.data_ptr(),
                py.data_ptr(), eye.data_ptr(), lookat.data_ptr(),
-               up.data_ptr(), fov.data_ptr(), int(sample) & rng.MASK,
+               up.data_ptr(), fov.data_ptr(),
+               None if base is None else base.data_ptr(),
+               int(sample) & rng.MASK,
                int(width), int(height), o.data_ptr(), d.data_ptr(),
                hero.data_ptr(), seed.data_ptr(), R)
     launches_ray_setup += 1

@@ -59,6 +59,14 @@ their mesh mode. A mesh part's chunk BVH is packed from a plan fixed on
 the initial geometry (``mesh_plans``, as ``kernels/meshpack.py``
 ``plan_scene_mesh`` makes them), so its boxes follow the live vertices.
 
+``render_accumulate`` replays a frame as one CUDA graph where it can:
+the frame body of a CUDA scene without mesh parts, traced with no
+gradient wanted, is captured the second time a call of the same key
+(``frame_graph_key``) comes, with the ray setups reading the sample from
+a device scalar (``kernels.setup.ray_setup``'s base), and replayed from
+then on (``eager_reasons`` says when it is not). The graph is the eager
+body recorded, so its images are the eager frame's bit for bit.
+
 ``wavefront=True`` renders scenes with mesh parts through the wavefront
 (``wavefront_forward``, the JAX package's ``_wavefront_forward``): one
 shade-step launch per bounce (``kernels.megakernel.shade_step``) with the
@@ -73,6 +81,7 @@ in the JAX package.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 
@@ -112,16 +121,19 @@ BACKWARDS = ("pallas", "pallas_taped", "none", "xla", "replay")
 tile_coords = xla_tracer.tile_coords
 
 
-def camera_planes(scene, width: int, height: int, px, py, sample):
-    """Per-ray setup for pixels px, py (R,) at a 1-based sample index:
-    seeds, jittered camera rays and the hero-wavelength draw
+def camera_planes(scene, width: int, height: int, px, py, sample,
+                  base=None):
+    """Per-ray setup for pixels px, py (R,) at a 1-based sample index
+    (base + sample where base, an int64 scalar on the scene's device, is
+    given): seeds, jittered camera rays and the hero-wavelength draw
     (``kernels.setup.ray_setup``: the ray-setup kernel on the card, its
     plain version on the CPU), differentiable with respect to the
     camera's tensors (``kernels.setup.RaySetupFn``: on the card its
     backward is the ray setup's backward kernel).
 
     Returns (o (3, R), d (3, R), hero (R,), seed (4, R))."""
-    return setup_k.ray_setup(scene.camera, width, height, px, py, sample)
+    return setup_k.ray_setup(scene.camera, width, height, px, py, sample,
+                             base)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -469,11 +481,17 @@ def render_pixels_planar(scene, width: int, height: int, px, py, sample,
                          static: SceneStatic | None = None,
                          backward: str = "pallas", mesh_packs=None,
                          wavefront: bool | None = None, mesh_plans=None,
-                         setup: SetupOperands | None = None):
+                         setup: SetupOperands | None = None,
+                         sample_base=None):
     """Pixels px, py (R,) at a 1-based sample index -> XYZ (3, R). setup:
     ``setup_operands(scene, static, backward)``, built here when None;
-    the spectra and CIE planes are gathered in one launch."""
+    the spectra and CIE planes are gathered in one launch. sample_base:
+    None, or an int64 scalar on the scene's device that the ray setup
+    reads and adds to sample (``camera_planes``' base)."""
     if backward == "xla":
+        if sample_base is not None:
+            raise ValueError("backward='xla' recomputes the eager tracer at "
+                             "a host sample: pass the sample, not a base")
         def fwd():
             return render_pixels_planar(
                 scene, width, height, px, py, sample, max_depth, rr_start,
@@ -492,7 +510,7 @@ def render_pixels_planar(scene, width: int, height: int, px, py, sample,
     _check_setup(setup, scene, None if backward == "replay" else static)
     with profiling.annotate("ray_setup"):
         o, d, hero, seed = camera_planes(scene, width, height, px, py,
-                                         sample)
+                                         sample, sample_base)
     with profiling.annotate("gather"):
         spect, cie_p = spec.gather_hero_tables(
             (setup.spect_table, setup.cie_table), hero)
@@ -510,17 +528,19 @@ def render_sample_planar(scene, width: int, height: int, sample,
                          static: SceneStatic | None = None,
                          backward: str = "pallas", mesh_packs=None,
                          wavefront: bool | None = None, mesh_plans=None,
-                         setup: SetupOperands | None = None):
+                         setup: SetupOperands | None = None,
+                         sample_base=None):
     """One sample of the whole film -> XYZ (3, height, width). setup, as
     ``render_pixels_planar``'s, holds the film's pixel coordinates when
-    built with them."""
+    built with them; sample_base as ``render_pixels_planar``'s."""
     if setup is not None and setup.px is not None:
         px, py = setup.px, setup.py
     else:
         px, py = tile_coords(width, height, 0, scene.device)
     xyz = render_pixels_planar(scene, width, height, px, py, sample,
                                max_depth, rr_start, static, backward,
-                               mesh_packs, wavefront, mesh_plans, setup)
+                               mesh_packs, wavefront, mesh_plans, setup,
+                               sample_base)
     return xyz.reshape(3, height, width)
 
 
@@ -608,21 +628,194 @@ def render_sample(scene, width: int, height: int, sample,
                                 wavefront, mesh_plans).permute(1, 2, 0)
 
 
-def render_accumulate(scene, width: int, height: int, spp: int,
-                      max_depth: int = 8, rr_start: int = 1,
-                      first_sample: int = 1, backward: str = "pallas"):
-    """Sum of samples first_sample .. first_sample+spp-1 -> XYZ (H, W, 3),
-    accumulated in sample order. Mesh packs and the setup operands
-    (``setup_operands``) are built once."""
+# render_accumulate's frames by frame_graph_key, the newest last: at most
+# GRAPH_ENTRIES, each a key seen once (no graph yet) or a captured graph
+# with its private memory pool (~0.4 GB at 1024x1024, spp 4).
+GRAPH_ENTRIES = 2
+# The backwards whose frames may be graphed: those with a kernel forward.
+GRAPH_BACKWARDS = ("pallas", "pallas_taped", "none")
+_frame_graphs = collections.OrderedDict()
+# render_accumulate's frames: captured as a graph, replayed from one, and
+# run eagerly (every call on the CPU among them).
+graph_captures = 0
+graph_replays = 0
+graph_eager = 0
+# The modules whose launch counters (ints named launches*) count a replayed
+# frame's launches as its eager run counts them.
+_COUNTED = (mk, setup_k, bn)
+
+
+@dataclasses.dataclass
+class FrameGraph:
+    """A frame of ``render_accumulate`` for one ``frame_graph_key``: the
+    scene's tensors (held, so that no id in the key is reused while it
+    lives) and its static. Once captured: the graph, the device tables its
+    launches read (held, whatever the tables' cache drops), the int64
+    scalar its ray setups add their sample to, its output (H, W, 3) and
+    the launch counts of one frame."""
+    tensors: tuple
+    static: SceneStatic
+    graph: object = None
+    tables: tuple = ()
+    base: torch.Tensor | None = None
+    out: torch.Tensor | None = None
+    launches: dict = dataclasses.field(default_factory=dict)
+
+
+def _scene_tensors(scene) -> tuple:
+    """Every tensor of the scene, in field order."""
+    out = []
+    for f in dataclasses.fields(scene):
+        v = getattr(scene, f.name)
+        out.extend(_scene_tensors(v) if dataclasses.is_dataclass(v) else (v,))
+    return tuple(out)
+
+
+def frame_graph_key(scene, width: int, height: int, spp: int,
+                    max_depth: int, rr_start: int, backward: str) -> tuple:
+    """The key of a ``render_accumulate`` call's frame (any device): the
+    call's shape and knobs, the scene's device, each scene tensor's
+    identity and storage (the graph reads them at their addresses, so an
+    in-place edit of a spectrum or a vertex shows in the next replay), and
+    the version counters of its integer tensors (``SceneStatic.from_scene``
+    reads them on the host)."""
+    tensors = _scene_tensors(scene)
+    return (int(width), int(height), int(spp), int(max_depth),
+            int(rr_start), backward, scene.device,
+            tuple((id(t), t.data_ptr()) for t in tensors),
+            tuple(t._version for t in tensors if not t.is_floating_point()))
+
+
+def eager_reasons(scene, backward: str) -> tuple:
+    """Why ``render_accumulate`` runs a call's frame eagerly, every reason
+    that holds, empty where it may graph it: "device" (the scene is not on
+    a CUDA device), "backward" (not one of GRAPH_BACKWARDS), "grad" (grad
+    mode is on and a scene leaf requires grad). A scene with mesh parts,
+    which its first frame finds, is kept eager too (the mesh paths read ray
+    counts back to the host)."""
+    out = []
+    if scene.device.type != "cuda":
+        out.append("device")
+    if backward not in GRAPH_BACKWARDS:
+        out.append("backward")
+    if torch.is_grad_enabled() and any(leaf.requires_grad
+                                       for leaf in scene_leaves(scene)):
+        out.append("grad")
+    return tuple(out)
+
+
+def _launch_counts() -> dict:
+    return {(m, k): v for m in _COUNTED for k, v in vars(m).items()
+            if k.startswith("launches") and isinstance(v, int)}
+
+
+def _add_launches(counts: dict, sign: int) -> None:
+    for (m, k), v in counts.items():
+        setattr(m, k, getattr(m, k) + sign * v)
+
+
+def _frame(scene, width, height, spp, max_depth, rr_start, first, backward,
+           static=None, base=None):
+    """``render_accumulate``'s body, run eagerly or captured -> (static,
+    the sum of samples first .. first+spp-1, or base + first .. where base
+    is given, as XYZ (H, W, 3))."""
     with profiling.annotate("setup"):
-        static = SceneStatic.from_scene(scene)
+        if static is None:
+            static = SceneStatic.from_scene(scene)
         packs = mesh_packs_for(scene, static) if static.mesh_parts else None
         setup = setup_operands(scene, static, backward,
                                *tile_coords(width, height, 0, scene.device))
     accum = torch.zeros((3, height, width), dtype=torch.float32,
                         device=scene.device)
-    for s in range(first_sample, first_sample + spp):
+    for s in range(first, first + spp):
         accum = accum + render_sample_planar(scene, width, height, s,
                                              max_depth, rr_start, static,
-                                             backward, packs, setup=setup)
-    return accum.permute(1, 2, 0).contiguous()
+                                             backward, packs, setup=setup,
+                                             sample_base=base)
+    return static, accum.permute(1, 2, 0).contiguous()
+
+
+def _capture(entry: FrameGraph, scene, width, height, spp, max_depth,
+             rr_start, backward) -> None:
+    """Capture the entry's frame, samples base + 0 .. spp-1, on a side
+    stream of the scene's device, into a memory pool of its own; the
+    capture's launches are not counted. Not ``torch.cuda.graph``, which
+    first synchronizes and empties the allocator's cache: that costs the
+    capture ~7 ms at 1024x1024, and the next eager frame's allocations
+    about as much again."""
+    global graph_captures
+    dev = scene.device
+    with torch.cuda.device(dev):
+        entry.tables = mk._tables(entry.static, dev)  # built before capture
+        entry.base = torch.zeros((), dtype=torch.int64, device=dev)
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with (profiling.annotate("graph.capture"), torch.no_grad(),
+              torch.cuda.stream(stream)):
+            graph.capture_begin()
+            try:
+                _, entry.out = _frame(scene, width, height, spp, max_depth,
+                                      rr_start, 0, backward, entry.static,
+                                      entry.base)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+    after = _launch_counts()
+    entry.launches = {k: after[k] - v for k, v in before.items()
+                      if after[k] != v}
+    _add_launches(entry.launches, -1)
+    entry.graph = graph
+    graph_captures += 1
+
+
+def _replay(entry: FrameGraph, first_sample: int) -> torch.Tensor:
+    """The entry's frame at samples first_sample .. : one replay on the
+    current stream -> a fresh copy of its output."""
+    global graph_replays
+    with torch.cuda.device(entry.base.device), \
+            profiling.annotate("graph.replay"):
+        entry.base.fill_(int(first_sample) & rng.MASK)
+        entry.graph.replay()
+        out = entry.out.clone()
+    _add_launches(entry.launches, 1)
+    graph_replays += 1
+    return out
+
+
+def render_accumulate(scene, width: int, height: int, spp: int,
+                      max_depth: int = 8, rr_start: int = 1,
+                      first_sample: int = 1, backward: str = "pallas"):
+    """Sum of samples first_sample .. first_sample+spp-1 -> XYZ (H, W, 3),
+    accumulated in sample order. Mesh packs and the setup operands
+    (``setup_operands``) are built once.
+
+    Where ``eager_reasons`` gives none, the frame of a key
+    (``frame_graph_key``) seen once before is captured as a CUDA graph of
+    this body, which reads the sample from the device, and replayed, then
+    replayed on every later call of the key (GRAPH_ENTRIES keys are kept):
+    the same launches, the same image bit for bit, a fresh output tensor
+    each call, and the launch counters counting them as an eager frame
+    does. A key first seen runs eagerly, and a scene with mesh parts
+    always (no entry is kept for it)."""
+    global graph_eager
+    key = None
+    if not eager_reasons(scene, backward):
+        key = frame_graph_key(scene, width, height, spp, max_depth,
+                              rr_start, backward)
+        entry = _frame_graphs.get(key)
+        if entry is not None:
+            _frame_graphs.move_to_end(key)
+            if entry.graph is None:
+                _capture(entry, scene, width, height, spp, max_depth,
+                         rr_start, backward)
+            return _replay(entry, first_sample)
+    graph_eager += 1
+    static, accum = _frame(scene, width, height, spp, max_depth, rr_start,
+                           first_sample, backward)
+    if key is not None and not static.mesh_parts:
+        _frame_graphs[key] = FrameGraph(_scene_tensors(scene), static)
+        while len(_frame_graphs) > GRAPH_ENTRIES:
+            _frame_graphs.popitem(last=False)
+    return accum

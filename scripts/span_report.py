@@ -10,11 +10,14 @@ the traced run's), and summarises the ``crt:`` spans of the same window
 
 - ``host_ms``: the host time of the root span (``crt:render`` or
   ``crt:train.step``);
-- ``trace_ms``: the device time of the trace kernels' launches
-  (``crt:kernel:megakernel_*``), beside the device time of the kernels of
-  those names in the window (the forward, the replay, the sweep);
-- ``glue_ms``: the device time launched outside every ``crt:kernel:``
-  span (torch's elementwise ops, copies, Adam), with its largest ops;
+- ``trace_ms``: the device time of the trace kernels (the forward, the
+  replay, the sweep: ``TRACE_KERNELS``, by name);
+- ``glue_ms``: the device time of every op not named as a kernel of
+  ``kernels/csrc`` (torch's elementwise ops, copies, memsets, Adam), with
+  its largest ops;
+- ``graph_replay_ms``: the device time of ``crt:graph.replay`` (a frame
+  replayed from ``render_accumulate``'s CUDA graph, whose kernels run with
+  no stage or ``crt:kernel:`` span around them);
 
 then the harness's records (device, busy and wall time, host ops,
 launches) and each span's summary; ``--json PATH`` writes all of it, the
@@ -24,8 +27,10 @@ breakdown too, as JSON. No reference check is made.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import pathlib
+import re
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -33,22 +38,33 @@ sys.path.insert(0, str(ROOT))
 
 # the kernels of the trace launches, by the substring of their names
 TRACE_KERNELS = ("refill_fwd_kernel", "group_taped_kernel", "sweep_kernel")
+CSRC = ROOT / "computeraytracer_tpu_torch" / "kernels" / "csrc"
+
+
+@functools.lru_cache(maxsize=1)
+def _port_kernels():
+    """A pattern of the names of the kernels of kernels/csrc (its
+    ``__global__`` functions), as a device op's name holds one."""
+    decl = re.compile(r"__global__\s+void\s+"
+                      r"(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+    names = {n for f in sorted(CSRC.glob("*.cu*"))
+             for n in decl.findall(f.read_text())}
+    return re.compile(r"(?<!\w)(?:" + "|".join(sorted(names)) + r")(?=[<(])")
+
+
+def port_kernel(name: str) -> bool:
+    """Whether a device op's name is one of the kernels of kernels/csrc."""
+    return bool(_port_kernels().search(name))
 
 
 def _glue_ops(events, spans_mod, top=8):
-    """{name: seconds} of the largest device ops launched outside every
-    crt:kernel: span."""
-    import numpy as np
-
-    dev = [e for e in events if spans_mod.is_device(e)]
-    starts = spans_mod.launch_starts(events, dev)
-    kernel_spans = [(e.time_range.start, e.time_range.end) for e in events
-                    if e.name.startswith("crt:kernel:")]
+    """{name: seconds} of the largest device ops not named as a kernel of
+    kernels/csrc."""
     out = {}
-    for e, t in zip(dev, starts):
-        if not np.isnan(t) and any(a <= t <= b for a, b in kernel_spans):
-            continue
-        out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+    for e in events:
+        if spans_mod.is_device(e) and not port_kernel(e.name):
+            out[e.name] = (out.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e6)
     return dict(sorted(out.items(), key=lambda kv: -kv[1])[:top])
 
 
@@ -93,13 +109,12 @@ def main(argv=None) -> int:
     spans = spans_mod.summary(events)
 
     root = "crt:render" if cell.entry == "render" else "crt:train.step"
-    kernel_s = sum(v["device_s"] for k, v in spans.items()
-                   if k.startswith("crt:kernel:"))
-    trace_s = sum(v["device_s"] for k, v in spans.items()
-                  if k.startswith("crt:kernel:megakernel_"))
-    named_s = sum(e.time_range.elapsed_us() / 1e6 for e in events
-                  if spans_mod.is_device(e)
-                  and any(k in e.name for k in TRACE_KERNELS))
+    def device_s(named):
+        return sum(e.time_range.elapsed_us() / 1e6 for e in events
+                   if spans_mod.is_device(e) and named(e.name))
+
+    kernel_s = device_s(port_kernel)
+    trace_s = device_s(lambda name: any(k in name for k in TRACE_KERNELS))
     annotations = sorted({e.name for e in events
                           if e.device_type == torch.autograd.DeviceType.CUDA
                           and getattr(e, "is_user_annotation", False)})
@@ -108,10 +123,11 @@ def main(argv=None) -> int:
         "card": torch.cuda.get_device_name(dev),
         "host_ms": 1e3 * spans.get(root, {}).get("host_s", 0.0) / n,
         "trace_ms": 1e3 * trace_s / n,
-        "trace_kernels_ms": 1e3 * named_s / n,
         "glue_ms": 1e3 * (rec["device_s"] - kernel_s) / n,
         "root_spans": spans.get(root, {}).get("n", 0),
-        "kernel_spans_device_s": kernel_s,
+        "graph_replay_ms": 1e3 * spans.get("crt:graph.replay", {}).get(
+            "device_s", 0.0) / n,
+        "kernels_device_s": kernel_s,
         "records": {k: v for k, v in rec.items() if k != "breakdown"},
         "breakdown": rec["breakdown"],
         "glue_ops_s": _glue_ops(events, spans_mod),

@@ -1778,3 +1778,151 @@ def test_card_film_coordinates_match_the_cpu(cuda):
     got = cam_ops._film_st(37, 29, *(x.to(cuda) for x in (px, py, js, jt)))
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+@pytest.fixture
+def frame_graphs(monkeypatch):
+    """render_accumulate's frame graphs emptied for the test, and its
+    counters as they were when it started."""
+    import collections
+
+    monkeypatch.setattr(kt, "_frame_graphs", collections.OrderedDict())
+    return (kt.graph_captures, kt.graph_replays, kt.graph_eager)
+
+
+def _eager_frame(scene, w, h, spp, depth, first, backward="pallas"):
+    """render_accumulate's body run eagerly (its first call of a key)."""
+    return kt._frame(scene, w, h, spp, depth, 1, first, backward)[1]
+
+
+@pytest.mark.parametrize("film,spp", [((1024, 1024), 4), ((37, 29), 3)])
+def test_card_frame_graph_bit_equal_to_eager(cuda, frame_graphs, film,
+                                             spp):
+    """Six render_accumulate calls of one key, first_sample advancing by
+    spp (the first eager, the second captured and replayed, then
+    replays): each accum equal to the eager frame's, the kept frames in
+    storages of their own and unchanged by the later replays."""
+    w, h = film
+    scene, _ = scene_from_dict(presets.cornell_box(w, h), device=cuda)
+    kept = [kt.render_accumulate(scene, w, h, spp, 8, first_sample=1 + spp * k)
+            for k in range(6)]
+    assert kt.graph_captures == frame_graphs[0] + 1
+    ptrs = {f.untyped_storage().data_ptr() for f in kept}
+    assert len(ptrs) == len(kept)
+    for k, got in enumerate(kept):
+        want = _eager_frame(scene, w, h, spp, 8, 1 + spp * k)
+        assert got.shape == (h, w, 3) and torch.equal(got, want), k
+
+
+@pytest.mark.parametrize("backward", ["pallas_taped", "none"])
+def test_card_frame_graph_other_backwards(cuda, frame_graphs, backward):
+    """The frame graph of the other kernel-forward backwards, at a first
+    sample whose samples pass 2^32 (the seed's word wraps), equals the
+    eager frame."""
+    w, h, spp = 40, 24, 3
+    scene, _ = scene_from_dict(presets.cornell_box(w, h), device=cuda)
+    for first in (1, 2**32 - 1, 9):
+        got = kt.render_accumulate(scene, w, h, spp, 6, first_sample=first,
+                                   backward=backward)
+        want = _eager_frame(scene, w, h, spp, 6, first, backward)
+        assert torch.equal(got, want), first
+    assert kt.graph_captures == frame_graphs[0] + 1
+
+
+def test_card_frame_graph_sees_in_place_edits(cuda, frame_graphs):
+    """An in-place edit of the spectra and a vertex between two replays
+    shows in the next frame, bit-equal to the eager frame of the edited
+    scene; no new capture."""
+    w, h, spp = 48, 32, 2
+    scene, _ = scene_from_dict(presets.cornell_box(w, h), device=cuda)
+    for k in range(3):
+        kt.render_accumulate(scene, w, h, spp, 8, first_sample=1 + spp * k)
+    before = kt.render_accumulate(scene, w, h, spp, 8, first_sample=7)
+    scene.spectra.mul_(0.75)
+    scene.primitives.data1[-1].add_(5.0)
+    got = kt.render_accumulate(scene, w, h, spp, 8, first_sample=7)
+    want = _eager_frame(scene, w, h, spp, 8, 7)
+    assert torch.equal(got, want) and not torch.equal(got, before)
+    assert kt.graph_captures == frame_graphs[0] + 1
+
+
+def test_card_frame_graph_counters(cuda, frame_graphs):
+    """N calls of one key: one eager frame, one capture, N - 1 replays
+    (the capturing call replays too); every frame counts the launches of
+    the eager frame (spp forwards, ray setups and gathers), the capture's
+    own launches counted nowhere; a new spp is a new key, eager."""
+    w, h, spp, n = 32, 32, 3, 5
+    scene, _ = scene_from_dict(presets.cornell_box(w, h), device=cuda)
+    per_call = []
+    for k in range(n):
+        before = kt._launch_counts()
+        kt.render_accumulate(scene, w, h, spp, 8, first_sample=1 + spp * k)
+        after = kt._launch_counts()
+        per_call.append({key: after[key] - v for key, v in before.items()
+                         if after[key] != v})
+    captures, replays, eager = frame_graphs
+    assert (kt.graph_captures, kt.graph_replays, kt.graph_eager) == (
+        captures + 1, replays + n - 1, eager + 1)
+    names = {k[1]: v for k, v in per_call[0].items()}
+    assert names == {"launches": spp, "launches_ray_setup": spp,
+                     "launches_gather": spp}
+    assert all(c == per_call[0] for c in per_call)
+    kt.render_accumulate(scene, w, h, spp + 1, 8)
+    assert kt.graph_eager == eager + 2
+
+
+def test_card_frame_graph_needs_no_grad_leaf(cuda, frame_graphs):
+    """A scene leaf that requires grad keeps every frame eager under grad
+    mode, and differentiable; under no_grad the frame is graphed."""
+    w, h = 16, 16
+    scene, _ = scene_from_dict(presets.cornell_box(w, h), device=cuda)
+    sp = scene.spectra.clone().requires_grad_(True)
+    wanting = dataclasses.replace(scene, spectra=sp)
+    for k in range(3):
+        out = kt.render_accumulate(wanting, w, h, 1, 4, first_sample=1 + k)
+        assert out.requires_grad
+    assert kt.graph_captures == frame_graphs[0]
+    with torch.no_grad():
+        for k in range(3):
+            kt.render_accumulate(wanting, w, h, 1, 4, first_sample=1 + k)
+    assert kt.graph_captures == frame_graphs[0] + 1
+
+
+def test_card_frame_graph_keeps_mesh_scenes_eager(cuda, frame_graphs):
+    """Three calls of one key on a scene with mesh parts: every frame
+    eager (the mesh paths read ray counts back to the host), no entry
+    kept, nothing captured, each frame the eager frame."""
+    w, h, spp = 24, 16, 2
+    scene, _ = scene_from_dict(presets.tie_mesh_scene(w, h, "edges"),
+                               device=cuda)
+    for k in range(3):
+        got = kt.render_accumulate(scene, w, h, spp, 4,
+                                   first_sample=1 + spp * k)
+        assert torch.equal(got, _eager_frame(scene, w, h, spp, 4,
+                                             1 + spp * k)), k
+    captures, replays, eager = frame_graphs
+    assert (kt.graph_captures, kt.graph_replays, kt.graph_eager) == (
+        captures, replays, eager + 3)
+    assert not kt._frame_graphs
+
+
+@pytest.mark.parametrize("base,sample", [(0, 1), (1, 0), (12, 3),
+                                         (2**32 - 3, 2), (2**32 + 5, 1)])
+def test_card_ray_setup_device_base(cuda, base, sample):
+    """The ray-setup kernel with a device base b and sample k equals the
+    kernel at the scalar sample b + k and its plain version, bit for bit;
+    one launch each."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+
+    w, h = 37, 29
+    scene = _camera_scene("tilted", w, h, cuda)
+    px, py = kt.tile_coords(w, h, 0, cuda)
+    b = torch.tensor(base, dtype=torch.int64, device=cuda)
+    n = setup_k.launches_ray_setup
+    got = setup_k.ray_setup(scene.camera, w, h, px, py, sample, b)
+    assert setup_k.launches_ray_setup == n + 1
+    want = setup_k.ray_setup(scene.camera, w, h, px, py, base + sample)
+    plain = setup_k.ray_setup_reference(scene.camera, w, h, px, py,
+                                        (base + sample) & 0xFFFFFFFF)
+    for g, w_, p in zip(got, want, plain):
+        assert torch.equal(g, w_) and torch.equal(g, p)
