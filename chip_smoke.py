@@ -297,6 +297,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    replays, 40 eager frames), SPP forwards, ray setups and gathers a
    frame either way, and every graphed frame's accum, mean and sRGB
    bit-equal to the eager frame of its samples.
+32. the forward's global-table build (csrc/megakernel_fwd.cu
+   megakernel_fwd_wide) on the benchmark's rtnw-final (3,407 unrolled
+   rows, past the shared tables) at 800^2, depth 40, sample 1: the
+   kernel twice and forward_reference on every ray, bit-equal; 2
+   launches_wide and no other forward; the kernel's time (CUDA events)
+   and plain time; its bound from the live bounces and shadow scans of
+   the plain bounce loop; render at spp 4 launching 4 of it and nothing
+   else.
 Then one JSON line of kernels, each with its bound (the larger of the
 bytes it must move over 3.35 TB/s and a lower count of its float
 operations over 67 TFLOP/s, and of the ray setup's and its backward's
@@ -394,6 +402,11 @@ SHARD_LAYOUTS = ((2, 1), (1, 2))
 SHARD_TRAINABLE = ("spectra", "data1")
 SHARD_GRAD_L2 = 1e-4
 ORACLE_SCENE = (16, 5, 1)  # phase 28: Cornell side, depth, sample
+# Phase 32: the benchmark's configuration past the shared tables, at its
+# film and depth.
+WIDE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "bench_h100", "configs", "rtnw-final.json")
+WIDE_SIDE, WIDE_DEPTH = 800, 40
 
 # The bound of a kernel: the larger of its bytes (each input read once,
 # each output written once) over the H100's memory rate and its float
@@ -649,7 +662,7 @@ def _profile(fn, top=5, host_ops=False, named=()):
 
 
 def _reset_counters():
-    mk.launches = mk.launches_mesh = mk.launches_taped = 0
+    mk.launches = mk.launches_mesh = mk.launches_taped = mk.launches_wide = 0
     mk.launches_bwd = mk.launches_bwd_tape = mk.launches_winners = 0
     mk.launches_shade = bn.launches_walk = bn.launches_candidates = 0
     bn.launches_pair = bn.launches_pair_occl = 0
@@ -667,7 +680,8 @@ def _setup_counters():
 
 
 def _counters():
-    return {"forward": mk.launches, "forward_mesh": mk.launches_mesh,
+    return {"forward": mk.launches, "forward_wide": mk.launches_wide,
+            "forward_mesh": mk.launches_mesh,
             "forward_taped": mk.launches_taped, "backward": mk.launches_bwd,
             "backward_tape": mk.launches_bwd_tape,
             "forward_winners": mk.launches_winners,
@@ -3036,6 +3050,110 @@ def _frame_graph_turns(dev):
           f"accum, mean and sRGB bit-equal")
 
 
+def _plain_live(static, max_depth, args):
+    """The plain forward's bounce loop (forward_reference's) on args,
+    counting what _unrolled_bounds reads off a tape, for a scene the taped
+    forward refuses: (radiance, live bounces, shadow scans)."""
+    prims, rays, seeds, spect = args
+    state = mk._init_state(rays, seeds)
+    live = diffuse_on = 0
+    for depth in range(max_depth + 1):
+        active = state["nondiff"][4]
+        if not bool(active.any()):
+            break
+        live += int(active.sum())
+        if depth:
+            diffuse_on += int((active & ~state["nondiff"][2]).sum())
+        state = mk._bounce(static, prims, spect, state, depth, max_depth,
+                           RR_START)
+    return torch.stack(state["diff"][2]), live, diffuse_on
+
+
+def _wide_tables(dev):
+    """Phase 32: the forward's global-table build (megakernel_fwd_wide) on
+    the benchmark's rtnw-final, 3,407 unrolled rows, at its 800^2 film and
+    depth 40, sample 1. Every pixel: the kernel twice and its plain version
+    (forward_reference) on the same CUDA tensors, bit-equal; the build's
+    launches (launches_wide, no other forward); its device time (CUDA
+    events) and its bound from the plain loop's live bounces and shadow
+    scans. Then the served path: render at spp SPP launches SPP of it and
+    nothing else. Returns its kernels-line entry."""
+    with open(WIDE_CONFIG) as f:
+        scene, _ = scene_from_dict(json.load(f)["scene"], device=dev)
+    static = mk.SceneStatic.from_scene(scene)
+    if len(static.rows) <= mk.MAX_PRIMS or static.mesh_parts:
+        raise RuntimeError(f"rtnw-final has {len(static.rows)} unrolled rows "
+                           f"and {len(static.mesh_parts)} mesh parts")
+    side, depth = WIDE_SIDE, WIDE_DEPTH
+    px, py = kt.tile_coords(side, side, 0, dev)
+    args = kt.kernel_inputs(scene, *kt.camera_planes(
+        scene, side, side, px, py, 1), static)
+    rays = args[1].shape[1]
+    _reset_counters()
+    got = mk.forward(static, depth, RR_START, *args)
+    again = mk.forward(static, depth, RR_START, *args)
+    torch.cuda.synchronize()
+    if _counters() != _only(forward_wide=2):
+        raise RuntimeError(f"two forwards of rtnw-final launched "
+                           f"{_counters()}")
+    plain_s, want = _host_s(lambda: mk.forward_reference(
+        static, depth, RR_START, *args))
+    if not (torch.isfinite(got).all() and float(want.sum()) > 0):
+        raise RuntimeError("rtnw-final's radiance is not finite and non-zero")
+    exact = (got == want).all(dim=0).float().mean().item()
+    max_abs_err = (got - want).abs().max().item()
+    if exact < 1.0 or not torch.equal(again, got):
+        raise RuntimeError(f"the global-table build is bit-equal to its plain "
+                           f"version on {exact} of rays; a second launch "
+                           f"bit-equal: {torch.equal(again, got)}")
+    loop, live, diffuse_on = _plain_live(static, depth, args)
+    if not torch.equal(loop, want):
+        raise RuntimeError("the counting loop differs from forward_reference")
+    ms = _events_ms(lambda: mk.forward(static, depth, RR_START, *args), 3)
+    prims, rays_t, seeds, spect = args
+    bound = _bound(_nbytes(prims, rays_t, spect) + seeds.numel() * 4
+                   + 4 * rays * 4,
+                   (live + diffuse_on) * len(static.rows) * PRIM_TEST_OPS)
+    _reset_counters()
+    cfg = RenderConfig(width=side, height=side, spp=SPP, max_depth=depth,
+                       rr_start=RR_START, kernel="pallas")
+    render_s, out = _host_s(lambda: render(scene, cfg))
+    if _counters() != _only(forward_wide=SPP):
+        raise RuntimeError(f"the rtnw-final render launched {_counters()}")
+    if not torch.isfinite(out["accum_xyz"]).all():
+        raise RuntimeError("the rtnw-final render is not finite")
+    print(f"phase 32 (global tables): rtnw-final {len(static.rows)} rows, "
+          f"{side}x{side} depth {depth}, sample 1, {rays} rays: kernel "
+          f"{ms:.4f} ms, plain {plain_s * 1e3:.1f} ms, bit-equal on "
+          f"{exact:.6f} of rays, a second launch bit-equal; {live} live "
+          f"bounces, {diffuse_on} shadow scans, bound {bound[0]:.4f} ms "
+          f"({bound[1]}); render spp {SPP} in {render_s:.3f} s, "
+          f"{SPP} global-table launches and no other forward")
+    return {
+        "name": "megakernel_forward_wide",
+        "route": "cuda",
+        "source": "computeraytracer_tpu_torch/kernels/csrc/megakernel_fwd.cu",
+        "replaces": "computeraytracer_tpu/kernels/megakernel.py:897 "
+                    "(plain mode, more rows than the shared tables hold)",
+        "launches": SPP,
+        "max_abs_err": max_abs_err,
+        "bit_equal_rays": exact,
+        "ms": ms,
+        "plain_ms": plain_s * 1e3,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": None,
+        "ms_per_sample": ms,
+        "mpaths_per_s": rays / (ms * 1e-3) / 1e6,
+        "rays": rays,
+        "rows": len(static.rows),
+        "max_depth": depth,
+        "live_bounces": live,
+        "shadow_scans_counted": diffuse_on,
+        "render_s": render_s,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -3575,6 +3693,10 @@ def main() -> int:
     _frame_graph_turns(dev)
     print(f"chip_smoke phases 1-31: {time.perf_counter() - t_start:.1f} s")
 
+    # 32. the forward's global-table build
+    wide = _wide_tables(dev)
+    print(f"chip_smoke phases 1-32: {time.perf_counter() - t_start:.1f} s")
+
     # bounds at the shapes timed above
     b_fwd, b_taped = bounds["forward"], bounds["taped"]
     b_bwd, b_tape_bwd = bounds["backward"], bounds["tape_bwd"]
@@ -3727,7 +3849,7 @@ def main() -> int:
             ("candidates", "candidates.cu", "binned.py:215", "candidates"),
             ("pair_closest", "pair.cu", "binned.py:392", "pair_closest"),
             ("pair_any", "pair.cu", "binned.py:898", "pair_any"))]
-        + setup_entries}))
+        + setup_entries + [wide]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

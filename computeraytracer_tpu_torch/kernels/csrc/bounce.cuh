@@ -13,7 +13,11 @@
 // is a small runtime table in shared memory: the primitive rows, per-slot
 // (row, category, material, emission, reflectance) and the light rows,
 // with the per-patch plane constants and the light areas precomputed in
-// the reference's op order (load_scene).
+// the reference's op order (load_scene). A scene of more than MAX_PRIMS
+// rows does not fit there: the forward's global-table build reads one
+// record per slot from device memory instead (WideScene, the same
+// constants in the same op order), and the scan, the bounce and NEE take
+// either table through the same accessors.
 //
 // Mesh mode (the MESH template argument; the forward only): category-2 rows
 // (triangles stored as vertices) join the unrolled scan through the
@@ -169,9 +173,99 @@ struct Hit {
   V3 pos, nrm;
 };
 
+// The scene of the forward's global-table build (megakernel_fwd.cu
+// megakernel_fwd_wide): any number of slots, each one REC_WORDS record in
+// device memory (wide_tables_kernel writes them), read through L1; the
+// lights in shared memory, as in Scene. Every lane of a warp reads the same
+// record at the same time, so each load is a broadcast. No mesh part.
+//
+// A record is four 16-byte words: (d1.xyz, row), (d2.xyz, inv_e1),
+// (d3.xyz, inv_e2), (n0.xyz, category), where d1-d3 are the primitive
+// row's three vectors (a patch's origin and edges, a sphere's center and
+// (radius, radius, radius), a triangle's vertices) and row and category
+// are stored as int bits; a sphere's n0 and inverse lengths are 0.
+constexpr int REC_WORDS = 16;
+
+struct WideScene {
+  const float* rec;  // (P, REC_WORDS) slot records
+  const int* meta;   // (P, META), as Scene's
+  int light_row[MAX_LIGHTS];
+  int light_slot[MAX_LIGHTS];
+  float light_area[MAX_LIGHTS];
+};
+
+// Word k (0-3) of slot's record: a plain load (cached in L1), which the
+// compiler merges where a scan reads a word twice.
+__device__ __forceinline__ float4 rec4(const WideScene& s, int slot, int k) {
+  return reinterpret_cast<const float4*>(s.rec)[(long long)slot * 4 + k];
+}
+
+// What the scan and NEE read of a slot, from either table: its vector at
+// column c (0, 3 or 6: d1, d2, d3), original row, category, unit plane
+// normal, inverse squared edge lengths and sphere radius.
 __device__ __forceinline__ V3 prim3(const Scene& s, int slot, int c) {
   const float* p = &s.prim[slot * 12 + c];
   return {p[0], p[1], p[2]};
+}
+__device__ __forceinline__ V3 prim3(const WideScene& s, int slot, int c) {
+  const float4 v = rec4(s, slot, c / 3);
+  return {v.x, v.y, v.z};
+}
+__device__ __forceinline__ int slot_row(const Scene& s, int slot) {
+  return s.meta[slot * META + 0];
+}
+__device__ __forceinline__ int slot_row(const WideScene& s, int slot) {
+  return __float_as_int(rec4(s, slot, 0).w);
+}
+__device__ __forceinline__ int slot_cat(const Scene& s, int slot) {
+  return s.meta[slot * META + 1];
+}
+__device__ __forceinline__ int slot_cat(const WideScene& s, int slot) {
+  return __float_as_int(rec4(s, slot, 3).w);
+}
+__device__ __forceinline__ V3 slot_n0(const Scene& s, int slot) {
+  return {s.n0[slot * 3], s.n0[slot * 3 + 1], s.n0[slot * 3 + 2]};
+}
+__device__ __forceinline__ V3 slot_n0(const WideScene& s, int slot) {
+  const float4 v = rec4(s, slot, 3);
+  return {v.x, v.y, v.z};
+}
+__device__ __forceinline__ float slot_inv_e1(const Scene& s, int slot) {
+  return s.inv_e1[slot];
+}
+__device__ __forceinline__ float slot_inv_e1(const WideScene& s, int slot) {
+  return rec4(s, slot, 1).w;
+}
+__device__ __forceinline__ float slot_inv_e2(const Scene& s, int slot) {
+  return s.inv_e2[slot];
+}
+__device__ __forceinline__ float slot_inv_e2(const WideScene& s, int slot) {
+  return rec4(s, slot, 2).w;
+}
+__device__ __forceinline__ float slot_radius(const Scene& s, int slot) {
+  return s.prim[slot * 12 + 3];
+}
+__device__ __forceinline__ float slot_radius(const WideScene& s, int slot) {
+  return rec4(s, slot, 1).x;
+}
+
+// The plane constants of a patch (edges e1, e2) or triangle (edges v1 - v0,
+// v2 - v0) slot, in the reference's op order (kernels/megakernel.py:273-
+// 295): the unit normal and the inverse squared edge lengths.
+__device__ __forceinline__ void slot_frame(V3 e1, V3 e2, V3& n0,
+                                           float& inv_e1, float& inv_e2) {
+  const V3 n_raw = vcross(e1, e2);
+  const float n_len2 = n_raw.x * n_raw.x + n_raw.y * n_raw.y + n_raw.z * n_raw.z;
+  const float inv_len = 1.0f / sqrtf(fmaxf(n_len2, 1e-30f));
+  n0 = {n_raw.x * inv_len, n_raw.y * inv_len, n_raw.z * inv_len};
+  inv_e1 = 1.0f / fmaxf(e1.x * e1.x + e1.y * e1.y + e1.z * e1.z, 1e-12f);
+  inv_e2 = 1.0f / fmaxf(e2.x * e2.x + e2.y * e2.y + e2.z * e2.z, 1e-12f);
+}
+
+// The area of a light patch of edges e1, e2 (megakernel.py:496-500).
+__device__ __forceinline__ float patch_area(V3 e1, V3 e2) {
+  return sqrtf(fmaxf(e1.x * e1.x + e1.y * e1.y + e1.z * e1.z, 1e-30f)) *
+         sqrtf(fmaxf(e2.x * e2.x + e2.y * e2.y + e2.z * e2.z, 1e-30f));
 }
 
 // Load the scene tables into shared memory and precompute the per-slot
@@ -205,22 +299,39 @@ __device__ void load_scene(Scene& s, const float* __restrict__ prims,
                            : prim3(s, slot, 3);
     const V3 e2 = cat == 2 ? vsub(prim3(s, slot, 6), prim3(s, slot, 0))
                            : prim3(s, slot, 6);
-    const V3 n_raw = vcross(e1, e2);
-    const float n_len2 = n_raw.x * n_raw.x + n_raw.y * n_raw.y + n_raw.z * n_raw.z;
-    const float inv_len = 1.0f / sqrtf(fmaxf(n_len2, 1e-30f));
-    s.n0[slot * 3 + 0] = n_raw.x * inv_len;
-    s.n0[slot * 3 + 1] = n_raw.y * inv_len;
-    s.n0[slot * 3 + 2] = n_raw.z * inv_len;
-    s.inv_e1[slot] = 1.0f / fmaxf(e1.x * e1.x + e1.y * e1.y + e1.z * e1.z, 1e-12f);
-    s.inv_e2[slot] = 1.0f / fmaxf(e2.x * e2.x + e2.y * e2.y + e2.z * e2.z, 1e-12f);
+    V3 n0;
+    slot_frame(e1, e2, n0, s.inv_e1[slot], s.inv_e2[slot]);
+    s.n0[slot * 3 + 0] = n0.x;
+    s.n0[slot * 3 + 1] = n0.y;
+    s.n0[slot * 3 + 2] = n0.z;
   }
   for (int l = threadIdx.x; l < n_lights; l += blockDim.x) {
     const int slot = s.light_slot[l];
-    const V3 e1 = prim3(s, slot, 3);
-    const V3 e2 = prim3(s, slot, 6);
-    s.light_area[l] =
-        sqrtf(fmaxf(e1.x * e1.x + e1.y * e1.y + e1.z * e1.z, 1e-30f)) *
-        sqrtf(fmaxf(e2.x * e2.x + e2.y * e2.y + e2.z * e2.z, 1e-30f));
+    s.light_area[l] = patch_area(prim3(s, slot, 3), prim3(s, slot, 6));
+  }
+  __syncthreads();
+}
+
+// WideScene's load_scene: the record and meta tables stay in device memory
+// (rec as wide_tables_kernel wrote it); the light rows and areas go to
+// shared memory. Every thread of the block must call it; it ends with
+// __syncthreads().
+__device__ void load_wide_scene(WideScene& s, const float* __restrict__ rec,
+                                const int* __restrict__ meta,
+                                const int* __restrict__ lights,
+                                int n_lights) {
+  if (threadIdx.x == 0) {
+    s.rec = rec;
+    s.meta = meta;
+  }
+  for (int i = threadIdx.x; i < n_lights; i += blockDim.x) {
+    s.light_row[i] = lights[2 * i];
+    s.light_slot[i] = lights[2 * i + 1];
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < n_lights; l += blockDim.x) {
+    const int slot = s.light_slot[l];
+    s.light_area[l] = patch_area(prim3(s, slot, 3), prim3(s, slot, 6));
   }
   __syncthreads();
 }
@@ -556,8 +667,8 @@ __device__ void scan_mesh_part(const MeshPart& mp, int slot, V3 o, V3 d,
 // ceiling light is coplanar with the ceiling and visible only through it.
 // With MESH, triangle rows take the watertight test and the mesh parts
 // are traversed after the unrolled rows.
-template <int MESH>
-__device__ Hit scan(const Scene& s, int P, V3 o, V3 d, int exclude) {
+template <int MESH, class SceneT>
+__device__ Hit scan(const SceneT& s, int P, V3 o, V3 d, int exclude) {
   Hit h;
   h.t = INFINITY;
   h.idx = -1;
@@ -569,12 +680,12 @@ __device__ Hit scan(const Scene& s, int P, V3 o, V3 d, int exclude) {
   Watertight wt;
   if (MESH) wt = watertight_setup(o, d);
   for (int slot = 0; slot < P; ++slot) {
-    const int row = s.meta[slot * META + 0];
-    const int cat = s.meta[slot * META + 1];
+    const int row = slot_row(s, slot);
+    const int cat = slot_cat(s, slot);
     if (row == exclude) continue;
     if (cat == 0 || (MESH && cat == 2)) {
       const V3 p0 = prim3(s, slot, 0);
-      const V3 n0 = {s.n0[slot * 3], s.n0[slot * 3 + 1], s.n0[slot * 3 + 2]};
+      const V3 n0 = slot_n0(s, slot);
       const float ndotd = n0.x * d.x + n0.y * d.y + n0.z * d.z;
       const bool flip = ndotd > 0.0f;
       const float ndotd_f = flip ? -ndotd : ndotd;
@@ -589,8 +700,8 @@ __device__ Hit scan(const Scene& s, int P, V3 o, V3 d, int exclude) {
           continue;
       } else {
         const V3 m = vsub(p, p0);
-        const float u = vdot(m, prim3(s, slot, 3)) * s.inv_e1[slot];
-        const float v = vdot(m, prim3(s, slot, 6)) * s.inv_e2[slot];
+        const float u = vdot(m, prim3(s, slot, 3)) * slot_inv_e1(s, slot);
+        const float v = vdot(m, prim3(s, slot, 6)) * slot_inv_e2(s, slot);
         if (!(u >= 0.0f && u <= 1.0f && v >= 0.0f && v <= 1.0f)) continue;
       }
       const float sgn = flip ? -1.0f : 1.0f;
@@ -601,7 +712,7 @@ __device__ Hit scan(const Scene& s, int P, V3 o, V3 d, int exclude) {
       h.nrm = {sgn * n0.x, sgn * n0.y, sgn * n0.z};
     } else {  // sphere: radius in column 3
       const V3 c = prim3(s, slot, 0);
-      const float radius = s.prim[slot * 12 + 3];
+      const float radius = slot_radius(s, slot);
       const V3 co = vsub(o, c);
       const float b = 2.0f * vdot(d, co);
       const float c2 = vdot(co, co) - radius * radius;
@@ -622,7 +733,7 @@ __device__ Hit scan(const Scene& s, int P, V3 o, V3 d, int exclude) {
       h.nrm = vnormalize(vsub(p, c));
     }
   }
-  if (MESH == MESH_WALK || MESH == MESH_COUNT)
+  if constexpr (MESH == MESH_WALK || MESH == MESH_COUNT)
     // the lanes that reach here together scan each chunk together
     for (int pi = 0; pi < s.n_parts; ++pi)
       scan_mesh_part<MESH == MESH_COUNT>(s.part[pi], P + pi, o, d, exclude,
@@ -659,7 +770,8 @@ __device__ __forceinline__ float draw(uint32_t* seed) {
   return (float)(int)(seed[0] & 0x00FFFFFFu) * (1.0f / 16777216.0f);
 }
 
-__device__ __forceinline__ float light_pdf(const Scene& s, int l, int n_lights,
+template <class SceneT>
+__device__ __forceinline__ float light_pdf(const SceneT& s, int l, int n_lights,
                                            V3 n_at_light, V3 ray_dir, V3 l_pos,
                                            V3 r_origin) {
   const float abs_cos = fmaxf(1e-5f, fabsf(-vdot(n_at_light, ray_dir)));
@@ -734,7 +846,8 @@ struct DeferredNee {
 
 // The NEE point on light li and the direction to it from `pos`:
 // p_l = l_o + u_p*e1 + v_p*e2, ldir = normalize(p_l - pos).
-__device__ __forceinline__ V3 nee_target(const Scene& s, int li, float u_p,
+template <class SceneT>
+__device__ __forceinline__ V3 nee_target(const SceneT& s, int li, float u_p,
                                          float v_p) {
   const int sl = s.light_slot[li];
   const V3 l_o = prim3(s, sl, 0);
@@ -747,8 +860,8 @@ __device__ __forceinline__ V3 nee_target(const Scene& s, int li, float u_p,
 
 // The closest hit a bounce starts from: the given one (the shade step's
 // merged winner) or its own scan.
-template <int MESH, bool GIVEN>
-__device__ __forceinline__ Hit main_hit(const Scene& s, const Trace& tr,
+template <int MESH, bool GIVEN, class SceneT>
+__device__ __forceinline__ Hit main_hit(const SceneT& s, const Trace& tr,
                                         const Carry& c, const Hit* given) {
   if constexpr (GIVEN) return *given;
   else return scan<MESH>(s, tr.P, c.o, c.d, c.exclude);
@@ -763,8 +876,8 @@ __device__ __forceinline__ Hit main_hit(const Scene& s, const Trace& tr,
 // builds of the backward's reverse sweep only), the clock64() cycles this
 // thread spends in its scans are added to *scan_clk.
 template <bool REC, int MESH = MESH_NONE, bool DEFER = false,
-          bool TIMED = false>
-__device__ __forceinline__ bool bounce(const Scene& s, const Trace& tr,
+          bool TIMED = false, class SceneT = Scene>
+__device__ __forceinline__ bool bounce(const SceneT& s, const Trace& tr,
                                        long long r, int depth, Carry& c,
                                        BounceRec* rec,
                                        const Hit* given = nullptr,

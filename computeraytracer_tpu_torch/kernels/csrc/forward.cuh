@@ -14,7 +14,8 @@
 // - refill_fwd_kernel: persistent warps that refill dead lanes one by
 //   one, for the untaped forward of scenes without mesh parts (plain
 //   renders and triangle rows) and the taped="full" forward of triangle
-//   rows;
+//   rows; refill_fwd_wide, the same schedule on scene tables in device
+//   memory, for the untaped forward of scenes of more than MAX_PRIMS rows;
 // - group_taped_kernel: persistent warps whose lanes take rays and retire
 //   them in groups of GROUP, for the taped="full" forward of scenes
 //   without mesh parts or triangle rows, so that every tape store of a
@@ -125,23 +126,17 @@ enum { TRIP_LANES = 0, TRIP_WARPS = 1, TRIP_KINDS = 2 };
 // (864 B of tape per ray) a refill build of the taped forward ran 3-4x
 // slower than the one-thread schedule, and group_taped_kernel runs it.
 // With COUNT, the warp's lane and warp trips are added to
-// trips[TRIP_KINDS].
-template <int MESH, int TAPE, bool COUNT>
-__global__ void __launch_bounds__(THREADS)
-    refill_fwd_kernel(const float* __restrict__ prims,
-                      const int* __restrict__ meta, int P,
-                      const int* __restrict__ lights, int n_lights,
-                      const float* __restrict__ rays,
-                      const int* __restrict__ seeds,
-                      const float* __restrict__ spect, int S,
-                      float* __restrict__ out, float* __restrict__ tape_f,
-                      int* __restrict__ tape_i, long long R, int max_depth,
-                      int rr_start,
-                      unsigned long long* __restrict__ next_ray,
-                      unsigned long long* __restrict__ trips) {
-  __shared__ Scene s;
-  load_scene(s, prims, meta, P, lights, n_lights);
-
+// trips[TRIP_KINDS]. The schedule runs on either table (refill_trace):
+// refill_fwd_kernel on the shared one, refill_fwd_wide on the records in
+// device memory of a scene of more than MAX_PRIMS rows.
+template <int MESH, int TAPE, bool COUNT, class SceneT>
+__device__ __forceinline__ void refill_trace(
+    const SceneT& s, int P, int n_lights, const float* __restrict__ rays,
+    const int* __restrict__ seeds, const float* __restrict__ spect, int S,
+    float* __restrict__ out, float* __restrict__ tape_f,
+    int* __restrict__ tape_i, long long R, int max_depth, int rr_start,
+    unsigned long long* __restrict__ next_ray,
+    unsigned long long* __restrict__ trips) {
   const unsigned lane = threadIdx.x & 31u;
   const Trace tr = {P, n_lights, S, spect, R, max_depth, rr_start};
   long long r = -1;    // this lane's ray, -1 while the lane is dead
@@ -193,6 +188,49 @@ __global__ void __launch_bounds__(THREADS)
       atomicAdd(trips + TRIP_WARPS, (unsigned long long)warp_trips);
     }
   }
+}
+
+// The refill schedule on the shared tables (load_scene).
+template <int MESH, int TAPE, bool COUNT>
+__global__ void __launch_bounds__(THREADS)
+    refill_fwd_kernel(const float* __restrict__ prims,
+                      const int* __restrict__ meta, int P,
+                      const int* __restrict__ lights, int n_lights,
+                      const float* __restrict__ rays,
+                      const int* __restrict__ seeds,
+                      const float* __restrict__ spect, int S,
+                      float* __restrict__ out, float* __restrict__ tape_f,
+                      int* __restrict__ tape_i, long long R, int max_depth,
+                      int rr_start,
+                      unsigned long long* __restrict__ next_ray,
+                      unsigned long long* __restrict__ trips) {
+  __shared__ Scene s;
+  load_scene(s, prims, meta, P, lights, n_lights);
+  refill_trace<MESH, TAPE, COUNT>(s, P, n_lights, rays, seeds, spect, S, out,
+                                  tape_f, tape_i, R, max_depth, rr_start,
+                                  next_ray, trips);
+}
+
+// The untaped refill forward of a scene of any number of rows, the
+// records rec (REC_WORDS per slot, wide_tables_kernel's) and meta read
+// from device memory (WideScene): plain rows, or triangle rows with
+// MESH_ROWS. Its own name, so that a device trace shows it apart from
+// refill_fwd_kernel.
+template <int MESH>
+__global__ void __launch_bounds__(THREADS)
+    refill_fwd_wide(const float* __restrict__ rec,
+                    const int* __restrict__ meta, int P,
+                    const int* __restrict__ lights, int n_lights,
+                    const float* __restrict__ rays,
+                    const int* __restrict__ seeds,
+                    const float* __restrict__ spect, int S,
+                    float* __restrict__ out, long long R, int max_depth,
+                    int rr_start, unsigned long long* __restrict__ next_ray) {
+  __shared__ WideScene s;
+  load_wide_scene(s, rec, meta, lights, n_lights);
+  refill_trace<MESH, TAPE_NONE, false>(s, P, n_lights, rays, seeds, spect, S,
+                                       out, nullptr, nullptr, R, max_depth,
+                                       rr_start, next_ray, nullptr);
 }
 
 // Lanes of a group of group_taped_kernel: 16 consecutive 4-byte words of

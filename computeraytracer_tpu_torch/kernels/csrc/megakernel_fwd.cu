@@ -102,6 +102,18 @@
 //   shared memory once per block, with the per-patch plane constants
 //   precomputed there in the reference's op order. One build serves every
 //   non-mesh scene up to MAX_PRIMS primitives and MAX_LIGHTS lights.
+// - A scene of more rows (megakernel_fwd_wide: the untaped forward of a
+//   scene without mesh parts) runs the same refill schedule and bounce on
+//   tables in device memory (refill_fwd_wide, bounce.cuh WideScene): a
+//   first launch writes one 64-byte record per slot (wide_tables_kernel:
+//   the row's vectors and the plane constants load_scene computes, in its
+//   op order, with the row and category), and the scans read them through
+//   L1, every lane of a warp the same record at once, a broadcast. At
+//   3,407 rows the records take 218 KB: shared memory (at most 227 KB a
+//   block) would hold them for one block an SM, and a larger scene not at
+//   all, so the kernel asks for the smallest shared-memory carveout and
+//   leaves the rest to L1. Staging 32-row tiles per warp in shared memory
+//   instead ran 2.5x slower (PERF.md).
 // - The mesh traversal keeps the lanes of a warp together where the rays
 //   diverge most: each lane's box walk stops at every chunk it enters, and
 //   the lanes scan the entered chunks side by side, instead of each lane
@@ -119,12 +131,63 @@ namespace {
 using namespace pathtrace;
 
 int check_args(int n_prims, int n_lights, int n_spectra, long long n_rays,
-               int max_depth) {
-  if (n_prims < 0 || n_prims > MAX_PRIMS || n_lights < 1 ||
+               int max_depth, int max_prims = MAX_PRIMS) {
+  if (n_prims < 0 || n_prims > max_prims || n_lights < 1 ||
       n_lights > MAX_LIGHTS || n_spectra < 1 || n_rays < 0 || max_depth < 0 ||
       (n_rays + THREADS - 1) / THREADS > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+// The records of the global-table build, one thread per slot: the
+// primitive row's vectors, and the plane constants load_scene computes,
+// in its op order, beside the slot's row and category.
+__global__ void wide_tables_kernel(const float* __restrict__ prims,
+                                   const int* __restrict__ meta, int P,
+                                   float* __restrict__ rec) {
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot >= P) return;
+  const float* p = prims + (long long)slot * 12;
+  const int cat = meta[slot * META + 1];
+  const V3 d1 = {p[0], p[1], p[2]}, d2 = {p[3], p[4], p[5]},
+           d3 = {p[6], p[7], p[8]};
+  V3 n0 = {0.0f, 0.0f, 0.0f};
+  float inv_e1 = 0.0f, inv_e2 = 0.0f;
+  if (cat != 1)
+    slot_frame(cat == 2 ? vsub(d2, d1) : d2, cat == 2 ? vsub(d3, d1) : d3,
+               n0, inv_e1, inv_e2);
+  float4* out = reinterpret_cast<float4*>(rec) + (long long)slot * 4;
+  out[0] = make_float4(d1.x, d1.y, d1.z, __int_as_float(meta[slot * META]));
+  out[1] = make_float4(d2.x, d2.y, d2.z, inv_e1);
+  out[2] = make_float4(d3.x, d3.y, d3.z, inv_e2);
+  out[3] = make_float4(n0.x, n0.y, n0.z, __int_as_float(cat));
+}
+
+// Launch refill_fwd_wide on its resident grid, with the smallest
+// shared-memory carveout (set once per device), so that L1 holds as much of
+// the records as it can. *next_ray must be 0.
+template <int MESH>
+cudaError_t wide_launch(const float* rec, const int* meta, int P,
+                        const int* lights, int n_lights, const float* rays,
+                        const int* seeds, const float* spect, int S,
+                        float* out, long long R, int max_depth, int rr_start,
+                        unsigned long long* next_ray, cudaStream_t st) {
+  static long long resident[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev >= 0 && dev < MAX_DEVICES &&
+      resident[dev] == 0)
+    err = cudaFuncSetAttribute(refill_fwd_wide<MESH>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               0);
+  unsigned blocks = 0;
+  if (err == cudaSuccess)
+    err = resident_grid(refill_fwd_wide<MESH>, resident, R, &blocks);
+  if (err != cudaSuccess) return err;
+  refill_fwd_wide<MESH><<<blocks, THREADS, 0, st>>>(
+      rec, meta, P, lights, n_lights, rays, seeds, spect, S, out, R,
+      max_depth, rr_start, next_ray);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -248,4 +311,34 @@ extern "C" int megakernel_fwd_winners(const float* prims, const int* meta,
         prims, meta, n_prims, lights, n_lights, rays, seeds, spect, n_spectra,
         out, tape_idx, tape_sh, n_rays, max_depth, rr_start, mp, nullptr);
   return (int)cudaGetLastError();
+}
+
+// The untaped forward of a scene without mesh parts and of any number of
+// rows, from tables in device memory: out as megakernel_fwd. rec, n_prims
+// * REC_WORDS f32, receives the slot records (wide_tables_kernel, launched
+// first on the same stream); next_ray, one zeroed u64, is the ray counter
+// of the refill schedule; mesh_mode: the scene has triangle rows.
+extern "C" int megakernel_fwd_wide(const float* prims, const int* meta,
+                                   int n_prims, const int* lights,
+                                   int n_lights, const float* rays,
+                                   const int* seeds, const float* spect,
+                                   int n_spectra, float* out, long long n_rays,
+                                   int max_depth, int rr_start, int mesh_mode,
+                                   float* rec, unsigned long long* next_ray,
+                                   void* stream) {
+  int err = check_args(n_prims, n_lights, n_spectra, n_rays, max_depth,
+                       0x7fffffff / REC_WORDS);
+  if (err) return err;
+  if (!rec || !next_ray || n_prims < 1) return (int)cudaErrorInvalidValue;
+  if (n_rays == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  wide_tables_kernel<<<(n_prims + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+      prims, meta, n_prims, rec);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const auto launch = mesh_mode ? &wide_launch<MESH_ROWS>
+                                : &wide_launch<MESH_NONE>;
+  return (int)launch(rec, meta, n_prims, lights, n_lights, rays, seeds, spect,
+                     n_spectra, out, n_rays, max_depth, rr_start, next_ray,
+                     st);
 }

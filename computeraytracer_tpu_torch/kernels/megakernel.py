@@ -11,16 +11,20 @@ Port of computeraytracer_tpu/kernels/megakernel.py ``build_forward``
 - ``forward_reference``: the plain torch version of the forward. It ports
   ``make_bounce`` and the bounce loop of ``build_forward``, vectorised
   over the ray axis of (k, R) planes with ``torch.where`` masks, in the
-  JAX package's op order. Mesh parts are scanned brute force in blocks of
-  triangles (``_scan_mesh_part``): the mesh tie rule does not depend on
-  the order in which triangles are tested.
+  JAX package's op order. The unrolled rows are scanned in blocks of rows
+  of one category (``_scan_primitives``) and mesh parts brute force in
+  blocks of triangles (``_scan_mesh_part``): neither tie rule depends on
+  the order in which the blocks are tested.
 - ``forward``: the wrapper with the TPU kernel's contract
   ``prims (P, 12) f32, rays (6, R) f32, seeds (4, R) u32 values,
   spect (S*4, R) f32, *mesh_arrays -> radiance (4, R) f32``, where
   mesh_arrays is (tri_rows, chunk_bbox, node_bbox, node_meta) per mesh
   part. CPU tensors run ``forward_reference``; CUDA tensors launch the
   hand-written kernel in ``csrc/megakernel_fwd.cu``. There is no other
-  route.
+  route. A scene of more than ``MAX_PRIMS`` unrolled rows (the shared
+  tables' bound) and no mesh part runs its global-table build, whose
+  tables live in device memory. Every other build refuses such a scene
+  (``_check_static``).
 - ``forward_refill_reference``, ``trips_from_tape`` and
   ``schedule_efficiency``: the plain model of the schedules on which the
   CUDA forward traces a scene without mesh parts (``csrc/forward.cuh``:
@@ -104,21 +108,32 @@ SWEEP_SECTIONS = ("tape_read", "scans", "recompute_rest", "adjoint",
                   "d_spect", "fold", "other")
 
 # Bounds of the CUDA kernels' shared-memory tables (csrc/bounce.cuh): the
-# unrolled rows, lights and mesh parts.
+# unrolled rows, lights and mesh parts. The untaped forward of a scene
+# without mesh parts takes more rows than MAX_PRIMS: its global-table build
+# (csrc/megakernel_fwd.cu megakernel_fwd_wide) reads them from device
+# memory.
 MAX_PRIMS = 256
 MAX_LIGHTS = 64
 MAX_SPECTRA = 1024
 MAX_PARTS = 8
+# f32 words of one slot record of the global-table build (csrc/bounce.cuh
+# REC_WORDS).
+REC_WORDS = 16
 
-# Rays x triangles per block of the plain mesh scan (_scan_mesh_part).
+# Rays x triangles per block of the plain mesh scan (_scan_mesh_part), and
+# rays x rows per block of the plain scan of the unrolled rows
+# (_scan_primitives).
 MESH_BLOCK = 1 << 22
 
 # Kernel launches, counted by each wrapper where it launches its kernel
 # (CPU calls launch nothing and do not count): the forward in its plain
 # mode and in its mesh mode, the taped forward, the retrace backward, the
 # tape-fed backward, the winner-taped forward and the wavefront's shade
-# step (the mesh casts' kernels count in kernels/binned.py).
+# step (the mesh casts' kernels count in kernels/binned.py), and the
+# forward's global-table build (a scene of more than MAX_PRIMS rows; not
+# in `launches`).
 launches = 0
+launches_wide = 0
 launches_mesh = 0
 launches_taped = 0
 launches_bwd = 0
@@ -291,80 +306,138 @@ def _patch_frame(row):
     return e1, e2, n0, inv_e1, inv_e2
 
 
+@functools.lru_cache(maxsize=16)
+def _slot_tables(static: SceneStatic, device: torch.device):
+    """Int64 tables of the unrolled rows on device: (category, its slots,
+    their original row ids) for each category the rows hold, in the order
+    0 patch, 1 sphere, 2 triangle; each slot's category and original row
+    id; and per original row id, mesh rows included, its material,
+    emission and reflectance spectrum (a (3, n) table, -1 where the row
+    is not an unrolled slot)."""
+    unknown = set(static.categories) - {0, 1, 2}
+    if unknown:
+        raise ValueError(f"unknown primitive category {min(unknown)}")
+    n = max([r + 1 for r in static.rows]
+            + [p.start + p.count for p in static.mesh_parts], default=0)
+    by_row = torch.full((3, n), -1, dtype=torch.int64)
+    rows = torch.tensor(static.rows, dtype=torch.int64)
+    cats = torch.tensor(static.categories, dtype=torch.int64)
+    by_row[:, rows] = torch.tensor((static.materials, static.emission_idx,
+                                    static.reflectance_idx),
+                                   dtype=torch.int64).reshape(3, -1)
+    per_cat = []
+    for c in (0, 1, 2):
+        slots = torch.nonzero(cats == c).flatten()
+        if slots.numel():
+            per_cat.append((c, slots.to(device), rows[slots].to(device)))
+    return tuple(per_cat), cats.to(device), rows.to(device), by_row.to(device)
+
+
+def _row_lookup(static: SceneStatic, idx: torch.Tensor, k: int):
+    """Column k (0 material, 1 emission, 2 reflectance) of the rows idx
+    (R,): -1 at a miss (-1) and at a mesh triangle."""
+    by_row = _slot_tables(static, idx.device)[3]
+    return by_row[k][idx.clamp(min=0)].masked_fill(idx < 0, -1)
+
+
+def _spectrum_of(spect, sel, k):
+    """Spectrum k (R,) at each ray's 4 hero wavelengths where sel, else 0:
+    four (R,) planes of spect (S*4, R)."""
+    r = torch.arange(spect.shape[1], device=spect.device)
+    k = k.clamp(min=0) * 4
+    return [torch.where(sel, spect[k + j, r], 0.0) for j in range(4)]
+
+
+def _row_candidates(c, blk, o, d, wt):
+    """t and validity (R, n) of the rays (o, d: (R, 1) planes) against the
+    n rows blk (n, 12) of category c, T_MIN and exclusion not applied.
+    A sphere's near root is taken where it is at least T_MIN."""
+    w = lambda k: blk[:, k][None, :]
+    v0, v1, v2 = (w(0), w(1), w(2)), (w(3), w(4), w(5)), (w(6), w(7), w(8))
+    if c == 0:
+        _, _, n0, inv_e1, inv_e2 = _patch_frame(
+            tuple(blk[:, k] for k in range(9)))
+        t, _, grazing = isect.plane_t(tuple(x[None, :] for x in n0), v0, o, d)
+        m = _vsub(_vadd(o, _vscale(t, d)), v0)
+        u = _vdot(m, v1) * inv_e1[None, :]
+        v = _vdot(m, v2) * inv_e2[None, :]
+        return t, ~grazing & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (v <= 1.0)
+    if c == 1:
+        co = _vsub(o, v0)
+        a = _vdot(d, d)
+        b = 2.0 * _vdot(d, co)
+        c2 = _vdot(co, co) - v1[0] * v1[0]
+        disc = b * b - 4.0 * a * c2
+        has_root = disc > 0.0
+        sq = sqrt(torch.where(has_root, disc, 1.0))
+        denom = torch.where(a > 1e-12, 2.0 * a, 1.0)
+        t_near = (-b - sq) / denom
+        t = torch.where(t_near >= T_MIN, t_near, (-b + sq) / denom)
+        return t, has_root & (a > 1e-12)
+    t, _, grazing = isect.plane_t(isect.unit_normal(v0, v1, v2), v0, o, d)
+    return t, ~grazing & isect.watertight_inside(wt, v0, v1, v2)
+
+
 def _scan_primitives(static, prims, o, d, exclude, mesh=()):
-    """In-order closest-hit scan: ``t <= best`` lets the LAST hit win
-    ties (the coplanar ceiling light depends on it). Triangle rows take
-    the watertight test; then each mesh part of ``mesh`` ((part, arrays)
-    pairs) is scanned under the mesh tie rule."""
+    """Closest hit over the unrolled rows, then over each mesh part of
+    ``mesh`` ((part, arrays) pairs) under the mesh tie rule.
+
+    The unrolled winner is the JAX kernel's in-order scan's: the least t,
+    the last slot at a tie (``t <= best``; the coplanar ceiling light
+    depends on it). Each category's rows are tested side by side in
+    blocks of MESH_BLOCK // R rows; a block's winner (its least t, its
+    last slot at a tie) folds into the running best by (t, slot), so the
+    order of the blocks does not matter. That is the in-order scan's
+    winner: a patch's or triangle's t and validity do not depend on the
+    running best, and where that scan takes a sphere's far root because
+    the near one is past the best, both are. Triangle rows take the
+    watertight test. The winner's position and normal are computed from
+    its row as the in-order scan computes them."""
     shape = o[0].shape
+    R = shape[0]
     dev = o[0].device
-    zero = torch.zeros(shape, dtype=torch.float32, device=dev)
+    per_cat, slot_cat, slot_row, _ = _slot_tables(static, dev)
     best_t = torch.full(shape, math.inf, dtype=torch.float32, device=dev)
-    best_i = torch.full(shape, -1, dtype=torch.int64, device=dev)
-    pos = (zero, zero, zero)
-    nrm = (zero, zero, zero)
-    d_dot_d = _vdot(d, d)
+    best_s = torch.full(shape, -1, dtype=torch.int64, device=dev)
     wt = (isect.watertight_setup(o, d)
           if mesh or 2 in static.categories else None)
-    for slot, (i, cat) in enumerate(zip(static.rows, static.categories)):
+    col = lambda x: x[:, None]
+    oc, dc, ex = tuple(map(col, o)), tuple(map(col, d)), col(exclude)
+    wtc = tuple(map(col, wt)) if wt is not None else None
+    step = max(1, MESH_BLOCK // max(R, 1))
+    for c, slots, rows in per_cat:
+        table = prims[slots]
+        for a in range(0, slots.shape[0], step):
+            t, ok = _row_candidates(c, table[a:a + step], oc, dc, wtc)
+            ok = ok & (t >= T_MIN) & (ex != rows[None, a:a + step])
+            tv = torch.where(ok, t, math.inf)
+            j = (tv.shape[1] - 1) - torch.argmin(tv.flip(1), dim=1)
+            t_b = tv.gather(1, j[:, None])[:, 0]
+            s_b = slots[a:a + step][j]
+            better = (t_b < math.inf) & (
+                (t_b < best_t) | ((t_b == best_t) & (s_b > best_s)))
+            best_t = torch.where(better, t_b, best_t)
+            best_s = torch.where(better, s_b, best_s)
+    zero = torch.zeros(shape, dtype=torch.float32, device=dev)
+    pos = nrm = (zero, zero, zero)
+    best_i = best_s
+    if static.rows:
+        hit = best_s >= 0
+        slot = best_s.clamp(min=0)
         row = prims[slot]
-        not_excluded = exclude != i
-        if cat == 2:
-            v0 = (row[0], row[1], row[2])
-            v1 = (row[3], row[4], row[5])
-            v2 = (row[6], row[7], row[8])
-            n0 = isect.unit_normal(v0, v1, v2)
-            t, flip, grazing = isect.plane_t(n0, v0, o, d)
-            p = _vadd(o, _vscale(t, d))
-            valid = (not_excluded & ~grazing
-                     & isect.watertight_inside(wt, v0, v1, v2)
-                     & (t >= T_MIN) & (t <= best_t))
-            sgn = torch.where(flip, -1.0, 1.0)
-            n_eff = (sgn * n0[0], sgn * n0[1], sgn * n0[2])
-        elif cat == 0:
-            p0 = (row[0], row[1], row[2])
-            e1, e2, n0, inv_e1, inv_e2 = _patch_frame(row)
-            ndotd = n0[0] * d[0] + n0[1] * d[1] + n0[2] * d[2]
-            flip = ndotd > 0.0
-            ndotd_f = torch.where(flip, -ndotd, ndotd)
-            grazing = torch.abs(ndotd_f) < 1e-4
-            num = (n0[0] * (p0[0] - o[0]) + n0[1] * (p0[1] - o[1])
-                   + n0[2] * (p0[2] - o[2]))
-            t = num / torch.where(grazing, 1.0, ndotd)
-            p = _vadd(o, _vscale(t, d))
-            m = _vsub(p, p0)
-            u = _vdot(m, e1) * inv_e1
-            v = _vdot(m, e2) * inv_e2
-            inside = (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (v <= 1.0)
-            valid = (not_excluded & ~grazing & inside
-                     & (t >= T_MIN) & (t <= best_t))
-            sgn = torch.where(flip, -1.0, 1.0)
-            n_eff = (sgn * n0[0], sgn * n0[1], sgn * n0[2])
-        elif cat == 1:
-            cx = (row[0], row[1], row[2])
-            radius = row[3]
-            co = _vsub(o, cx)
-            a = d_dot_d
-            b = 2.0 * _vdot(d, co)
-            c2 = _vdot(co, co) - radius * radius
-            disc = b * b - 4.0 * a * c2
-            has_root = disc > 0.0
-            sq = sqrt(torch.where(has_root, disc, 1.0))
-            denom = torch.where(a > 1e-12, 2.0 * a, 1.0)
-            t_near = (-b - sq) / denom
-            t_far = (-b + sq) / denom
-            near_ok = (t_near >= T_MIN) & (t_near <= best_t)
-            t = torch.where(near_ok, t_near, t_far)
-            valid = (not_excluded & has_root & (a > 1e-12)
-                     & (t >= T_MIN) & (t <= best_t))
-            p = _vadd(o, _vscale(t, d))
-            n_eff = _vnormalize(_vsub(p, cx))
-        else:
-            raise ValueError(f"unknown primitive category {cat}")
-        best_t = torch.where(valid, t, best_t)
-        best_i = torch.where(valid, i, best_i)
-        pos = _vwhere(valid, p, pos)
-        nrm = _vwhere(valid, n_eff, nrm)
+        p = _vadd(o, _vscale(torch.where(hit, best_t, 0.0), d))
+        v0, v1, v2 = ((row[:, 0], row[:, 1], row[:, 2]),
+                      (row[:, 3], row[:, 4], row[:, 5]),
+                      (row[:, 6], row[:, 7], row[:, 8]))
+        cat = slot_cat[slot]
+        _, _, n_patch, _, _ = _patch_frame(tuple(row[:, k] for k in range(9)))
+        n_plane = _vwhere(cat == 2, isect.unit_normal(v0, v1, v2), n_patch)
+        sgn = torch.where(_vdot(n_plane, d) > 0.0, -1.0, 1.0)
+        n_plane = (sgn * n_plane[0], sgn * n_plane[1], sgn * n_plane[2])
+        nrm = _vwhere(hit, _vwhere(cat == 1, _vnormalize(_vsub(p, v0)),
+                                   n_plane), nrm)
+        pos = _vwhere(hit, p, pos)
+        best_i = torch.where(hit, slot_row[slot], -1)
     for _, arrays in mesh:  # the plain scan needs only tri_rows
         best_t, best_i, pos, nrm = _scan_mesh_part(
             arrays[0], o, d, exclude, wt, best_t, best_i, pos, nrm)
@@ -480,17 +553,9 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start,
     idx = hit["idx"]
 
     false = torch.zeros((R,), dtype=torch.bool, device=dev)
-    mat_light, mat_diffuse, mat_glass, mat_mirror = false, false, false, false
-    for i, m in zip(static.rows, static.materials):
-        sel = idx == i
-        if m == C.LIGHT:
-            mat_light = mat_light | sel
-        elif m == C.DIFFUSE:
-            mat_diffuse = mat_diffuse | sel
-        elif m == C.GLASS:
-            mat_glass = mat_glass | sel
-        elif m == C.MIRROR:
-            mat_mirror = mat_mirror | sel
+    mat = _row_lookup(static, idx, 0)
+    mat_light, mat_diffuse, mat_glass, mat_mirror = (
+        mat == m for m in (C.LIGHT, C.DIFFUSE, C.GLASS, C.MIRROR))
     part_sels = []
     for part, _ in mesh:  # mesh parts are never lights
         sel = (idx >= part.start) & (idx < part.start + part.count)
@@ -504,12 +569,7 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start,
 
     # ---- emissive hit
     is_light = lane_hit & mat_light
-    le = [zero] * 4
-    for i, m, ei in zip(static.rows, static.materials, static.emission_idx):
-        if m == C.LIGHT:
-            sel = idx == i
-            emis = gets(ei)
-            le = [torch.where(sel, emis[j], le[j]) for j in range(4)]
+    le = _spectrum_of(spect, mat_light, _row_lookup(static, idx, 1))
     pdf_l_hit = zero
     for lr in static.light_rows:
         sel = idx == lr
@@ -547,12 +607,7 @@ def _bounce(static, prims, spect, state, depth, max_depth, rr_start,
     u_h, seed = _rand_masked(seed, is_diffuse)
     v_h, seed = _rand_masked(seed, is_diffuse)
 
-    brdf = [zero] * 4
-    for i, m, ri in zip(static.rows, static.materials, static.reflectance_idx):
-        if m == C.DIFFUSE:
-            sel = idx == i
-            refl = gets(ri)
-            brdf = [torch.where(sel, refl[j], brdf[j]) for j in range(4)]
+    brdf = _spectrum_of(spect, mat_diffuse, _row_lookup(static, idx, 2))
     for (part, _), sel in zip(mesh, part_sels):
         if part.material == C.DIFFUSE:
             refl = gets(part.reflectance_idx)
@@ -993,22 +1048,32 @@ def _check_tensor(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_static(static: SceneStatic):
+def _check_static(static: SceneStatic, build: str):
+    """Raise unless the named build takes the scene: at most MAX_LIGHTS
+    lights, MAX_SPECTRA spectra and MAX_PARTS mesh parts, and at most
+    MAX_PRIMS unrolled rows (the shared-memory tables) unless the build is
+    the untaped "forward" and the scene has no mesh part."""
     P = len(static.rows)
     S = static.n_spectra
     if not static.light_rows:
         raise ValueError("scene has no lights")
-    if P > MAX_PRIMS or len(static.light_rows) > MAX_LIGHTS \
-            or S > MAX_SPECTRA or len(static.mesh_parts) > MAX_PARTS:
+    if len(static.light_rows) > MAX_LIGHTS or S > MAX_SPECTRA \
+            or len(static.mesh_parts) > MAX_PARTS:
         raise ValueError(
-            f"kernel bounds: at most {MAX_PRIMS} unrolled primitives, "
-            f"{MAX_LIGHTS} lights, {MAX_SPECTRA} spectra, {MAX_PARTS} mesh "
-            f"parts (got {P}, {len(static.light_rows)}, {S}, "
-            f"{len(static.mesh_parts)})")
+            f"kernel bounds: at most {MAX_LIGHTS} lights, {MAX_SPECTRA} "
+            f"spectra, {MAX_PARTS} mesh parts (got "
+            f"{len(static.light_rows)}, {S}, {len(static.mesh_parts)})")
+    if P > MAX_PRIMS and (build != "forward" or static.mesh_parts):
+        raise ValueError(
+            f"kernel bounds: the {build} holds at most {MAX_PRIMS} unrolled "
+            f"primitives in shared memory (got {P}); only the untaped "
+            f"forward of a scene without mesh parts reads more, from device "
+            f"memory")
 
 
-def _check(static: SceneStatic, prims, rays, seeds, spect, mesh_arrays):
-    _check_static(static)
+def _check(static: SceneStatic, build: str, prims, rays, seeds, spect,
+           mesh_arrays):
+    _check_static(static, build)
     P = len(static.rows)
     S = static.n_spectra
     R = rays.shape[-1] if rays.dim() == 2 else -1
@@ -1068,6 +1133,7 @@ SIGNATURES = {
     "megakernel_fwd": "ppipipppipqiiiipppppp",
     "megakernel_fwd_taped": "ppipipppipppqiiippp",
     "megakernel_fwd_winners": "ppipipppipppqiiiippp",
+    "megakernel_fwd_wide": "ppipipppipqiiippp",
     "megakernel_bwd": "ppipipppipppppppqiiipp",
     "megakernel_bwd_timed": "ppipipppipppppppqiiippp",
     "megakernel_bwd_tape": "ppipipipppppppqiiip",
@@ -1132,10 +1198,19 @@ def forward(static: SceneStatic, max_depth: int, rr_start: int,
     (len(TRIP_COUNTS),) int64 CUDA tensor, makes the refill schedule of a
     scene without mesh parts add its lane and warp trips to it. Each
     selects a build of the same code that also counts; the plain version
-    counts nothing."""
+    counts nothing.
+
+    A scene of more than MAX_PRIMS rows (and no mesh part) runs the
+    global-table build, ``megakernel_fwd_wide`` (counted in
+    ``launches_wide``), which counts nothing. Its images are the
+    shared-table build's bit for bit."""
     global launches, launches_mesh
-    _check(static, prims, rays, seeds, spect, mesh_arrays)
+    _check(static, "mesh forward" if static.mesh_parts else "forward",
+           prims, rays, seeds, spect, mesh_arrays)
     dev = rays.device
+    wide = len(static.rows) > MAX_PRIMS
+    if wide and (work is not None or trips is not None):
+        raise ValueError("the global-table build counts nothing")
     if work is not None:
         if not static.mesh_mode:
             raise ValueError("work counts are taken in the mesh mode only")
@@ -1152,6 +1227,9 @@ def forward(static: SceneStatic, max_depth: int, rr_start: int,
         return forward_reference(static, max_depth, rr_start, prims, rays,
                                  seeds, spect, *mesh_arrays)
     _require_cuda(dev)
+    if wide:
+        return _forward_wide(static, max_depth, rr_start, prims, rays, seeds,
+                             spect)
     fn = _fn("megakernel_fwd", "megakernel_fwd")
     meta, lights = _tables(static, dev)
     R = rays.shape[1]
@@ -1173,6 +1251,28 @@ def forward(static: SceneStatic, max_depth: int, rr_start: int,
         launches_mesh += 1
     else:
         launches += 1
+    return out
+
+
+def _forward_wide(static, max_depth, rr_start, prims, rays, seeds, spect):
+    """The forward's global-table build on CUDA tensors (``forward``
+    checked them): the slot records are written, then traced, in one
+    launch of ``megakernel_fwd_wide``."""
+    global launches_wide
+    dev = rays.device
+    fn = _fn("megakernel_fwd", "megakernel_fwd_wide")
+    meta, lights = _tables(static, dev)
+    R = rays.shape[1]
+    P = len(static.rows)
+    out = torch.empty((4, R), dtype=torch.float32, device=dev)
+    rec = torch.empty((P, REC_WORDS), dtype=torch.float32, device=dev)
+    _launch("megakernel_fwd_wide", fn, dev, prims.data_ptr(), meta.data_ptr(),
+            P, lights.data_ptr(), lights.shape[0], rays.data_ptr(),
+            _u32_bits(seeds).data_ptr(), spect.data_ptr(), static.n_spectra,
+            out.data_ptr(), R, int(max_depth), int(rr_start),
+            int(static.mesh_mode), rec.data_ptr(),
+            _ray_counter(dev).data_ptr())
+    launches_wide += 1
     return out
 
 
@@ -1210,7 +1310,8 @@ def forward_winners(static: SceneStatic, max_depth: int, rr_start: int,
     the untaped forward's bit for bit. The tapes feed the guided replay
     (tracer/replay.py)."""
     global launches_winners
-    _check(static, prims, rays, seeds, spect, mesh_arrays)
+    _check(static, "winner-taped forward", prims, rays, seeds, spect,
+           mesh_arrays)
     dev = rays.device
     if dev.type == "cpu":
         return forward_winners_reference(static, max_depth, rr_start, prims,
@@ -1255,7 +1356,7 @@ def forward_taped(static: SceneStatic, max_depth: int, rr_start: int,
     feeds the tape-fed backward."""
     global launches_taped
     _require_no_parts(static)
-    _check(static, prims, rays, seeds, spect, ())
+    _check(static, "taped forward", prims, rays, seeds, spect, ())
     dev = rays.device
     if trips is not None:
         if static.mesh_mode:
@@ -1386,7 +1487,7 @@ def shade_step(static: SceneStatic, depth: int, max_depth: int,
     un_f and un_i are None (the first bounce), else the one that reads
     them. A failed build or launch raises."""
     global launches_shade
-    _check_static(static)
+    _check_static(static, "shade step")
     P, S = len(static.rows), static.n_spectra
     n_lights = len(static.light_rows)
     R = carry_f.shape[-1] if carry_f.dim() == 2 else -1
@@ -1556,7 +1657,7 @@ def backward(static: SceneStatic, max_depth: int, rr_start: int,
     clock64() cycles, summed over warps, to it."""
     global launches_bwd
     _require_no_parts(static)
-    _check(static, prims, rays, seeds, spect, ())
+    _check(static, "retrace backward", prims, rays, seeds, spect, ())
     R = rays.shape[1]
     dev = rays.device
     _check_tensor("dL", dL, (4, R), torch.float32, dev)
@@ -1606,6 +1707,7 @@ def backward_from_tape(static: SceneStatic, max_depth: int, rr_start: int,
     ``backward``'s, the timed build."""
     global launches_bwd_tape
     _require_no_parts(static)
+    _check_static(static, "tape-fed backward")
     P = len(static.rows)
     R = spect.shape[-1] if spect.dim() == 2 else -1
     dev = spect.device
@@ -1653,6 +1755,8 @@ class TraceFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, static, max_depth, rr_start, prims, rays, seeds, spect):
         _require_no_parts(static)
+        if any(ctx.needs_input_grad[k] for k in (3, 4, 6)):
+            _check_static(static, "retrace backward")  # before the forward
         ctx.static = static
         ctx.max_depth = int(max_depth)
         ctx.rr_start = int(rr_start)

@@ -39,7 +39,9 @@ fixed-order column sums)
 against their plain versions, their launches on the training path and
 the gradient's bit-equality across runs; the camera gradients of renders
 through the ray setup's backward kernel against the CPU's; the setup
-operands built once per render and per loss.
+operands built once per render and per loss; the forward's global-table
+build (scenes past the shared tables) against the shared build and its
+plain version, its frame graph and its launch counter.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -1926,3 +1928,89 @@ def test_card_ray_setup_device_base(cuda, base, sample):
                                         (base + sample) & 0xFFFFFFFF)
     for g, w_, p in zip(got, want, plain):
         assert torch.equal(g, w_) and torch.equal(g, p)
+
+
+# ---------------------------------------------------------------------------
+# the forward's global-table build: scenes of more than MAX_PRIMS rows
+# ---------------------------------------------------------------------------
+
+
+def _rtnw_doc():
+    """The benchmark's configuration rtnw-final: the final scene of Ray
+    Tracing: The Next Week, 3,407 rows, 800 x 800."""
+    import json
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parents[1] / "bench_h100"
+            / "configs" / "rtnw-final.json")
+    return json.loads(path.read_text())["scene"]
+
+
+@pytest.mark.parametrize("kind,n_rays,max_depth", [
+    ("cornell_box", 1, 8), ("cornell_box", 33, 8), ("cornell_box", 1000, 8),
+    ("cornell_box", None, 8), ("cornell_box", None, 0),
+    ("looking_away", None, 8), ("triangle_rows", None, 3)])
+def test_wide_build_is_the_shared_build(cuda, kind, n_rays, max_depth,
+                                       monkeypatch):
+    """The global-table build forced (MAX_PRIMS 0) on scenes the shared
+    tables hold (Cornell, Cornell looking away, triangle rows) gives the
+    shared-table build's radiance bit for bit, at ragged ray counts; it
+    counts in launches_wide alone."""
+    static, args = _refill_case(cuda, kind, n_rays=n_rays)
+    want = mk.forward(static, max_depth, 1, *args)
+    monkeypatch.setattr(mk, "MAX_PRIMS", 0)
+    before = (mk.launches, mk.launches_mesh, mk.launches_wide)
+    got = mk.forward(static, max_depth, 1, *args)
+    torch.cuda.synchronize()
+    assert (mk.launches, mk.launches_mesh, mk.launches_wide) == (
+        before[0], before[1], before[2] + 1)
+    assert torch.equal(got, want)
+
+
+def test_wide_build_on_rtnw_is_its_plain_version(cuda):
+    """rtnw-final at 800^2, depth 40, every 10th pixel of the film: the
+    global-table build (chosen by the row count) against the plain version
+    (its blocked scan) on the same CUDA tensors, bit for bit, and two
+    launches bit-equal."""
+    scene, _ = scene_from_dict(_rtnw_doc(), device=cuda)
+    static = mk.SceneStatic.from_scene(scene)
+    assert len(static.rows) == 3407 and not static.mesh_parts
+    px, py = kt.tile_coords(800, 800, 0, cuda)
+    args = kt.kernel_inputs(scene, *kt.camera_planes(
+        scene, 800, 800, px[::10], py[::10], 3), static)
+    before = mk.launches_wide
+    got = mk.forward(static, 40, 1, *args)
+    again = mk.forward(static, 40, 1, *args)
+    torch.cuda.synchronize()
+    assert mk.launches_wide == before + 2
+    want = mk.forward_reference(static, 40, 1, *args)
+    assert float(want.sum()) > 0
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+def test_wide_frame_graph_bit_equal_to_eager(cuda, frame_graphs):
+    """rtnw-final at 800^2, spp 2: render_accumulate's replayed frame graph
+    equals the eager frame; every call counts spp global-table launches,
+    replays included, and no shared-table forward."""
+    scene, _ = scene_from_dict(_rtnw_doc(), device=cuda)
+    spp = 2
+    for k in range(4):
+        before = (mk.launches, mk.launches_wide)
+        got = kt.render_accumulate(scene, 800, 800, spp, 40,
+                                   first_sample=1 + spp * k)
+        assert (mk.launches, mk.launches_wide) == (before[0],
+                                                   before[1] + spp), k
+        if k in (0, 3):
+            want = _eager_frame(scene, 800, 800, spp, 40, 1 + spp * k)
+            assert torch.equal(got, want), k
+    assert kt.graph_captures == frame_graphs[0] + 1
+    assert kt.graph_replays == frame_graphs[1] + 3
+
+
+def test_wide_scene_fit_refuses(cuda):
+    """A gradient through the kernel path of a scene past the shared
+    tables raises before any launch, naming the build and its limit."""
+    scene, _ = scene_from_dict(_rtnw_doc(), device=cuda)
+    scene.spectra.requires_grad_(True)
+    with pytest.raises(ValueError, match="retrace backward holds at most"):
+        kt.render_sample(scene, 16, 16, 1, 4)

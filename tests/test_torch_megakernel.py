@@ -17,9 +17,20 @@ choice) can flip and send one path elsewhere. What must hold:
   through the last-hit-wins tie; a flipped tie would be systematic, not
   noise.
 
+The same rule holds forward_reference on a scene of more unrolled rows
+than the CUDA kernels' shared tables take: 317 rows of the final scene
+of *Ray Tracing: The Next Week* (scripts/make_rtnw_final.py at a smaller
+count), against the JAX kernel's bounce (``make_bounce``, the body of
+``build_forward``'s depth loop) run op by op on the same planes. Pallas
+interpret mode would compile that 317-row unrolled scan for minutes and
+in more than 10 GB.
+
 The kernel itself is held against forward_reference on the card in
 tests/test_torch_cuda.py, which imports no jax.
 """
+
+import importlib.util
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -54,10 +65,16 @@ def _inputs(seed=0):
     # a quarter of the rays in the top rows, around the light
     py[: R // 4] = g.integers(0, H // 6, R // 4)
     px[: R // 4] = g.integers(W // 3, 2 * W // 3, R // 4)
+    return _camera_inputs(js, px, py, W, H)
+
+
+def _camera_inputs(js, px, py, w, h):
+    """Kernel inputs for the camera rays of pixels (px, py) of a w x h
+    film of the JAX scene js, at sample 3."""
     sample = np.uint32(3)
     c = jdata.as_jax(js).camera
     seed_p = jrng.seed_pixel_p(px, py, sample)
-    o, d, seed_p = jcam.camera_rays_p(c.eye, c.lookat, c.up, c.fov, W, H,
+    o, d, seed_p = jcam.camera_rays_p(c.eye, c.lookat, c.up, c.fov, w, h,
                                       px, py, sample, seed_p)
     hero, seed_p = jspec.sample_wavelengths_p(seed_p)
     spect = np.asarray(jspec.expand_hero_table(
@@ -110,6 +127,58 @@ def test_forward_reference_matches_pallas(case):
     assert frac >= 0.99, f"only {frac:.4f} of rays match (worst {worst:.3g})"
     assert abs(got.mean() - want.mean()) <= 1e-3 * abs(want.mean())
     light = case["spect"][LIGHT_SPECTRUM * 4:LIGHT_SPECTRUM * 4 + 4]
+    direct = (want == light).all(axis=0)
+    assert direct.sum() >= 8, "too few direct light hits to test the tie"
+    assert ((got == light).all(axis=0) | ~direct).all()
+
+
+def _rtnw_generator():
+    path = (pathlib.Path(__file__).resolve().parents[1] / "scripts"
+            / "make_rtnw_final.py")
+    spec = importlib.util.spec_from_file_location("make_rtnw_final", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_forward_reference_matches_pallas_past_the_shared_tables():
+    """317 unrolled rows (6 x 6 ground boxes, the light, 100 spheres), every
+    pixel of a 32 x 32 film: forward_reference against the JAX kernel's
+    bounce on identical prims, rays, seeds and spectra, under the rule
+    above."""
+    side = 32
+    doc = _rtnw_generator().final_scene(boxes_per_side=6, n_spheres=94,
+                                        width=side, height=side)
+    js, _ = jax_scene_from_dict(doc)
+    static = jmk.SceneStatic.from_scene(js)
+    assert len(static.rows) == 317 > mk.MAX_PRIMS and not static.mesh_parts
+    px = np.tile(np.arange(side, dtype=np.uint32), side)
+    py = np.repeat(np.arange(side, dtype=np.uint32), side)
+    inp = _camera_inputs(js, px, py, side, side)
+    n = side * side
+    bounce = jmk.make_bounce(static, (n,), MAX_DEPTH, RR_START)
+    prims, spect = jnp.asarray(inp["prims"]), jnp.asarray(inp["spect"])
+    diff, nondiff = jmk._init_carry(jnp.asarray(inp["rays"])[:, None],
+                                    jnp.asarray(inp["seeds"])[:, None],
+                                    (1, n))
+    diff, (seed, exclude, *flags) = jax.tree_util.tree_map(
+        lambda x: x[0], (diff, nondiff))
+    nondiff = (seed, exclude, *(f != 0 for f in flags))
+    for depth in range(MAX_DEPTH + 1):
+        diff, nondiff, _ = bounce(
+            lambda i, j: prims[i, j],
+            lambda row: tuple(spect[row * 4 + j] for j in range(4)),
+            diff, nondiff, depth)
+    want = np.stack([np.asarray(x) for x in diff[2]])
+    _, *tin = _torch_inputs(inp)
+    got = mk.forward_reference(mk.SceneStatic.from_scene(
+        scene_from_jax(js, "cpu")), MAX_DEPTH, RR_START, *tin).numpy()
+    assert got.shape == (4, n) and np.isfinite(got).all()
+    frac, worst = _agreement(got, want)
+    assert frac >= 0.99, f"only {frac:.4f} of rays match (worst {worst:.3g})"
+    assert abs(got.mean() - want.mean()) <= 1e-3 * abs(want.mean())
+    k = list(doc["spectra"]).index("light")
+    light = inp["spect"][k * 4:k * 4 + 4]
     direct = (want == light).all(axis=0)
     assert direct.sum() >= 8, "too few direct light hits to test the tie"
     assert ((got == light).all(axis=0) | ~direct).all()

@@ -1,0 +1,159 @@
+"""Scenes of more unrolled rows than the kernels' shared tables hold
+(``kernels.megakernel.MAX_PRIMS``), on the CPU.
+
+- The untaped forward takes them: its plain version's blocked scan
+  (``_scan_primitives``) gives the row-by-row scan's image at any block
+  size, and the port's kernel path renders a seeded scene of the final
+  scene of *Ray Tracing: The Next Week*'s procedure
+  (``scripts/make_rtnw_final.py``, at a smaller count) as the benchmark's
+  plain reference (``bench_h100/reference``) does. Its JAX comparison is
+  in tests/test_torch_megakernel.py.
+- Every other build refuses them, naming its limit.
+- The generator reproduces the committed ``rtnw-final`` configuration.
+"""
+
+import importlib.util
+import json
+import pathlib
+import sys
+
+import pytest
+import torch
+
+from computeraytracer_tpu_torch import RenderConfig, scene_from_dict
+from computeraytracer_tpu_torch.kernels import megakernel as mk
+from computeraytracer_tpu_torch.tracer import api
+from computeraytracer_tpu_torch.tracer import kernel as kt
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from bench_h100.harness import check  # noqa: E402
+from bench_h100.reference import ops as ref_ops  # noqa: E402
+from bench_h100.reference import scene as ref_scene  # noqa: E402
+from bench_h100.reference import tracer as ref_tracer  # noqa: E402
+
+
+def _generator():
+    spec = importlib.util.spec_from_file_location(
+        "make_rtnw_final", ROOT / "scripts" / "make_rtnw_final.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+GEN = _generator()
+SIDE, DEPTH = 16, 4
+
+
+@pytest.fixture(scope="module")
+def small_doc():
+    """6 x 6 ground boxes (216 patches), the light and 100 spheres (94
+    white, the six feature spheres): 317 rows, at 16 x 16."""
+    doc = GEN.final_scene(boxes_per_side=6, n_spheres=94, width=SIDE,
+                          height=SIDE)
+    n = len(doc["objects"]["patches"]) + len(doc["objects"]["spheres"])
+    assert n == 317 > mk.MAX_PRIMS
+    return doc
+
+
+def _scene(doc):
+    scene, _ = scene_from_dict(doc, device="cpu")
+    return scene, mk.SceneStatic.from_scene(scene)
+
+
+def test_blocked_scan_is_the_row_by_row_scan(small_doc, monkeypatch):
+    """The plain forward of a wide scene scans its rows in blocks; with one
+    row a block (each folded into the running best in turn, the in-order
+    scan) it gives the same image bit for bit as with 100 rows a block and
+    with a block of each category's rows whole."""
+    scene, static = _scene(small_doc)
+    assert not static.mesh_parts and len(static.rows) == 317
+    px, py = kt.tile_coords(SIDE, SIDE, 0, "cpu")
+    args = kt.kernel_inputs(scene, *kt.camera_planes(
+        scene, SIDE, SIDE, px, py, 3), static)
+    want = mk.forward(static, DEPTH, 1, *args)
+    assert float(want.abs().sum()) > 0
+    for rows in (1, 100):
+        monkeypatch.setattr(mk, "MESH_BLOCK", SIDE * SIDE * rows)
+        assert torch.equal(mk.forward(static, DEPTH, 1, *args), want), rows
+
+
+def test_kernel_path_renders_as_the_reference(small_doc):
+    """api.render through the kernel path (its plain version on the CPU)
+    against the benchmark's reference on the same samples. The tolerance
+    is the render cells' comparison (bench_h100/harness/check.py, the
+    checks of cornell-serve4): a pixel is off past 1e-3 relative in XYZ or
+    sRGB, and at most 1% of pixels may be off, since a path that parts on
+    a rounding difference between the two tracers changes its pixel."""
+    scene, _ = _scene(small_doc)
+    cfg = RenderConfig(width=SIDE, height=SIDE, spp=2, max_depth=DEPTH,
+                       rr_start=1, kernel="pallas", first_sample=5)
+    out = api.render(scene, cfg)
+    ref = ref_scene.build(small_doc, "cpu")
+    px, py = ref_tracer.film_pixels(SIDE, SIDE, "cpu")
+    acc = ref_tracer.accumulate(ref, SIDE, SIDE, px, py, 5, 2, DEPTH, 1)
+    total = cfg.first_sample + cfg.spp - 1
+    assert out["samples"] == total
+    answers = [{"accum": out["accum_xyz"].reshape(-1, 3),
+                "srgb": out["srgb"].reshape(-1, 3), "samples": total}]
+    refs = [{"accum": acc, "srgb": ref_ops.xyz_to_srgb(acc / float(total)),
+             "samples": total}]
+    cell = type("Cell", (), {"check": {"pixel_tol": 1e-3}})()
+    assert float(acc.sum()) > 0
+    assert check.serve_numbers(cell, answers, refs)["bad_pixel_share"] <= 0.01
+
+
+BUILDS = ("taped forward", "winner-taped forward", "retrace backward",
+          "tape-fed backward", "shade step", "mesh forward")
+
+
+@pytest.mark.parametrize("build", BUILDS)
+def test_other_builds_refuse_wide_scenes(small_doc, build):
+    """Only the untaped forward of a scene without mesh parts passes
+    MAX_PRIMS; every other build raises a message naming itself and the
+    limit."""
+    _, static = _scene(small_doc)
+    mk._check_static(static, "forward")
+    with pytest.raises(ValueError, match=f"the {build} holds at most "
+                       f"{mk.MAX_PRIMS} unrolled primitives"):
+        mk._check_static(static, build)
+
+
+def test_wrappers_refuse_wide_scenes(small_doc):
+    """The taped and winner-taped forwards and the backward kernels refuse
+    a wide scene before any work, and a differentiable trace refuses it
+    before its forward; the untaped forward's CPU version takes it."""
+    scene, static = _scene(small_doc)
+    px, py = kt.tile_coords(4, 4, 0, "cpu")
+    args = kt.kernel_inputs(scene, *kt.camera_planes(scene, 4, 4, px, py, 1),
+                            static)
+    assert mk.forward(static, 1, 1, *args).shape == (4, 16)
+    for fn in (mk.forward_taped, mk.forward_winners):
+        with pytest.raises(ValueError, match="kernel bounds"):
+            fn(static, 1, 1, *args)
+    with pytest.raises(ValueError, match="retrace backward holds at most"):
+        mk.backward(static, 1, 1, *args, torch.zeros(4, 16))
+    prims = args[0].clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="retrace backward holds at most"):
+        mk.TraceFn.apply(static, 1, 1, prims, *args[1:])
+    with pytest.raises(ValueError, match="taped forward holds at most"):
+        mk.TraceTapedFn.apply(static, 1, 1, prims, *args[1:])
+
+
+def test_generator_reproduces_the_configuration():
+    """scripts/make_rtnw_final.py with its seed writes the committed file:
+    2,401 patches (400 boxes of six faces and the light), 1,006 spheres,
+    one light, 800 x 800, depth 40."""
+    path = ROOT / "bench_h100" / "configs" / "rtnw-final.json"
+    text = path.read_text()
+    assert GEN.dumps(GEN.config()) == text
+    cfg = json.loads(text)
+    objs = cfg["scene"]["objects"]
+    assert len(objs["patches"]) == 2401 and len(objs["spheres"]) == 1006
+    lights = [o for o in objs["patches"] + objs["spheres"]
+              if o["type"] == "light"]
+    assert len(lights) == 1 and lights[0]["origin"] == [123.0, 554.0, 147.0]
+    assert (cfg["width"], cfg["height"], cfg["max_depth"]) == (800, 800, 40)
+    assert cfg["reduced"] == [] and cfg["source"] == GEN.SOURCE
+    assert list(cfg["scene"]["spectra"])[-1] == "dark"
