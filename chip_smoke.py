@@ -16,9 +16,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels), and a second launch bit-equal to the first (the refill
    schedule hands rays to lanes in an order that varies).
 4. served path: tracer.api.render at 1024^2, spp 4, depth 8 with the
-   launch counters reset just before; exactly 4 kernel launches, 4
-   ray-setup and 4 hero-gather launches (spectra and CIE in one), no
-   ray-setup backward, a finite non-zero image whose mean XYZ is within
+   launch counters reset just before; exactly 4 forward launches, all of
+   them the XYZ build (phase 33), 4 ray-setup and 4 hero-gather launches
+   (spectra and CIE in one), no ray-setup backward, a finite non-zero image whose mean XYZ is within
    1e-3 relative of the same render through the plain versions; the PNG
    is written to a temp dir.
 5. timing: forward kernel and plain version at the phase-3 shape (CUDA
@@ -212,8 +212,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    measure_mean_depth on Cornell 256^2, depth 8, within 1% of the mean
    trips of the taped forward kernel's tape on the same pixels; the
    CLI's render --profile DIR at 256^2, spp 1: one trace that names the
-   forward kernel and holds the spans crt:render and
-   crt:kernel:megakernel_fwd; debug.checked passes a clean 64^2 eager
+   served forward kernel (the XYZ build, refill_fwd_xyz) and holds the
+   spans crt:render and crt:kernel:megakernel_fwd_xyz; debug.checked passes a clean 64^2 eager
    render and raises on a NaN in spectra.
 24. the screen warp of the visibility gradients (ops/warp.py) around the
    kernels at the headline workload: value_and_grad of phase 7's loss
@@ -294,8 +294,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    frame graphs set aside, as a key's first call runs) and replayed, in
    turns (eager, graph, graph, eager), each frame synchronised: host ms a
    frame (median, mean) of each turn, the graph counters (no capture, 40
-   replays, 40 eager frames), SPP forwards, ray setups and gathers a
-   frame either way, and every graphed frame's accum, mean and sRGB
+   replays, 40 eager frames), SPP forwards (the XYZ build), ray setups and
+   gathers a frame either way, and every graphed frame's accum, mean and sRGB
    bit-equal to the eager frame of its samples.
 32. the forward's global-table build (csrc/megakernel_fwd.cu
    megakernel_fwd_wide) on the benchmark's rtnw-final (3,407 unrolled
@@ -303,12 +303,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel twice and forward_reference on every ray, bit-equal; 2
    launches_wide and no other forward; the kernel's time (CUDA events)
    and plain time; its bound from the live bounces and shadow scans of
-   the plain bounce loop; render at spp 4 launching 4 of it and nothing
-   else.
+   the plain bounce loop; render at spp 4 launching 4 of its XYZ build
+   (phase 33) and no other forward.
+33. the forward's XYZ builds (csrc/megakernel_fwd_xyz.cu, the served
+   sample's trace: kernels/megakernel.py forward_xyz) on Cornell 1024^2,
+   depth 8, and on rtnw-final 800^2, depth 40 (the global-table build),
+   sample 1, every counter zeroed just before: twice into an accumulator
+   that holds sample 2 already, each bit-equal to phase 3's (phase 32's)
+   forward_reference followed by xyz_accumulate_reference on the same
+   operands; 2 launches_xyz and 2 of the forward's own counter, nothing
+   else. The build's time (CUDA events), its plain time (forward_reference
+   plus the model), its bound from its own operands (o, d, int64 seeds,
+   spectra, CIE values, the accumulator read and written) and phase 3's
+   (phase 32's) scans, and its registers.
 Then one JSON line of kernels, each with its bound (the larger of the
 bytes it must move over 3.35 TB/s and a lower count of its float
 operations over 67 TFLOP/s, and of the ray setup's and its backward's
-u32 operations over 16.7 TOP/s, all at 700 W) and, for the four kernels
+u32 operations over 16.7 TOP/s, all at 700 W). The launches of the
+radiance and XYZ builds are told apart: each entry counts its own build's
+launches in phase 4's (phase 32's) render. For the four kernels
 of phase 24, its launches there ("launches_vis_grads"); the kernels of
 phase 27 carry their launches on each rank there ("launches_sharded");
 the setup's kernels their launches in phase 4's render and phase 10's
@@ -663,6 +676,7 @@ def _profile(fn, top=5, host_ops=False, named=()):
 
 def _reset_counters():
     mk.launches = mk.launches_mesh = mk.launches_taped = mk.launches_wide = 0
+    mk.launches_xyz = 0
     mk.launches_bwd = mk.launches_bwd_tape = mk.launches_winners = 0
     mk.launches_shade = bn.launches_walk = bn.launches_candidates = 0
     bn.launches_pair = bn.launches_pair_occl = 0
@@ -681,6 +695,7 @@ def _setup_counters():
 
 def _counters():
     return {"forward": mk.launches, "forward_wide": mk.launches_wide,
+            "forward_xyz": mk.launches_xyz,
             "forward_mesh": mk.launches_mesh,
             "forward_taped": mk.launches_taped, "backward": mk.launches_bwd,
             "backward_tape": mk.launches_bwd_tape,
@@ -2024,14 +2039,14 @@ def _observability(scene):
         with open(traces[0]) as f:
             text = f.read()
         size = os.path.getsize(traces[0])
-    if "fwd_kernel" not in text:
+    if "refill_fwd_xyz" not in text:
         raise RuntimeError("the --profile trace names no forward kernel")
-    for span in ("crt:render", "crt:kernel:megakernel_fwd"):
+    for span in ("crt:render", "crt:kernel:megakernel_fwd_xyz"):
         if f'"{span}"' not in text:
             raise RuntimeError(f"the --profile trace holds no {span} span")
     print(f"render --profile ({side}x{side}, spp 1): {cli_s:.2f} s, one "
-          f"trace of {size} bytes that names the forward kernel and holds "
-          f"the spans crt:render and crt:kernel:megakernel_fwd")
+          f"trace of {size} bytes that names the forward's XYZ build and "
+          f"holds the spans crt:render and crt:kernel:megakernel_fwd_xyz")
     small = presets.cornell_box(CHECKED_SIDE, CHECKED_SIDE)
     sscene, _ = scene_from_dict(small, device=dev)
 
@@ -3022,9 +3037,9 @@ def _frame_graph_turns(dev):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             outs.append(out)
-        launches = (mk.launches, setup_k.launches_ray_setup,
-                    setup_k.launches_gather)
-        if launches != (FRAME_TURN * SPP,) * 3:
+        launches = (mk.launches, mk.launches_xyz,
+                    setup_k.launches_ray_setup, setup_k.launches_gather)
+        if launches != (FRAME_TURN * SPP,) * 4:
             raise RuntimeError(f"a turn of {FRAME_TURN} frames (graphed "
                                f"{graphed}) launched {launches}")
         images.setdefault(graphed, outs)
@@ -3046,7 +3061,8 @@ def _frame_graph_turns(dev):
           f"(median, mean) in turns "
           f"{[(nm, round(a, 4), round(b, 4)) for nm, a, b in turns]}; "
           f"captures, replays, eager frames {counted}; launches a frame "
-          f"{SPP} forwards, {SPP} ray setups, {SPP} gathers either way; "
+          f"{SPP} forwards (the XYZ build), {SPP} ray setups, {SPP} "
+          f"gathers either way; "
           f"accum, mean and sRGB bit-equal")
 
 
@@ -3076,8 +3092,10 @@ def _wide_tables(dev):
     (forward_reference) on the same CUDA tensors, bit-equal; the build's
     launches (launches_wide, no other forward); its device time (CUDA
     events) and its bound from the plain loop's live bounces and shadow
-    scans. Then the served path: render at spp SPP launches SPP of it and
-    nothing else. Returns its kernels-line entry."""
+    scans. Then the served path: render at spp SPP launches SPP of its XYZ
+    build and no other forward. Returns its kernels-line entry and what
+    phase 33 reuses: the scene, its static, the plain radiance and time, the
+    live bounces and shadow scans, and the render's XYZ launches."""
     with open(WIDE_CONFIG) as f:
         scene, _ = scene_from_dict(json.load(f)["scene"], device=dev)
     static = mk.SceneStatic.from_scene(scene)
@@ -3118,8 +3136,9 @@ def _wide_tables(dev):
     cfg = RenderConfig(width=side, height=side, spp=SPP, max_depth=depth,
                        rr_start=RR_START, kernel="pallas")
     render_s, out = _host_s(lambda: render(scene, cfg))
-    if _counters() != _only(forward_wide=SPP):
-        raise RuntimeError(f"the rtnw-final render launched {_counters()}")
+    render_counts = _counters()
+    if render_counts != _only(forward_wide=SPP, forward_xyz=SPP):
+        raise RuntimeError(f"the rtnw-final render launched {render_counts}")
     if not torch.isfinite(out["accum_xyz"]).all():
         raise RuntimeError("the rtnw-final render is not finite")
     print(f"phase 32 (global tables): rtnw-final {len(static.rows)} rows, "
@@ -3128,14 +3147,16 @@ def _wide_tables(dev):
           f"{exact:.6f} of rays, a second launch bit-equal; {live} live "
           f"bounces, {diffuse_on} shadow scans, bound {bound[0]:.4f} ms "
           f"({bound[1]}); render spp {SPP} in {render_s:.3f} s, "
-          f"{SPP} global-table launches and no other forward")
+          f"{SPP} launches of the global-table XYZ build and no other "
+          f"forward")
     return {
         "name": "megakernel_forward_wide",
         "route": "cuda",
         "source": "computeraytracer_tpu_torch/kernels/csrc/megakernel_fwd.cu",
         "replaces": "computeraytracer_tpu/kernels/megakernel.py:897 "
                     "(plain mode, more rows than the shared tables hold)",
-        "launches": SPP,
+        "launches": (render_counts["forward_wide"]
+                     - render_counts["forward_xyz"]),
         "max_abs_err": max_abs_err,
         "bit_equal_rays": exact,
         "ms": ms,
@@ -3151,6 +3172,143 @@ def _wide_tables(dev):
         "live_bounces": live,
         "shadow_scans_counted": diffuse_on,
         "render_s": render_s,
+    }, {"scene": scene, "static": static, "side": side, "depth": depth,
+        "want": want, "plain_ms": plain_s * 1e3, "live": live,
+        "diffuse_on": diffuse_on,
+        "launches": render_counts["forward_xyz"]}
+
+
+# Float operations of the XYZ epilogue per ray: for each of X, Y and Z
+# four products, three sums, the scale and the add into the accumulator.
+XYZ_EPILOGUE_OPS = 3 * (4 + 3 + 1 + 1)
+
+
+def _registers(src, kernel):
+    """{entry function: registers} that -Xptxas -v printed for the entries
+    of csrc/<src>.cu whose mangled names hold kernel, the names demangled
+    by c++filt where it is installed."""
+    regs, name = {}, None
+    for line in _build.build_log.get(src, "").splitlines():
+        if "Compiling entry function '" in line:
+            name = line.split("'")[1]
+        elif "Used " in line and " registers" in line and name:
+            if kernel in name:
+                regs[name] = int(line.split("Used ")[1].split()[0])
+            name = None
+    try:
+        names = subprocess.run(["c++filt", "-p"], input="\n".join(regs),
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return regs
+    return (dict(zip(names, regs.values())) if len(names) == len(regs)
+            else regs)
+
+
+def _xyz_build(dev, name, case):
+    """Phase 33, one scene: the forward's XYZ build (mk.forward_xyz) on
+    sample 1 of case (the scene, its static, film side and depth, the plain
+    radiance of sample 1 and its time, the live bounces and shadow scans
+    of phase 3's tape or phase 32's loop, the XYZ launches of the phase's
+    render) into an accumulator that holds sample 2 already: twice,
+    bit-equal to forward_reference then xyz_accumulate_reference on the
+    same operands; its launches, time, plain time, bound and registers.
+    Returns its kernels-line entry."""
+    scene, static = case["scene"], case["static"]
+    side, depth, want = case["side"], case["depth"], case["want"]
+    wide = len(static.rows) > mk.MAX_PRIMS
+    setup = kt.setup_operands(scene, static)
+    px, py = kt.tile_coords(side, side, 0, dev)
+
+    def operands(sample):
+        o, d, hero, seed = kt.camera_planes(scene, side, side, px, py, sample)
+        spect, cie = spec.gather_hero_tables(
+            (setup.spect_table, setup.cie_table), hero)
+        return o, d, seed, spect, cie
+
+    o2, d2, seed2, spect2, cie2 = operands(2)
+    start = spec.spectral_to_xyz_p(cie2, mk.forward(
+        static, depth, RR_START, setup.prims, torch.cat([o2, d2]), seed2,
+        spect2))
+    o, d, seed, spect, cie = operands(1)
+    # the operands that the plain radiance of sample 1 was computed from
+    args = kt.kernel_inputs(scene, *kt.camera_planes(
+        scene, side, side, px, py, 1), static)
+    if not (torch.equal(args[0], setup.prims)
+            and torch.equal(args[1], torch.cat([o, d]))
+            and torch.equal(args[2], seed) and torch.equal(args[3], spect)):
+        raise RuntimeError(f"{name}: the XYZ build's operands are not those "
+                           f"of the plain radiance")
+    want_acc = start.clone()
+    mk.xyz_accumulate_reference(cie, want, want_acc)
+    scratch = start.clone()
+    model_ms = _events_ms(lambda: mk.xyz_accumulate_reference(
+        cie, want, scratch), 3)
+    xyz = (static, depth, RR_START, setup.prims, o, d, seed, spect, cie)
+    _reset_counters()
+    got, again = start.clone(), start.clone()
+    mk.forward_xyz(*xyz, got, mk._ray_counter(dev))
+    mk.forward_xyz(*xyz, again, mk._ray_counter(dev))
+    torch.cuda.synchronize()
+    counts = _counters()
+    own = "forward_wide" if wide else "forward"
+    if counts != _only(**{own: 2, "forward_xyz": 2}):
+        raise RuntimeError(f"two XYZ launches on {name} counted {counts}")
+    exact = (got == want_acc).all(dim=0).float().mean().item()
+    max_abs_err = (got - want_acc).abs().max().item()
+    if exact < 1.0 or not torch.equal(again, got):
+        raise RuntimeError(f"{name}: the XYZ build is bit-equal to forward_"
+                           f"reference then xyz_accumulate_reference on "
+                           f"{exact} of rays; a second launch bit-equal: "
+                           f"{torch.equal(again, got)}")
+    if torch.equal(got, start):
+        raise RuntimeError(f"{name}: the XYZ build added nothing")
+    scratch = start.clone()
+    ms = _events_ms(lambda: mk.forward_xyz(*xyz, scratch,
+                                           mk._ray_counter(dev)), 3)
+    rays = o.shape[1]
+    bound = _bound(_nbytes(setup.prims, o, d, seed, spect, cie)
+                   + 2 * _nbytes(start),
+                   (case["live"] + case["diffuse_on"]) * len(static.rows)
+                   * PRIM_TEST_OPS + XYZ_EPILOGUE_OPS * rays)
+    kernel = "refill_fwd_wide_xyz" if wide else "refill_fwd_xyz"
+    regs = _registers("megakernel_fwd_xyz", kernel)
+    plain_ms = case["plain_ms"] + model_ms
+    print(f"phase 33 (XYZ build, {name} {side}x{side} depth {depth}, "
+          f"{len(static.rows)} rows, {kernel}): bit-equal to forward_"
+          f"reference then the model on {exact:.6f} of {rays} rays into an "
+          f"accumulator holding sample 2, a second launch bit-equal; "
+          f"launches {_launched(counts)}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.1f} ms (model {model_ms:.3f} ms), bound "
+          f"{bound[0]:.4f} ms ({bound[1]}); registers {regs}")
+    return {
+        "name": ("megakernel_forward_wide_xyz" if wide
+                 else "megakernel_forward_xyz"),
+        "route": "cuda",
+        "source": "computeraytracer_tpu_torch/kernels/csrc/"
+                  "megakernel_fwd_xyz.cu",
+        "replaces": "computeraytracer_tpu/kernels/megakernel.py:897 "
+                    + ("(plain mode, more rows than the shared tables hold) "
+                       if wide else "")
+                    + "then computeraytracer_tpu/tracer/pallas.py "
+                      "spectral_to_xyz_p and the frame's accumulation",
+        "launches": case["launches"],
+        "max_abs_err": max_abs_err,
+        "bit_equal_rays": exact,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "plain_model_ms": model_ms,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": None,
+        "ms_per_sample": ms,
+        "mpaths_per_s": rays / (ms * 1e-3) / 1e6,
+        "rays": rays,
+        "rows": len(static.rows),
+        "max_depth": depth,
+        "live_bounces": case["live"],
+        "shadow_scans_counted": case["diffuse_on"],
+        "registers": regs,
     }
 
 
@@ -3214,10 +3372,12 @@ def main() -> int:
     out = render(scene, cfg)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    launches = mk.launches
+    render_counts = _counters()
+    launches = render_counts["forward"] - render_counts["forward_xyz"]
     setup_render = _setup_counters()
-    if launches != SPP:
-        raise RuntimeError(f"{launches} kernel launches, expected {SPP}")
+    if render_counts != _only(forward=SPP, forward_xyz=SPP):
+        raise RuntimeError(f"the render launched {render_counts}, expected "
+                           f"{SPP} forwards, each the XYZ build")
     want_setup = {"ray_setup": SPP, "hero_gather_fwd": SPP,
                   "hero_gather_bwd": 0, "ray_setup_bwd": 0}
     if setup_render != want_setup:
@@ -3232,7 +3392,8 @@ def main() -> int:
     rel_mean = ((mean_xyz - plain_mean).abs() / plain_mean.abs()).max().item()
     print(f"render: {WIDTH}x{HEIGHT} spp {SPP} depth {MAX_DEPTH} in "
           f"{render_s:.3f} s ({WIDTH * HEIGHT * SPP / render_s / 1e6:.3f} "
-          f"Mpaths/s end to end), {launches} launches, setup launches "
+          f"Mpaths/s end to end), launches {_launched(render_counts)}, "
+          f"setup launches "
           f"{setup_render}, mean XYZ "
           f"{mean_xyz.tolist()} vs plain {plain_mean.tolist()} "
           f"(rel {rel_mean:.3g})")
@@ -3694,8 +3855,18 @@ def main() -> int:
     print(f"chip_smoke phases 1-31: {time.perf_counter() - t_start:.1f} s")
 
     # 32. the forward's global-table build
-    wide = _wide_tables(dev)
+    wide, wide_case = _wide_tables(dev)
     print(f"chip_smoke phases 1-32: {time.perf_counter() - t_start:.1f} s")
+
+    # 33. the forward's XYZ builds, shared and global-table
+    xyz_entries = [
+        _xyz_build(dev, "Cornell", {
+            "scene": scene, "static": static, "side": WIDTH,
+            "depth": MAX_DEPTH, "want": want, "plain_ms": plain_ms,
+            "live": bounds["live"], "diffuse_on": bounds["diffuse_on"],
+            "launches": render_counts["forward_xyz"]}),
+        _xyz_build(dev, "rtnw-final", wide_case)]
+    print(f"chip_smoke phases 1-33: {time.perf_counter() - t_start:.1f} s")
 
     # bounds at the shapes timed above
     b_fwd, b_taped = bounds["forward"], bounds["taped"]
@@ -3849,7 +4020,7 @@ def main() -> int:
             ("candidates", "candidates.cu", "binned.py:215", "candidates"),
             ("pair_closest", "pair.cu", "binned.py:392", "pair_closest"),
             ("pair_any", "pair.cu", "binned.py:898", "pair_any"))]
-        + setup_entries + [wide]}))
+        + setup_entries + [wide] + xyz_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

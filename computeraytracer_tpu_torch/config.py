@@ -24,6 +24,8 @@ N_HERO = 4  # hero-wavelength: 4 wavelengths per path
 CIE_OFFSET = 40  # CIE tables start at 360nm; index 40 == 400nm
 CIE_N = 471  # 360..830nm at 1nm
 CIE_Y_INTEG = 106.856895  # normalization constant
+# The Riemann sum's scale of the hero wavelengths' XYZ.
+XYZ_SCALE = (LAMBDA_MAX - LAMBDA_MIN) / (CIE_Y_INTEG * N_HERO)
 
 # Sub-pixel jitter strata.
 GRID_SIZE = 16

@@ -1061,13 +1061,17 @@ __device__ __forceinline__ bool bounce(const SceneT& s, const Trace& tr,
   return true;
 }
 
-// The carry a camera ray starts with.
-__device__ __forceinline__ Carry init_carry(const float* __restrict__ rays,
-                                            const int* __restrict__ seeds,
+// The carry a camera ray starts with: its origin and direction from the
+// (3, R) planes o and d, its seed words from seeds (4, R), u32 bits as
+// int32 or u32 values as int64 (the low word either way).
+template <class Seed>
+__device__ __forceinline__ Carry init_carry(const float* __restrict__ o,
+                                            const float* __restrict__ d,
+                                            const Seed* __restrict__ seeds,
                                             long long R, long long r) {
   Carry c;
-  c.o = {rays[0 * R + r], rays[1 * R + r], rays[2 * R + r]};
-  c.d = {rays[3 * R + r], rays[4 * R + r], rays[5 * R + r]};
+  c.o = {o[0 * R + r], o[1 * R + r], o[2 * R + r]};
+  c.d = {d[0 * R + r], d[1 * R + r], d[2 * R + r]};
   for (int k = 0; k < 4; ++k) c.seed[k] = (uint32_t)seeds[k * R + r];
   for (int j = 0; j < 4; ++j) {
     c.L[j] = 0.0f;
@@ -1079,6 +1083,13 @@ __device__ __forceinline__ Carry init_carry(const float* __restrict__ rays,
   c.specular = false;
   c.in_trans = false;
   return c;
+}
+
+// The same from the rays (6, R) of the forward's operands: o, then d.
+__device__ __forceinline__ Carry init_carry(const float* __restrict__ rays,
+                                            const int* __restrict__ seeds,
+                                            long long R, long long r) {
+  return init_carry(rays, rays + 3 * R, seeds, R, r);
 }
 
 // The tape of build_forward(taped="full"): each bounce's INPUT carry, rows

@@ -1,7 +1,8 @@
 // The forward megakernel's bodies, shared by the forward's entry points
-// (megakernel_fwd.cu, which describes their design) and the retrace
-// backward (megakernel_bwd.cu), whose replay launches the taped="full"
-// build, so that its tape is the taped forward's bit for bit. Each source
+// (megakernel_fwd.cu, which describes their design, and the XYZ builds of
+// megakernel_fwd_xyz.cu) and the retrace backward (megakernel_bwd.cu),
+// whose replay launches the taped="full" build, so that its tape is the
+// taped forward's bit for bit. Each source
 // that includes it compiles its own instantiations, with the same flags
 // (kernels/_build.py).
 //
@@ -16,6 +17,7 @@
 //   renders and triangle rows) and the taped="full" forward of triangle
 //   rows; refill_fwd_wide, the same schedule on scene tables in device
 //   memory, for the untaped forward of scenes of more than MAX_PRIMS rows;
+//   and the XYZ builds of both (refill_trace with XYZ), for serving;
 // - group_taped_kernel: persistent warps whose lanes take rays and retire
 //   them in groups of GROUP, for the taped="full" forward of scenes
 //   without mesh parts or triangle rows, so that every tape store of a
@@ -95,6 +97,41 @@ __global__ void __launch_bounds__(THREADS)
   if (MESH == MESH_COUNT) work_flush(work);
 }
 
+// The operands of the forward's XYZ builds (megakernel_fwd_xyz.cu): the
+// rays as the ray setup writes them, o and d (3, R) f32 and the seeds
+// (4, R) int64 holding u32 values; each ray's 12 hero-gathered CIE values
+// cie (12, R) f32, the X bar at its 4 wavelengths, then Y's, then Z's; the
+// frame's accumulator accum (3, R) f32; and the Riemann sum's scale, the
+// f32 value torch multiplies by in ops/spectrum.py spectral_to_xyz_p.
+struct XyzFrame {
+  const float* o;
+  const float* d;
+  const long long* seeds;
+  const float* cie;
+  float* accum;
+  float scale;
+};
+
+// The XYZ epilogue of ray r, whose radiance is L: each of X, Y and Z as
+// spectral_to_xyz_p forms it, ((b0 L0 + b1 L1) + b2 L2) + b3 L3, times the
+// scale, every operation rounded on its own (--fmad=false), then added to
+// the ray's pixel of the accumulator. A ray is traced by one lane, so no
+// other lane writes that pixel in the launch: no atomics. The loads and
+// the store go through L2 alone (ld.global.cg, st.global.cg): each line is
+// used once, and in L1 it would evict the scene records that the
+// global-table build reads there.
+__device__ __forceinline__ void xyz_add(const XyzFrame& xf, long long R,
+                                        long long r, const float* L) {
+  for (int k = 0; k < 3; ++k) {
+    const float* b = xf.cie + (long long)(4 * k) * R + r;
+    float v = __ldcg(b) * L[0] + __ldcg(b + R) * L[1];
+    v = v + __ldcg(b + 2 * R) * L[2];
+    v = v + __ldcg(b + 3 * R) * L[3];
+    float* a = xf.accum + k * R + r;
+    __stcg(a, __ldcg(a) + v * xf.scale);
+  }
+}
+
 // A warp of the refill schedule takes new rays at the top of a trip once
 // this many of its lanes are dead (or all of them, when fewer rays than
 // that are left). Chosen by timing 1, 8 and 16 (PERF.md).
@@ -126,17 +163,21 @@ enum { TRIP_LANES = 0, TRIP_WARPS = 1, TRIP_KINDS = 2 };
 // (864 B of tape per ray) a refill build of the taped forward ran 3-4x
 // slower than the one-thread schedule, and group_taped_kernel runs it.
 // With COUNT, the warp's lane and warp trips are added to
-// trips[TRIP_KINDS]. The schedule runs on either table (refill_trace):
-// refill_fwd_kernel on the shared one, refill_fwd_wide on the records in
-// device memory of a scene of more than MAX_PRIMS rows.
-template <int MESH, int TAPE, bool COUNT, class SceneT>
+// trips[TRIP_KINDS]. With XYZ, the rays and seeds are read from xf and a
+// ray that dies adds its XYZ into xf.accum (xyz_add) instead of writing its
+// radiance: rays, seeds and out are not read. The schedule runs on either
+// table (refill_trace): refill_fwd_kernel on the shared one,
+// refill_fwd_wide on the records in device memory of a scene of more than
+// MAX_PRIMS rows.
+template <int MESH, int TAPE, bool COUNT, bool XYZ, class SceneT>
 __device__ __forceinline__ void refill_trace(
     const SceneT& s, int P, int n_lights, const float* __restrict__ rays,
     const int* __restrict__ seeds, const float* __restrict__ spect, int S,
     float* __restrict__ out, float* __restrict__ tape_f,
     int* __restrict__ tape_i, long long R, int max_depth, int rr_start,
     unsigned long long* __restrict__ next_ray,
-    unsigned long long* __restrict__ trips) {
+    unsigned long long* __restrict__ trips, const XyzFrame& xf) {
+  static_assert(!XYZ || TAPE == TAPE_NONE, "the XYZ builds tape nothing");
   const unsigned lane = threadIdx.x & 31u;
   const Trace tr = {P, n_lights, S, spect, R, max_depth, rr_start};
   long long r = -1;    // this lane's ray, -1 while the lane is dead
@@ -158,7 +199,10 @@ __device__ __forceinline__ void refill_trace(
         if (id < (unsigned long long)R) {
           r = (long long)id;
           depth = 0;
-          c = init_carry(rays, seeds, R, r);
+          if constexpr (XYZ)
+            c = init_carry(xf.o, xf.d, xf.seeds, R, r);
+          else
+            c = init_carry(rays, seeds, R, r);
         }
       }
     }
@@ -176,7 +220,10 @@ __device__ __forceinline__ void refill_trace(
         if (TAPE == TAPE_FULL)
           for (int k = depth + 1; k <= max_depth; ++k)
             tape_write(tape_f, tape_i, R, r, k, c, false);
-        for (int j = 0; j < 4; ++j) out[j * R + r] = c.L[j];
+        if constexpr (XYZ)
+          xyz_add(xf, R, r, c.L);
+        else
+          for (int j = 0; j < 4; ++j) out[j * R + r] = c.L[j];
         r = -1;
       }
     }
@@ -206,9 +253,10 @@ __global__ void __launch_bounds__(THREADS)
                       unsigned long long* __restrict__ trips) {
   __shared__ Scene s;
   load_scene(s, prims, meta, P, lights, n_lights);
-  refill_trace<MESH, TAPE, COUNT>(s, P, n_lights, rays, seeds, spect, S, out,
-                                  tape_f, tape_i, R, max_depth, rr_start,
-                                  next_ray, trips);
+  refill_trace<MESH, TAPE, COUNT, false>(s, P, n_lights, rays, seeds, spect, S,
+                                         out, tape_f, tape_i, R, max_depth,
+                                         rr_start, next_ray, trips,
+                                         XyzFrame{});
 }
 
 // The untaped refill forward of a scene of any number of rows, the
@@ -228,9 +276,9 @@ __global__ void __launch_bounds__(THREADS)
                     int rr_start, unsigned long long* __restrict__ next_ray) {
   __shared__ WideScene s;
   load_wide_scene(s, rec, meta, lights, n_lights);
-  refill_trace<MESH, TAPE_NONE, false>(s, P, n_lights, rays, seeds, spect, S,
-                                       out, nullptr, nullptr, R, max_depth,
-                                       rr_start, next_ray, nullptr);
+  refill_trace<MESH, TAPE_NONE, false, false>(
+      s, P, n_lights, rays, seeds, spect, S, out, nullptr, nullptr, R,
+      max_depth, rr_start, next_ray, nullptr, XyzFrame{});
 }
 
 // Lanes of a group of group_taped_kernel: 16 consecutive 4-byte words of

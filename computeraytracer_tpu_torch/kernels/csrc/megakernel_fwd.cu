@@ -22,6 +22,9 @@
 //   megakernel_bwd.cu's replay writes, rows after the ray died included;
 //   triangle rows scanned as the mesh mode scans them (the MESH_ROWS
 //   build, which walks no part) when the scene has some;
+// - the untaped forward of a scene without mesh parts with each ray's
+//   radiance converted to XYZ and added into the frame as it retires:
+//   megakernel_fwd_xyz.cu, the same refill schedule and bounce;
 // - taped=True (megakernel_fwd_winners, plain or mesh mode): each bounce's
 //   closest-hit winner and the shadow winner of the light its NEE picked,
 //   the tape of the guided replay (tracer/replay.py). They are what
@@ -124,48 +127,13 @@
 // torch version's separate kernels do. expf/sinf/cosf are the full-precision
 // library functions.
 
-#include "forward.cuh"
+#include "forward_entry.cuh"
 
 namespace {
 
 using namespace pathtrace;
 
-int check_args(int n_prims, int n_lights, int n_spectra, long long n_rays,
-               int max_depth, int max_prims = MAX_PRIMS) {
-  if (n_prims < 0 || n_prims > max_prims || n_lights < 1 ||
-      n_lights > MAX_LIGHTS || n_spectra < 1 || n_rays < 0 || max_depth < 0 ||
-      (n_rays + THREADS - 1) / THREADS > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
-// The records of the global-table build, one thread per slot: the
-// primitive row's vectors, and the plane constants load_scene computes,
-// in its op order, beside the slot's row and category.
-__global__ void wide_tables_kernel(const float* __restrict__ prims,
-                                   const int* __restrict__ meta, int P,
-                                   float* __restrict__ rec) {
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= P) return;
-  const float* p = prims + (long long)slot * 12;
-  const int cat = meta[slot * META + 1];
-  const V3 d1 = {p[0], p[1], p[2]}, d2 = {p[3], p[4], p[5]},
-           d3 = {p[6], p[7], p[8]};
-  V3 n0 = {0.0f, 0.0f, 0.0f};
-  float inv_e1 = 0.0f, inv_e2 = 0.0f;
-  if (cat != 1)
-    slot_frame(cat == 2 ? vsub(d2, d1) : d2, cat == 2 ? vsub(d3, d1) : d3,
-               n0, inv_e1, inv_e2);
-  float4* out = reinterpret_cast<float4*>(rec) + (long long)slot * 4;
-  out[0] = make_float4(d1.x, d1.y, d1.z, __int_as_float(meta[slot * META]));
-  out[1] = make_float4(d2.x, d2.y, d2.z, inv_e1);
-  out[2] = make_float4(d3.x, d3.y, d3.z, inv_e2);
-  out[3] = make_float4(n0.x, n0.y, n0.z, __int_as_float(cat));
-}
-
-// Launch refill_fwd_wide on its resident grid, with the smallest
-// shared-memory carveout (set once per device), so that L1 holds as much of
-// the records as it can. *next_ray must be 0.
+// Launch refill_fwd_wide on its resident grid. *next_ray must be 0.
 template <int MESH>
 cudaError_t wide_launch(const float* rec, const int* meta, int P,
                         const int* lights, int n_lights, const float* rays,
@@ -173,16 +141,9 @@ cudaError_t wide_launch(const float* rec, const int* meta, int P,
                         float* out, long long R, int max_depth, int rr_start,
                         unsigned long long* next_ray, cudaStream_t st) {
   static long long resident[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && dev >= 0 && dev < MAX_DEVICES &&
-      resident[dev] == 0)
-    err = cudaFuncSetAttribute(refill_fwd_wide<MESH>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               0);
   unsigned blocks = 0;
-  if (err == cudaSuccess)
-    err = resident_grid(refill_fwd_wide<MESH>, resident, R, &blocks);
+  const cudaError_t err =
+      wide_grid(refill_fwd_wide<MESH>, resident, R, &blocks);
   if (err != cudaSuccess) return err;
   refill_fwd_wide<MESH><<<blocks, THREADS, 0, st>>>(
       rec, meta, P, lights, n_lights, rays, seeds, spect, S, out, R,

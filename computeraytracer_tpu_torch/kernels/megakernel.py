@@ -25,6 +25,12 @@ Port of computeraytracer_tpu/kernels/megakernel.py ``build_forward``
   tables' bound) and no mesh part runs its global-table build, whose
   tables live in device memory. Every other build refuses such a scene
   (``_check_static``).
+- ``forward_xyz``: the untaped forward of a scene without mesh parts
+  with its XYZ epilogue (``csrc/megakernel_fwd_xyz.cu``), for serving: it
+  reads the ray setup's o, d and seeds as they are and adds each ray's
+  XYZ into the frame's accumulator as the ray retires, writing no
+  radiance; its plain version is ``forward_reference`` followed by
+  ``xyz_accumulate_reference``.
 - ``forward_refill_reference``, ``trips_from_tape`` and
   ``schedule_efficiency``: the plain model of the schedules on which the
   CUDA forward traces a scene without mesh parts (``csrc/forward.cuh``:
@@ -119,6 +125,9 @@ MAX_PARTS = 8
 # f32 words of one slot record of the global-table build (csrc/bounce.cuh
 # REC_WORDS).
 REC_WORDS = 16
+# The XYZ epilogue's scale: C.XYZ_SCALE as the f32 value torch multiplies
+# an f32 tensor by (ops/spectrum.py spectral_to_xyz_p).
+XYZ_SCALE_F32 = float(torch.tensor(C.XYZ_SCALE, dtype=torch.float32))
 
 # Rays x triangles per block of the plain mesh scan (_scan_mesh_part), and
 # rays x rows per block of the plain scan of the unrolled rows
@@ -131,9 +140,11 @@ MESH_BLOCK = 1 << 22
 # tape-fed backward, the winner-taped forward and the wavefront's shade
 # step (the mesh casts' kernels count in kernels/binned.py), and the
 # forward's global-table build (a scene of more than MAX_PRIMS rows; not
-# in `launches`).
+# in `launches`). Of the launches of those two, launches_xyz counts the
+# XYZ builds' (``forward_xyz``).
 launches = 0
 launches_wide = 0
+launches_xyz = 0
 launches_mesh = 0
 launches_taped = 0
 launches_bwd = 0
@@ -1128,12 +1139,13 @@ def _tables(static: SceneStatic, device: torch.device):
 
 
 # Argument kinds of each C entry point (csrc/*.cu): "p" a pointer or the
-# stream, "i" an int, "q" a long long.
+# stream, "i" an int, "q" a long long, "f" a float.
 SIGNATURES = {
     "megakernel_fwd": "ppipipppipqiiiipppppp",
     "megakernel_fwd_taped": "ppipipppipppqiiippp",
     "megakernel_fwd_winners": "ppipipppipppqiiiippp",
     "megakernel_fwd_wide": "ppipipppipqiiippp",
+    "megakernel_fwd_xyz": "ppipippppippfqiiippp",
     "megakernel_bwd": "ppipipppipppppppqiiipp",
     "megakernel_bwd_timed": "ppipipppipppppppqiiippp",
     "megakernel_bwd_tape": "ppipipipppppppqiiip",
@@ -1155,7 +1167,7 @@ def _fn(lib_name, fn_name):
     """The typed C entry point fn_name of csrc/<lib_name>.cu."""
     fn = getattr(_build.library(lib_name), fn_name)
     kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
-             "q": ctypes.c_longlong}
+             "q": ctypes.c_longlong, "f": ctypes.c_float}
     fn.argtypes = [kinds[k] for k in SIGNATURES[fn_name]]
     fn.restype = ctypes.c_int
     return fn
@@ -1274,6 +1286,78 @@ def _forward_wide(static, max_depth, rr_start, prims, rays, seeds, spect):
             _ray_counter(dev).data_ptr())
     launches_wide += 1
     return out
+
+
+def xyz_accumulate_reference(cie: torch.Tensor, radiance: torch.Tensor,
+                             accum: torch.Tensor) -> None:
+    """The XYZ epilogue's plain model: each ray's X, Y and Z from its
+    hero-gathered CIE values cie (12, R) (``ops.spectrum.gather_hero`` of
+    ``cie_window_exp``: X at the 4 hero wavelengths, then Y, then Z) and
+    its radiance (4, R), ((b0 L0 + b1 L1) + b2 L2) + b3 L3 times
+    XYZ_SCALE_F32, as ``spectral_to_xyz_p`` forms them, added into accum
+    (3, R) f32 in place."""
+    for k in range(3):
+        b = cie[4 * k:4 * k + 4]
+        v = b[0] * radiance[0] + b[1] * radiance[1]
+        v = v + b[2] * radiance[2]
+        v = v + b[3] * radiance[3]
+        accum[k] += v * XYZ_SCALE_F32
+
+
+def forward_xyz(static: SceneStatic, max_depth: int, rr_start: int,
+                prims: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                seeds: torch.Tensor, spect: torch.Tensor, cie: torch.Tensor,
+                accum: torch.Tensor, next_ray: torch.Tensor) -> None:
+    """The untaped forward with its XYZ epilogue, for serving, on CUDA
+    tensors (checked, never copied): traces the rays o, d (3, R) f32 with
+    seeds (4, R) int64 (the ray setup's outputs, as ``forward`` traces
+    cat([o, d])) and adds each ray's XYZ, formed from its hero-gathered CIE
+    values cie (12, R) f32, into accum (3, R) f32 in place. Scenes without
+    mesh parts. One launch of csrc/megakernel_fwd_xyz.cu: the refill
+    schedule on the shared tables, or on the global tables past MAX_PRIMS
+    rows, whose retiring rays add their XYZ into accum and write no
+    radiance. It counts in launches_xyz and, as the forward it is, in
+    launches (or launches_wide). Its plain version is ``forward`` followed
+    by ``xyz_accumulate_reference``, whose accum it gives bit for bit.
+    next_ray: the refill schedule's ray counter, a zeroed (1,) int64
+    tensor on the device (``_ray_counter``)."""
+    global launches, launches_wide, launches_xyz
+    if static.mesh_parts:
+        raise ValueError("the forward's XYZ build traces scenes without "
+                         "mesh parts")
+    _check_static(static, "forward")
+    P = len(static.rows)
+    S = static.n_spectra
+    R = o.shape[-1] if o.dim() == 2 else -1
+    dev = o.device
+    for name, t, shape, dtype in (
+            ("prims", prims, (P, 12), torch.float32),
+            ("o", o, (3, R), torch.float32),
+            ("d", d, (3, R), torch.float32),
+            ("seeds", seeds, (4, R), torch.int64),
+            ("spect", spect, (S * 4, R), torch.float32),
+            ("cie", cie, (12, R), torch.float32),
+            ("accum", accum, (3, R), torch.float32)):
+        _check_tensor(name, t, shape, dtype, dev)
+    _require_cuda(dev)
+    _check_tensor("next_ray", next_ray, (1,), torch.int64, dev)
+    wide = P > MAX_PRIMS
+    meta, lights = _tables(static, dev)
+    rec = (torch.empty((P, REC_WORDS), dtype=torch.float32, device=dev)
+           if wide else None)
+    _launch("megakernel_fwd_xyz",
+            _fn("megakernel_fwd_xyz", "megakernel_fwd_xyz"), dev,
+            prims.data_ptr(), meta.data_ptr(), P, lights.data_ptr(),
+            lights.shape[0], o.data_ptr(), d.data_ptr(), seeds.data_ptr(),
+            spect.data_ptr(), S, cie.data_ptr(), accum.data_ptr(),
+            XYZ_SCALE_F32, R, int(max_depth), int(rr_start),
+            int(static.mesh_mode), None if rec is None else rec.data_ptr(),
+            next_ray.data_ptr())
+    if wide:
+        launches_wide += 1
+    else:
+        launches += 1
+    launches_xyz += 1
 
 
 def _ray_counter(device):

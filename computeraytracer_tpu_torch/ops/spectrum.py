@@ -169,9 +169,6 @@ def gather_hero_tables(tables, hero: torch.Tensor) -> tuple:
     return HeroGatherFn.apply(hero, *tables)
 
 
-_XYZ_SCALE = (C.LAMBDA_MAX - C.LAMBDA_MIN) / (C.CIE_Y_INTEG * C.N_HERO)
-
-
 def spectral_to_xyz_p(cie_p: torch.Tensor,
                       radiance_p: torch.Tensor) -> torch.Tensor:
     """Riemann spectral -> XYZ in planar layout.
@@ -181,7 +178,7 @@ def spectral_to_xyz_p(cie_p: torch.Tensor,
     b = cie_p.reshape(3, C.N_HERO, -1)
     xyz = ((b[:, 0] * radiance_p[0] + b[:, 1] * radiance_p[1])
            + b[:, 2] * radiance_p[2]) + b[:, 3] * radiance_p[3]
-    return xyz * _XYZ_SCALE
+    return xyz * C.XYZ_SCALE
 
 
 def sample_spectrum(spectra: torch.Tensor, index: torch.Tensor,
@@ -201,4 +198,4 @@ def spectral_to_xyz(cie: torch.Tensor, radiance: torch.Tensor,
     bars = window[:, lambdas]  # (3, ..., 4)
     xyz = ((bars[..., 0] * radiance[..., 0] + bars[..., 1] * radiance[..., 1])
            + bars[..., 2] * radiance[..., 2]) + bars[..., 3] * radiance[..., 3]
-    return torch.movedim(xyz, 0, -1) * _XYZ_SCALE
+    return torch.movedim(xyz, 0, -1) * C.XYZ_SCALE

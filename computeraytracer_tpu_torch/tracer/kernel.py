@@ -59,6 +59,13 @@ their mesh mode. A mesh part's chunk BVH is packed from a plan fixed on
 the initial geometry (``mesh_plans``, as ``kernels/meshpack.py``
 ``plan_scene_mesh`` makes them), so its boxes follow the live vertices.
 
+``render_accumulate``'s frame (``_frame``) adds each sample into its
+accumulator in place where no gradient is wanted, the scene has no mesh
+part and the backward has a kernel forward: per sample the ray setup, the
+hero gather and the forward's XYZ build (``kernels.megakernel.forward_xyz``),
+which converts each ray to XYZ as it retires, three launches in all; the
+image is the composition's (radiance, CIE sum, accumulation) bit for bit.
+
 ``render_accumulate`` replays a frame as one CUDA graph where it can:
 the frame body of a CUDA scene without mesh parts, traced with no
 gradient wanted, is captured the second time a call of the same key
@@ -714,24 +721,64 @@ def _add_launches(counts: dict, sign: int) -> None:
         setattr(m, k, getattr(m, k) + sign * v)
 
 
+def _accumulate_sample(scene, width, height, sample, accum, max_depth,
+                       rr_start, static, setup, base, next_ray):
+    """One sample of the whole film added into accum (3, H, W) in place:
+    the ray setup, the hero gather and, on the card, the forward's XYZ
+    build (``kernels.megakernel.forward_xyz``), which converts each ray to
+    XYZ as it retires and adds it in; no radiance plane, no CIE sum in
+    torch. On the CPU the forward's plain version, then the epilogue's
+    (``xyz_accumulate_reference``). accum ends as ``accum +
+    render_sample_planar(...)``, bit for bit. next_ray: the forward's
+    zeroed (1,) ray counter."""
+    with profiling.annotate("ray_setup"):
+        o, d, hero, seed = camera_planes(scene, width, height, setup.px,
+                                         setup.py, sample, base)
+    with profiling.annotate("gather"):
+        spect, cie_p = spec.gather_hero_tables(
+            (setup.spect_table, setup.cie_table), hero)
+    args = (static, max_depth, rr_start, setup.prims)
+    if accum.is_cuda:
+        with profiling.annotate("trace"):
+            mk.forward_xyz(*args, o, d, seed, spect, cie_p, accum.view(3, -1),
+                           next_ray)
+        return
+    with profiling.annotate("trace"):
+        radiance = mk.forward_reference(*args, torch.cat([o, d]), seed, spect)
+    with profiling.annotate("xyz"):
+        mk.xyz_accumulate_reference(cie_p, radiance, accum.view(3, -1))
+
+
 def _frame(scene, width, height, spp, max_depth, rr_start, first, backward,
            static=None, base=None):
     """``render_accumulate``'s body, run eagerly or captured -> (static,
     the sum of samples first .. first+spp-1, or base + first .. where base
-    is given, as XYZ (H, W, 3))."""
+    is given, as XYZ (H, W, 3)). A scene without mesh parts, traced with
+    a kernel forward and no gradient wanted (``eager_reasons`` gives no
+    reason but the device), adds each sample into the accumulator in place
+    (``_accumulate_sample``); any other sums ``render_sample_planar``'s
+    images. Both give the same image, bit for bit."""
     with profiling.annotate("setup"):
         if static is None:
             static = SceneStatic.from_scene(scene)
         packs = mesh_packs_for(scene, static) if static.mesh_parts else None
         setup = setup_operands(scene, static, backward,
                                *tile_coords(width, height, 0, scene.device))
+        in_place = not static.mesh_parts and set(
+            eager_reasons(scene, backward)) <= {"device"}
     accum = torch.zeros((3, height, width), dtype=torch.float32,
                         device=scene.device)
-    for s in range(first, first + spp):
-        accum = accum + render_sample_planar(scene, width, height, s,
-                                             max_depth, rr_start, static,
-                                             backward, packs, setup=setup,
-                                             sample_base=base)
+    if in_place:  # the forward's ray counters, zeroed at once
+        counters = torch.zeros((spp, 1), dtype=torch.int64,
+                               device=scene.device)
+    for i, s in enumerate(range(first, first + spp)):
+        if in_place:
+            _accumulate_sample(scene, width, height, s, accum, max_depth,
+                               rr_start, static, setup, base, counters[i])
+        else:
+            accum = accum + render_sample_planar(
+                scene, width, height, s, max_depth, rr_start, static,
+                backward, packs, setup=setup, sample_base=base)
     return static, accum.permute(1, 2, 0).contiguous()
 
 

@@ -37,8 +37,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 # the kernels of the trace launches, by the substring of their names
-TRACE_KERNELS = ("refill_fwd_kernel", "refill_fwd_wide", "group_taped_kernel",
-                 "sweep_kernel")
+TRACE_KERNELS = ("refill_fwd_kernel", "refill_fwd_wide", "refill_fwd_xyz",
+                 "group_taped_kernel", "sweep_kernel")
 CSRC = ROOT / "computeraytracer_tpu_torch" / "kernels" / "csrc"
 
 

@@ -41,7 +41,11 @@ the gradient's bit-equality across runs; the camera gradients of renders
 through the ray setup's backward kernel against the CPU's; the setup
 operands built once per render and per loss; the forward's global-table
 build (scenes past the shared tables) against the shared build and its
-plain version, its frame graph and its launch counter.
+plain version, its frame graph and its launch counter; the forward's XYZ
+builds (shared and global-table) against the forward followed by the
+plain epilogue model, the served frame against the composition of the
+radiance plane, the CIE sum and the accumulation, and a fit step that
+launches no XYZ build.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -51,6 +55,7 @@ dependencies; the repo's conftest imports jax, so run it there with
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -1797,6 +1802,129 @@ def _eager_frame(scene, w, h, spp, depth, first, backward="pallas"):
     return kt._frame(scene, w, h, spp, depth, 1, first, backward)[1]
 
 
+def _composed_frame(scene, w, h, spp, depth, first):
+    """The frame as the sum of ``render_sample_planar``'s XYZ images in
+    sample order: the forward, the CIE sum in torch, the accumulation; what
+    the frame's in-place samples (the forward's XYZ build) replace."""
+    static = mk.SceneStatic.from_scene(scene)
+    setup = kt.setup_operands(scene, static, "pallas",
+                              *kt.tile_coords(w, h, 0, scene.device))
+    accum = torch.zeros((3, h, w), dtype=torch.float32, device=scene.device)
+    for s in range(first, first + spp):
+        accum = accum + kt.render_sample_planar(scene, w, h, s, depth, 1,
+                                                static, setup=setup)
+    return accum.permute(1, 2, 0).contiguous()
+
+
+def _xyz_doc(kind, w, h):
+    if kind == "rtnw":
+        return _rtnw_doc()
+    if kind == "triangle_rows":
+        return presets.mesh_scene(w, h, 1)
+    return presets.cornell_box(w, h)
+
+
+@pytest.mark.parametrize("kind,film,spp,depth", [
+    ("cornell_box", (1024, 1024), 4, 8), ("cornell_box", (37, 29), 3, 8),
+    ("triangle_rows", (64, 48), 2, 3), ("rtnw", (64, 64), 2, 8)])
+def test_card_xyz_frame_is_the_composition(cuda, frame_graphs, kind, film,
+                                           spp, depth):
+    """Four render_accumulate calls of one key (eager, captured and
+    replayed, replayed twice), first_sample advancing by spp: each frame,
+    whose samples the forward's XYZ build adds in place (the shared build;
+    the global-table build on rtnw-final's 3,407 rows), is the composition
+    of the radiance plane, the CIE sum and the accumulation, bit for bit;
+    each counts spp XYZ launches."""
+    w, h = film
+    scene, _ = scene_from_dict(_xyz_doc(kind, w, h), device=cuda)
+    static = mk.SceneStatic.from_scene(scene)
+    assert not static.mesh_parts
+    assert (len(static.rows) > mk.MAX_PRIMS) == (kind == "rtnw")
+    for k in range(4):
+        first = 1 + spp * k
+        before = mk.launches_xyz
+        got = kt.render_accumulate(scene, w, h, spp, depth,
+                                   first_sample=first)
+        assert mk.launches_xyz == before + spp, k
+        want = _composed_frame(scene, w, h, spp, depth, first)
+        assert float(want.sum()) > 0
+        assert torch.equal(got, want), k
+    assert kt.graph_captures == frame_graphs[0] + 1
+    assert kt.graph_replays == frame_graphs[1] + 3
+
+
+@pytest.mark.parametrize("kind,n_rays,max_depth,wide", [
+    ("cornell_box", 1, 8, False), ("cornell_box", 33, 8, False),
+    ("cornell_box", 1000, 8, False), ("cornell_box", None, 0, False),
+    ("cornell_box", None, 8, False), ("looking_away", None, 8, False),
+    ("triangle_rows", None, 3, False), ("cornell_box", 33, 8, True),
+    ("cornell_box", None, 8, True), ("triangle_rows", None, 3, True)])
+def test_card_forward_xyz_is_forward_then_model(cuda, kind, n_rays,
+                                                max_depth, wide,
+                                                monkeypatch):
+    """The forward's XYZ build, shared or global-table (MAX_PRIMS 0
+    forces it), into an accumulator that holds a sample already: the plain
+    epilogue model (xyz_accumulate_reference) applied to the forward's
+    radiance, bit for bit, at ragged ray counts; one launch, counted in
+    launches_xyz and in the forward's own counter."""
+    from computeraytracer_tpu_torch.ops import spectrum as spec
+
+    side = 64
+    doc = (presets.mesh_scene(side, side, 1) if kind == "triangle_rows"
+           else presets.cornell_box(side, side))
+    if kind == "looking_away":
+        doc["camera"]["lookat"] = [278, 273, -1600]
+    scene, _ = scene_from_dict(doc, device=cuda)
+    static = mk.SceneStatic.from_scene(scene)
+    px, py = kt.tile_coords(side, side, 0, cuda)
+    if n_rays is not None:
+        px, py = px[:n_rays], py[:n_rays]
+    setup = kt.setup_operands(scene, static)
+    o, d, hero, seed = kt.camera_planes(scene, side, side, px, py, 5)
+    spect, cie = spec.gather_hero_tables(
+        (setup.spect_table, setup.cie_table), hero)
+    R = px.shape[0]
+    start = torch.rand((3, R), generator=torch.Generator().manual_seed(R))
+    if wide:
+        monkeypatch.setattr(mk, "MAX_PRIMS", 0)
+    want = start.to(cuda)
+    mk.xyz_accumulate_reference(cie, mk.forward(
+        static, max_depth, 1, setup.prims, torch.cat([o, d]), seed, spect),
+        want)
+    got = start.to(cuda)
+    counts = lambda: (mk.launches, mk.launches_wide, mk.launches_xyz)
+    before = counts()
+    mk.forward_xyz(static, max_depth, 1, setup.prims, o, d, seed, spect, cie,
+                   got, mk._ray_counter(cuda))
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + (not wide), before[1] + wide,
+                        before[2] + 1)
+    assert torch.equal(got, want)
+    if kind == "looking_away":
+        assert torch.equal(got, start.to(cuda))
+
+
+def test_card_fit_step_launches_no_xyz_build(cuda):
+    """A fit step (make_train_step, spectra and data1 trained) runs the
+    radiance forward and its autograd, and no XYZ build."""
+    from computeraytracer_tpu_torch.train import optimize
+
+    w = h = 32
+    scene, _ = scene_from_dict(presets.cornell_box(w, h), device=cuda)
+    params0, static = optimize.split_scene(scene, ("spectra", "data1"))
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params0.items()}
+    adam = torch.optim.Adam(list(params.values()), lr=1e-5)
+    step = optimize.make_train_step(static, adam, w, h, 2, 4)
+    target = torch.full((h, w, 3), 0.1, device=cuda)
+    before = (mk.launches, mk.launches_bwd, mk.launches_xyz)
+    loss = step(params, target, 1)
+    torch.cuda.synchronize()
+    assert math.isfinite(float(loss))
+    assert (mk.launches, mk.launches_bwd, mk.launches_xyz) == (
+        before[0] + 2, before[1] + 2, before[2])
+
+
 @pytest.mark.parametrize("film,spp", [((1024, 1024), 4), ((37, 29), 3)])
 def test_card_frame_graph_bit_equal_to_eager(cuda, frame_graphs, film,
                                              spp):
@@ -1845,14 +1973,16 @@ def test_card_frame_graph_sees_in_place_edits(cuda, frame_graphs):
     got = kt.render_accumulate(scene, w, h, spp, 8, first_sample=7)
     want = _eager_frame(scene, w, h, spp, 8, 7)
     assert torch.equal(got, want) and not torch.equal(got, before)
+    assert torch.equal(got, _composed_frame(scene, w, h, spp, 8, 7))
     assert kt.graph_captures == frame_graphs[0] + 1
 
 
 def test_card_frame_graph_counters(cuda, frame_graphs):
     """N calls of one key: one eager frame, one capture, N - 1 replays
     (the capturing call replays too); every frame counts the launches of
-    the eager frame (spp forwards, ray setups and gathers), the capture's
-    own launches counted nowhere; a new spp is a new key, eager."""
+    the eager frame (spp forwards, each the XYZ build, ray setups and
+    gathers), the capture's own launches counted nowhere; a new spp is a
+    new key, eager."""
     w, h, spp, n = 32, 32, 3, 5
     scene, _ = scene_from_dict(presets.cornell_box(w, h), device=cuda)
     per_call = []
@@ -1866,8 +1996,8 @@ def test_card_frame_graph_counters(cuda, frame_graphs):
     assert (kt.graph_captures, kt.graph_replays, kt.graph_eager) == (
         captures + 1, replays + n - 1, eager + 1)
     names = {k[1]: v for k, v in per_call[0].items()}
-    assert names == {"launches": spp, "launches_ray_setup": spp,
-                     "launches_gather": spp}
+    assert names == {"launches": spp, "launches_xyz": spp,
+                     "launches_ray_setup": spp, "launches_gather": spp}
     assert all(c == per_call[0] for c in per_call)
     kt.render_accumulate(scene, w, h, spp + 1, 8)
     assert kt.graph_eager == eager + 2

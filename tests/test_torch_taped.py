@@ -355,7 +355,8 @@ def test_c_signatures_match_sources():
                              src.read_text(), re.S):
             args = [a.strip() for a in m.group(2).split(",")]
             found[m.group(1)] = "".join(
-                "p" if "*" in a else ("q" if "long long" in a else "i")
+                "p" if "*" in a else ("q" if "long long" in a else
+                                      "f" if a.startswith("float") else "i")
                 for a in args)
     assert found == mk.SIGNATURES
 
