@@ -240,13 +240,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 26. a world of one on NCCL (a file store in a temporary directory):
    parallel.render_sharded.render_accumulate_sharded on mesh (1, 1) at
    phase 4's workload, bit-equal to phase 4's image, exactly SPP forward
-   launches; the host ms of each in turns.
+   launches, each the XYZ build (no gradient is wanted); the host ms of
+   each in turns.
 27. two ranks on the one card, spawned with torch.multiprocessing, gloo
    over CUDA tensors (NCCL refuses two ranks on one device; this tests
    the path, not its speed); a child that fails fails the phase. Each
    rank builds the kernels, then renders Cornell 1024^2 (spp 4, depth 8)
-   with meshes (2, 1) and (1, 2), bit-equal to phase 4's image and to
-   the per-sample images summed as (s1+s2)+(s3+s4); the mesh scene (spp
+   with meshes (2, 1) and (1, 2) through the XYZ build, bit-equal to
+   phase 4's image and to the per-sample images summed as
+   (s1+s2)+(s3+s4); the mesh scene (spp
    4, depth 3) with (2, 1), bit-equal to phase 11's; and the sharded
    value_and_grad of train.optimize.make_loss_fn(mesh=...) by spectra and
    data1 with backward "pallas" and "pallas_taped" on both layouts, (2,
@@ -2381,9 +2383,9 @@ def _world_of_one(scene, single_accum):
             _reset_counters()
             first_s, got = _host_s(sharded)
             counts = _counters()
-            if counts != _only(forward=SPP):
+            if counts != _only(forward=SPP, forward_xyz=SPP):
                 raise RuntimeError(f"world of one launched {counts}, "
-                                   f"expected {SPP} forwards")
+                                   f"expected {SPP} XYZ forwards")
             if not torch.equal(got, single_accum):
                 raise RuntimeError("the world-of-one render differs from "
                                    "phase 4's")
@@ -2501,9 +2503,10 @@ def _two_ranks(scene, static, single_accum, mesh_accum):
         for shape in SHARD_LAYOUTS:
             img, secs, counts = res[("render", shape)]
             local = SPP // shape[1]
-            if counts != _only(forward=local):
+            if counts != _only(forward=local, forward_xyz=local):
                 raise RuntimeError(f"rank {r} render {shape} launched "
-                                   f"{counts}, expected {local} forwards")
+                                   f"{counts}, expected {local} XYZ "
+                                   f"forwards")
             if not torch.equal(img, want[shape]):
                 raise RuntimeError(f"rank {r}: the {shape} render differs "
                                    f"from the single-process one")
@@ -3293,6 +3296,7 @@ def _xyz_build(dev, name, case):
                     + "then computeraytracer_tpu/tracer/pallas.py "
                       "spectral_to_xyz_p and the frame's accumulation",
         "launches": case["launches"],
+        "launches_sharded": case.get("launches_sharded"),
         "max_abs_err": max_abs_err,
         "bit_equal_rays": exact,
         "ms": ms,
@@ -3864,7 +3868,8 @@ def main() -> int:
             "scene": scene, "static": static, "side": WIDTH,
             "depth": MAX_DEPTH, "want": want, "plain_ms": plain_ms,
             "live": bounds["live"], "diffuse_on": bounds["diffuse_on"],
-            "launches": render_counts["forward_xyz"]}),
+            "launches": render_counts["forward_xyz"],
+            "launches_sharded": [c["forward_xyz"] for c in shard]}),
         _xyz_build(dev, "rtnw-final", wide_case)]
     print(f"chip_smoke phases 1-33: {time.perf_counter() - t_start:.1f} s")
 
@@ -3885,7 +3890,8 @@ def main() -> int:
         "launches": launches,
         "launches_train": launches_fwd,
         "launches_vis_grads": vis_launches["pallas"]["forward"],
-        "launches_sharded": [c["forward"] for c in shard],
+        "launches_sharded": [c["forward"] - c["forward_xyz"]
+                             for c in shard],
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -105,13 +105,12 @@ def _world(device: str):
 
 
 def _render_accum(args, scene, w, h, bvh):
-    """The summed XYZ of --spp samples, by --kernel; with --sharded, over
-    make_mesh() of the running world; with --progressive N, rendered in
-    N-sample chunks, --out rewritten after each (and --sharded ignored)."""
+    """The summed XYZ of --spp samples, by --kernel (``tracer.api``); with
+    --sharded, over make_mesh() of the running world; with --progressive
+    N, rendered in N-sample chunks, --out rewritten after each (and
+    --sharded ignored)."""
     from computeraytracer_tpu_torch.ops import color
-    from computeraytracer_tpu_torch.tracer import kernel as kernel_tracer
-    from computeraytracer_tpu_torch.tracer import xla as xla_tracer
-    from computeraytracer_tpu_torch.tracer.api import render
+    from computeraytracer_tpu_torch.tracer import api
     from computeraytracer_tpu_torch.utils.image import write_png
 
     if args.sharded and not args.progressive:
@@ -121,11 +120,8 @@ def _render_accum(args, scene, w, h, bvh):
             scene, w, h, args.spp, mesh_mod.make_mesh(), max_depth=args.depth,
             bvh=bvh, kernel=args.kernel)
     if not args.progressive:
-        if args.kernel == "xla":
-            return xla_tracer.render_accumulate(
-                scene, w, h, spp=args.spp, max_depth=args.depth, bvh=bvh)
-        return render(scene, width=w, height=h, spp=args.spp,
-                      max_depth=args.depth, kernel=args.kernel)["accum_xyz"]
+        return api.render_accumulate(scene, w, h, args.spp, args.depth,
+                                     kernel=args.kernel, bvh=bvh)
     if args.sharded:
         print("--progressive ignores --sharded (single-host loop)",
               file=sys.stderr)
@@ -134,14 +130,9 @@ def _render_accum(args, scene, w, h, bvh):
     done = 0
     while done < args.spp:
         n = min(args.progressive, args.spp - done)
-        if args.kernel == "xla":
-            part = xla_tracer.render_accumulate(
-                scene, w, h, spp=n, max_depth=args.depth,
-                first_sample=done + 1, bvh=bvh)
-        else:
-            part = kernel_tracer.render_accumulate(
-                scene, w, h, spp=n, max_depth=args.depth,
-                first_sample=done + 1)
+        part = api.render_accumulate(scene, w, h, n, args.depth,
+                                     first_sample=done + 1,
+                                     kernel=args.kernel, bvh=bvh)
         accum = part if accum is None else accum + part
         done += n
         write_png(args.out, color.xyz_to_srgb(accum / float(done),
@@ -181,7 +172,8 @@ def _render(args) -> int:
     meter = RenderMeter(jsonl_path=args.metrics if lead else None)
     with tracing:
         meter.start()
-        accum = _render_accum(args, scene, w, h, bvh)
+        with profiling.annotate("render"):
+            accum = _render_accum(args, scene, w, h, bvh)
         if scene.device.type == "cuda":
             torch.cuda.synchronize(scene.device)
     rec = meter.stop(paths=w * h * args.spp, width=w, height=h,

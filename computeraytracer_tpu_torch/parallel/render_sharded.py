@@ -33,7 +33,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from computeraytracer_tpu_torch.parallel.mesh import DP_AXIS, SP_AXIS
-from computeraytracer_tpu_torch.tracer import kernel as kernel_tracer
+from computeraytracer_tpu_torch.tracer import api
 from computeraytracer_tpu_torch.tracer import xla as xla_tracer
 
 # When a list, every all-reduce of this module appends
@@ -110,13 +110,11 @@ def render_accumulate_sharded(scene, width: int, height: int, spp: int,
 
     height must divide by dp, spp by sp. Rank (dpi, spi) renders rows
     [dpi*tile_h, (dpi+1)*tile_h) for samples first_sample + spi*local_spp
-    + k, k < local_spp, in order. kernel="pallas" traces through the
-    kernel path (``tracer.kernel.render_pixels_planar``, its backward by
-    the backward knob, mesh packs and the setup operands built once, the
-    packs under mesh_plans);
-    kernel="xla" through the eager tracer, with bvh when given."""
-    if kernel not in ("pallas", "xla"):
-        raise ValueError(f"unknown kernel {kernel!r}")
+    + k, k < local_spp, in order, through ``tracer.api.accumulate``:
+    kernel="pallas" the kernel path (its backward by the backward knob,
+    the packs under mesh_plans), kernel="xla" the eager tracer, with bvh
+    when given."""
+    api.require_kernel(kernel)
     if mesh.size() != dist.get_world_size():
         raise ValueError(f"the mesh holds {mesh.size()} of "
                          f"{dist.get_world_size()} ranks; the image is "
@@ -136,30 +134,10 @@ def render_accumulate_sharded(scene, width: int, height: int, spp: int,
     y0 = mesh.get_local_rank(DP_AXIS) * tile_h
     s0 = first_sample + mesh.get_local_rank(SP_AXIS) * local_spp
     px, py = xla_tracer.tile_coords(width, tile_h, y0, scene.device)
-
-    if kernel == "pallas":
-        if static is None:
-            static = kernel_tracer.SceneStatic.from_scene(scene)
-        packs = (kernel_tracer.mesh_packs_for(scene, static, mesh_plans)
-                 if static.mesh_parts else None)
-        setup = kernel_tracer.setup_operands(scene, static, backward, px, py)
-        accum = torch.zeros((3, tile_h * width), dtype=torch.float32,
-                            device=scene.device)
-        for s in range(s0, s0 + local_spp):
-            accum = accum + kernel_tracer.render_pixels_planar(
-                scene, width, height, setup.px, setup.py, s, max_depth,
-                rr_start, static, backward, packs, setup=setup)
-        tile = accum.T
-    else:
-        if bvh is not None:
-            from computeraytracer_tpu_torch.bvh import builder
-            bvh = builder.to_device(bvh, scene.device)
-        tile = torch.zeros((tile_h * width, 3), dtype=torch.float32,
-                           device=scene.device)
-        for s in range(s0, s0 + local_spp):
-            tile = tile + xla_tracer.render_pixels(
-                scene, width, height, px, py, s, max_depth, rr_start,
-                use_remat, bvh=bvh)
+    tile = api.accumulate(scene, width, height, local_spp, max_depth,
+                          rr_start, s0, kernel, px, py, backward=backward,
+                          static=static, mesh_plans=mesh_plans,
+                          use_remat=use_remat, bvh=bvh)
     full = F.pad(tile.reshape(tile_h, width, 3),
                  (0, 0, 0, 0, y0, height - y0 - tile_h))
     return _SumOverWorld.apply(full)

@@ -9,13 +9,15 @@ it runs; the loaders put it on the card unless asked for the CPU.
 kernel, one launch per sample (mesh scenes in its mesh mode);
 ``kernel="xla"`` (the JAX package's default) through the eager torch
 tracer, ``tracer/xla.py``, brute force. Both compute the same image.
+This module is the one place that reads ``kernel``: every render and
+loss sums its samples through ``accumulate`` (a pixel set, never graphed)
+or ``render_accumulate`` (whole frames), each of which calls one
+tracer's loop over samples.
 """
 
 from __future__ import annotations
 
 from typing import Optional
-
-import torch
 
 from computeraytracer_tpu_torch.config import RenderConfig
 from computeraytracer_tpu_torch.ops import color
@@ -26,7 +28,8 @@ from computeraytracer_tpu_torch.utils import profiling
 KERNELS = ("pallas", "xla")
 
 
-def _require_kernel(kernel: str) -> None:
+def require_kernel(kernel: str) -> None:
+    """Raise ValueError unless kernel is one of KERNELS."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; expected one of "
                          f"{KERNELS}")
@@ -35,7 +38,7 @@ def _require_kernel(kernel: str) -> None:
 def render_sample(scene, width, height, sample, max_depth=8, rr_start=1,
                   kernel: str = "pallas"):
     """One progressive sample -> XYZ (H, W, 3)."""
-    _require_kernel(kernel)
+    require_kernel(kernel)
     if kernel == "xla":
         return xla_tracer.render_sample(scene, width, height, sample,
                                         max_depth, rr_start)
@@ -43,57 +46,65 @@ def render_sample(scene, width, height, sample, max_depth=8, rr_start=1,
                                        max_depth, rr_start)
 
 
-def _band_accumulate(scene, static, packs, y0, tile_h, cfg: RenderConfig):
-    """Accumulate cfg.spp samples for film rows [y0, y0+tile_h)."""
-    px, py = kernel_tracer.tile_coords(cfg.width, tile_h, y0, scene.device)
-    if cfg.kernel == "xla":
-        accum = torch.zeros((tile_h * cfg.width, 3), dtype=torch.float32,
-                            device=scene.device)
-        for s in range(cfg.first_sample, cfg.first_sample + cfg.spp):
-            accum = accum + xla_tracer.render_pixels(
-                scene, cfg.width, cfg.height, px, py, s, cfg.max_depth,
-                cfg.rr_start)
-        return accum.reshape(tile_h, cfg.width, 3)
-    accum = torch.zeros((3, tile_h * cfg.width), dtype=torch.float32,
-                        device=scene.device)
-    for s in range(cfg.first_sample, cfg.first_sample + cfg.spp):
-        accum = accum + kernel_tracer.render_pixels_planar(
-            scene, cfg.width, cfg.height, px, py, s, cfg.max_depth,
-            cfg.rr_start, static, mesh_packs=packs)
-    return accum.T.reshape(tile_h, cfg.width, 3)
+def accumulate(scene, width: int, height: int, spp: int, max_depth: int = 8,
+               rr_start: int = 1, first_sample: int = 1,
+               kernel: str = "pallas", px=None, py=None,
+               chunk: int | None = None, backward: str = "pallas",
+               static=None, mesh_plans=None, use_remat: bool = True,
+               bvh=None, vis_grads=False):
+    """Sum of samples first_sample .. first_sample+spp-1 over the pixels
+    px, py (R,), the whole film row-major when None -> XYZ (R, 3),
+    contiguous, accumulated in sample order and differentiable: the one
+    loop over samples of the tracer kernel names
+    (``tracer.kernel.accumulate_pixels``, ``tracer.xla.accumulate_pixels``),
+    in bands of chunk rays when given. The kernel path takes backward,
+    static and mesh_plans; the eager tracer use_remat, bvh and vis_grads.
+    Never graphed: ``render_accumulate`` serves whole frames."""
+    require_kernel(kernel)
+    if kernel == "xla":
+        return xla_tracer.accumulate_pixels(
+            scene, width, height, px, py, first_sample, spp, max_depth,
+            rr_start, use_remat, bvh, vis_grads, chunk)
+    _, xyz = kernel_tracer.accumulate_pixels(
+        scene, width, height, px, py, first_sample, spp, max_depth, rr_start,
+        static, backward, mesh_plans, chunk=chunk)
+    return xyz.T.contiguous()
 
 
-def _render_accumulate_chunked(scene, cfg: RenderConfig):
-    """Row-band chunked accumulation: peak live memory scales with
-    ray_chunk instead of width*height."""
-    rows = max(1, cfg.ray_chunk // cfg.width)
-    static = packs = None
-    if cfg.kernel == "pallas":
-        static = kernel_tracer.SceneStatic.from_scene(scene)
-        packs = (kernel_tracer.mesh_packs_for(scene, static)
-                 if static.mesh_parts else None)
-    bands = [_band_accumulate(scene, static, packs, y0,
-                              min(rows, cfg.height - y0), cfg)
-             for y0 in range(0, cfg.height, rows)]
-    return torch.cat(bands, dim=0)
+def render_accumulate(scene, width: int, height: int, spp: int,
+                      max_depth: int = 8, rr_start: int = 1,
+                      first_sample: int = 1, kernel: str = "pallas",
+                      bvh=None):
+    """The whole film's sum of samples first_sample .. -> XYZ (H, W, 3):
+    the kernel path's frame (``tracer.kernel.render_accumulate``, replayed
+    as a CUDA graph where it can) or the eager tracer's, through bvh when
+    given (the kernel path walks its own)."""
+    require_kernel(kernel)
+    if kernel == "xla":
+        return xla_tracer.render_accumulate(scene, width, height, spp,
+                                            max_depth, rr_start,
+                                            first_sample, bvh)
+    return kernel_tracer.render_accumulate(scene, width, height, spp,
+                                           max_depth, rr_start, first_sample)
 
 
 def render(scene, cfg: Optional[RenderConfig] = None, **overrides):
     """Render a scene. Returns dict with accum_xyz, mean_xyz, srgb and
-    samples (the 1-based sample counter after the render)."""
+    samples (the 1-based sample counter after the render). ray_chunk
+    renders the film in bands of whole rows, at most ray_chunk rays each
+    (at least one row), so that a sample's live memory scales with it."""
     cfg = (cfg or RenderConfig()).replace(**overrides)
-    _require_kernel(cfg.kernel)
     with profiling.annotate("render"):
         if cfg.ray_chunk and cfg.ray_chunk > 0:
-            accum = _render_accumulate_chunked(scene, cfg)
-        elif cfg.kernel == "xla":
-            accum = xla_tracer.render_accumulate(
+            rows = max(1, cfg.ray_chunk // cfg.width)
+            accum = accumulate(
                 scene, cfg.width, cfg.height, cfg.spp, cfg.max_depth,
-                cfg.rr_start, cfg.first_sample)
+                cfg.rr_start, cfg.first_sample, cfg.kernel,
+                chunk=rows * cfg.width).view(cfg.height, cfg.width, 3)
         else:
-            accum = kernel_tracer.render_accumulate(
+            accum = render_accumulate(
                 scene, cfg.width, cfg.height, cfg.spp, cfg.max_depth,
-                cfg.rr_start, cfg.first_sample)
+                cfg.rr_start, cfg.first_sample, cfg.kernel)
         # the reference divides the never-cleared accumulator by the
         # sample counter
         total = cfg.first_sample + cfg.spp - 1

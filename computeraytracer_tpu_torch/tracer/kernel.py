@@ -59,12 +59,15 @@ their mesh mode. A mesh part's chunk BVH is packed from a plan fixed on
 the initial geometry (``mesh_plans``, as ``kernels/meshpack.py``
 ``plan_scene_mesh`` makes them), so its boxes follow the live vertices.
 
-``render_accumulate``'s frame (``_frame``) adds each sample into its
-accumulator in place where no gradient is wanted, the scene has no mesh
-part and the backward has a kernel forward: per sample the ray setup, the
-hero gather and the forward's XYZ build (``kernels.megakernel.forward_xyz``),
-which converts each ray to XYZ as it retires, three launches in all; the
-image is the composition's (radiance, CIE sum, accumulation) bit for bit.
+``accumulate_pixels`` is the kernel path's one loop over samples: every
+render and loss of a pixel set sums its samples there (``tracer.api``
+chooses it), ``render_accumulate``'s frame over the whole film. It adds
+each sample into its accumulator in place where no gradient is wanted,
+the scene has no mesh part and the backward has a kernel forward: per
+sample the ray setup, the hero gather and the forward's XYZ build
+(``kernels.megakernel.forward_xyz``), which converts each ray to XYZ as it
+retires, three launches in all; the image is the composition's (radiance,
+CIE sum, accumulation) bit for bit.
 
 ``render_accumulate`` replays a frame as one CUDA graph where it can:
 the frame body of a CUDA scene without mesh parts, traced with no
@@ -723,14 +726,14 @@ def _add_launches(counts: dict, sign: int) -> None:
 
 def _accumulate_sample(scene, width, height, sample, accum, max_depth,
                        rr_start, static, setup, base, next_ray):
-    """One sample of the whole film added into accum (3, H, W) in place:
-    the ray setup, the hero gather and, on the card, the forward's XYZ
-    build (``kernels.megakernel.forward_xyz``), which converts each ray to
-    XYZ as it retires and adds it in; no radiance plane, no CIE sum in
-    torch. On the CPU the forward's plain version, then the epilogue's
-    (``xyz_accumulate_reference``). accum ends as ``accum +
-    render_sample_planar(...)``, bit for bit. next_ray: the forward's
-    zeroed (1,) ray counter."""
+    """One sample of the pixels setup.px, setup.py added into accum (3, R)
+    in place: the ray setup, the hero gather and, on the card, the
+    forward's XYZ build (``kernels.megakernel.forward_xyz``), which
+    converts each ray to XYZ as it retires and adds it in; no radiance
+    plane, no CIE sum in torch. On the CPU the forward's plain version,
+    then the epilogue's (``xyz_accumulate_reference``). accum ends as
+    ``accum + render_pixels_planar(...)``, bit for bit. next_ray: the
+    forward's zeroed (1,) ray counter."""
     with profiling.annotate("ray_setup"):
         o, d, hero, seed = camera_planes(scene, width, height, setup.px,
                                          setup.py, sample, base)
@@ -740,46 +743,65 @@ def _accumulate_sample(scene, width, height, sample, accum, max_depth,
     args = (static, max_depth, rr_start, setup.prims)
     if accum.is_cuda:
         with profiling.annotate("trace"):
-            mk.forward_xyz(*args, o, d, seed, spect, cie_p, accum.view(3, -1),
-                           next_ray)
+            mk.forward_xyz(*args, o, d, seed, spect, cie_p, accum, next_ray)
         return
     with profiling.annotate("trace"):
         radiance = mk.forward_reference(*args, torch.cat([o, d]), seed, spect)
     with profiling.annotate("xyz"):
-        mk.xyz_accumulate_reference(cie_p, radiance, accum.view(3, -1))
+        mk.xyz_accumulate_reference(cie_p, radiance, accum)
 
 
-def _frame(scene, width, height, spp, max_depth, rr_start, first, backward,
-           static=None, base=None):
-    """``render_accumulate``'s body, run eagerly or captured -> (static,
-    the sum of samples first .. first+spp-1, or base + first .. where base
-    is given, as XYZ (H, W, 3)). A scene without mesh parts, traced with
-    a kernel forward and no gradient wanted (``eager_reasons`` gives no
-    reason but the device), adds each sample into the accumulator in place
-    (``_accumulate_sample``); any other sums ``render_sample_planar``'s
-    images. Both give the same image, bit for bit."""
+def accumulate_pixels(scene, width: int, height: int, px, py, first: int,
+                      spp: int, max_depth: int = 8, rr_start: int = 1,
+                      static: SceneStatic | None = None,
+                      backward: str = "pallas", mesh_plans=None, base=None,
+                      chunk: int | None = None):
+    """The kernel path's sum of samples first .. first+spp-1 (base + first
+    .. where base, an int64 scalar on the scene's device, is given) over
+    the pixels px, py (R,), the whole film row-major when None -> (static,
+    XYZ (3, R)), accumulated in sample order. The static, the mesh packs
+    (under mesh_plans, one plan per part) and the setup operands
+    (``setup_operands``) are built once. chunk: rays per band, each band's
+    samples summed before the next band starts (one band when None).
+
+    A scene without mesh parts, traced with a kernel forward and no
+    gradient wanted (``eager_reasons`` gives no reason but the device),
+    adds each sample into the accumulator in place
+    (``_accumulate_sample``); any other sums ``render_pixels_planar``'s
+    images, differentiably. Both give the same image, bit for bit."""
     with profiling.annotate("setup"):
         if static is None:
             static = SceneStatic.from_scene(scene)
-        packs = mesh_packs_for(scene, static) if static.mesh_parts else None
-        setup = setup_operands(scene, static, backward,
-                               *tile_coords(width, height, 0, scene.device))
+        packs = (mesh_packs_for(scene, static, mesh_plans)
+                 if static.mesh_parts else None)
+        if px is None:
+            px, py = tile_coords(width, height, 0, scene.device)
+        setup = setup_operands(scene, static, backward, px, py)
         in_place = not static.mesh_parts and set(
             eager_reasons(scene, backward)) <= {"device"}
-    accum = torch.zeros((3, height, width), dtype=torch.float32,
-                        device=scene.device)
-    if in_place:  # the forward's ray counters, zeroed at once
-        counters = torch.zeros((spp, 1), dtype=torch.int64,
-                               device=scene.device)
-    for i, s in enumerate(range(first, first + spp)):
-        if in_place:
-            _accumulate_sample(scene, width, height, s, accum, max_depth,
-                               rr_start, static, setup, base, counters[i])
-        else:
-            accum = accum + render_sample_planar(
-                scene, width, height, s, max_depth, rr_start, static,
-                backward, packs, setup=setup, sample_base=base)
-    return static, accum.permute(1, 2, 0).contiguous()
+    bands = []
+    for bpx, bpy in xla_tracer.pixel_bands(setup.px, setup.py, chunk):
+        band = dataclasses.replace(setup, px=bpx, py=bpy)
+        accum = torch.zeros((3, bpx.shape[0]), dtype=torch.float32,
+                            device=scene.device)
+        if in_place:  # the forward's ray counters, zeroed at once
+            counters = torch.zeros((spp, 1), dtype=torch.int64,
+                                   device=scene.device)
+        for i, s in enumerate(range(first, first + spp)):
+            if in_place:
+                _accumulate_sample(scene, width, height, s, accum, max_depth,
+                                   rr_start, static, band, base, counters[i])
+            else:
+                accum = accum + render_pixels_planar(
+                    scene, width, height, bpx, bpy, s, max_depth, rr_start,
+                    static, backward, packs, setup=band, sample_base=base)
+        bands.append(accum)
+    return static, bands[0] if len(bands) == 1 else torch.cat(bands, dim=1)
+
+
+def _film(accum, width: int, height: int):
+    """A whole film's XYZ (3, R) -> (H, W, 3), contiguous."""
+    return accum.view(3, height, width).permute(1, 2, 0).contiguous()
 
 
 def _capture(entry: FrameGraph, scene, width, height, spp, max_depth,
@@ -803,9 +825,10 @@ def _capture(entry: FrameGraph, scene, width, height, spp, max_depth,
               torch.cuda.stream(stream)):
             graph.capture_begin()
             try:
-                _, entry.out = _frame(scene, width, height, spp, max_depth,
-                                      rr_start, 0, backward, entry.static,
-                                      entry.base)
+                _, accum = accumulate_pixels(
+                    scene, width, height, None, None, 0, spp, max_depth,
+                    rr_start, entry.static, backward, base=entry.base)
+                entry.out = _film(accum, width, height)
             finally:
                 graph.capture_end()
         torch.cuda.current_stream().wait_stream(stream)
@@ -859,10 +882,11 @@ def render_accumulate(scene, width: int, height: int, spp: int,
                          rr_start, backward)
             return _replay(entry, first_sample)
     graph_eager += 1
-    static, accum = _frame(scene, width, height, spp, max_depth, rr_start,
-                           first_sample, backward)
+    static, accum = accumulate_pixels(scene, width, height, None, None,
+                                      first_sample, spp, max_depth, rr_start,
+                                      backward=backward)
     if key is not None and not static.mesh_parts:
         _frame_graphs[key] = FrameGraph(_scene_tensors(scene), static)
         while len(_frame_graphs) > GRAPH_ENTRIES:
             _frame_graphs.popitem(last=False)
-    return accum
+    return _film(accum, width, height)

@@ -5,8 +5,9 @@ API's values for it).
 Vectorized over rays, one Python loop step per bounce, with masked
 lanes: each bounce is a sequence of torch ops over (R,) and (R, k)
 tensors, on the device of the scene. It serves three roles:
-1. the path of ``kernel="xla"`` (``tracer.api``, ``train.optimize``, the
-   CLI), brute-force or through a BVH (``bvh/``);
+1. the path of ``kernel="xla"``, which ``tracer.api`` chooses for every
+   render and loss (``accumulate_pixels``, its one loop over samples),
+   brute-force or through a BVH (``bvh/``);
 2. the differentiable gradient oracle: torch autograd of the whole
    trace, with detached sampling (the RNG draws are integer state, so
    gradients treat sampling decisions as fixed: common random numbers);
@@ -434,17 +435,47 @@ def render_sample(scene, width: int, height: int, sample,
     return xyz.reshape(height, width, 3)
 
 
+def pixel_bands(px, py, chunk: int | None = None):
+    """The pixels px, py (R,) in bands of chunk rays, in order: [(px, py)]
+    when chunk is None."""
+    if not chunk:
+        return [(px, py)]
+    return [(px[i:i + chunk], py[i:i + chunk])
+            for i in range(0, px.shape[0], chunk)]
+
+
+def accumulate_pixels(scene, width: int, height: int, px, py, first: int,
+                      spp: int, max_depth: int = 8, rr_start: int = 1,
+                      use_remat: bool = True, bvh=None, vis_grads=False,
+                      chunk: int | None = None):
+    """The eager tracer's sum of samples first .. first+spp-1 over the
+    pixels px, py (R,), the whole film row-major when None -> XYZ (R, 3),
+    accumulated in sample order; differentiable with respect to the
+    scene's tensors. chunk: rays per band, each band's samples summed
+    before the next band starts (one band when None); use_remat, bvh and
+    vis_grads as ``render_pixels``'."""
+    if bvh is not None:
+        from computeraytracer_tpu_torch.bvh import builder
+        bvh = builder.to_device(bvh, scene.device)
+    if px is None:
+        px, py = tile_coords(width, height, 0, scene.device)
+    bands = []
+    for bpx, bpy in pixel_bands(px, py, chunk):
+        accum = torch.zeros((bpx.shape[0], 3), dtype=torch.float32,
+                            device=scene.device)
+        for s in range(int(first), int(first) + spp):
+            accum = accum + render_pixels(scene, width, height, bpx, bpy, s,
+                                          max_depth, rr_start, use_remat,
+                                          bvh=bvh, vis_grads=vis_grads)
+        bands.append(accum)
+    return bands[0] if len(bands) == 1 else torch.cat(bands)
+
+
 def render_accumulate(scene, width: int, height: int, spp: int,
                       max_depth: int = 8, rr_start: int = 1,
                       first_sample: int = 1, bvh=None):
     """Sum of samples first_sample .. first_sample+spp-1 -> XYZ (H, W, 3),
     accumulated in sample order."""
-    if bvh is not None:
-        from computeraytracer_tpu_torch.bvh import builder
-        bvh = builder.to_device(bvh, scene.device)
-    accum = torch.zeros((height, width, 3), dtype=torch.float32,
-                        device=scene.device)
-    for s in range(int(first_sample), int(first_sample) + spp):
-        accum = accum + render_sample(scene, width, height, s, max_depth,
-                                      rr_start, bvh=bvh)
-    return accum
+    return accumulate_pixels(scene, width, height, None, None, first_sample,
+                             spp, max_depth, rr_start,
+                             bvh=bvh).reshape(height, width, 3)

@@ -36,18 +36,13 @@ import torch
 
 from computeraytracer_tpu_torch.kernels import meshpack
 from computeraytracer_tpu_torch.parallel import render_sharded
+from computeraytracer_tpu_torch.tracer import api
 from computeraytracer_tpu_torch.tracer import kernel as kernel_tracer
-from computeraytracer_tpu_torch.tracer import xla as xla_tracer
 from computeraytracer_tpu_torch.utils import profiling
 
 # Leaves of Scene that may be trained.
 GEOMETRY_LEAVES = ("data1", "data2", "data3")
 TRAINABLE = ("spectra",) + GEOMETRY_LEAVES
-
-
-def _require_kernel(kernel: str) -> None:
-    if kernel not in ("pallas", "xla"):
-        raise ValueError(f"unknown kernel {kernel!r}")
 
 
 def split_scene(scene, trainable: Iterable[str] = ("spectra",)):
@@ -90,10 +85,9 @@ def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
     backward is the backward knob's (tracer/kernel.py). kernel_plans: one
     meshpack.MeshPlan per mesh part of kernel_static, fixed on the
     initial geometry; the packs are built under them from the live
-    vertices (planned from this scene when None). The kernel path's
-    sample-invariant operands (``tracer.kernel.setup_operands``) are built
-    once a call. vis_grads (kernel="xla"
-    only) turns on the warped-area visibility gradients of
+    vertices (planned from this scene when None). The samples are summed
+    by ``tracer.api.accumulate`` over the whole film. vis_grads
+    (kernel="xla" only) turns on the warped-area visibility gradients of
     ``tracer.xla.render_pixels``; its image is the unstratified render's.
     With kernel="pallas" it raises: the kernel path's screen warp is
     ``tracer.kernel.render_sample(vis_grads=("screen",))``. mesh (a
@@ -101,7 +95,6 @@ def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
     ``parallel.render_sharded.render_accumulate_sharded``; every rank
     returns the whole image. The JAX package's sharded path drops
     vis_grads, so here it raises with a mesh."""
-    _require_kernel(kernel)
     if vis_grads and kernel != "xla":
         raise ValueError(
             "vis_grads renders through the eager tracer: pass kernel='xla' "
@@ -116,29 +109,11 @@ def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
             static=kernel_static, backward=backward,
             mesh_plans=kernel_plans)
         return accum / float(spp)
-    accum = torch.zeros((height, width, 3), dtype=torch.float32,
-                        device=scene.device)
-    samples = range(int(first_sample), int(first_sample) + spp)
-    if kernel == "xla":
-        for s in samples:
-            accum = accum + xla_tracer.render_sample(
-                scene, width, height, s, max_depth, rr_start, use_remat,
-                vis_grads=vis_grads)
-        return accum / float(spp)
-    with profiling.annotate("setup"):
-        if kernel_static is None:
-            kernel_static = kernel_tracer.SceneStatic.from_scene(scene)
-        packs = (kernel_tracer.mesh_packs_for(scene, kernel_static,
-                                              kernel_plans)
-                 if kernel_static.mesh_parts else None)
-        setup = kernel_tracer.setup_operands(
-            scene, kernel_static, backward,
-            *kernel_tracer.tile_coords(width, height, 0, scene.device))
-    for s in samples:
-        accum = accum + kernel_tracer.render_sample_planar(
-            scene, width, height, s, max_depth, rr_start, kernel_static,
-            backward, packs, setup=setup).permute(1, 2, 0)
-    return accum / float(spp)
+    xyz = api.accumulate(scene, width, height, spp, max_depth, rr_start,
+                         int(first_sample), kernel, backward=backward,
+                         static=kernel_static, mesh_plans=kernel_plans,
+                         use_remat=use_remat, vis_grads=vis_grads)
+    return xyz.view(height, width, 3) / float(spp)
 
 
 def make_loss_fn(static_scene, width, height, spp, max_depth,
@@ -148,7 +123,7 @@ def make_loss_fn(static_scene, width, height, spp, max_depth,
     mesh the render is sharded and every rank returns the same loss, the
     mean over the whole film; its gradient by params is the whole one on
     every rank (render_sharded.replicated sums the ranks' parts)."""
-    _require_kernel(kernel)
+    api.require_kernel(kernel)
     kernel_static = kernel_plans = None
     if kernel == "pallas":
         kernel_static = kernel_tracer.SceneStatic.from_scene(static_scene)
@@ -256,7 +231,7 @@ def optimize(scene, target, width, height, *, trainable=("spectra",),
     trace's backward: "pallas" (the retrace kernel) or "pallas_taped"
     (the tape-fed pair); a scene with mesh parts takes the guided replay
     either way. Returns (scene, losses)."""
-    _require_kernel(kernel)
+    api.require_kernel(kernel)
     if lr_schedule not in (None, "cosine"):
         raise ValueError(f"unknown lr_schedule: {lr_schedule!r}")
     params0, static_scene = split_scene(scene, trainable)

@@ -1799,7 +1799,9 @@ def frame_graphs(monkeypatch):
 
 def _eager_frame(scene, w, h, spp, depth, first, backward="pallas"):
     """render_accumulate's body run eagerly (its first call of a key)."""
-    return kt._frame(scene, w, h, spp, depth, 1, first, backward)[1]
+    accum = kt.accumulate_pixels(scene, w, h, None, None, first, spp, depth,
+                                 1, backward=backward)[1]
+    return kt._film(accum, w, h)
 
 
 def _composed_frame(scene, w, h, spp, depth, first):

@@ -5,8 +5,9 @@ frame that adds every sample into its accumulator in place.
 ``csrc/megakernel_fwd_xyz.cu`` compute as each ray retires) against
 ``ops.spectrum.spectral_to_xyz_p`` followed by the frame's in-order
 accumulation, bit for bit, at ragged ray counts, with zero and huge
-radiance rows; ``tracer.kernel._frame`` (``render_accumulate``'s body)
-against the sum of ``render_sample_planar``'s images; which frames take
+radiance rows; ``tracer.kernel.accumulate_pixels`` over the whole film
+(``render_accumulate``'s body) against the sum of
+``render_sample_planar``'s images; which frames take
 the in-place path (a scene without mesh parts, a kernel forward, no
 gradient wanted) and that a fit step never does; ``forward_xyz``'s
 refusals, the CPU among them. The kernels themselves are held to the same
@@ -74,6 +75,13 @@ def _composed(scene, spp, first):
     return accum.permute(1, 2, 0).contiguous()
 
 
+def _frame(scene, spp, first, backward):
+    """render_accumulate's body, run eagerly -> (static, XYZ (H, W, 3))."""
+    static, accum = kt.accumulate_pixels(scene, SIDE, SIDE, None, None, first,
+                                         spp, DEPTH, 1, backward=backward)
+    return static, kt._film(accum, SIDE, SIDE)
+
+
 @pytest.mark.parametrize("kind,spp,first", [
     ("cornell_box", 3, 1), ("cornell_box", 2, 2**32 - 1),
     ("unoccluded_scene", 4, 5), ("triangle_rows", 2, 3)])
@@ -83,8 +91,7 @@ def test_cpu_frame_is_the_composition(kind, spp, first):
     render_sample_planar's images, bit for bit."""
     scene = _scene(kind)
     assert not mk.SceneStatic.from_scene(scene).mesh_parts
-    static, got = kt._frame(scene, SIDE, SIDE, spp, DEPTH, 1, first,
-                            "pallas")
+    static, got = _frame(scene, spp, first, "pallas")
     want = _composed(scene, spp, first)
     assert float(want.sum()) > 0
     assert torch.equal(got, want)
@@ -126,7 +133,7 @@ def test_which_frames_add_in_place(xyz_calls, case, in_place):
     if case == "grad":
         scene = dataclasses.replace(
             scene, spectra=scene.spectra.clone().requires_grad_(True))
-    _, out = kt._frame(scene, SIDE, SIDE, spp, DEPTH, 1, 1, backward)
+    _, out = _frame(scene, spp, 1, backward)
     assert xyz_calls == ["xyz_accumulate_reference"] * (spp if in_place
                                                          else 0)
     assert out.requires_grad == (case == "grad")
