@@ -18,7 +18,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. served path: tracer.api.render at 1024^2, spp 4, depth 8 with the
    launch counters reset just before; exactly 4 forward launches, all of
    them the XYZ build (phase 33), 4 ray-setup and 4 hero-gather launches
-   (spectra and CIE in one), no ray-setup backward, a finite non-zero image whose mean XYZ is within
+   (spectra and CIE in one), one finish (phase 34), no ray-setup backward, a finite non-zero image whose mean XYZ is within
    1e-3 relative of the same render through the plain versions; the PNG
    is written to a temp dir.
 5. timing: forward kernel and plain version at the phase-3 shape (CUDA
@@ -291,13 +291,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    each step's device time with and without camera leaves in turns
    (without, with, with, without), beside the card's name and power
    limit. Phases 4, 7 and 10 launch the ray setup's backward 0 times.
-31. the frame graph (tracer/kernel.py render_accumulate): 20 served
+31. the frame graph (tracer/kernel.py accumulate_frame): 20 served
    frames of phase 4's workload on a scene of their own, eagerly (the
    frame graphs set aside, as a key's first call runs) and replayed, in
    turns (eager, graph, graph, eager), each frame synchronised: host ms a
    frame (median, mean) of each turn, the graph counters (no capture, 40
    replays, 40 eager frames), SPP forwards (the XYZ build), ray setups and
-   gathers a frame either way, and every graphed frame's accum, mean and sRGB
+   gathers and one finish a frame either way, and every graphed frame's accum, mean and sRGB
    bit-equal to the eager frame of its samples.
 32. the forward's global-table build (csrc/megakernel_fwd.cu
    megakernel_fwd_wide) on the benchmark's rtnw-final (3,407 unrolled
@@ -306,7 +306,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches_wide and no other forward; the kernel's time (CUDA events)
    and plain time; its bound from the live bounces and shadow scans of
    the plain bounce loop; render at spp 4 launching 4 of its XYZ build
-   (phase 33) and no other forward.
+   (phase 33), no other forward and one finish (phase 34).
 33. the forward's XYZ builds (csrc/megakernel_fwd_xyz.cu, the served
    sample's trace: kernels/megakernel.py forward_xyz) on Cornell 1024^2,
    depth 8, and on rtnw-final 800^2, depth 40 (the global-table build),
@@ -318,6 +318,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    plus the model), its bound from its own operands (o, d, int64 seeds,
    spectra, CIE values, the accumulator read and written) and phase 3's
    (phase 32's) scans, and its registers.
+34. the finish kernel (csrc/setup.cu finish_frame, a rendered frame's
+   mean and sRGB; kernels/setup.py finish_frame) on phase 4's Cornell
+   1024^2 frame and phase 32's rtnw-final 800^2 frame, each sum planar
+   (3, R) and interleaved (H, W, 3), at sample counts 3 and 4: accum,
+   mean and sRGB bit-equal to finish_frame_reference on the card; 4
+   launches, counted in launches_finish; the kernels line's launches are
+   the finishes that phase 4's and phase 32's renders counted. Its time
+   (CUDA events) in turns with the tail of a replayed frame it replaced
+   (the graph's permute copy, its clone, the division by a Python number
+   and ops/color.py xyz_to_srgb in torch; kernel, tail, tail, kernel), its device time under torch.profiler, its plain
+   time, its bound (the sum read once, accum, mean and sRGB written once)
+   and its registers.
 Then one JSON line of kernels, each with its bound (the larger of the
 bytes it must move over 3.35 TB/s and a lower count of its float
 operations over 67 TFLOP/s, and of the ray setup's and its backward's
@@ -359,6 +371,7 @@ from computeraytracer_tpu_torch.kernels import megakernel as mk
 from computeraytracer_tpu_torch.kernels import meshpack
 from computeraytracer_tpu_torch.kernels import setup as setup_k
 from computeraytracer_tpu_torch.ops import camera as cam_ops
+from computeraytracer_tpu_torch.ops import color
 from computeraytracer_tpu_torch.ops import intersect as isect
 from computeraytracer_tpu_torch.ops import spectrum as spec
 from computeraytracer_tpu_torch.ops import warp
@@ -684,6 +697,7 @@ def _reset_counters():
     bn.launches_pair = bn.launches_pair_occl = 0
     setup_k.launches_ray_setup = setup_k.launches_gather = 0
     setup_k.launches_gather_bwd = setup_k.launches_ray_setup_bwd = 0
+    setup_k.launches_finish = 0
 
 
 def _setup_counters():
@@ -692,7 +706,8 @@ def _setup_counters():
     return {"ray_setup": setup_k.launches_ray_setup,
             "hero_gather_fwd": setup_k.launches_gather,
             "hero_gather_bwd": setup_k.launches_gather_bwd,
-            "ray_setup_bwd": setup_k.launches_ray_setup_bwd}
+            "ray_setup_bwd": setup_k.launches_ray_setup_bwd,
+            "finish": setup_k.launches_finish}
 
 
 def _counters():
@@ -3041,8 +3056,9 @@ def _frame_graph_turns(dev):
             ms.append((time.perf_counter() - t0) * 1e3)
             outs.append(out)
         launches = (mk.launches, mk.launches_xyz,
-                    setup_k.launches_ray_setup, setup_k.launches_gather)
-        if launches != (FRAME_TURN * SPP,) * 4:
+                    setup_k.launches_ray_setup, setup_k.launches_gather,
+                    setup_k.launches_finish)
+        if launches != (FRAME_TURN * SPP,) * 4 + (FRAME_TURN,):
             raise RuntimeError(f"a turn of {FRAME_TURN} frames (graphed "
                                f"{graphed}) launched {launches}")
         images.setdefault(graphed, outs)
@@ -3065,7 +3081,7 @@ def _frame_graph_turns(dev):
           f"{[(nm, round(a, 4), round(b, 4)) for nm, a, b in turns]}; "
           f"captures, replays, eager frames {counted}; launches a frame "
           f"{SPP} forwards (the XYZ build), {SPP} ray setups, {SPP} "
-          f"gathers either way; "
+          f"gathers and one finish either way; "
           f"accum, mean and sRGB bit-equal")
 
 
@@ -3142,6 +3158,10 @@ def _wide_tables(dev):
     render_counts = _counters()
     if render_counts != _only(forward_wide=SPP, forward_xyz=SPP):
         raise RuntimeError(f"the rtnw-final render launched {render_counts}")
+    finishes = _setup_counters()["finish"]
+    if finishes != 1:
+        raise RuntimeError(f"the rtnw-final render launched {finishes} "
+                           f"finishes, expected 1")
     if not torch.isfinite(out["accum_xyz"]).all():
         raise RuntimeError("the rtnw-final render is not finite")
     print(f"phase 32 (global tables): rtnw-final {len(static.rows)} rows, "
@@ -3151,7 +3171,7 @@ def _wide_tables(dev):
           f"bounces, {diffuse_on} shadow scans, bound {bound[0]:.4f} ms "
           f"({bound[1]}); render spp {SPP} in {render_s:.3f} s, "
           f"{SPP} launches of the global-table XYZ build and no other "
-          f"forward")
+          f"forward, one finish")
     return {
         "name": "megakernel_forward_wide",
         "route": "cuda",
@@ -3178,7 +3198,87 @@ def _wide_tables(dev):
     }, {"scene": scene, "static": static, "side": side, "depth": depth,
         "want": want, "plain_ms": plain_s * 1e3, "live": live,
         "diffuse_on": diffuse_on,
-        "launches": render_counts["forward_xyz"]}
+        "launches": render_counts["forward_xyz"],
+        "planar": out["accum_xyz"].permute(2, 0, 1).reshape(3, -1)
+                                 .contiguous(), "total": SPP,
+        "finishes": finishes}
+
+
+FINISH_REPS = 20  # calls a timing of phase 34
+
+
+def _finish_tail(xyz, total, width, height):
+    """The tail that the finish kernel replaced, on a replayed frame's
+    planar sum xyz, as the frame graph and ``tracer/api.py`` ``render`` ran
+    it before: the graph's permute copy, the replay's clone, the division
+    by the Python number total and ``ops/color.py`` ``xyz_to_srgb`` in
+    torch (about thirty launches)."""
+    film = xyz.view(3, height, width).permute(1, 2, 0).contiguous().clone()
+    mean = film / float(total)
+    return film, mean, color.xyz_to_srgb(mean)
+
+
+def _finish_frame(name, planar, total, side, launches):
+    """Phase 34, one film: the finish kernel on the frame's planar sum
+    (3, side * side) of total samples and on its interleaved copy, at
+    sample counts 3 and total, bit-equal to finish_frame_reference on the
+    card; its launches, its time in turns with the tail it replaced, its
+    device time, plain time, bound and registers. launches: the finishes
+    that the film's render counted (phase 4, phase 32). Returns its
+    kernels-line entry."""
+    film = planar.view(3, side, side).permute(1, 2, 0).contiguous()
+    _reset_counters()
+    for layout, src in (("planar", planar), ("interleaved", film)):
+        for t in (3, total):
+            got = setup_k.finish_frame(src, t, side, side)
+            want = setup_k.finish_frame_reference(src, t, side, side)
+            torch.cuda.synchronize()
+            for nm, g, w in zip(("accum", "mean", "srgb"), got, want):
+                if not torch.equal(g, w):
+                    raise RuntimeError(f"{name}: the finish kernel's {nm} "
+                                       f"({layout}, total {t}) differs from "
+                                       f"its plain version")
+    if setup_k.launches_finish != 4 or _counters() != _only():
+        raise RuntimeError(f"four finishes on {name} counted "
+                           f"{setup_k.launches_finish}, {_counters()}")
+    kernel = lambda: setup_k.finish_frame(planar, total, side, side)
+    tail = lambda: _finish_tail(planar, total, side, side)
+    turns = [(nm, _events_ms(fn, FINISH_REPS)) for nm, fn in (
+        ("kernel", kernel), ("tail", tail), ("tail", tail),
+        ("kernel", kernel))]
+    device, _, seen = _kernel_device_ms(kernel, FINISH_REPS, "finish_frame")
+    plain_ms = _events_ms(lambda: setup_k.finish_frame_reference(
+        planar, total, side, side), FINISH_REPS)
+    bound = _bound(_nbytes(planar) + 3 * _nbytes(film), 0)
+    regs = _registers("setup", "finish_frame")
+    ms = [t for nm, t in turns if nm == "kernel"]
+    tail_ms = [t for nm, t in turns if nm == "tail"]
+    print(f"phase 34 (finish kernel, {name} {side}x{side}): accum, mean and "
+          f"sRGB bit-equal to the plain version, planar and interleaved, "
+          f"totals 3 and {total}; 4 launches; ms in turns "
+          f"{[(nm, round(t, 4)) for nm, t in turns]}; device {device:.4f} "
+          f"ms ({seen['finish_frame']} launches profiled) against its "
+          f"bound {bound[0]:.4f} ms ({bound[1]}), {bound[0] / device:.3f} "
+          f"of it; plain {plain_ms:.4f} ms; registers {regs}")
+    return {
+        "name": "finish_frame" + ("" if side == WIDTH else "_" + name),
+        "route": "cuda",
+        "source": "computeraytracer_tpu_torch/kernels/csrc/setup.cu",
+        "replaces": "computeraytracer_tpu/tracer/api.py:103-107 render's "
+                    "mean and ops/color.py xyz_to_srgb (XLA)",
+        "launches": launches,
+        "max_abs_err": 0.0,
+        "ms": sum(ms) / len(ms),
+        "ms_turns": turns,
+        "tail_ms": sum(tail_ms) / len(tail_ms),
+        "device_ms": device,
+        "plain_ms": plain_ms,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": None,
+        "pixels": side * side,
+        "registers": regs,
+    }
 
 
 # Float operations of the XYZ epilogue per ray: for each of X, Y and Z
@@ -3383,7 +3483,7 @@ def main() -> int:
         raise RuntimeError(f"the render launched {render_counts}, expected "
                            f"{SPP} forwards, each the XYZ build")
     want_setup = {"ray_setup": SPP, "hero_gather_fwd": SPP,
-                  "hero_gather_bwd": 0, "ray_setup_bwd": 0}
+                  "hero_gather_bwd": 0, "ray_setup_bwd": 0, "finish": 1}
     if setup_render != want_setup:
         raise RuntimeError(f"the render's setup launched {setup_render}, "
                            f"expected {want_setup}")
@@ -3610,7 +3710,7 @@ def main() -> int:
         raise RuntimeError(f"pallas_taped value_and_grad launched {counts}, "
                            f"expected {want_counts}")
     want_setup = {"ray_setup": SPP, "hero_gather_fwd": SPP,
-                  "hero_gather_bwd": SPP, "ray_setup_bwd": 0}
+                  "hero_gather_bwd": SPP, "ray_setup_bwd": 0, "finish": 0}
     if setup_step != want_setup:
         raise RuntimeError(f"the step's setup launched {setup_step}, "
                            f"expected {want_setup}")
@@ -3873,6 +3973,15 @@ def main() -> int:
         _xyz_build(dev, "rtnw-final", wide_case)]
     print(f"chip_smoke phases 1-33: {time.perf_counter() - t_start:.1f} s")
 
+    # 34. the finish kernel, Cornell and rtnw-final
+    finish_entries = [
+        _finish_frame("Cornell", out["accum_xyz"].permute(2, 0, 1)
+                      .reshape(3, -1).contiguous(), SPP, WIDTH,
+                      setup_render["finish"]),
+        _finish_frame("rtnw-final", wide_case["planar"], wide_case["total"],
+                      WIDE_SIDE, wide_case["finishes"])]
+    print(f"chip_smoke phases 1-34: {time.perf_counter() - t_start:.1f} s")
+
     # bounds at the shapes timed above
     b_fwd, b_taped = bounds["forward"], bounds["taped"]
     b_bwd, b_tape_bwd = bounds["backward"], bounds["tape_bwd"]
@@ -4026,7 +4135,7 @@ def main() -> int:
             ("candidates", "candidates.cu", "binned.py:215", "candidates"),
             ("pair_closest", "pair.cu", "binned.py:392", "pair_closest"),
             ("pair_any", "pair.cu", "binned.py:898", "pair_any"))]
-        + setup_entries + [wide] + xyz_entries}))
+        + setup_entries + [wide] + xyz_entries + finish_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -78,6 +78,22 @@
 // plain version (setup.py hero_column_sums_reference: a stable sort, segment
 // sums per block, then the groups' sums) adds in the same order.
 //
+// finish_frame: a rendered frame's tail (tracer/api.py render), one thread
+// per pixel. It reads the frame's XYZ sum once, through a component stride
+// and a pixel stride (the frame graph's planar (3, R) accumulator, or an
+// interleaved (H, W, 3) one), and writes the mean (the sum over the sample
+// count, a correctly rounded division, as the CPU's and the JAX package's
+// accum / total) and its sRGB (ops/color.py xyz_to_srgb: the 3x3 matrix as
+// products summed left to right, the exponential tone map, the gamma's two
+// branches, the clamp to [0, 1]) as contiguous (H, W, 3) images, and the
+// sum itself as one when it was read planar. Every operation is the plain
+// version's (kernels/setup.py finish_frame_reference) in its order, each
+// rounded once; expf and powf are the CUDA math library's, as torch.exp's
+// and torch.pow's on the card; each constant is the Python number rounded
+// once to f32, as torch passes it to its f32 kernels. 12 bytes a pixel are
+// read and 24 or 36 written: bytes bound it, so each block stages its
+// outputs in shared memory and stores them as whole sectors.
+//
 // Numerics: --fmad=false, as every kernel of the port.
 
 #include <cuda_runtime.h>
@@ -712,6 +728,81 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ops/color.py's constants, each the Python number rounded once to f32
+constexpr float EXPOSURE = (float)2.2;
+constexpr float GAMMA_KNEE = (float)0.0031308;
+constexpr float GAMMA_SLOPE = (float)12.92;
+constexpr float GAMMA_SCALE = (float)1.055;
+constexpr float GAMMA_OFFSET = (float)0.055;
+constexpr float GAMMA_POW = (float)(1.0 / 2.4);
+constexpr float GAMMA_FLOOR = (float)1e-12;
+
+// torch.clamp's NaN rule: a NaN passes, any other value is clamped
+__device__ __forceinline__ float clamp_min(float v, float lo) {
+  return isnan(v) ? v : fmaxf(v, lo);
+}
+
+// One sRGB channel of XYZ (x, y, z) from a row (a, b, c) of the XYZ ->
+// linear sRGB matrix: (x*a + y*b) + z*c, 1 - exp(-rgb * EXPOSURE), the
+// gamma's linear segment below GAMMA_KNEE, else 1.055 * max(rgb,
+// 1e-12)^(1/2.4) - 0.055, clamped to [0, 1].
+__device__ __forceinline__ float srgb_channel(float x, float y, float z,
+                                              float a, float b, float c) {
+  const float lin =
+      __fadd_rn(__fadd_rn(__fmul_rn(x, a), __fmul_rn(y, b)), __fmul_rn(z, c));
+  const float tone = __fsub_rn(1.0f, expf(__fmul_rn(-lin, EXPOSURE)));
+  const float lo = __fmul_rn(tone, GAMMA_SLOPE);
+  const float hi = __fsub_rn(
+      __fmul_rn(GAMMA_SCALE, powf(clamp_min(tone, GAMMA_FLOOR), GAMMA_POW)),
+      GAMMA_OFFSET);
+  const float v = tone < GAMMA_KNEE ? lo : hi;
+  return isnan(v) ? v : fminf(fmaxf(v, 0.0f), 1.0f);
+}
+
+// out[i] = staged[i] for i < n, consecutive threads on consecutive words
+__device__ __forceinline__ void store_staged(float* __restrict__ out,
+                                             const float* staged, int n) {
+  for (int i = threadIdx.x; i < n; i += THREADS) out[i] = staged[i];
+}
+
+// xyz[c * c_stride + p * p_stride] for components c < 3 and pixels p <
+// n_px -> mean and srgb (n_px, 3), and accum (n_px, 3) where not null: one
+// thread per pixel. Each block stages its pixels' outputs in shared memory
+// and writes each image's 3 x THREADS floats as consecutive words, so that
+// a warp's store covers whole sectors (a thread's own three floats, 12
+// bytes apart from its neighbours', took three partial stores each).
+__global__ void __launch_bounds__(THREADS)
+    finish_frame_kernel(const float* __restrict__ xyz, long long c_stride,
+                        long long p_stride, float total,
+                        float* __restrict__ accum, float* __restrict__ mean,
+                        float* __restrict__ srgb, long long n_px) {
+  __shared__ float stage[3][3 * THREADS];  // accum, mean, srgb
+  const long long p0 = (long long)blockIdx.x * THREADS;
+  const long long p = p0 + threadIdx.x;
+  const int t3 = 3 * (int)threadIdx.x;
+  if (p < n_px) {
+    float m[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float v = __ldg(xyz + c * c_stride + p * p_stride);
+      stage[0][t3 + c] = v;
+      m[c] = __fdiv_rn(v, total);
+      stage[1][t3 + c] = m[c];
+    }
+    stage[2][t3] = srgb_channel(m[0], m[1], m[2], (float)3.2404542,
+                                (float)-1.5371385, (float)-0.4985314);
+    stage[2][t3 + 1] = srgb_channel(m[0], m[1], m[2], (float)-0.9692660,
+                                    (float)1.8760108, (float)0.0415560);
+    stage[2][t3 + 2] = srgb_channel(m[0], m[1], m[2], (float)0.0556434,
+                                    (float)-0.2040259, (float)1.0572252);
+  }
+  __syncthreads();
+  const int n = 3 * (int)min((long long)THREADS, n_px - p0);
+  if (accum != nullptr) store_staged(accum + 3 * p0, stage[0], n);
+  store_staged(mean + 3 * p0, stage[1], n);
+  store_staged(srgb + 3 * p0, stage[2], n);
+}
+
 bool grid_ok(long long n, long long per_block) {
   return (n + per_block - 1) / per_block <= 0x7fffffffLL;
 }
@@ -817,5 +908,23 @@ extern "C" int hero_column_sums(const float* g, const long long* hero,
   const int kl = n_rows * n_cols;
   hero_reduce_kernel<<<(kl + 31) / 32, THREADS, 0, st>>>(partial, out, kl,
                                                          (int)n_blocks);
+  return (int)cudaGetLastError();
+}
+
+// A frame's XYZ sum xyz, component c of pixel p at xyz[c * c_stride + p *
+// p_stride], and its sample count total -> mean and srgb (n_px, 3) f32,
+// and accum (n_px, 3) where not null (a copy of the sum). Returns the CUDA
+// error code of the launch.
+extern "C" int finish_frame(const float* xyz, long long c_stride,
+                            long long p_stride, float total, float* accum,
+                            float* mean, float* srgb, long long n_px,
+                            void* stream) {
+  if (n_px < 0 || c_stride < 0 || p_stride < 0 || !(total > 0.0f) ||
+      !grid_ok(n_px, THREADS))
+    return (int)cudaErrorInvalidValue;
+  if (n_px == 0) return 0;
+  const unsigned blocks = (unsigned)((n_px + THREADS - 1) / THREADS);
+  finish_frame_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      xyz, c_stride, p_stride, total, accum, mean, srgb, n_px);
   return (int)cudaGetLastError();
 }

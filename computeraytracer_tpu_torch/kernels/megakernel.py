@@ -1160,6 +1160,7 @@ SIGNATURES = {
     "ray_setup_bwd": "ppppppqiippppqp",
     "hero_gather": "pppppiiiqp",
     "hero_column_sums": "pppppiiqip",
+    "finish_frame": "pqqfpppqp",
 }
 
 

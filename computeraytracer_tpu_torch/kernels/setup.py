@@ -33,6 +33,15 @@ torch version beside it.
   order, then the groups in order (the JAX ``take_cols`` VJP,
   ops/spectrum.py:246, is a one-hot contraction in blocks of rays,
   ``_chunked``). Two runs give bit-equal sums.
+- ``finish_frame``: a rendered frame's tail (``tracer/api.py`` ``render``),
+  its XYZ sum planar (3, R) or interleaved (H, W, 3) -> the sum, its mean
+  over the sample count and the mean's sRGB, each (H, W, 3) contiguous, in
+  one launch that reads the sum once; ``finish_frame_reference`` is the
+  division (by a 0-dim tensor: correctly rounded, as the CPU's and the JAX
+  package's, where the card divides by a Python number as a product with
+  its reciprocal) and ``ops/color.py`` ``xyz_to_srgb``. Differentiable
+  with respect to the sum (``FinishFn``: the kernel forward, the plain
+  version's VJP backward).
 
 Each wrapper runs its plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device, built at first use by
@@ -50,6 +59,7 @@ from torch.autograd.function import once_differentiable
 from computeraytracer_tpu_torch import config as C
 from computeraytracer_tpu_torch.kernels import megakernel as mk
 from computeraytracer_tpu_torch.ops import camera as cam_ops
+from computeraytracer_tpu_torch.ops import color
 from computeraytracer_tpu_torch.ops import rng
 from computeraytracer_tpu_torch.scene.data import CameraSpec
 from computeraytracer_tpu_torch.utils import profiling
@@ -76,6 +86,7 @@ launches_ray_setup = 0
 launches_gather = 0
 launches_gather_bwd = 0
 launches_ray_setup_bwd = 0
+launches_finish = 0
 
 
 def hero_index(u: torch.Tensor) -> torch.Tensor:
@@ -479,3 +490,96 @@ def hero_column_sums(g: torch.Tensor, hero: torch.Tensor,
                out.data_ptr(), K, n_cols, R, HERO_BLOCK)
     launches_gather_bwd += 1
     return out
+
+
+def finish_frame_reference(xyz: torch.Tensor, total: int, width: int,
+                           height: int):
+    """A frame's XYZ sum xyz, planar (3, width * height) row-major or
+    (height, width, 3), over total samples -> (accum, mean, srgb), each
+    (height, width, 3): accum the sum interleaved (xyz itself where it is
+    a contiguous (height, width, 3)), mean accum / total divided by a 0-dim
+    tensor (the CPU's accum / float(total) bit for bit), srgb
+    ``color.xyz_to_srgb(mean)``."""
+    accum = (xyz.view(3, height, width).permute(1, 2, 0).contiguous()
+             if xyz.dim() == 2 else xyz.contiguous())
+    mean = accum / torch.full((), float(total), dtype=torch.float32,
+                              device=accum.device)
+    return accum, mean, color.xyz_to_srgb(mean)
+
+
+def finish_frame(xyz: torch.Tensor, total: int, width: int, height: int):
+    """``finish_frame_reference``'s (accum, mean, srgb): the plain version
+    for a sum on the CPU; on a CUDA device one launch of the finish kernel
+    (``finish_frame_launch``), bit-equal to the plain version run there.
+    Differentiable with respect to the sum (``FinishFn``)."""
+    return FinishFn.apply(xyz, total, width, height)
+
+
+def _finish(xyz, total, width, height):
+    if xyz.device.type == "cpu":
+        return finish_frame_reference(xyz, total, width, height)
+    return finish_frame_launch(xyz, total, width, height)
+
+
+class FinishFn(torch.autograd.Function):
+    """The finish (``finish_frame``) with its backward to the sum. Forward
+    is the finish kernel (the plain version on the CPU); backward the
+    plain version's VJP, taken by autograd on the saved sum. With no
+    gradient wanted (grad mode off, or a sum that needs none) it records
+    nothing and is one launch of the kernel.
+
+        accum, mean, srgb = FinishFn.apply(xyz, total, width, height)
+    """
+
+    @classmethod
+    def apply(cls, xyz, total, width, height):
+        # needs_input_grad ignores no_grad: decide here
+        if not (torch.is_grad_enabled() and xyz.requires_grad):
+            return _finish(xyz, total, width, height)
+        return super().apply(xyz, total, width, height)
+
+    @staticmethod
+    def forward(ctx, xyz, total, width, height):
+        ctx.film = (int(total), int(width), int(height))
+        ctx.save_for_backward(xyz)
+        return _finish(xyz, total, width, height)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_accum, g_mean, g_srgb):
+        xyz, = ctx.saved_tensors
+        with torch.enable_grad(), profiling.annotate("finish.backward"):
+            x = xyz.detach().requires_grad_(True)
+            outs = finish_frame_reference(x, *ctx.film)
+            g, = torch.autograd.grad(outs, x, (g_accum, g_mean, g_srgb))
+        return g, None, None, None
+
+
+def finish_frame_launch(xyz: torch.Tensor, total: int, width: int,
+                        height: int):
+    """One launch of the finish kernel for a sum xyz on its CUDA device
+    (``finish_frame_reference``'s layouts, f32; checked, an interleaved
+    one made contiguous) -> ``finish_frame_reference``'s outputs: it reads
+    the sum in place through its strides and writes mean and srgb into new
+    tensors, and accum too where the sum is planar (where it is a
+    contiguous (height, width, 3) accum is the sum itself). A planar sum
+    may be the frame graph's own buffer: the launch reads it on the
+    current stream, before a later replay there writes it again."""
+    global launches_finish
+    mk._require_cuda(xyz.device)
+    R = width * height
+    planar = xyz.dim() == 2
+    if not planar:
+        xyz = xyz.contiguous()
+    mk._check_tensor("xyz", xyz, (3, R) if planar else (height, width, 3),
+                     torch.float32, xyz.device)
+    new = lambda: torch.empty((height, width, 3), dtype=torch.float32,
+                              device=xyz.device)
+    accum = new() if planar else xyz
+    mean, srgb = new(), new()
+    mk._launch("finish_frame", mk._fn("setup", "finish_frame"), xyz.device,
+               xyz.data_ptr(), R if planar else 1, 1 if planar else 3,
+               float(total), accum.data_ptr() if planar else None,
+               mean.data_ptr(), srgb.data_ptr(), R)
+    launches_finish += 1
+    return accum, mean, srgb

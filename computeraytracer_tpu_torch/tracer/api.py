@@ -11,8 +11,8 @@ kernel, one launch per sample (mesh scenes in its mesh mode);
 tracer, ``tracer/xla.py``, brute force. Both compute the same image.
 This module is the one place that reads ``kernel``: every render and
 loss sums its samples through ``accumulate`` (a pixel set, never graphed)
-or ``render_accumulate`` (whole frames), each of which calls one
-tracer's loop over samples.
+or ``_frame_sum`` (whole frames: ``render_accumulate``'s and ``render``'s),
+each of which calls one tracer's loop over samples.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 from computeraytracer_tpu_torch.config import RenderConfig
-from computeraytracer_tpu_torch.ops import color
+from computeraytracer_tpu_torch.kernels import setup as setup_k
 from computeraytracer_tpu_torch.tracer import kernel as kernel_tracer
 from computeraytracer_tpu_torch.tracer import xla as xla_tracer
 from computeraytracer_tpu_torch.utils import profiling
@@ -59,7 +59,7 @@ def accumulate(scene, width: int, height: int, spp: int, max_depth: int = 8,
     (``tracer.kernel.accumulate_pixels``, ``tracer.xla.accumulate_pixels``),
     in bands of chunk rays when given. The kernel path takes backward,
     static and mesh_plans; the eager tracer use_remat, bvh and vis_grads.
-    Never graphed: ``render_accumulate`` serves whole frames."""
+    Never graphed: ``_frame_sum`` serves whole frames."""
     require_kernel(kernel)
     if kernel == "xla":
         return xla_tracer.accumulate_pixels(
@@ -71,46 +71,62 @@ def accumulate(scene, width: int, height: int, spp: int, max_depth: int = 8,
     return xyz.T.contiguous()
 
 
-def render_accumulate(scene, width: int, height: int, spp: int,
-                      max_depth: int = 8, rr_start: int = 1,
-                      first_sample: int = 1, kernel: str = "pallas",
-                      bvh=None):
-    """The whole film's sum of samples first_sample .. -> XYZ (H, W, 3):
-    the kernel path's frame (``tracer.kernel.render_accumulate``, replayed
-    as a CUDA graph where it can) or the eager tracer's, through bvh when
-    given (the kernel path walks its own)."""
+def _frame_sum(scene, width: int, height: int, spp: int, max_depth: int,
+               rr_start: int, first_sample: int, kernel: str, bvh=None):
+    """The whole film's sum of samples first_sample .. in the tracer's own
+    layout: the kernel path's XYZ (3, R) row-major
+    (``tracer.kernel.accumulate_frame``, replayed as a CUDA graph where it
+    can, and then the graph's own buffer) or the eager tracer's (H, W, 3),
+    through bvh when given (the kernel path walks its own)."""
     require_kernel(kernel)
     if kernel == "xla":
         return xla_tracer.render_accumulate(scene, width, height, spp,
                                             max_depth, rr_start,
                                             first_sample, bvh)
-    return kernel_tracer.render_accumulate(scene, width, height, spp,
-                                           max_depth, rr_start, first_sample)
+    return kernel_tracer.accumulate_frame(scene, width, height, spp,
+                                          max_depth, rr_start, first_sample)
+
+
+def render_accumulate(scene, width: int, height: int, spp: int,
+                      max_depth: int = 8, rr_start: int = 1,
+                      first_sample: int = 1, kernel: str = "pallas",
+                      bvh=None):
+    """The whole film's sum of samples first_sample .. -> XYZ (H, W, 3), a
+    tensor of its own (``_frame_sum``'s, a planar sum copied once)."""
+    xyz = _frame_sum(scene, width, height, spp, max_depth, rr_start,
+                     first_sample, kernel, bvh)
+    if xyz.dim() == 2:
+        return xyz.view(3, height, width).permute(1, 2, 0).contiguous()
+    return xyz
 
 
 def render(scene, cfg: Optional[RenderConfig] = None, **overrides):
     """Render a scene. Returns dict with accum_xyz, mean_xyz, srgb and
-    samples (the 1-based sample counter after the render). ray_chunk
-    renders the film in bands of whole rows, at most ray_chunk rays each
-    (at least one row), so that a sample's live memory scales with it."""
+    samples (the 1-based sample counter after the render), each image a
+    new (H, W, 3) tensor of its own. ray_chunk renders the film in bands of
+    whole rows, at most ray_chunk rays each (at least one row), so that a
+    sample's live memory scales with it. The frame's sum is finished by
+    ``kernels.setup.finish_frame``: on the card one launch that reads the
+    kernel path's planar sum (the frame graph's own buffer, where it
+    replays) or an (H, W, 3) one."""
     cfg = (cfg or RenderConfig()).replace(**overrides)
     with profiling.annotate("render"):
         if cfg.ray_chunk and cfg.ray_chunk > 0:
             rows = max(1, cfg.ray_chunk // cfg.width)
-            accum = accumulate(
+            xyz = accumulate(
                 scene, cfg.width, cfg.height, cfg.spp, cfg.max_depth,
                 cfg.rr_start, cfg.first_sample, cfg.kernel,
                 chunk=rows * cfg.width).view(cfg.height, cfg.width, 3)
         else:
-            accum = render_accumulate(
+            xyz = _frame_sum(
                 scene, cfg.width, cfg.height, cfg.spp, cfg.max_depth,
                 cfg.rr_start, cfg.first_sample, cfg.kernel)
         # the reference divides the never-cleared accumulator by the
         # sample counter
         total = cfg.first_sample + cfg.spp - 1
         with profiling.annotate("finish"):
-            mean = accum / float(total)
-            srgb = color.xyz_to_srgb(mean)
+            accum, mean, srgb = setup_k.finish_frame(xyz, total, cfg.width,
+                                                     cfg.height)
     return {
         "accum_xyz": accum,
         "mean_xyz": mean,

@@ -61,7 +61,7 @@ the initial geometry (``mesh_plans``, as ``kernels/meshpack.py``
 
 ``accumulate_pixels`` is the kernel path's one loop over samples: every
 render and loss of a pixel set sums its samples there (``tracer.api``
-chooses it), ``render_accumulate``'s frame over the whole film. It adds
+chooses it), ``accumulate_frame``'s frame over the whole film. It adds
 each sample into its accumulator in place where no gradient is wanted,
 the scene has no mesh part and the backward has a kernel forward: per
 sample the ray setup, the hero gather and the forward's XYZ build
@@ -69,13 +69,16 @@ sample the ray setup, the hero gather and the forward's XYZ build
 retires, three launches in all; the image is the composition's (radiance,
 CIE sum, accumulation) bit for bit.
 
-``render_accumulate`` replays a frame as one CUDA graph where it can:
+``accumulate_frame`` replays a frame as one CUDA graph where it can:
 the frame body of a CUDA scene without mesh parts, traced with no
 gradient wanted, is captured the second time a call of the same key
 (``frame_graph_key``) comes, with the ray setups reading the sample from
 a device scalar (``kernels.setup.ray_setup``'s base), and replayed from
 then on (``eager_reasons`` says when it is not). The graph is the eager
-body recorded, so its images are the eager frame's bit for bit.
+body recorded, so its images are the eager frame's bit for bit. It ends at
+the planar accumulator: ``render_accumulate`` copies it into a fresh (H,
+W, 3) image, ``tracer.api.render`` finishes it in one launch
+(``kernels.setup.finish_frame``).
 
 ``wavefront=True`` renders scenes with mesh parts through the wavefront
 (``wavefront_forward``, the JAX package's ``_wavefront_forward``): one
@@ -638,14 +641,14 @@ def render_sample(scene, width: int, height: int, sample,
                                 wavefront, mesh_plans).permute(1, 2, 0)
 
 
-# render_accumulate's frames by frame_graph_key, the newest last: at most
+# accumulate_frame's frames by frame_graph_key, the newest last: at most
 # GRAPH_ENTRIES, each a key seen once (no graph yet) or a captured graph
 # with its private memory pool (~0.4 GB at 1024x1024, spp 4).
 GRAPH_ENTRIES = 2
 # The backwards whose frames may be graphed: those with a kernel forward.
 GRAPH_BACKWARDS = ("pallas", "pallas_taped", "none")
 _frame_graphs = collections.OrderedDict()
-# render_accumulate's frames: captured as a graph, replayed from one, and
+# accumulate_frame's frames: captured as a graph, replayed from one, and
 # run eagerly (every call on the CPU among them).
 graph_captures = 0
 graph_replays = 0
@@ -657,12 +660,13 @@ _COUNTED = (mk, setup_k, bn)
 
 @dataclasses.dataclass
 class FrameGraph:
-    """A frame of ``render_accumulate`` for one ``frame_graph_key``: the
+    """A frame of ``accumulate_frame`` for one ``frame_graph_key``: the
     scene's tensors (held, so that no id in the key is reused while it
     lives) and its static. Once captured: the graph, the device tables its
     launches read (held, whatever the tables' cache drops), the int64
-    scalar its ray setups add their sample to, its output (H, W, 3) and
-    the launch counts of one frame."""
+    scalar its ray setups add their sample to, its output (the frame's XYZ
+    (3, R), which every replay writes again) and the launch counts of one
+    frame."""
     tensors: tuple
     static: SceneStatic
     graph: object = None
@@ -683,7 +687,7 @@ def _scene_tensors(scene) -> tuple:
 
 def frame_graph_key(scene, width: int, height: int, spp: int,
                     max_depth: int, rr_start: int, backward: str) -> tuple:
-    """The key of a ``render_accumulate`` call's frame (any device): the
+    """The key of an ``accumulate_frame`` call's frame (any device): the
     call's shape and knobs, the scene's device, each scene tensor's
     identity and storage (the graph reads them at their addresses, so an
     in-place edit of a spectrum or a vertex shows in the next replay), and
@@ -697,7 +701,7 @@ def frame_graph_key(scene, width: int, height: int, spp: int,
 
 
 def eager_reasons(scene, backward: str) -> tuple:
-    """Why ``render_accumulate`` runs a call's frame eagerly, every reason
+    """Why ``accumulate_frame`` runs a call's frame eagerly, every reason
     that holds, empty where it may graph it: "device" (the scene is not on
     a CUDA device), "backward" (not one of GRAPH_BACKWARDS), "grad" (grad
     mode is on and a scene leaf requires grad). A scene with mesh parts,
@@ -825,10 +829,9 @@ def _capture(entry: FrameGraph, scene, width, height, spp, max_depth,
               torch.cuda.stream(stream)):
             graph.capture_begin()
             try:
-                _, accum = accumulate_pixels(
+                _, entry.out = accumulate_pixels(
                     scene, width, height, None, None, 0, spp, max_depth,
                     rr_start, entry.static, backward, base=entry.base)
-                entry.out = _film(accum, width, height)
             finally:
                 graph.capture_end()
         torch.cuda.current_stream().wait_stream(stream)
@@ -842,33 +845,35 @@ def _capture(entry: FrameGraph, scene, width, height, spp, max_depth,
 
 def _replay(entry: FrameGraph, first_sample: int) -> torch.Tensor:
     """The entry's frame at samples first_sample .. : one replay on the
-    current stream -> a fresh copy of its output."""
+    current stream -> its output, the graph's own buffer."""
     global graph_replays
     with torch.cuda.device(entry.base.device), \
             profiling.annotate("graph.replay"):
         entry.base.fill_(int(first_sample) & rng.MASK)
         entry.graph.replay()
-        out = entry.out.clone()
     _add_launches(entry.launches, 1)
     graph_replays += 1
-    return out
+    return entry.out
 
 
-def render_accumulate(scene, width: int, height: int, spp: int,
-                      max_depth: int = 8, rr_start: int = 1,
-                      first_sample: int = 1, backward: str = "pallas"):
-    """Sum of samples first_sample .. first_sample+spp-1 -> XYZ (H, W, 3),
-    accumulated in sample order. Mesh packs and the setup operands
-    (``setup_operands``) are built once.
+def accumulate_frame(scene, width: int, height: int, spp: int,
+                     max_depth: int = 8, rr_start: int = 1,
+                     first_sample: int = 1, backward: str = "pallas"):
+    """Sum of samples first_sample .. first_sample+spp-1 over the whole
+    film -> XYZ (3, R), row-major, accumulated in sample order. Mesh packs
+    and the setup operands (``setup_operands``) are built once.
 
     Where ``eager_reasons`` gives none, the frame of a key
     (``frame_graph_key``) seen once before is captured as a CUDA graph of
     this body, which reads the sample from the device, and replayed, then
     replayed on every later call of the key (GRAPH_ENTRIES keys are kept):
-    the same launches, the same image bit for bit, a fresh output tensor
-    each call, and the launch counters counting them as an eager frame
-    does. A key first seen runs eagerly, and a scene with mesh parts
-    always (no entry is kept for it)."""
+    the same launches, the same image bit for bit, and the launch counters
+    counting them as an eager frame does. A replayed frame returns the
+    graph's own output buffer, which the key's next replay writes again:
+    read it on the current stream before then (``render_accumulate`` copies
+    it, ``tracer.api.render`` finishes it in one launch). A key first seen
+    runs eagerly, and a scene with mesh parts always (no entry is kept for
+    it); an eager frame returns a tensor of its own."""
     global graph_eager
     key = None
     if not eager_reasons(scene, backward):
@@ -889,4 +894,14 @@ def render_accumulate(scene, width: int, height: int, spp: int,
         _frame_graphs[key] = FrameGraph(_scene_tensors(scene), static)
         while len(_frame_graphs) > GRAPH_ENTRIES:
             _frame_graphs.popitem(last=False)
-    return _film(accum, width, height)
+    return accum
+
+
+def render_accumulate(scene, width: int, height: int, spp: int,
+                      max_depth: int = 8, rr_start: int = 1,
+                      first_sample: int = 1, backward: str = "pallas"):
+    """``accumulate_frame``'s sum -> XYZ (H, W, 3), a fresh tensor each
+    call (a replayed frame's buffer copied once)."""
+    return _film(accumulate_frame(scene, width, height, spp, max_depth,
+                                  rr_start, first_sample, backward),
+                 width, height)

@@ -2,7 +2,7 @@
 """Time the kernels of one checkout of the port on a CUDA card.
 
     python3 scripts/kernel_times.py [ROOT] \
-        [--parts cornell,tri_rows,mesh,e2e,binned,setup]
+        [--parts cornell,tri_rows,mesh,e2e,binned,setup,finish]
 
 ROOT (default: the checkout holding this script) is the root of a
 checkout of the repository; its package is imported and its kernels are
@@ -69,9 +69,16 @@ JSON line of times in ms:
   needs ``kernels/setup.py`` with ``hero_gather_tables`` and the
   ray-setup kernel that reads the camera's tensors; an older checkout's
   own copy of this script times its own.
+- ``finish``: a rendered frame's tail on a frame's planar XYZ sum,
+  Cornell 1024^2 (spp 4, depth 8) and rtnw-final 800^2 (spp 1, depth
+  40): the finish kernel (``kernels/setup.py`` ``finish_frame``, phase 34)
+  in turns with the torch tail it replaced (``chip_smoke.py``
+  ``_finish_tail``; kernel, tail, tail, kernel), its device time under
+  torch.profiler, its plain version's time and its bound. ROOT's package
+  needs ``finish_frame``.
 Compare two checkouts in turns within one call (parent, change, change,
 parent): times taken on different cards or calls differ by a few percent.
-``--parts`` runs only the named parts (all six by default).
+``--parts`` runs only the named parts (all seven by default).
 """
 
 from __future__ import annotations
@@ -86,7 +93,7 @@ import sys
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 REPS = {"cornell": 10, "tri_rows": 10, "mesh": 3, "e2e": 3, "binned": 5,
-        "setup": 20}
+        "setup": 20, "finish": 20}
 # The taped forward's kernel in either tree: the group schedule, or the
 # one-thread kernel that ran it before (not launched by a Cornell step of
 # a tree with the group schedule).
@@ -280,6 +287,34 @@ def _setup(cs, dev):
     return out
 
 
+def _finish(cs, dev):
+    """The finish part: the finish kernel and the torch tail in turns on
+    Cornell's and rtnw-final's frames."""
+    kt, setup_k = cs.kt, cs.setup_k
+    with open(cs.WIDE_CONFIG) as f:
+        wide_doc = json.load(f)["scene"]
+    out = {}
+    for name, doc, side, spp, depth in (
+            ("cornell", cs.presets.cornell_box(cs.WIDTH, cs.HEIGHT),
+             cs.WIDTH, cs.SPP, cs.MAX_DEPTH),
+            ("rtnw-final", wide_doc, cs.WIDE_SIDE, 1, cs.WIDE_DEPTH)):
+        scene, _ = cs.scene_from_dict(doc, device=dev)
+        planar = kt.accumulate_pixels(scene, side, side, None, None, 1, spp,
+                                      depth)[1]
+        kernel = lambda: setup_k.finish_frame(planar, spp, side, side)
+        tail = lambda: cs._finish_tail(planar, spp, side, side)
+        turns = [(nm, cs._events_ms(fn, REPS["finish"])) for nm, fn in (
+            ("kernel", kernel), ("tail", tail), ("tail", tail),
+            ("kernel", kernel))]
+        device = cs._kernel_device_ms(kernel, REPS["finish"],
+                                      "finish_frame")[0]
+        plain = cs._events_ms(lambda: setup_k.finish_frame_reference(
+            planar, spp, side, side), REPS["finish"])
+        out[name] = {"turns": turns, "device_ms": device, "plain_ms": plain,
+                     "bound_ms": cs._bound(4 * planar.numel() * 4, 0)[0]}
+    return out
+
+
 def _film(cs, scene, static, dev):
     kt = cs.kt
     px, py = kt.tile_coords(cs.WIDTH, cs.HEIGHT, 0, dev)
@@ -359,6 +394,8 @@ def main() -> int:
         ms["e2e"] = e2e
     if "setup" in parts:
         ms["setup"] = _setup(cs, dev)
+    if "finish" in parts:
+        ms["finish"] = _finish(cs, dev)
     if "binned" in parts:
         print(f"sass instructions: {_sass(cs, root)}")
     if not parts & {"mesh", "binned"}:

@@ -45,7 +45,11 @@ plain version, its frame graph and its launch counter; the forward's XYZ
 builds (shared and global-table) against the forward followed by the
 plain epilogue model, the served frame against the composition of the
 radiance plane, the CIE sum and the accumulation, and a fit step that
-launches no XYZ build.
+launches no XYZ build; the finish kernel (a rendered frame's mean and sRGB)
+against its plain version on the card for both layouts of the sum, the
+render's outputs on a replayed key new tensors of their own, one finish
+launch a frame (autograd recording it or not), and the card's mean
+the CPU's division of the same sum.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no jax, so it runs on a card machine without the JAX package's
@@ -2038,6 +2042,159 @@ def test_card_frame_graph_keeps_mesh_scenes_eager(cuda, frame_graphs):
     assert (kt.graph_captures, kt.graph_replays, kt.graph_eager) == (
         captures, replays, eager + 3)
     assert not kt._frame_graphs
+
+
+def finish_case(width: int, height: int, seed: int) -> torch.Tensor:
+    """A planar (3, width * height) XYZ sum whose means cross both of the
+    gamma's branches and the clamps: magnitudes over seven decades, either
+    sign, and zeros."""
+    gen = torch.Generator().manual_seed(seed)
+    R = width * height
+    xyz = (torch.randn((3, R), generator=gen)
+           * torch.exp(torch.rand((3, R), generator=gen) * 16.0 - 10.0))
+    xyz[:, ::17] = 0.0
+    return xyz
+
+
+@pytest.mark.parametrize("total", [3, 4, 7])
+@pytest.mark.parametrize("layout", ["planar", "interleaved"])
+def test_card_finish_frame_is_its_plain_version(cuda, layout, total):
+    """The finish kernel on a planar (3, R) or an interleaved (H, W, 3) sum
+    at a ragged film: accum, mean and sRGB bit-equal to the plain version
+    run on the card (the division by a 0-dim CUDA tensor), the mean to the
+    CPU's accum / float(total); one launch, each output a new contiguous
+    tensor (accum the sum itself where it is interleaved)."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+
+    w, h = 257, 129
+    xyz = finish_case(w, h, total)
+    film = xyz.view(3, h, w).permute(1, 2, 0).contiguous()
+    src = (xyz if layout == "planar" else film).to(cuda)
+    before = setup_k.launches_finish
+    got = setup_k.finish_frame(src, total, w, h)
+    torch.cuda.synchronize()
+    assert setup_k.launches_finish == before + 1
+    want = setup_k.finish_frame_reference(src, total, w, h)
+    for name, g, x in zip(("accum", "mean", "srgb"), got, want):
+        assert g.shape == (h, w, 3) and g.is_contiguous(), name
+        assert torch.equal(g, x), name
+    assert torch.equal(got[0].cpu(), film)
+    assert torch.equal(got[1].cpu(), film / float(total))
+    assert (got[0] is src) == (layout == "interleaved")
+    ptrs = {t.untyped_storage().data_ptr() for t in (src, *got)}
+    assert len(ptrs) == 4 - (layout == "interleaved")
+    srgb = got[2]
+    assert 0 < float((srgb == 0).float().mean()) < 1
+    assert bool(((srgb > 0) & (srgb < 0.04)).any())
+
+
+def _storage_range(t):
+    s = t.untyped_storage()
+    return s.data_ptr(), s.data_ptr() + s.nbytes()
+
+
+@pytest.mark.parametrize("kernel,chunk", [("pallas", None),
+                                          ("pallas", 700), ("xla", None)])
+def test_card_render_finishes_in_one_launch(cuda, frame_graphs, kernel,
+                                            chunk):
+    """Four renders of one key on the card (for the kernel path's whole
+    film: eager, captured and replayed, replayed twice; banded and eager
+    tracer renders never graphed): one finish launch each; accum the
+    eager frame's, mean and sRGB its plain version's bit for bit; every
+    image a tensor of its own, apart from the frame graph's buffer and
+    every other call's, unchanged by the later calls."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+
+    w, h, spp = 40, 24, 2
+    scene, _ = scene_from_dict(presets.cornell_box(w, h), device=cuda)
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=6,
+                       kernel=kernel, ray_chunk=chunk)
+    outs = []
+    for k in range(4):
+        before = setup_k.launches_finish
+        outs.append(api.render(scene, cfg, first_sample=1 + spp * k))
+        assert setup_k.launches_finish == before + 1, k
+    graphed = kernel == "pallas" and chunk is None
+    assert kt.graph_captures == frame_graphs[0] + graphed
+    assert kt.graph_replays == frame_graphs[1] + 3 * graphed
+    ranges = [_storage_range(o[name]) for o in outs
+              for name in ("accum_xyz", "mean_xyz", "srgb")]
+    ranges += [_storage_range(e.out) for e in kt._frame_graphs.values()
+               if e.out is not None]
+    assert len(ranges) == 12 + graphed
+    ranges.sort()
+    assert all(a[1] <= b[0] for a, b in zip(ranges, ranges[1:]))
+    for k, out in enumerate(outs):
+        total = spp * (k + 1)
+        assert out["samples"] == total
+        if kernel == "pallas":
+            want = _eager_frame(scene, w, h, spp, 6, 1 + spp * k)
+        else:
+            want = api.render_accumulate(scene, w, h, spp, 6, 1,
+                                         1 + spp * k, kernel="xla")
+        assert torch.equal(out["accum_xyz"], want), k
+        _, mean, srgb = setup_k.finish_frame_reference(want, total, w, h)
+        assert torch.equal(out["mean_xyz"], mean), k
+        assert torch.equal(out["srgb"], srgb), k
+
+
+def test_card_render_under_grad_finishes_in_one_launch(cuda, frame_graphs):
+    """A render of a scene whose spectra require grad, under grad mode:
+    its sum requires grad, and the finish is still one launch of the
+    kernel, its mean and sRGB the plain version's and differentiable; the
+    gradient that the finish passes back to the sum is the plain
+    version's bit for bit."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+
+    w = h = 16
+    scene, _ = scene_from_dict(presets.cornell_box(w, h), device=cuda)
+    sp = scene.spectra.clone().requires_grad_(True)
+    wanting = dataclasses.replace(scene, spectra=sp)
+    before = setup_k.launches_finish
+    out = api.render(wanting, RenderConfig(width=w, height=h, spp=1,
+                                           max_depth=3))
+    assert setup_k.launches_finish == before + 1
+    assert out["mean_xyz"].requires_grad and out["srgb"].requires_grad
+    _, mean, srgb = setup_k.finish_frame_reference(out["accum_xyz"], 1, w, h)
+    assert torch.equal(out["mean_xyz"], mean)
+    assert torch.equal(out["srgb"], srgb)
+    out["srgb"].sum().backward()
+    assert torch.isfinite(sp.grad).all() and bool((sp.grad != 0).any())
+    xyz = kt.accumulate_frame(wanting, w, h, 1, 3)
+    assert xyz.requires_grad and xyz.dim() == 2
+    gen = torch.Generator().manual_seed(5)
+    gs = [torch.randn((h, w, 3), generator=gen).to(cuda) for _ in range(3)]
+    got = setup_k.finish_frame(xyz, 3, w, h)
+    assert setup_k.launches_finish == before + 2
+    want = setup_k.finish_frame_reference(xyz, 3, w, h)
+    g_got, = torch.autograd.grad(got, xyz, gs)
+    g_want, = torch.autograd.grad(want, xyz, gs)
+    torch.testing.assert_close(g_got, g_want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("spp,first", [(3, 1), (3, 2), (3, 5)])
+def test_card_render_mean_is_the_cpu_division(cuda, frame_graphs, spp,
+                                              first):
+    """Fault 3a, the mean's division: the card's render at spp 3 (sample
+    counts 3, 4 and 7) gives the mean that the CPU's accum / float(total)
+    gives for the card's sum, bit for bit, replayed or not; where the
+    card's and the CPU's renders sum a pixel alike, their means agree bit
+    for bit."""
+    w, h = 48, 32
+    cpu_scene, _ = scene_from_dict(presets.cornell_box(w, h), device="cpu")
+    scene = cpu_scene.to(cuda)
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=6,
+                       first_sample=first)
+    total = first + spp - 1
+    for _ in range(3):
+        card = {k: v.cpu() for k, v in api.render(scene, cfg).items()
+                if k != "samples"}
+        assert torch.equal(card["mean_xyz"], card["accum_xyz"] / float(total))
+    assert kt.graph_replays == frame_graphs[1] + 2
+    host = api.render(cpu_scene, cfg)
+    same = (card["accum_xyz"] == host["accum_xyz"]).all(dim=-1)
+    assert float(same.float().mean()) > 0.9
+    assert torch.equal(card["mean_xyz"][same], host["mean_xyz"][same])
 
 
 @pytest.mark.parametrize("base,sample", [(0, 1), (1, 0), (12, 3),

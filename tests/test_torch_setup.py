@@ -31,6 +31,11 @@ the samples first). Then a value_and_grad by spectra through
 tests/test_torch_train.py, on ``simple_scene``: the Cornell box's 18
 primitives take the interpret-mode backward kernel over two minutes, past
 this file's budget.
+
+``setup.finish_frame``, a rendered frame's tail, on the CPU: its plain
+version, for a planar (3, R) and an interleaved (H, W, 3) sum at sample
+counts 3, 4 and 7, is ``accum / float(total)`` and ``color.xyz_to_srgb``
+bit for bit, and launches nothing.
 """
 
 import dataclasses
@@ -55,6 +60,7 @@ from computeraytracer_tpu_torch.scene import presets, scene_from_dict
 from computeraytracer_tpu_torch.scene import scene_from_jax
 from computeraytracer_tpu_torch.tracer import kernel as kt
 from computeraytracer_tpu_torch.train import optimize as opt
+from test_torch_cuda import finish_case
 
 FILM = (37, 29)
 BAND = (11, 5)  # rows, first row
@@ -454,3 +460,50 @@ def test_cpu_render_differentiates_the_camera():
         scene, camera=dataclasses.replace(scene.camera, eye=eye))
     kt.render_sample(cam_scene, 8, 8, 1, 2).sum().backward()
     assert eye.grad is not None and torch.isfinite(eye.grad).all()
+
+
+@pytest.mark.parametrize("total", [3, 4, 7])
+@pytest.mark.parametrize("layout", ["planar", "interleaved"])
+def test_finish_frame_on_the_cpu_is_the_division_and_srgb(layout, total):
+    from computeraytracer_tpu_torch.ops import color
+
+    w = h = 64
+    xyz = finish_case(w, h, total)
+    film = xyz.view(3, h, w).permute(1, 2, 0).contiguous()
+    src = xyz if layout == "planar" else film
+    before = setup_k.launches_finish
+    accum, mean, srgb = setup_k.finish_frame(src, total, w, h)
+    assert setup_k.launches_finish == before
+    want_mean = film / float(total)
+    assert torch.equal(accum, film)
+    assert (accum is src) == (layout == "interleaved")
+    assert torch.equal(mean, want_mean)
+    assert torch.equal(srgb, color.xyz_to_srgb(want_mean))
+    assert 0 < float((srgb == 0).float().mean()) < 1
+    assert bool(((srgb > 0) & (srgb < 0.04)).any())
+
+
+@pytest.mark.parametrize("layout", ["planar", "interleaved"])
+def test_finish_frame_backward_is_the_plain_versions_vjp(layout):
+    """FinishFn on a sum that requires grad: its outputs are the plain
+    version's, and the gradient it passes back to the sum, from cotangents
+    on all three images, is the plain version's autograd bit for bit."""
+    w, h, total = 16, 8, 3
+    xyz = finish_case(w, h, 11)
+    src = xyz if layout == "planar" else (
+        xyz.view(3, h, w).permute(1, 2, 0).contiguous())
+    gen = torch.Generator().manual_seed(12)
+    gs = [torch.randn((h, w, 3), generator=gen) for _ in range(3)]
+    a = src.clone().requires_grad_(True)
+    got = setup_k.FinishFn.apply(a, total, w, h)
+    b = src.clone().requires_grad_(True)
+    want = setup_k.finish_frame_reference(b, total, w, h)
+    for g, x in zip(got, want):
+        assert g.requires_grad and torch.equal(g, x)
+    g_got, = torch.autograd.grad(got, a, gs)
+    g_want, = torch.autograd.grad(want, b, gs)
+    # the plain version's own VJP is NaN where a gamma branch that where
+    # drops is not finite: equal there too
+    torch.testing.assert_close(g_got, g_want, rtol=0, atol=0,
+                               equal_nan=True)
+    assert bool((g_got != 0).any())
