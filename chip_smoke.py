@@ -330,6 +330,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    and ops/color.py xyz_to_srgb in torch; kernel, tail, tail, kernel), its device time under torch.profiler, its plain
    time, its bound (the sum read once, accum, mean and sRGB written once)
    and its registers.
+35. the forward's global-table mesh build (csrc/megakernel_fwd_wide_mesh.cu
+   refill_fwd_wide_mesh) on the benchmark's rtnw-final-mesh (1,007
+   unrolled rows and one mesh part of 4,800 triangles) at 800^2, depth 40,
+   sample 1: on every 10th pixel the kernel twice and forward_reference,
+   bit-equal, 2 launches_wide_mesh and no other forward; on the whole film
+   its time (CUDA events) in turns with phase 32's refill_fwd_wide on
+   rtnw-final, its bound from the plain loop's live bounces and shadow
+   scans, its registers, its device time under the profiler and its
+   crt:kernel: span; render at spp 4 launching 4 of it, no other forward and one
+   finish.
 Then one JSON line of kernels, each with its bound (the larger of the
 bytes it must move over 3.35 TB/s and a lower count of its float
 operations over 67 TFLOP/s, and of the ray setup's and its backward's
@@ -435,6 +445,10 @@ ORACLE_SCENE = (16, 5, 1)  # phase 28: Cornell side, depth, sample
 WIDE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "bench_h100", "configs", "rtnw-final.json")
 WIDE_SIDE, WIDE_DEPTH = 800, 40
+WIDE_MESH_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "bench_h100", "configs",
+                                "rtnw-final-mesh.json")
+WIDE_MESH_STRIDE = 10  # every 10th pixel of phase 35's plain comparison
 
 # The bound of a kernel: the larger of its bytes (each input read once,
 # each output written once) over the H100's memory rate and its float
@@ -691,7 +705,7 @@ def _profile(fn, top=5, host_ops=False, named=()):
 
 def _reset_counters():
     mk.launches = mk.launches_mesh = mk.launches_taped = mk.launches_wide = 0
-    mk.launches_xyz = 0
+    mk.launches_xyz = mk.launches_wide_mesh = 0
     mk.launches_bwd = mk.launches_bwd_tape = mk.launches_winners = 0
     mk.launches_shade = bn.launches_walk = bn.launches_candidates = 0
     bn.launches_pair = bn.launches_pair_occl = 0
@@ -713,6 +727,7 @@ def _setup_counters():
 def _counters():
     return {"forward": mk.launches, "forward_wide": mk.launches_wide,
             "forward_xyz": mk.launches_xyz,
+            "forward_wide_mesh": mk.launches_wide_mesh,
             "forward_mesh": mk.launches_mesh,
             "forward_taped": mk.launches_taped, "backward": mk.launches_bwd,
             "backward_tape": mk.launches_bwd_tape,
@@ -3085,11 +3100,13 @@ def _frame_graph_turns(dev):
           f"accum, mean and sRGB bit-equal")
 
 
-def _plain_live(static, max_depth, args):
-    """The plain forward's bounce loop (forward_reference's) on args,
-    counting what _unrolled_bounds reads off a tape, for a scene the taped
-    forward refuses: (radiance, live bounces, shadow scans)."""
+def _plain_live(static, max_depth, args, mesh_arrays=()):
+    """The plain forward's bounce loop (forward_reference's) on args and
+    the mesh parts' arrays, counting what _unrolled_bounds reads off a
+    tape, for a scene the taped forward refuses: (radiance, live bounces,
+    shadow scans)."""
     prims, rays, seeds, spect = args
+    mesh = mk._mesh(static, mesh_arrays)
     state = mk._init_state(rays, seeds)
     live = diffuse_on = 0
     for depth in range(max_depth + 1):
@@ -3100,7 +3117,7 @@ def _plain_live(static, max_depth, args):
         if depth:
             diffuse_on += int((active & ~state["nondiff"][2]).sum())
         state = mk._bounce(static, prims, spect, state, depth, max_depth,
-                           RR_START)
+                           RR_START, mesh)
     return torch.stack(state["diff"][2]), live, diffuse_on
 
 
@@ -3202,6 +3219,143 @@ def _wide_tables(dev):
         "planar": out["accum_xyz"].permute(2, 0, 1).reshape(3, -1)
                                  .contiguous(), "total": SPP,
         "finishes": finishes}
+
+
+def _wide_mesh(dev, wide_case):
+    """Phase 35: the forward's global-table mesh build
+    (csrc/megakernel_fwd_wide_mesh.cu refill_fwd_wide_mesh) on the
+    benchmark's rtnw-final-mesh, 1,007 unrolled rows beside one mesh part of
+    4,800 triangles, at its 800^2 film and depth 40, sample 1. On every
+    WIDE_MESH_STRIDE-th pixel (a band of 64,000 rays): the kernel twice and
+    its plain version (forward_reference) on the same CUDA tensors,
+    bit-equal, 2 launches_wide_mesh and no other forward. On the whole
+    film: its time (CUDA events) in turns with phase 32's refill_fwd_wide
+    on rtnw-final (mesh, wide, wide, mesh), what the walk does to the same
+    geometry; its bound from the plain loop's live bounces and shadow scans
+    on the band, scaled to the film, each scan counted as the benchmark's
+    roofline counts it (bench_h100/harness/roofline.py scan_ops); its
+    registers; the kernel's device time under the profiler
+    (_kernel_device_ms), and the span crt:kernel:megakernel_fwd_wide_mesh
+    in a profile of the launch.
+    Then the served path: render at spp SPP launches SPP of the build and
+    no other forward, and one finish. Returns its kernels-line entry."""
+    from bench_h100.harness import roofline
+
+    with open(WIDE_MESH_CONFIG) as f:
+        doc = json.load(f)["scene"]
+    scene, _ = scene_from_dict(doc, device=dev)
+    static = mk.SceneStatic.from_scene(scene)
+    if (len(static.rows) <= mk.MAX_PRIMS or len(static.mesh_parts) != 1
+            or static.mesh_parts[0].count != 4800):
+        raise RuntimeError(f"rtnw-final-mesh has {len(static.rows)} rows and "
+                           f"parts {static.mesh_parts}")
+    side, depth = WIDE_SIDE, WIDE_DEPTH
+    arrays = tuple(a for p in kt.mesh_packs_for(scene, static)
+                   for a in p.arrays)
+    px, py = kt.tile_coords(side, side, 0, dev)
+    band = kt.kernel_inputs(scene, *kt.camera_planes(
+        scene, side, side, px[::WIDE_MESH_STRIDE], py[::WIDE_MESH_STRIDE],
+        1), static)
+    _reset_counters()
+    got = mk.forward(static, depth, RR_START, *band, *arrays)
+    again = mk.forward(static, depth, RR_START, *band, *arrays)
+    torch.cuda.synchronize()
+    if _counters() != _only(forward_wide_mesh=2):
+        raise RuntimeError(f"two forwards of rtnw-final-mesh launched "
+                           f"{_counters()}")
+    plain_s, want = _host_s(lambda: mk.forward_reference(
+        static, depth, RR_START, *band, *arrays))
+    if not (torch.isfinite(got).all() and float(want.sum()) > 0):
+        raise RuntimeError("rtnw-final-mesh's radiance is not finite and "
+                           "non-zero")
+    exact = (got == want).all(dim=0).float().mean().item()
+    if exact < 1.0 or not torch.equal(again, got):
+        raise RuntimeError(f"the global-table mesh build is bit-equal to its "
+                           f"plain version on {exact} of rays; a second "
+                           f"launch bit-equal: {torch.equal(again, got)}")
+    loop, live, diffuse_on = _plain_live(static, depth, band, arrays)
+    if not torch.equal(loop, want):
+        raise RuntimeError("the counting loop differs from forward_reference")
+    film = kt.kernel_inputs(scene, *kt.camera_planes(
+        scene, side, side, px, py, 1), static)
+    rays = film[1].shape[1]
+    scale = rays / band[1].shape[1]
+    w_scene, w_static = wide_case["scene"], wide_case["static"]
+    w_film = kt.kernel_inputs(w_scene, *kt.camera_planes(
+        w_scene, side, side, px, py, 1), w_static)
+    fns = {"mesh": lambda: mk.forward(static, depth, RR_START, *film,
+                                      *arrays),
+           "wide": lambda: mk.forward(w_static, depth, RR_START, *w_film)}
+    turns = [(k, _events_ms(fns[k], 3)) for k in ("mesh", "wide", "wide",
+                                                  "mesh")]
+    ms = min(t for k, t in turns if k == "mesh")
+    prims, rays_t, seeds, spect = film
+    bound = _bound(_nbytes(prims, rays_t, spect, *arrays)
+                   + seeds.numel() * 4 + 4 * rays * 4,
+                   (live + diffuse_on) * scale * roofline.scan_ops(doc))
+    # the profiler of this long process may drop every launch of a pass
+    # (a fresh process records this one every time): _kernel_device_ms
+    # repeats the pass; the span is a host event and always recorded
+    kernel_ms, _, _ = _kernel_device_ms(fns["mesh"], 3,
+                                        "refill_fwd_wide_mesh", passes=5)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]) as prof:
+        fns["mesh"]()
+        torch.cuda.synchronize()
+    span = "crt:kernel:megakernel_fwd_wide_mesh"
+    if span not in {e.name for e in prof.events()}:
+        raise RuntimeError(f"the profiled launch holds no {span} span")
+    _reset_counters()
+    cfg = RenderConfig(width=side, height=side, spp=SPP, max_depth=depth,
+                       rr_start=RR_START, kernel="pallas")
+    render_s, out = _host_s(lambda: render(scene, cfg))
+    render_counts = _counters()
+    finishes = _setup_counters()["finish"]
+    if render_counts != _only(forward_wide_mesh=SPP) or finishes != 1:
+        raise RuntimeError(f"the rtnw-final-mesh render launched "
+                           f"{render_counts}, {finishes} finishes")
+    if not torch.isfinite(out["accum_xyz"]).all():
+        raise RuntimeError("the rtnw-final-mesh render is not finite")
+    regs = _ptxas("megakernel_fwd_wide_mesh")
+    print(f"phase 35 (global-table mesh build): rtnw-final-mesh "
+          f"{len(static.rows)} rows and {static.mesh_parts[0].count} "
+          f"triangles, {side}x{side} depth {depth}, sample 1: bit-equal on "
+          f"{exact:.6f} of a band of {band[1].shape[1]} rays, a second "
+          f"launch bit-equal, plain {plain_s * 1e3:.1f} ms on the band; "
+          f"kernel ms in turns with refill_fwd_wide on rtnw-final {turns}; "
+          f"profiled {kernel_ms:.4f} ms; {live} live bounces and "
+          f"{diffuse_on} shadow scans on the band, bound {bound[0]:.4f} ms "
+          f"({bound[1]}); render spp {SPP} in {render_s:.3f} s, {SPP} "
+          f"launches of the build and no other forward, one finish; "
+          f"ptxas {regs}")
+    return {
+        "name": "megakernel_forward_wide_mesh",
+        "route": "cuda",
+        "source": "computeraytracer_tpu_torch/kernels/csrc/"
+                  "megakernel_fwd_wide_mesh.cu",
+        "replaces": "computeraytracer_tpu/kernels/megakernel.py:897 "
+                    "(mesh mode, more rows than the shared tables hold)",
+        "launches": render_counts["forward_wide_mesh"],
+        "bit_equal_rays": exact,
+        "plain_rays": band[1].shape[1],
+        "ms": ms,
+        "turns_with_refill_fwd_wide": turns,
+        "profiled_ms": kernel_ms,
+        "plain_ms": plain_s * 1e3,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": None,
+        "ms_per_sample": ms,
+        "mpaths_per_s": rays / (ms * 1e-3) / 1e6,
+        "rays": rays,
+        "rows": len(static.rows),
+        "triangles": static.mesh_parts[0].count,
+        "max_depth": depth,
+        "live_bounces_band": live,
+        "shadow_scans_band": diffuse_on,
+        "render_s": render_s,
+        "ptxas": regs,
+    }
 
 
 FINISH_REPS = 20  # calls a timing of phase 34
@@ -3982,6 +4136,10 @@ def main() -> int:
                       WIDE_SIDE, wide_case["finishes"])]
     print(f"chip_smoke phases 1-34: {time.perf_counter() - t_start:.1f} s")
 
+    # 35. the forward's global-table mesh build
+    wide_mesh = _wide_mesh(dev, wide_case)
+    print(f"chip_smoke phases 1-35: {time.perf_counter() - t_start:.1f} s")
+
     # bounds at the shapes timed above
     b_fwd, b_taped = bounds["forward"], bounds["taped"]
     b_bwd, b_tape_bwd = bounds["backward"], bounds["tape_bwd"]
@@ -4135,7 +4293,8 @@ def main() -> int:
             ("candidates", "candidates.cu", "binned.py:215", "candidates"),
             ("pair_closest", "pair.cu", "binned.py:392", "pair_closest"),
             ("pair_any", "pair.cu", "binned.py:898", "pair_any"))]
-        + setup_entries + [wide] + xyz_entries + finish_entries}))
+        + setup_entries + [wide] + xyz_entries + finish_entries
+        + [wide_mesh]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

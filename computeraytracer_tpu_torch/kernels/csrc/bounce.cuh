@@ -16,8 +16,8 @@
 // the reference's op order (load_scene). A scene of more than MAX_PRIMS
 // rows does not fit there: the forward's global-table build reads one
 // record per slot from device memory instead (WideScene, the same
-// constants in the same op order), and the scan, the bounce and NEE take
-// either table through the same accessors.
+// constants in the same op order; WideMeshScene adds mesh parts), and the
+// scan, the bounce and NEE take either table through the same accessors.
 //
 // Mesh mode (the MESH template argument; the forward only): category-2 rows
 // (triangles stored as vertices) join the unrolled scan through the
@@ -177,7 +177,8 @@ struct Hit {
 // megakernel_fwd_wide): any number of slots, each one REC_WORDS record in
 // device memory (wide_tables_kernel writes them), read through L1; the
 // lights in shared memory, as in Scene. Every lane of a warp reads the same
-// record at the same time, so each load is a broadcast. No mesh part.
+// record at the same time, so each load is a broadcast. No mesh part
+// (WideMeshScene adds them).
 //
 // A record is four 16-byte words: (d1.xyz, row), (d2.xyz, inv_e1),
 // (d3.xyz, inv_e2), (n0.xyz, category), where d1-d3 are the primitive
@@ -188,10 +189,20 @@ constexpr int REC_WORDS = 16;
 
 struct WideScene {
   const float* rec;  // (P, REC_WORDS) slot records
-  const int* meta;   // (P, META), as Scene's
+  const int* meta;   // (P, META), as Scene's; then mesh parts (WideMeshScene)
   int light_row[MAX_LIGHTS];
   int light_slot[MAX_LIGHTS];
   float light_area[MAX_LIGHTS];
+};
+
+// WideScene with mesh parts (megakernel_fwd_wide_mesh.cu): the unrolled
+// rows as records in device memory, then each part walked through its chunk
+// BVH as in Scene (scan_mesh_part). meta holds P slot rows, then one row
+// per part. A type of its own, so that the builds without parts keep
+// WideScene's shared memory and registers.
+struct WideMeshScene : WideScene {
+  int n_parts;
+  MeshPart part[MAX_PARTS];
 };
 
 // Word k (0-3) of slot's record: a plain load (cached in L1), which the
@@ -334,6 +345,19 @@ __device__ void load_wide_scene(WideScene& s, const float* __restrict__ rec,
     s.light_area[l] = patch_area(prim3(s, slot, 3), prim3(s, slot, 6));
   }
   __syncthreads();
+}
+
+// load_wide_scene, then the mesh parts' tables into shared memory.
+__device__ void load_wide_mesh_scene(WideMeshScene& s,
+                                     const float* __restrict__ rec,
+                                     const int* __restrict__ meta,
+                                     const int* __restrict__ lights,
+                                     int n_lights, const MeshParts& mp) {
+  if (threadIdx.x == 0) {
+    s.n_parts = mp.n;
+    for (int i = 0; i < mp.n; ++i) s.part[i] = mp.part[i];
+  }
+  load_wide_scene(s, rec, meta, lights, n_lights);
 }
 
 // Per-ray constants of the watertight triangle test (Woop, Benthin and

@@ -1,8 +1,9 @@
 // What the forward's entry points share beside the bodies of forward.cuh:
-// the check of their arguments, the records of the global-table build and
-// its launch grid. Only megakernel_fwd.cu and megakernel_fwd_xyz.cu include
-// it; the retrace backward (megakernel_bwd.cu) includes forward.cuh alone,
-// so that its library compiles none of these.
+// the check of their arguments, the records of the global-table build, the
+// start of its entry points and its launch grid. Only megakernel_fwd.cu,
+// megakernel_fwd_xyz.cu and megakernel_fwd_wide_mesh.cu include it; the
+// retrace backward (megakernel_bwd.cu) includes forward.cuh alone, so that
+// its library compiles none of these.
 
 #pragma once
 
@@ -45,6 +46,25 @@ __global__ void wide_tables_kernel(const float* __restrict__ prims,
   out[1] = make_float4(d2.x, d2.y, d2.z, inv_e1);
   out[2] = make_float4(d3.x, d3.y, d3.z, inv_e2);
   out[3] = make_float4(n0.x, n0.y, n0.z, __int_as_float(cat));
+}
+
+// The start of the global-table entry points (megakernel_fwd_wide,
+// megakernel_fwd_wide_mesh): the check of their arguments, then on st the
+// launch of wide_tables_kernel, which writes the n_prims slot records into
+// rec. Returns a CUDA error code, or -1 where there is no ray and nothing
+// was launched.
+inline int wide_start(const float* prims, const int* meta, int n_prims,
+                      int n_lights, int n_spectra, long long n_rays,
+                      int max_depth, float* rec,
+                      const unsigned long long* next_ray, cudaStream_t st) {
+  const int err = check_args(n_prims, n_lights, n_spectra, n_rays, max_depth,
+                             0x7fffffff / REC_WORDS);
+  if (err) return err;
+  if (!rec || !next_ray || n_prims < 1) return (int)cudaErrorInvalidValue;
+  if (n_rays == 0) return -1;
+  wide_tables_kernel<<<(n_prims + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+      prims, meta, n_prims, rec);
+  return (int)cudaGetLastError();
 }
 
 // The resident grid of a global-table kernel (refill_fwd_wide or

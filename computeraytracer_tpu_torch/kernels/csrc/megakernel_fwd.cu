@@ -287,16 +287,10 @@ extern "C" int megakernel_fwd_wide(const float* prims, const int* meta,
                                    int max_depth, int rr_start, int mesh_mode,
                                    float* rec, unsigned long long* next_ray,
                                    void* stream) {
-  int err = check_args(n_prims, n_lights, n_spectra, n_rays, max_depth,
-                       0x7fffffff / REC_WORDS);
-  if (err) return err;
-  if (!rec || !next_ray || n_prims < 1) return (int)cudaErrorInvalidValue;
-  if (n_rays == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  wide_tables_kernel<<<(n_prims + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-      prims, meta, n_prims, rec);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int err = wide_start(prims, meta, n_prims, n_lights, n_spectra, n_rays,
+                             max_depth, rec, next_ray, st);
+  if (err) return err < 0 ? 0 : err;
   const auto launch = mesh_mode ? &wide_launch<MESH_ROWS>
                                 : &wide_launch<MESH_NONE>;
   return (int)launch(rec, meta, n_prims, lights, n_lights, rays, seeds, spect,

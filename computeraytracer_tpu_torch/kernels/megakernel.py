@@ -114,10 +114,10 @@ SWEEP_SECTIONS = ("tape_read", "scans", "recompute_rest", "adjoint",
                   "d_spect", "fold", "other")
 
 # Bounds of the CUDA kernels' shared-memory tables (csrc/bounce.cuh): the
-# unrolled rows, lights and mesh parts. The untaped forward of a scene
-# without mesh parts takes more rows than MAX_PRIMS: its global-table build
-# (csrc/megakernel_fwd.cu megakernel_fwd_wide) reads them from device
-# memory.
+# unrolled rows, lights and mesh parts. The untaped forward takes more rows
+# than MAX_PRIMS: its global-table builds read them from device memory
+# (csrc/megakernel_fwd.cu megakernel_fwd_wide; with mesh parts
+# csrc/megakernel_fwd_wide_mesh.cu).
 MAX_PRIMS = 256
 MAX_LIGHTS = 64
 MAX_SPECTRA = 1024
@@ -139,11 +139,13 @@ MESH_BLOCK = 1 << 22
 # mode and in its mesh mode, the taped forward, the retrace backward, the
 # tape-fed backward, the winner-taped forward and the wavefront's shade
 # step (the mesh casts' kernels count in kernels/binned.py), and the
-# forward's global-table build (a scene of more than MAX_PRIMS rows; not
-# in `launches`). Of the launches of those two, launches_xyz counts the
-# XYZ builds' (``forward_xyz``).
+# forward's global-table builds (a scene of more than MAX_PRIMS rows; not
+# in `launches`), without mesh parts and with them. Of the launches of
+# the plain and first global-table builds, launches_xyz counts the XYZ
+# builds' (``forward_xyz``).
 launches = 0
 launches_wide = 0
+launches_wide_mesh = 0
 launches_xyz = 0
 launches_mesh = 0
 launches_taped = 0
@@ -1063,7 +1065,8 @@ def _check_static(static: SceneStatic, build: str):
     """Raise unless the named build takes the scene: at most MAX_LIGHTS
     lights, MAX_SPECTRA spectra and MAX_PARTS mesh parts, and at most
     MAX_PRIMS unrolled rows (the shared-memory tables) unless the build is
-    the untaped "forward" and the scene has no mesh part."""
+    the untaped "forward" or "mesh forward", which read them from device
+    memory."""
     P = len(static.rows)
     S = static.n_spectra
     if not static.light_rows:
@@ -1074,12 +1077,13 @@ def _check_static(static: SceneStatic, build: str):
             f"kernel bounds: at most {MAX_LIGHTS} lights, {MAX_SPECTRA} "
             f"spectra, {MAX_PARTS} mesh parts (got "
             f"{len(static.light_rows)}, {S}, {len(static.mesh_parts)})")
-    if P > MAX_PRIMS and (build != "forward" or static.mesh_parts):
+    if P > MAX_PRIMS and build not in ("forward", "mesh forward"):
         raise ValueError(
             f"kernel bounds: the {build} holds at most {MAX_PRIMS} unrolled "
             f"primitives in shared memory (got {P}); only the untaped "
-            f"forward of a scene without mesh parts reads more, from device "
-            f"memory")
+            f"forward, with or without mesh parts, reads more, from device "
+            f"memory: the taped, winner-taped, XYZ and shade-step builds and "
+            f"both backward kernels do not")
 
 
 def _check(static: SceneStatic, build: str, prims, rays, seeds, spect,
@@ -1145,6 +1149,7 @@ SIGNATURES = {
     "megakernel_fwd_taped": "ppipipppipppqiiippp",
     "megakernel_fwd_winners": "ppipipppipppqiiiippp",
     "megakernel_fwd_wide": "ppipipppipqiiippp",
+    "megakernel_fwd_wide_mesh": "ppipipppipqiiippppp",
     "megakernel_fwd_xyz": "ppipippppippfqiiippp",
     "megakernel_bwd": "ppipipppipppppppqiiipp",
     "megakernel_bwd_timed": "ppipipppipppppppqiiippp",
@@ -1213,10 +1218,11 @@ def forward(static: SceneStatic, max_depth: int, rr_start: int,
     selects a build of the same code that also counts; the plain version
     counts nothing.
 
-    A scene of more than MAX_PRIMS rows (and no mesh part) runs the
-    global-table build, ``megakernel_fwd_wide`` (counted in
-    ``launches_wide``), which counts nothing. Its images are the
-    shared-table build's bit for bit."""
+    A scene of more than MAX_PRIMS rows runs a global-table build, which
+    counts nothing: ``megakernel_fwd_wide`` (counted in ``launches_wide``)
+    without mesh parts, ``megakernel_fwd_wide_mesh`` (counted in
+    ``launches_wide_mesh``) with them. Their images are the plain
+    version's, and the shared-table build's, bit for bit."""
     global launches, launches_mesh
     _check(static, "mesh forward" if static.mesh_parts else "forward",
            prims, rays, seeds, spect, mesh_arrays)
@@ -1242,7 +1248,7 @@ def forward(static: SceneStatic, max_depth: int, rr_start: int,
     _require_cuda(dev)
     if wide:
         return _forward_wide(static, max_depth, rr_start, prims, rays, seeds,
-                             spect)
+                             spect, mesh_arrays)
     fn = _fn("megakernel_fwd", "megakernel_fwd")
     meta, lights = _tables(static, dev)
     R = rays.shape[1]
@@ -1267,24 +1273,38 @@ def forward(static: SceneStatic, max_depth: int, rr_start: int,
     return out
 
 
-def _forward_wide(static, max_depth, rr_start, prims, rays, seeds, spect):
-    """The forward's global-table build on CUDA tensors (``forward``
-    checked them): the slot records are written, then traced, in one
-    launch of ``megakernel_fwd_wide``."""
-    global launches_wide
+def _forward_wide(static, max_depth, rr_start, prims, rays, seeds, spect,
+                  mesh_arrays):
+    """The forward's global-table builds on CUDA tensors (``forward``
+    checked them): the slot records are written, then traced, in one call
+    of ``megakernel_fwd_wide``, or with mesh parts of
+    ``megakernel_fwd_wide_mesh`` (csrc/megakernel_fwd_wide_mesh.cu)."""
+    global launches_wide, launches_wide_mesh
     dev = rays.device
-    fn = _fn("megakernel_fwd", "megakernel_fwd_wide")
     meta, lights = _tables(static, dev)
     R = rays.shape[1]
     P = len(static.rows)
     out = torch.empty((4, R), dtype=torch.float32, device=dev)
     rec = torch.empty((P, REC_WORDS), dtype=torch.float32, device=dev)
-    _launch("megakernel_fwd_wide", fn, dev, prims.data_ptr(), meta.data_ptr(),
-            P, lights.data_ptr(), lights.shape[0], rays.data_ptr(),
-            _u32_bits(seeds).data_ptr(), spect.data_ptr(), static.n_spectra,
-            out.data_ptr(), R, int(max_depth), int(rr_start),
-            int(static.mesh_mode), rec.data_ptr(),
-            _ray_counter(dev).data_ptr())
+    # held until the launch is queued: a freed block could be handed to the
+    # counter, whose zeroing would run first
+    seeds32 = _u32_bits(seeds)
+    counter = _ray_counter(dev)
+    args = (prims.data_ptr(), meta.data_ptr(), P, lights.data_ptr(),
+            lights.shape[0], rays.data_ptr(), seeds32.data_ptr(),
+            spect.data_ptr(), static.n_spectra, out.data_ptr(), R,
+            int(max_depth), int(rr_start))
+    if static.mesh_parts:
+        ptrs, info = _part_tables(static, mesh_arrays)
+        _launch("megakernel_fwd_wide_mesh",
+                _fn("megakernel_fwd_wide_mesh", "megakernel_fwd_wide_mesh"),
+                dev, *args, len(static.mesh_parts), ctypes.addressof(ptrs),
+                ctypes.addressof(info), rec.data_ptr(), counter.data_ptr())
+        launches_wide_mesh += 1
+        return out
+    _launch("megakernel_fwd_wide",
+            _fn("megakernel_fwd", "megakernel_fwd_wide"), dev, *args,
+            int(static.mesh_mode), rec.data_ptr(), counter.data_ptr())
     launches_wide += 1
     return out
 

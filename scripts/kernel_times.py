@@ -2,7 +2,7 @@
 """Time the kernels of one checkout of the port on a CUDA card.
 
     python3 scripts/kernel_times.py [ROOT] \
-        [--parts cornell,tri_rows,mesh,e2e,binned,setup,finish]
+        [--parts cornell,tri_rows,mesh,e2e,binned,setup,finish,wide]
 
 ROOT (default: the checkout holding this script) is the root of a
 checkout of the repository; its package is imported and its kernels are
@@ -76,9 +76,15 @@ JSON line of times in ms:
   ``_finish_tail``; kernel, tail, tail, kernel), its device time under
   torch.profiler, its plain version's time and its bound. ROOT's package
   needs ``finish_frame``.
+- ``wide``: the forward's global-table builds a sample at 800^2, depth 40
+  (phases 32, 33 and 35): on rtnw-final the radiance build
+  (``refill_fwd_wide``) and the XYZ build (``refill_fwd_wide_xyz``), and,
+  where ROOT's package takes mesh parts past the shared tables, the mesh
+  build (``refill_fwd_wide_mesh``) on rtnw-final-mesh, the same geometry
+  with its ground as a mesh.
 Compare two checkouts in turns within one call (parent, change, change,
 parent): times taken on different cards or calls differ by a few percent.
-``--parts`` runs only the named parts (all seven by default).
+``--parts`` runs only the named parts (all eight by default).
 """
 
 from __future__ import annotations
@@ -93,7 +99,7 @@ import sys
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 REPS = {"cornell": 10, "tri_rows": 10, "mesh": 3, "e2e": 3, "binned": 5,
-        "setup": 20, "finish": 20}
+        "setup": 20, "finish": 20, "wide": 3}
 # The taped forward's kernel in either tree: the group schedule, or the
 # one-thread kernel that ran it before (not launched by a Cornell step of
 # a tree with the group schedule).
@@ -315,6 +321,43 @@ def _finish(cs, dev):
     return out
 
 
+def _wide(cs, dev):
+    """The wide part: the global-table builds on rtnw-final and, where
+    ROOT's package has it, rtnw-final-mesh, sample 1."""
+    mk, kt, spec, torch = cs.mk, cs.kt, cs.spec, cs.torch
+    side, depth = cs.WIDE_SIDE, cs.WIDE_DEPTH
+    px, py = kt.tile_coords(side, side, 0, dev)
+
+    def case(path):
+        with open(path) as f:
+            scene, _ = cs.scene_from_dict(json.load(f)["scene"], device=dev)
+        static = mk.SceneStatic.from_scene(scene)
+        planes = kt.camera_planes(scene, side, side, px, py, 1)
+        return scene, static, planes, kt.kernel_inputs(scene, *planes,
+                                                       static)
+
+    scene, static, (o, d, hero, seed), args = case(cs.WIDE_CONFIG)
+    setup = kt.setup_operands(scene, static)
+    spect, cie = spec.gather_hero_tables(
+        (setup.spect_table, setup.cie_table), hero)
+    accum = torch.zeros((3, px.numel()), device=dev)
+    fns = {"forward_wide": lambda: mk.forward(static, depth, cs.RR_START,
+                                              *args),
+           "forward_wide_xyz": lambda: mk.forward_xyz(
+               static, depth, cs.RR_START, setup.prims, o, d, seed, spect,
+               cie, accum, mk._ray_counter(dev))}
+    out = {k: cs._events_ms(fn, REPS["wide"]) for k, fn in fns.items()}
+    # built after the timings above, so that both trees time them after
+    # the same allocations
+    if hasattr(mk, "launches_wide_mesh"):
+        m_scene, m_static, _, m_args = case(cs.WIDE_MESH_CONFIG)
+        arrays = tuple(a for p in kt.mesh_packs_for(m_scene, m_static)
+                       for a in p.arrays)
+        out["forward_wide_mesh"] = cs._events_ms(lambda: mk.forward(
+            m_static, depth, cs.RR_START, *m_args, *arrays), REPS["wide"])
+    return out
+
+
 def _film(cs, scene, static, dev):
     kt = cs.kt
     px, py = kt.tile_coords(cs.WIDTH, cs.HEIGHT, 0, dev)
@@ -396,6 +439,8 @@ def main() -> int:
         ms["setup"] = _setup(cs, dev)
     if "finish" in parts:
         ms["finish"] = _finish(cs, dev)
+    if "wide" in parts:
+        ms["wide"] = _wide(cs, dev)
     if "binned" in parts:
         print(f"sass instructions: {_sass(cs, root)}")
     if not parts & {"mesh", "binned"}:

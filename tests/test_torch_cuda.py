@@ -41,7 +41,9 @@ the gradient's bit-equality across runs; the camera gradients of renders
 through the ray setup's backward kernel against the CPU's; the setup
 operands built once per render and per loss; the forward's global-table
 build (scenes past the shared tables) against the shared build and its
-plain version, its frame graph and its launch counter; the forward's XYZ
+plain version, its frame graph and its launch counter, and its mesh build
+(mesh parts beside them) against its plain version, on the served render's
+mesh route and on its own counter; the forward's XYZ
 builds (shared and global-table) against the forward followed by the
 plain epilogue model, the served frame against the composition of the
 radiance plane, the CIE sum and the accumulation, and a fit step that
@@ -2303,3 +2305,141 @@ def test_wide_scene_fit_refuses(cuda):
     scene.spectra.requires_grad_(True)
     with pytest.raises(ValueError, match="retrace backward holds at most"):
         kt.render_sample(scene, 16, 16, 1, 4)
+
+
+# ---------------------------------------------------------------------------
+# the forward's global-table mesh build: mesh parts past MAX_PRIMS rows
+# ---------------------------------------------------------------------------
+
+
+def _rtnw_generator():
+    """scripts/make_rtnw_final.py, for its final_scene at small counts."""
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parents[1] / "scripts"
+            / "make_rtnw_final.py")
+    spec = importlib.util.spec_from_file_location("make_rtnw_final", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _rtnw_mesh_doc():
+    """The benchmark's configuration rtnw-final-mesh: rtnw-final with its
+    ground as one mesh of 4,800 triangles beside 1,007 rows, 800 x 800."""
+    import json
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parents[1] / "bench_h100"
+            / "configs" / "rtnw-final-mesh.json")
+    return json.loads(path.read_text())["scene"]
+
+
+def _wide_mesh_case(cuda, doc, side, sample, stride=1, n_rays=None):
+    """(scene, static, kernel operands, mesh arrays) of a wide mesh scene
+    at side x side, every stride-th pixel (the first n_rays of them)."""
+    scene, _ = scene_from_dict(doc, device=cuda)
+    static = mk.SceneStatic.from_scene(scene)
+    assert len(static.rows) > mk.MAX_PRIMS and static.mesh_parts
+    px, py = kt.tile_coords(side, side, 0, cuda)
+    px, py = px[::stride][:n_rays], py[::stride][:n_rays]
+    args = kt.kernel_inputs(scene, *kt.camera_planes(
+        scene, side, side, px, py, sample), static)
+    arrays = tuple(a for p in kt.mesh_packs_for(scene, static)
+                   for a in p.arrays)
+    return scene, static, args, arrays
+
+
+def _forward_counts():
+    return {k: getattr(mk, k) for k in (
+        "launches", "launches_mesh", "launches_wide", "launches_wide_mesh",
+        "launches_xyz", "launches_winners")}
+
+
+def _counted(before, **added):
+    return {k: v + added.get(k, 0) for k, v in before.items()}
+
+
+@pytest.mark.parametrize("n_rays,max_depth", [
+    (1, 8), (33, 8), (1000, 8), (None, 8), (None, 0), (None, 40)])
+def test_wide_mesh_build_is_its_plain_version(cuda, n_rays, max_depth):
+    """The global-table mesh build (megakernel_fwd_wide_mesh: 307 rows and
+    a mesh part of 432 triangles, the small final scene with its ground as
+    a mesh) on every ray of a 64 x 64 film, at ragged ray counts and depths
+    0 to 40, against forward_reference on the same CUDA tensors, bit for
+    bit; two launches bit-equal, each counted in launches_wide_mesh alone."""
+    doc = _rtnw_generator().final_scene(boxes_per_side=6, n_spheres=300,
+                                        width=64, height=64,
+                                        ground_mesh=True)
+    _, static, args, arrays = _wide_mesh_case(cuda, doc, 64, 3,
+                                              n_rays=n_rays)
+    before = _forward_counts()
+    got = mk.forward(static, max_depth, 1, *args, *arrays)
+    again = mk.forward(static, max_depth, 1, *args, *arrays)
+    torch.cuda.synchronize()
+    assert _forward_counts() == _counted(before, launches_wide_mesh=2)
+    want = mk.forward_reference(static, max_depth, 1, *args, *arrays)
+    # a few rays may all miss or die dark; a film's worth may not
+    assert n_rays in (1, 33) or float(want.sum()) > 0
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+def test_wide_mesh_build_on_rtnw_mesh_is_its_plain_version(cuda):
+    """rtnw-final-mesh at 800^2, depth 40, every 10th pixel of the film:
+    the global-table mesh build against the plain version (the blocked
+    scan of 1,007 rows, then the 4,800-triangle part) on the same CUDA
+    tensors, bit for bit, and two launches bit-equal."""
+    _, static, args, arrays = _wide_mesh_case(cuda, _rtnw_mesh_doc(), 800, 3,
+                                              stride=10)
+    assert len(static.rows) == 1007 and static.mesh_parts[0].count == 4800
+    before = _forward_counts()
+    got = mk.forward(static, 40, 1, *args, *arrays)
+    again = mk.forward(static, 40, 1, *args, *arrays)
+    torch.cuda.synchronize()
+    assert _forward_counts() == _counted(before, launches_wide_mesh=2)
+    want = mk.forward_reference(static, 40, 1, *args, *arrays)
+    assert float(want.sum()) > 0
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+def test_wide_mesh_render_serves_on_the_mesh_route(cuda, frame_graphs):
+    """api.render(kernel="pallas") of the small wide mesh scene on the card:
+    spp launches of the global-table mesh build and no other forward, no
+    frame graph, one finish a frame; its sum is the CPU render's on at
+    least 90% of pixels (the two sum a pixel alike where their paths do)."""
+    from computeraytracer_tpu_torch.kernels import setup as setup_k
+
+    doc = _rtnw_generator().final_scene(boxes_per_side=6, n_spheres=300,
+                                        width=48, height=32,
+                                        ground_mesh=True)
+    cpu_scene, _ = scene_from_dict(doc, device="cpu")
+    scene = cpu_scene.to(cuda)
+    cfg = RenderConfig(width=48, height=32, spp=3, max_depth=8,
+                       kernel="pallas", first_sample=4)
+    for _ in range(2):
+        before = _forward_counts()
+        finishes = setup_k.launches_finish
+        card = {k: v.cpu() for k, v in api.render(scene, cfg).items()
+                if k != "samples"}
+        assert _forward_counts() == _counted(before, launches_wide_mesh=3)
+        assert setup_k.launches_finish == finishes + 1
+    assert kt.graph_captures == frame_graphs[0]
+    assert kt.graph_replays == frame_graphs[1]
+    assert torch.isfinite(card["accum_xyz"]).all()
+    host = api.render(cpu_scene, cfg)
+    same = (card["accum_xyz"] == host["accum_xyz"]).all(dim=-1)
+    assert float(same.float().mean()) > 0.9
+
+
+def test_wide_build_without_parts_keeps_its_xyz_build(cuda):
+    """rtnw-final (no mesh part) still serves each sample through the
+    global-table XYZ build (refill_fwd_wide_xyz), never the mesh build."""
+    scene, _ = scene_from_dict(_rtnw_doc(), device=cuda)
+    before = _forward_counts()
+    out = api.render(scene, RenderConfig(width=64, height=64, spp=2,
+                                         max_depth=8, kernel="pallas"))
+    torch.cuda.synchronize()
+    assert _forward_counts() == _counted(before, launches_wide=2,
+                                         launches_xyz=2)
+    assert torch.isfinite(out["accum_xyz"]).all()

@@ -23,7 +23,12 @@ of *Ray Tracing: The Next Week* (scripts/make_rtnw_final.py at a smaller
 count), against the JAX kernel's bounce (``make_bounce``, the body of
 ``build_forward``'s depth loop) run op by op on the same planes. Pallas
 interpret mode would compile that 317-row unrolled scan for minutes and
-in more than 10 GB.
+in more than 10 GB. Its sibling writes the ground as one mesh part of
+432 triangles beside 307 rows: the part's chunk BVH walk after the
+blocked scan, over a heightfield whose boxes share faces and whose split
+quads share diagonals. Both also hold the first bounce's winners, of
+camera and shadow rays, equal on every ray: which primitive a ray met
+shows there even where the image could not tell.
 
 The kernel itself is held against forward_reference on the card in
 tests/test_torch_cuda.py, which imports no jax.
@@ -39,14 +44,17 @@ import pytest
 import torch
 
 from computeraytracer_tpu.kernels import megakernel as jmk
+from computeraytracer_tpu.kernels import meshpack as jmeshpack
 from computeraytracer_tpu.ops import camera as jcam
 from computeraytracer_tpu.ops import rng as jrng
 from computeraytracer_tpu.ops import spectrum as jspec
 from computeraytracer_tpu.scene import data as jdata
 from computeraytracer_tpu.scene import presets as jpresets
 from computeraytracer_tpu.scene import scene_from_dict as jax_scene_from_dict
+from computeraytracer_tpu.tracer import pallas as jax_pallas
 from computeraytracer_tpu_torch.kernels import megakernel as mk
 from computeraytracer_tpu_torch.scene import scene_from_jax
+from computeraytracer_tpu_torch.tracer import kernel as kt
 
 W = H = 64
 R = 1024
@@ -68,9 +76,10 @@ def _inputs(seed=0):
     return _camera_inputs(js, px, py, W, H)
 
 
-def _camera_inputs(js, px, py, w, h):
+def _camera_inputs(js, px, py, w, h, static=None):
     """Kernel inputs for the camera rays of pixels (px, py) of a w x h
-    film of the JAX scene js, at sample 3."""
+    film of the JAX scene js, at sample 3; prims holds the unrolled rows
+    of static when it has mesh parts."""
     sample = np.uint32(3)
     c = jdata.as_jax(js).camera
     seed_p = jrng.seed_pixel_p(px, py, sample)
@@ -81,7 +90,7 @@ def _camera_inputs(js, px, py, w, h):
         jnp.asarray(js.spectra)))[:, np.asarray(hero)]
     return {
         "scene": js,
-        "prims": np.asarray(jmk.pack_prims(jdata.as_jax(js))),
+        "prims": np.asarray(jmk.pack_prims(jdata.as_jax(js), static)),
         "rays": np.asarray(jnp.concatenate([o, d], axis=0)),
         "seeds": np.asarray(seed_p),
         "spect": np.ascontiguousarray(spect),
@@ -141,22 +150,41 @@ def _rtnw_generator():
     return mod
 
 
-def test_forward_reference_matches_pallas_past_the_shared_tables():
-    """317 unrolled rows (6 x 6 ground boxes, the light, 100 spheres), every
-    pixel of a 32 x 32 film: forward_reference against the JAX kernel's
-    bounce on identical prims, rays, seeds and spectra, under the rule
-    above."""
-    side = 32
-    doc = _rtnw_generator().final_scene(boxes_per_side=6, n_spheres=94,
-                                        width=side, height=side)
+def _mesh_reads(pack):
+    """_scan_mesh_part's reads over plain arrays of one part's pack: the
+    row, box and meta reads of megakernel._make_accessors, as slices."""
+    tri, cbox, nbox, nmeta = (jnp.asarray(a) for a in pack.arrays)
+    rpc = jmeshpack.ROWS_PER_CHUNK
+    row = lambda a, i: jax.lax.dynamic_slice_in_dim(a, i, 1)
+    return (lambda k: (lambda rr: row(tri, k * rpc + rr)),
+            lambda k: row(cbox, k), lambda nn: row(nbox, nn),
+            lambda nn: row(nmeta, nn), nmeta.shape[0])
+
+
+def _holds_past_the_shared_tables(doc, side):
+    """forward_reference against the JAX kernel's bounce on every pixel of
+    a side x side film of doc, on identical prims, rays, seeds and
+    spectra, under the rule above; the mesh parts' scans read the JAX
+    package's packs, the port's its own. The first bounce's winners, of
+    the camera rays and of the shadow rays the port casts, are the JAX
+    kernel's on every ray. Returns the JAX static and the JAX kernel's
+    first hit of each camera ray."""
     js, _ = jax_scene_from_dict(doc)
     static = jmk.SceneStatic.from_scene(js)
-    assert len(static.rows) == 317 > mk.MAX_PRIMS and not static.mesh_parts
     px = np.tile(np.arange(side, dtype=np.uint32), side)
     py = np.repeat(np.arange(side, dtype=np.uint32), side)
-    inp = _camera_inputs(js, px, py, side, side)
+    inp = _camera_inputs(js, px, py, side, side, static)
     n = side * side
-    bounce = jmk.make_bounce(static, (n,), MAX_DEPTH, RR_START)
+    # the parts reach the bounce through their accessors alone: with them
+    # in its static, the kernel skips a shadow scan no ray chose under a
+    # lax.cond, whose one XLA program would compile every unrolled row (a
+    # skipped scan adds exactly 0, so the image is the same). barrier: the
+    # parts' traversal loops are compiled by XLA
+    bounce = jmk.make_bounce(static._replace(mesh_parts=()), (n,),
+                             MAX_DEPTH, RR_START,
+                             barrier=bool(static.mesh_parts))
+    accessors = tuple((part, _mesh_reads(pack)) for part, pack in zip(
+        static.mesh_parts, jax_pallas.mesh_packs_for(js, static)))
     prims, spect = jnp.asarray(inp["prims"]), jnp.asarray(inp["spect"])
     diff, nondiff = jmk._init_carry(jnp.asarray(inp["rays"])[:, None],
                                     jnp.asarray(inp["seeds"])[:, None],
@@ -164,15 +192,28 @@ def test_forward_reference_matches_pallas_past_the_shared_tables():
     diff, (seed, exclude, *flags) = jax.tree_util.tree_map(
         lambda x: x[0], (diff, nondiff))
     nondiff = (seed, exclude, *(f != 0 for f in flags))
+    first = None
     for depth in range(MAX_DEPTH + 1):
-        diff, nondiff, _ = bounce(
+        diff, nondiff, aux = bounce(
             lambda i, j: prims[i, j],
             lambda row: tuple(spect[row * 4 + j] for j in range(4)),
-            diff, nondiff, depth)
+            diff, nondiff, depth, accessors)
+        first = first or (np.asarray(aux[0]), np.asarray(aux[1][0]))
     want = np.stack([np.asarray(x) for x in diff[2]])
+    scene = scene_from_jax(js, "cpu")
+    tstatic = mk.SceneStatic.from_scene(scene)
+    arrays = tuple(a for p in kt.mesh_packs_for(scene, tstatic)
+                   for a in p.arrays)
     _, *tin = _torch_inputs(inp)
-    got = mk.forward_reference(mk.SceneStatic.from_scene(
-        scene_from_jax(js, "cpu")), MAX_DEPTH, RR_START, *tin).numpy()
+    got = mk.forward_reference(tstatic, MAX_DEPTH, RR_START, *tin,
+                               *arrays).numpy()
+    _, tape_idx, tape_sh = mk.forward_winners_reference(
+        tstatic, MAX_DEPTH, RR_START, *tin, *arrays)
+    # the first bounce's winners, camera and shadow rays: no sampling
+    # decision that an ulp could flip comes before them
+    assert (tape_idx[0].numpy() == first[0]).all()
+    sh = tape_sh[0, 0].numpy()
+    assert ((sh == first[1]) | (sh == -1)).all() and (sh != -1).sum() >= 64
     assert got.shape == (4, n) and np.isfinite(got).all()
     frac, worst = _agreement(got, want)
     assert frac >= 0.99, f"only {frac:.4f} of rays match (worst {worst:.3g})"
@@ -182,6 +223,33 @@ def test_forward_reference_matches_pallas_past_the_shared_tables():
     direct = (want == light).all(axis=0)
     assert direct.sum() >= 8, "too few direct light hits to test the tie"
     assert ((got == light).all(axis=0) | ~direct).all()
+    return static, first[0]
+
+
+def test_forward_reference_matches_pallas_past_the_shared_tables():
+    """317 unrolled rows (6 x 6 ground boxes, the light, 100 spheres), every
+    pixel of a 32 x 32 film."""
+    side = 32
+    static, _ = _holds_past_the_shared_tables(_rtnw_generator().final_scene(
+        boxes_per_side=6, n_spheres=94, width=side, height=side), side)
+    assert len(static.rows) == 317 > mk.MAX_PRIMS and not static.mesh_parts
+
+
+def test_forward_reference_matches_pallas_past_the_shared_tables_with_a_mesh():
+    """307 unrolled rows (the light, 306 spheres) and the 6 x 6 ground
+    boxes as one mesh part of 432 triangles, every pixel of a 32 x 32
+    film: the part's hits after the blocked rows' scan as the JAX
+    kernel's, a fifth of the camera rays on the ground."""
+    side = 32
+    static, first = _holds_past_the_shared_tables(
+        _rtnw_generator().final_scene(boxes_per_side=6, n_spheres=300,
+                                      width=side, height=side,
+                                      ground_mesh=True), side)
+    assert len(static.rows) == 307 > mk.MAX_PRIMS
+    (part,) = static.mesh_parts
+    assert part.count == 432
+    on_ground = (first >= part.start) & (first < part.start + part.count)
+    assert on_ground.mean() >= 0.1, "too few camera rays meet the ground"
 
 
 def test_cpu_wrapper_runs_reference(case):
